@@ -19,6 +19,15 @@ torch.backends.cudnn.allow_tf32 = False
 # Dtype of the float data plane (FTensor). bfloat16 is the serving mode.
 float_dtype = torch.float32
 
+# How a MatMul with a packed weight (PackedQTensor, QModel.pack_weights)
+# executes:
+#   "unpack" (default) -- unpack the payload to int8, then the int8
+#             product of quantization.int_matmul (torch._int_mm on CUDA);
+#   "kernel" -- the hand-written packed kernels (kernels/qmatmul.py:
+#             splitk_qmatmul, packed_qmatmul) decode the payload tile by
+#             tile and fuse the zero-point correction and dequantize.
+packed_execution = "unpack"
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else

@@ -51,6 +51,14 @@ class Node:
         return f"Node({self.name})"
 
 
+def only_rhs_of(value: Value, ops: tuple) -> bool:
+    """Whether every consumer of ``value`` is an ``ops`` node taking it as
+    input 1 (a weight: MatMul/Gemm rhs)."""
+    return bool(value.outputs) and all(
+        n.op in ops and len(n.inputs) > 1 and n.inputs[1] is value
+        for n in value.outputs)
+
+
 def attribute_to_python(attr) -> Any:
     """ONNX attribute -> python/numpy value."""
     value = onnx_lib.get_attribute_value(attr)

@@ -17,11 +17,19 @@ import torch
 
 from . import config
 from . import onnx as onnx_lib
-from .graph import Constant, Node, Value, Variable, import_onnx
+from .graph import (Constant, Node, Value, Variable, import_onnx,
+                    only_rhs_of)
 from .ops.registry import onnx_operator_implementation
 from .passes.toolkit import PASSTHROUGH_OPS
-from .quantization import quant_parameters
-from .tensor import FTensor, ITensor, QTensor, Tensor, quantize_tensor
+from .quantization import per_channel_scales, quant_parameters
+from .tensor import (
+    FTensor,
+    ITensor,
+    PackedQTensor,
+    QTensor,
+    Tensor,
+    quantize_tensor,
+)
 
 
 class QuantizationParams:
@@ -179,7 +187,9 @@ class Model:
 
     @torch.inference_mode()
     def quantize(self, calibration_inputs: list = None, bit_width: int = 8,
-                 stats: dict = None, quantize_conv: bool = False) -> "QModel":
+                 stats: dict = None, quantize_conv: bool = False,
+                 per_channel_weights: bool = False,
+                 weight_bit_width=None) -> "QModel":
         """Post-training quantization with the reference's per-node
         strategy: asymmetric graph inputs and MatMul/Gemm/Conv/Add
         outputs, symmetric per-tensor constants, Gemm/Conv/Add biases at
@@ -188,20 +198,51 @@ class Model:
         ``stats``: a precomputed {value name: (min, max)} dict (from
         calibration_stats); else ``calibration_inputs`` are calibrated.
         ``quantize_conv``: run Conv on the integer path (im2col + int8
-        product)."""
-        if bit_width > 8:
+        product).
+        ``per_channel_weights``: symmetric per-output-channel scales for
+        2-D MatMul/Gemm weights.
+        ``weight_bit_width``: quantize MatMul/Gemm weights (constants
+        consumed only as their rhs) at another width than activations
+        (W4A8 and the like; pack_weights() then stores exactly that many
+        bits); a dict ``{weight name: bits}`` sets per-weight widths,
+        unlisted weights keep ``bit_width``."""
+        wbw_map = weight_bit_width if isinstance(weight_bit_width, dict) \
+            else None
+        wbw = weight_bit_width if isinstance(weight_bit_width, int) \
+            else bit_width
+        widths = [bit_width, wbw, *(wbw_map or {}).values()]
+        if max(widths) > 8:
             raise NotImplementedError(
-                f"bit_width {bit_width} > 8 is not ported")
+                f"bit widths above 8 are not ported (got {max(widths)})")
         if stats is None:
             stats = self.calibration_stats(calibration_inputs)
         node_dict = {node.name: node for node in self.nodes}
         value_dict = {value.name: value for value in self.values}
 
-        def qparams_for(name: str, asymmetric: bool) -> QuantizationParams:
+        def qparams_for(name: str, asymmetric: bool,
+                        bits: int = None) -> QuantizationParams:
             mn, mx = stats[name]
-            scale, zero_point = quant_parameters(mn, mx, bit_width=bit_width,
-                                                 asymmetric=asymmetric)
+            scale, zero_point = quant_parameters(
+                mn, mx, bit_width=bit_width if bits is None else bits,
+                asymmetric=asymmetric)
             return QuantizationParams(scale, zero_point)
+
+        def weight_channel_axis(value):
+            """Output-channel axis if this constant is only ever the
+            weight (input 1) of MatMul/Gemm nodes, else None."""
+            if not value.outputs:
+                return None
+            axes = set()
+            for n in value.outputs:
+                if len(n.inputs) < 2 or n.inputs[1] is not value:
+                    return None
+                if n.op == "MatMul":
+                    axes.add(1)  # [K, N]: channels last
+                elif n.op == "Gemm":
+                    axes.add(0 if n.attrs.get("transB") else 1)
+                else:
+                    return None
+            return axes.pop() if len(axes) == 1 else None
 
         qnodes_dict: dict[str, Node] = {}
         qvalues_dict: dict[str, Value] = {}
@@ -216,17 +257,27 @@ class Model:
             qparams_per_value[value.name] = qparams_for(
                 value.name, isinstance(value, Variable))
 
-        # constants: symmetric per-tensor
+        # constants: symmetric, per-tensor or (2-D weights) per-channel
         for value in self.values:
             if isinstance(value, Constant):
                 if isinstance(value.data, ITensor):
                     qvalues_dict[value.name] = Constant(value.name, [],
                                                         value.data.copy())
                     continue
-                qp = qparams_for(value.name, asymmetric=False)
+                cbw = bit_width
+                if only_rhs_of(value, ("MatMul", "Gemm")):
+                    cbw = wbw if wbw_map is None \
+                        else wbw_map.get(value.name, bit_width)
+                ch_axis = weight_channel_axis(value) if per_channel_weights \
+                    else None
+                if ch_axis is not None and value.data.data.ndim == 2:
+                    qp = QuantizationParams(per_channel_scales(
+                        value.data.data.cpu().numpy(), cbw, ch_axis), None)
+                else:
+                    qp = qparams_for(value.name, asymmetric=False, bits=cbw)
                 qvalues_dict[value.name] = Constant(
                     value.name, [],
-                    quantize_tensor(value.data, bit_width, qp.scale,
+                    quantize_tensor(value.data, cbw, qp.scale,
                                     qp.zero_point))
                 qparams_per_value[value.name] = qp
 
@@ -263,6 +314,10 @@ class Model:
                     if float(beta) != 0.0 and (float(alpha) != 1.0
                                                or float(beta) != 1.0):
                         bias_scale = bias_scale * alpha / beta
+                    if getattr(bias_scale, "ndim", 0) > 0:
+                        # per-channel weight: one scale per bias entry
+                        bias_scale = np.asarray(bias_scale,
+                                                np.float32).reshape(-1)
                     quantize_bias(node.inputs[2], bias_scale)
                 register_out_asym()
             elif node.op == "Conv" and quantize_conv:
@@ -331,19 +386,25 @@ class QModel(Model):
     def _device_params(self) -> dict[str, torch.Tensor]:
         """Constant payloads as executed: int8 storage for <= 8-bit
         QTensors (the JAX package's TPU-mode layout, identical values),
-        plus precomputed column sums of MatMul weights. Built once;
+        precomputed column sums of MatMul weights, and packed weights
+        (PackedQTensor) as they are. Built once;
         ``invalidate_params`` drops it after a payload changes."""
         if self._dp_cache is not None:
             return self._dp_cache
         params = {}
         for value in self.values:
-            if isinstance(value, Constant) and isinstance(value.data, QTensor):
+            if not isinstance(value, Constant):
+                continue
+            if isinstance(value.data, QTensor):
                 qt = value.data
                 params[value.name] = qt.data.to(torch.int8) \
                     if qt.bit_width <= 8 else qt.data
                 cs = self._weight_colsum(value)
                 if cs is not None:
                     params[value.name + ".colsum"] = cs
+            elif isinstance(value.data, PackedQTensor):
+                # payload and its own colsum, packed, on the device
+                params[value.name] = value.data.to(self.device)
         self._dp_cache = params
         return params
 
@@ -355,11 +416,7 @@ class QModel(Model):
         rhs: the q_matmul correction reduces them once, not per
         forward (identical integers)."""
         data = value.data.data
-        if data.ndim != 2:
-            return None
-        if not value.outputs or not all(
-                n.op == "MatMul" and len(n.inputs) > 1
-                and n.inputs[1] is value for n in value.outputs):
+        if data.ndim != 2 or not only_rhs_of(value, ("MatMul",)):
             return None
         return data.to(torch.int32).sum(dim=0, keepdim=True, dtype=torch.int32)
 
@@ -370,6 +427,8 @@ class QModel(Model):
             return QTensor(params[value.name], data.bit_width, data.scale,
                            data.zero_point,
                            colsum=params.get(value.name + ".colsum"))
+        if isinstance(data, PackedQTensor):
+            return self._device_params()[value.name]
         return super()._wrap_constant(value)
 
     def _wrap_input(self, array, variable: Variable) -> Tensor:
@@ -483,6 +542,12 @@ class QModel(Model):
         passes/narrow.py."""
         from .passes import narrow_gather
         return narrow_gather(self)
+
+    def pack_weights(self) -> int:
+        """Switch 2-D symmetric <= 8-bit MatMul weights to packed storage
+        (exactly bit_width bits per value). See passes/weights.py."""
+        from .passes import pack_weights
+        return pack_weights(self)
 
     def optimize(self, verbose: bool = False) -> dict:
         """Apply the graph passes that keep the executor's numerics:

@@ -28,6 +28,14 @@ VIT_BASE = {
 }
 
 
+# quantize() options of the served weight configurations (activations
+# int8): int8 weights, W4A8 per-channel (bench.py's NQ_TPU_BENCH_MODE=w4a8)
+# and W3A8, whose odd width packs as bit-planes
+WEIGHT_CONFIGS = {"int8": {},
+                  "w4a8": dict(weight_bit_width=4, per_channel_weights=True),
+                  "w3a8": dict(weight_bit_width=3)}
+
+
 def _f32(a) -> np.ndarray:
     return np.asarray(a, dtype=np.float32)
 

@@ -11,6 +11,7 @@ from .. import config
 from ..tensor import (
     FTensor,
     ITensor,
+    PackedQTensor,
     QTensor,
     Tensor,
     concat,
@@ -116,6 +117,44 @@ def _fused_gelu(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     a = e + one_t.data
     m = xd * a
     return [FTensor(m * half_t.data)]
+
+
+def _packed_matmul(a: QTensor, b: PackedQTensor) -> FTensor:
+    """Quantized activation x packed weight -> dequantized f32 through the
+    packed kernels (kernels/qmatmul.py), which fuse the zero-point
+    correction and the dequantize. An activation with a tensor zero point
+    takes the unpacked product instead, as in the JAX package."""
+    if a.zero_point is not None and getattr(a.zero_point, "ndim", 0) > 0:
+        return a.matmul(b.unpack()).dequantize()
+    from ..kernels.qmatmul import packed_qmatmul, splitk_qmatmul
+
+    data = a.data
+    lead = data.shape[:-1]
+    x2 = data.reshape(-1, data.shape[-1])
+    scale_vec = b.scale_vec()
+    scale_kw = {"w_scale_vec": scale_vec} if scale_vec is not None \
+        else {"w_scale": float(np.float32(b.scale))}
+    kernel_fn = splitk_qmatmul if b.layout == "splitk" else packed_qmatmul
+    y2 = kernel_fn(
+        x2, b.planes, b.colsum, None,
+        bits=b.bit_width, bit_width=a.bit_width,
+        x_scale=float(np.float32(a.scale)),
+        x_zp=None if a.zero_point is None else int(a.zero_point),
+        quantize_x=False, **scale_kw)
+    return FTensor(y2.reshape(*lead, b.n))
+
+
+def _matmul(a: Tensor, b: Tensor) -> list[Tensor]:
+    if isinstance(a, FTensor) and isinstance(b, (QTensor, PackedQTensor)):
+        raise NotImplementedError(
+            "weight-only MatMul (float activation x quantized weight, "
+            "Model.quantize_weights) is not ported; it comes with the "
+            "weight-only decode slice (splitk_wo_matmul)")
+    if isinstance(b, PackedQTensor):
+        if config.packed_execution == "kernel" and isinstance(a, QTensor):
+            return [_packed_matmul(a, b)]
+        return [a.matmul(b.unpack())]
+    return [a.matmul(b)]
 
 
 def _layer_norm(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
@@ -227,7 +266,7 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
     if op == "LayerNormalization":
         return _layer_norm(inputs, attrs)
     if op == "MatMul":
-        return [inputs[0].matmul(inputs[1])]
+        return _matmul(inputs[0], inputs[1])
     if op == "Mul":
         return [inputs[0] * inputs[1]]
     if op == "Reshape":

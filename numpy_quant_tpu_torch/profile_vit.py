@@ -1,13 +1,16 @@
 """Where the time of one int8 ViT-Base forward goes on the GPU.
 
     python3 -m numpy_quant_tpu_torch.profile_vit [--batch 96] [--f32]
+        [--mode {int8,w4a8,w3a8}] [--packed-execution {unpack,kernel}]
 
 Builds the chip_smoke.py main path (random ViT-Base weights, seed 0;
-calibration on 2 images; int8 quantize with quantize_conv; optimize()),
-then profiles three forwards in the bf16 serving mode (or f32 with
-``--f32``) with torch.profiler and prints: wall time per forward, device
-busy time per forward, the device's idle share, and the device time by
-kernel, largest first.
+calibration on 2 images; quantize with quantize_conv in the chosen
+weight configuration -- int8, W4A8 per-channel or W3A8; optimize();
+pack_weights()), then profiles three forwards in the bf16 serving mode
+(or f32 with ``--f32``) under the chosen packed execution with
+torch.profiler and prints: wall time per forward, device busy time per
+forward, the device's idle share, and the device time by kernel, largest
+first.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import numpy as np
 import torch
 
 from . import Model, config
-from .models.vit import VIT_BASE, random_vit_weights, vit_image_classifier
+from .models.vit import (VIT_BASE, WEIGHT_CONFIGS, random_vit_weights,
+                         vit_image_classifier)
 
 REPS = 3
 
@@ -30,6 +34,11 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=96)
     ap.add_argument("--f32", action="store_true",
                     help="profile the f32 mode instead of bf16 serving")
+    ap.add_argument("--mode", choices=list(WEIGHT_CONFIGS), default="int8",
+                    help="weight configuration (activations are int8)")
+    ap.add_argument("--packed-execution", choices=("unpack", "kernel"),
+                    default="unpack",
+                    help="how MatMuls with packed weights run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_vit: no CUDA device")
@@ -41,8 +50,10 @@ def main() -> None:
         random_vit_weights(VIT_BASE, seed=0), VIT_BASE))
     calib = rng.normal(size=(2, 3, 224, 224)).astype(np.float32) * 0.5
     qmodel = model.quantize(bit_width=8, stats=model.calibration_stats([calib]),
-                            quantize_conv=True)
+                            quantize_conv=True, **WEIGHT_CONFIGS[args.mode])
     qmodel.optimize()
+    packed = qmodel.pack_weights()
+    config.packed_execution = args.packed_execution
     x = torch.from_numpy(rng.normal(size=(args.batch, 3, 224, 224))
                          .astype(np.float32) * 0.5).cuda()
     mode = contextlib.nullcontext() if args.f32 \
@@ -67,6 +78,8 @@ def main() -> None:
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"card: {card}")
+    print(f"config: {args.mode}, {packed} packed weights, packed_execution="
+          f"{args.packed_execution}")
     print(f"mode: {'f32' if args.f32 else 'bf16'} batch {args.batch}; "
           f"wall {wall * 1e3:.3f} ms/forward; device busy {busy:.3f} "
           f"ms/forward; idle share {max(0.0, 1 - busy / (wall * 1e3)):.3f}")

@@ -51,6 +51,20 @@ def quant_parameters(min_val, max_val, bit_width: int, asymmetric: bool):
     return scale, zero_point
 
 
+def per_channel_scales(data, bit_width: int, axis: int) -> np.ndarray:
+    """Symmetric per-channel scales over ``axis`` (a weight's output
+    channels), keeping the reduced axes: the abs-max formula of the JAX
+    package (not the reference's positive-max quirk, which would give an
+    all-negative channel scale 0)."""
+    min_qval, max_qval = qrange(bit_width)
+    arr = np.asarray(data, dtype=np.float32)
+    reduce_axes = tuple(i for i in range(arr.ndim) if i != axis)
+    absmax = np.abs(arr).max(axis=reduce_axes, keepdims=True)
+    absmax = np.maximum(absmax, np.float32(1e-12))
+    scale = (np.float32(2.0) * absmax) / np.float32(max_qval - min_qval)
+    return scale.astype(np.float32)
+
+
 def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     """A host scalar/array (or tensor) as a tensor of ``dtype`` on
     ``device`` -- the form a divisor must take to divide exactly."""
@@ -60,9 +74,13 @@ def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     if arr.ndim == 0:
         value = float(arr) if dtype.is_floating_point else int(arr)
         return torch.full((), value, dtype=dtype, device=device)
-    return torch.as_tensor(arr.astype(np.float32 if dtype.is_floating_point
-                                      else np.int64),
-                           device=device).to(dtype)
+    host = torch.from_numpy(np.ascontiguousarray(
+        arr.astype(np.float32 if dtype.is_floating_point else np.int64)))
+    if torch.device(device).type == "cuda":
+        # a pageable copy would wait for the stream to drain; a pinned
+        # one is enqueued like a kernel (per-channel scale rows)
+        return host.pin_memory().to(device, non_blocking=True).to(dtype)
+    return host.to(device=device, dtype=dtype)
 
 
 def quantize(data: torch.Tensor, bit_width: int, scale, zero_point) -> torch.Tensor:

@@ -10,6 +10,8 @@ Port of ``numpy_quant_tpu/tensor.py``:
 * ``QTensor`` wraps an integer tensor (int32 container, or int8 storage
   for constants of <= 8 bits) plus (bit_width, scale) and a zero_point
   that is None, a host integer or an int32 correction tensor.
+* ``PackedQTensor`` holds a 2-D symmetric weight packed to exactly
+  bit_width bits per value (kernels/pack.py), made by ``pack_qtensor``.
 """
 from __future__ import annotations
 
@@ -292,7 +294,93 @@ class QTensor:
                 f"scale={self.scale})")
 
 
-Tensor = Union[ITensor, FTensor, QTensor]
+class PackedQTensor:
+    """A 2-D symmetric quantized weight in packed storage (exactly
+    bit_width bits per value) plus its precomputed int32 column sums
+    [1, N] for the zero-point correction. Layouts (kernels/pack.py):
+
+    * ``"splitk"`` (bits 1/2/4; 8 = the plain int8 weight): [KR, N];
+    * ``"bitplanes"`` (any bits, e.g. 3/5/6/7): uint8[b, ceil(K/8), N].
+
+    The payload and colsum live on the model's device; the MatMul either
+    unpacks to int8 (``config.packed_execution == "unpack"``) or runs the
+    packed kernels of kernels/qmatmul.py on it."""
+
+    def __init__(self, planes: torch.Tensor, colsum: torch.Tensor, k: int,
+                 n: int, bit_width: int, scale, layout: str = "bitplanes"):
+        if layout not in ("splitk", "bitplanes"):
+            raise ValueError(f"unknown packed layout {layout!r}")
+        self.planes = planes
+        self.colsum = colsum
+        self.k = int(k)
+        self.n = int(n)
+        self.bit_width = int(bit_width)
+        self.scale = scale
+        self.zero_point = None  # packing requires symmetric weights
+        self.layout = layout
+        self._scale_vec = None
+
+    @property
+    def shape(self):
+        return (self.k, self.n)
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self.planes
+
+    def to(self, device) -> "PackedQTensor":
+        return PackedQTensor(self.planes.to(device), self.colsum.to(device),
+                             self.k, self.n, self.bit_width, self.scale,
+                             self.layout)
+
+    def scale_vec(self):
+        """A per-channel scale as an f32 [1, N] tensor on the payload's
+        device (made once), or None for a per-tensor scale."""
+        if getattr(self.scale, "ndim", 0) == 0:
+            return None
+        if self._scale_vec is None:
+            self._scale_vec = torch.from_numpy(
+                np.asarray(self.scale, np.float32).reshape(1, self.n)
+            ).to(self.planes.device)
+        return self._scale_vec
+
+    def unpack(self) -> QTensor:
+        from .kernels.pack import unpack_bitplanes, unpack_splitk
+        if self.layout == "splitk":
+            vals = self.planes if self.bit_width == 8 else \
+                unpack_splitk(self.planes, self.bit_width, self.k)
+        else:
+            vals = unpack_bitplanes(self.planes, self.bit_width, self.k)
+        return QTensor(vals.to(torch.int8), self.bit_width, self.scale, None,
+                       colsum=self.colsum)
+
+    def __repr__(self):
+        return (f"PackedQTensor(shape=({self.k}, {self.n}), "
+                f"bit_width={self.bit_width}, layout={self.layout!r})")
+
+
+def pack_qtensor(qt: QTensor) -> PackedQTensor:
+    """2-D symmetric QTensor -> packed weight on the same device: the
+    split-K layout at bits 1/2/4/8, bit-planes at odd widths."""
+    from .kernels.pack import pack_bitplanes, pack_splitk
+    if qt.zero_point is not None or qt.data.ndim != 2 or qt.bit_width > 8:
+        raise ValueError("only 2-D symmetric weights of <= 8 bits pack")
+    device = qt.data.device
+    data = qt.data.cpu().numpy()
+    k, n = data.shape
+    colsum = data.astype(np.int64).sum(axis=0, keepdims=True).astype(np.int32)
+    if qt.bit_width == 8:
+        payload, layout = data.astype(np.int8), "splitk"
+    elif qt.bit_width in (1, 2, 4):
+        payload, layout = pack_splitk(data, qt.bit_width), "splitk"
+    else:
+        payload, layout = pack_bitplanes(data, qt.bit_width), "bitplanes"
+    return PackedQTensor(torch.from_numpy(payload).to(device),
+                         torch.from_numpy(colsum).to(device), k, n,
+                         qt.bit_width, qt.scale, layout=layout)
+
+
+Tensor = Union[ITensor, FTensor, QTensor, PackedQTensor]
 
 
 def quantize_tensor(tensor: FTensor, bit_width: int, scale, zero_point) -> QTensor:

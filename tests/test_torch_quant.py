@@ -104,6 +104,43 @@ def test_requantize_bit_equal(bits, asym_out):
     np.testing.assert_array_equal(tr.numpy(), jr)
 
 
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_per_channel_chain_bit_equal(bits, axis):
+    """per_channel_scales, quantize, q_matmul, dequantize and requantize
+    with a per-channel weight scale ([1, N] for a MatMul weight; [N, 1]
+    for a transposed Gemm weight, which the product sees as [1, N])."""
+    rng = np.random.default_rng(3000 + 10 * bits + axis)
+    a = (rng.normal(size=(2, 9, 24)) + 0.4).astype(np.float32)
+    w = rng.normal(size=(24, 13) if axis == 1 else (13, 24)).astype(np.float32)
+    channel0 = (slice(None), 0) if axis == 1 else (0, slice(None))
+    w[channel0] = -np.abs(w[channel0])  # an all-negative channel
+    jsw = JQ.per_channel_scales(w, bits, axis)
+    tsw = TQ.per_channel_scales(w, bits, axis)
+    assert tsw.dtype == np.float32 and tsw.shape == jsw.shape
+    np.testing.assert_array_equal(tsw, jsw)
+    qw = np.asarray(JQ.quantize(w, bits, jsw, None))
+    np.testing.assert_array_equal(TQ.quantize(_t(w), bits, tsw, None).numpy(),
+                                  qw)
+    if axis == 0:  # Gemm transB: the product takes the transposed weight
+        qw, jsw = qw.T.copy(), jsw.T.copy()
+    sa, za = _qparams(a, 8, True)
+    qa = np.asarray(JQ.quantize(a, 8, sa, za))
+    jacc, jscale, jzp = JQ.q_matmul(qa, sa, za, qw, jsw, None, bit_width=8)
+    tacc, tscale, tzp = TQ.q_matmul(_t(qa), sa, za, _t(qw), jsw, None,
+                                    bit_width=8)
+    np.testing.assert_array_equal(tacc.numpy(), np.asarray(jacc))
+    assert np.asarray(tscale).shape == (1, 13)
+    np.testing.assert_array_equal(np.asarray(tscale), np.asarray(jscale))
+    np.testing.assert_array_equal(tzp.numpy(), np.asarray(jzp))
+    jd = np.asarray(JQ.dequantize(jacc, jscale, jzp))
+    np.testing.assert_array_equal(TQ.dequantize(tacc, tscale, tzp).numpy(), jd)
+    rs, rz = _qparams(jd, 8, True)
+    np.testing.assert_array_equal(
+        TQ.requantize(tacc, tscale, tzp, rs, rz, 8).numpy(),
+        np.asarray(JQ.requantize(jacc, jscale, jzp, rs, rz, 8)))
+
+
 @pytest.mark.parametrize("shape", [(1, 8, 8), (5, 3, 7), (16, 9, 13),
                                    (17, 24, 16), (40, 64, 48),
                                    (197, 768, 10)])

@@ -6,7 +6,12 @@ Tolerances: quantized intermediates may differ by 1 LSB on at most 0.1%
 of entries (a float op -- exp, erf, a LayerNorm reduce -- may round a
 value across a rint boundary in another order); the count is printed.
 Labels are equal; logits agree within 1e-4 when no intermediate
-differs, else within 1e-2 * max|logits|."""
+differs, else within 1e-2 * max|logits|.
+
+The packed paths (int8, W4A8 per-channel, W3A8 after optimize() and
+pack_weights()) meet the same contract against JAX under
+packed_execution="kernel", and the port's "kernel" forward equals its
+"unpack" forward bit for bit."""
 import jax
 import numpy as np
 import pytest
@@ -18,19 +23,27 @@ import numpy_quant_tpu as nq
 from numpy_quant_tpu import config as JC
 from numpy_quant_tpu.graph import Constant as JConstant
 from numpy_quant_tpu.models import vit as JV
+from numpy_quant_tpu.tensor import PackedQTensor as JPackedQTensor
 from numpy_quant_tpu.tensor import QTensor as JQTensor
 from numpy_quant_tpu_torch import Model, config as TC
 from numpy_quant_tpu_torch import onnx as T_ONNX
 from numpy_quant_tpu_torch.convert import load_jax_params
 from numpy_quant_tpu_torch.graph import Constant, Variable
+from numpy_quant_tpu_torch.kernels import qmatmul as TQ
 from numpy_quant_tpu_torch.kernels.attention import fused_attention_hs
 from numpy_quant_tpu_torch.models import vit as TV
-from numpy_quant_tpu_torch.tensor import QTensor
+from numpy_quant_tpu_torch.tensor import PackedQTensor, QTensor
 
 CFG = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
            intermediate_size=128, image_size=32, patch_size=8,
            num_labels=10)
 PASSES = ("fuse_attention", "fuse_gelu", "narrow_gather", "int8_dataflow")
+MODES = TV.WEIGHT_CONFIGS  # int8, W4A8 per-channel, W3A8
+# the dict form of weight_bit_width: per-weight widths, the rest at 8 bits
+MIXED = {"weight_bit_width": {"encoder.layer.0.intermediate.weight_t": 2,
+                              "encoder.layer.1.attention.value.weight_t": 5,
+                              "classifier.weight": 4},
+         "per_channel_weights": True}
 
 
 @pytest.fixture(autouse=True)
@@ -56,24 +69,33 @@ def setup():
                 stats=stats)
 
 
-def _jax_qmodel(s):
+def _jax_qmodel(s, mode="int8"):
     return nq.Model.from_onnx(s["jproto"]).quantize(
-        bit_width=8, stats=s["stats"], quantize_conv=True)
+        bit_width=8, stats=s["stats"], quantize_conv=True,
+        **(MIXED if mode == "mixed" else MODES[mode]))
 
 
 def _port_model(s):
     return Model.from_onnx(s["tproto"], device="cpu")
 
 
-def _port_qmodel(s, stats=None):
+def _port_qmodel(s, stats=None, mode="int8"):
     return _port_model(s).quantize(bit_width=8, stats=stats or s["stats"],
-                                   quantize_conv=True)
+                                   quantize_conv=True,
+                                   **(MIXED if mode == "mixed" else MODES[mode]))
 
 
 def _jax_state(jq):
     consts = {}
     for v in jq.values:
-        if isinstance(v, JConstant) and isinstance(v.data, JQTensor):
+        if isinstance(v, JConstant) and isinstance(v.data, JPackedQTensor):
+            p = v.data
+            consts[v.name] = {"layout": p.layout, "k": p.k, "n": p.n,
+                              "bit_width": p.bit_width,
+                              "scale": np.asarray(p.scale, np.float32),
+                              "payload": np.asarray(p.planes),
+                              "colsum": np.asarray(p.colsum)}
+        elif isinstance(v, JConstant) and isinstance(v.data, JQTensor):
             zp = v.data.zero_point
             consts[v.name] = {"payload": np.asarray(v.data.data),
                               "scale": np.asarray(v.data.scale, np.float32),
@@ -157,8 +179,18 @@ def test_builder_emits_the_jax_graph(setup):
 
 
 def test_quantize_constants_and_params_bit_equal(setup):
-    jq = _jax_qmodel(setup)
-    tq = _port_qmodel(setup)
+    _check_quantize_bit_equal(setup, "int8")
+
+
+@pytest.mark.parametrize("mode", ["w4a8", "w3a8", "mixed"])
+def test_quantize_weight_options_bit_equal(setup, mode):
+    """per_channel_weights and weight_bit_width, as JAX quantizes them."""
+    _check_quantize_bit_equal(setup, mode)
+
+
+def _check_quantize_bit_equal(setup, mode):
+    jq = _jax_qmodel(setup, mode)
+    tq = _port_qmodel(setup, mode=mode)
     jconst = {v.name: v.data for v in jq.values
               if isinstance(v, JConstant) and isinstance(v.data, JQTensor)}
     tconst = {v.name: v.data for v in tq.values
@@ -252,3 +284,56 @@ def test_bf16_serving_mode_error_bound(setup):
     print(f"bf16 mode: mean|port-float| {errbf:.3g} (f32 mode {err32:.3g}), "
           f"max|port-jax| {np.abs(qbf - jbf).max():.3g}, labels equal "
           f"{(qbf.argmax(1) == jbf.argmax(1)).mean():.2f}")
+
+
+def _packed_pair(s, mode):
+    """JAX and port QModels after optimize() + pack_weights(); returns
+    them with both packed-weight counts."""
+    jq, tq = _jax_qmodel(s, mode), _port_qmodel(s, mode=mode)
+    jq.optimize()
+    tq.optimize()
+    return jq, tq, jq.pack_weights(), tq.pack_weights()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_pack_weights_matches_jax(setup, mode):
+    jq, tq, jn, tn = _packed_pair(setup, mode)
+    assert tn == jn == 6 * CFG["num_hidden_layers"]
+    jpacked = {v.name: v.data for v in jq.values
+               if isinstance(v, JConstant) and isinstance(v.data, JPackedQTensor)}
+    tpacked = {v.name: v.data for v in tq.values
+               if isinstance(v, Constant) and isinstance(v.data, PackedQTensor)}
+    assert set(tpacked) == set(jpacked)
+    for name, t in tpacked.items():
+        j = jpacked[name]
+        assert (t.layout, t.k, t.n, t.bit_width) == \
+            (j.layout, j.k, j.n, j.bit_width), name
+        np.testing.assert_array_equal(t.planes.numpy(), np.asarray(j.planes),
+                                      err_msg=name)
+        np.testing.assert_array_equal(t.colsum.numpy(), np.asarray(j.colsum),
+                                      err_msg=name)
+        np.testing.assert_array_equal(np.asarray(t.scale),
+                                      np.asarray(j.scale), err_msg=name)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_packed_kernel_path_matches_jax(setup, mode, monkeypatch):
+    """JAX's packed state installed in the port (load_jax_params), both
+    under packed_execution="kernel": the port meets the end-to-end
+    contract against JAX and its kernel forward equals its unpack
+    forward bit for bit."""
+    jq, tq, _, _ = _packed_pair(setup, mode)
+    assert load_jax_params(tq, _jax_state(jq)) == sum(
+        isinstance(v, Constant) and isinstance(v.data, (QTensor, PackedQTensor))
+        for v in tq.values)
+    x = setup["x"]
+    unpacked = tq([x])[0]
+    monkeypatch.setattr(JC, "packed_execution", "kernel")
+    monkeypatch.setattr(TC, "packed_execution", "kernel")
+    jq._jit_cache.clear()
+    launches = (TQ.splitk_qmatmul.launches, TQ.packed_qmatmul.launches)
+    ty, _ = _compare_end_to_end(jq, tq, x)
+    # CPU tensors take the kernels' plain versions
+    assert (TQ.splitk_qmatmul.launches, TQ.packed_qmatmul.launches) == launches
+    np.testing.assert_array_equal(ty, unpacked)
+    jq._jit_cache.clear()
