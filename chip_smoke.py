@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 ViT-Base paths on one NVIDIA GPU.
+"""Drive the PyTorch port's int8 ViT-Base and weight-only GPT-2 decode
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -25,7 +26,21 @@ Phases, one line each (any failure raises and the script exits non-zero):
      "kernel" forward launches its packed kernel 72 times and equals the
      "unpack" forward bit for bit;
   5. W4A8 bf16 serving at batch 96 under "kernel" and "unpack": images/s,
-     launches per forward, labels against f32.
+     launches per forward, labels against f32;
+  6. the weight-only kernel splitk_wo_matmul against its plain version at
+     1/2/4/8 bits, per-tensor, per-channel and grouped scales (groups
+     within and across the split-K fields), f32 and bf16, on ragged
+     shapes; then timed with a cold L2 at the five GPT-2 decode shapes
+     (M = 8, W4 g=128) beside its bound, the plain version and torch.matmul
+     on the weight dequantized beforehand;
+  7. the weight-only decode path at full width: random GPT-2 small
+     weights (seed 0) -> gpt_decode_step(B=8, max_len=64) ->
+     Model.from_onnx -> quantize_weights(4, group_size=128) (49 weights)
+     -> greedy generate (prompt 16, 48 new tokens) under "kernel" and
+     "unpack", f32 and bf16: 49 kernel launches per step, f32 "kernel"
+     tokens equal to "unpack" tokens (a row may part only where the top-2
+     margin is within the measured logit difference), tokens/s (median of
+     5 timed decodes per mode, the modes taken in turns).
 The last three lines are the kernels JSON line, the card's name and power
 limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
 """
@@ -42,9 +57,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# data-sheet peaks: (device memory bytes/s, dense int8 ops/s)
-PEAKS = {"H100 PCIe": (2.0e12, 1513e12), "H100 NVL": (3.9e12, 1671e12),
-         "H100": (3.35e12, 1979e12)}
+# data-sheet peaks (NVIDIA, dense): device memory bytes/s, int8 ops/s,
+# bf16 tensor-core flop/s, f32 flop/s outside the tensor cores
+PEAKS = {
+    "H100 PCIe": dict(bytes=2.0e12, int8=1513e12, bf16=756e12, f32=51e12),
+    "H100 NVL": dict(bytes=3.9e12, int8=1671e12, bf16=835e12, f32=60e12),
+    "H100": dict(bytes=3.35e12, int8=1979e12, bf16=989e12, f32=67e12)}
 
 B_CHECK, B_TIME, B_F32, B_SERVE = 32, 96, 8, 96
 N_TOK, HEADS, HEAD_DIM = 197, 12, 64
@@ -62,6 +80,20 @@ QMM_SHAPES = ((768, 768), (768, 3072), (3072, 768))  # (K, N) per layer
 X_SCALE, X_ZP, W_SCALE = 0.0213, 3, 0.0117
 PACKED_PER_FORWARD = 6 * 12  # Q, K, V, out, fc1, fc2 in 12 layers
 
+# weight-only matmul: check shapes with ragged M and N (K = 384 lets every
+# width take both group forms), and one ragged K (no multiple of r)
+WO_CHECK = ((133, 384, 149), (7, 384, 300))
+WO_RAGGED_K = (133, 203, 149)
+WO_TOL = {"f32": 2e-5, "bf16": 2.0 ** -7}  # max|kernel - plain| / max|y|
+GPT_B, GPT_PROMPT, GPT_NEW, GPT_MAX_LEN, WO_GROUP = 8, 16, 48, 64, 128
+# (K, N) of c_attn, attn c_proj, c_fc, mlp c_proj and the tied head
+DECODE_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768),
+                 (768, 50257))
+WO_PER_STEP = 4 * 12 + 1
+TEACHER_TOL = 1e-4  # kernel vs unpack logits on forced steps, of max|logit|
+DECODE_REPS = 5  # timed decodes per (dtype, mode), in turns
+LEAD_CYCLES = 2_000_000  # ~1 ms of device sleep ahead of a cold timed call
+
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
@@ -75,7 +107,7 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def peaks(name: str) -> tuple[float, float]:
+def peaks(name: str) -> dict:
     for key in ("H100 PCIe", "H100 NVL", "H100"):
         if key in name:
             return PEAKS[key]
@@ -97,13 +129,21 @@ def build_kernels() -> float:
     return seconds
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` over ``reps`` calls (CUDA events)."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
+    """Median device time of ``fn()`` over ``reps`` calls (CUDA events).
+    With ``flush`` (a device buffer larger than the L2 cache) zeroed before
+    each call, outside the timed span, every call finds L2 cold; a device
+    sleep queued after it lets the host enqueue the call before the device
+    reaches it, so a call whose kernels take less time than its Python
+    wrapper is timed on the device alone."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+            torch.cuda._sleep(LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -163,7 +203,7 @@ def time_attention(name: str) -> dict:
     """The serving form (fast, int8 out, full q) at batch 96: kernel,
     plain version and bound; the exact f32 form is printed beside it."""
     from numpy_quant_tpu_torch.kernels import attention as A
-    mem_rate, int8_rate = peaks(name)
+    mem_rate, int8_rate = peaks(name)["bytes"], peaks(name)["int8"]
     q, k, v = attention_inputs(B_TIME, N_TOK, seed=99)
     res = {}
     for label, fast, rq in (("serving", True, OUT_REQUANT),
@@ -299,7 +339,7 @@ def time_qmatmul(name: str) -> dict:
     768->3072 numbers of each kernel at its path's width."""
     import torch
     from numpy_quant_tpu_torch.kernels import qmatmul as Q
-    mem_rate, int8_rate = peaks(name)
+    mem_rate, int8_rate = peaks(name)["bytes"], peaks(name)["int8"]
     res = {}
     for kname, layout, bits, per_channel in (
             ("splitk_qmatmul", "splitk", 8, False),
@@ -348,7 +388,8 @@ def counted(fn):
     before; returns its result and the counts read just after."""
     from numpy_quant_tpu_torch import kernels as K
     counters = {name: getattr(K, name) for name in (
-        "fused_attention_hs", "splitk_qmatmul", "packed_qmatmul")}
+        "fused_attention_hs", "splitk_qmatmul", "packed_qmatmul",
+        "splitk_wo_matmul")}
     for f in counters.values():
         f.launches = 0
     out = fn()
@@ -383,6 +424,287 @@ def images_per_s(qmodel, x, mode: str, reps: int = 20) -> float:
             qmodel([x], as_numpy=False)
         torch.cuda.synchronize()
         return x.shape[0] * reps / (time.perf_counter() - t0)
+
+
+def wo_operands(bits: int, m: int, k: int, n: int, groups: int, seed: int,
+                dtype):
+    """Random operands of one weight-only call on the card: (x, payload,
+    scale) with a host scalar scale at groups=0, else a [groups, N]
+    device tensor (1 = per channel)."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch.kernels.pack import pack_splitk
+    rng = np.random.default_rng(seed)
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    w = rng.integers(lo, hi + 1, size=(k, n)).astype(np.int8)
+    payload = w if bits == 8 else pack_splitk(w, bits)
+    if groups == 0:
+        scale = float(np.float32(rng.uniform(0.004, 0.02)))
+    else:
+        scale = torch.from_numpy(rng.uniform(0.004, 0.02, size=(groups, n))
+                                 .astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+    return x.to(dtype).cuda(), torch.from_numpy(payload).cuda(), scale
+
+
+def wo_compare(x, payload, scale, bits: int, label: str) -> tuple[float, float]:
+    """The kernel against its plain version on one input: (max|diff|,
+    max|y|); raises beyond the tolerance of x's type."""
+    import torch
+    from numpy_quant_tpu_torch.kernels import qmatmul as Q
+    got = Q.splitk_wo_matmul(x, payload, scale, bits=bits)
+    want = Q.splitk_wo_matmul_reference(x, payload, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == x.dtype
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    tol = WO_TOL["bf16" if x.dtype == torch.bfloat16 else "f32"]
+    if not err <= tol * top:
+        raise AssertionError(f"splitk_wo_matmul disagrees with its plain "
+                             f"version ({label}): {err} > {tol} * {top}")
+    return err, top
+
+
+def check_wo() -> float:
+    """splitk_wo_matmul against its plain version at every width, scale
+    form and float type; returns the largest |difference| of the f32
+    variants."""
+    import torch
+    worst = 0.0
+    for bits in (1, 2, 4, 8):
+        kr = 384 * bits // 8
+        # per tensor, per channel, groups of 16 rows (within a field), of a
+        # whole field (K/2 at 8 bits, where a field is all of K) and, at 1
+        # and 2 bits, of two whole fields (scale row v // gsz spans fields)
+        forms = {"tensor": 0, "channel": 1, "group16": 384 // 16,
+                 "group_field": 384 // (kr if bits < 8 else 192)}
+        if bits < 4:
+            forms["group_2field"] = 384 // (2 * kr)
+        cases = [(shape, f) for shape in WO_CHECK for f in forms]
+        cases += [(WO_RAGGED_K, f) for f in ("tensor", "channel")]
+        for tname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            err = rel = 0.0
+            for i, ((m, k, n), form) in enumerate(cases):
+                x, payload, scale = wo_operands(bits, m, k, n, forms[form],
+                                                seed=100 * bits + i,
+                                                dtype=dtype)
+                e, top = wo_compare(x, payload, scale, bits,
+                                    f"{bits} bits {tname} M{m}xK{k}xN{n} "
+                                    f"{form}")
+                err, rel = max(err, e), max(rel, e / top)
+            say("kernel-check", kernel="splitk_wo_matmul", bits=bits,
+                dtype=tname, variants=len(cases),
+                shapes="+".join(f"M{m}xK{k}xN{n}" for m, k, n in
+                                WO_CHECK + (WO_RAGGED_K,)),
+                max_abs_err=err, max_err_over_max_y=rel, tolerance=WO_TOL[tname])
+            if tname == "f32":
+                worst = max(worst, err)
+    return worst
+
+
+def time_wo(name: str) -> dict:
+    """The decode shapes at M = 8, W4 g=128, f32 and bf16, each first held
+    against the plain version: kernel, plain version, bound and the
+    library call (torch.matmul on the weight dequantized beforehand, in
+    x's type: 8x (f32) or 4x (bf16) the payload's bytes), every call
+    with a cold L2, as in a decode step whose weights (62 MB) outrun it.
+    Returns the f32 768->3072 numbers."""
+    import torch
+    from numpy_quant_tpu_torch.kernels import qmatmul as Q
+    rates = peaks(name)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    res = {}
+    for tname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for k, n in DECODE_SHAPES:
+            x, payload, scale = wo_operands(4, GPT_B, k, n, k // WO_GROUP,
+                                            seed=k + n, dtype=dtype)
+            err, _ = wo_compare(x, payload, scale, 4, f"decode {k}->{n}")
+            w = Q.unpack_splitk(payload, 4, k).float()
+            w_deq = (w * torch.repeat_interleave(scale, WO_GROUP, dim=0)) \
+                .to(dtype)
+            del w
+            ms = cuda_ms(lambda: Q.splitk_wo_matmul(x, payload, scale, bits=4),
+                         flush=flush)
+            plain_ms = cuda_ms(lambda: Q.splitk_wo_matmul_reference(
+                x, payload, scale, bits=4), flush=flush)
+            library_ms = cuda_ms(lambda: torch.matmul(x, w_deq), flush=flush)
+            del w_deq
+            size = x.element_size()
+            nbytes = (payload.numel() + 4 * scale.numel() + size * x.numel()
+                      + size * GPT_B * n)
+            ops = 2 * GPT_B * k * n
+            t_bytes = nbytes / rates["bytes"] * 1e3
+            t_ops = ops / rates[tname] * 1e3
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            say("kernel-time", kernel="splitk_wo_matmul", bits=4,
+                scale=f"g{WO_GROUP}", dtype=tname,
+                shape=f"M{GPT_B}xK{k}xN{n}", ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library="matmul_on_dequantized_weight",
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                bytes=nbytes, ops=ops, max_abs_err=err, l2="cold",
+                card=name.replace(" ", "_"))
+            if (tname, k, n) == ("f32", 768, 3072):
+                res = row
+    del flush
+    return res
+
+
+def device_bytes(model) -> dict:
+    """Bytes the step model keeps on the card, by kind."""
+    from numpy_quant_tpu_torch.graph import Constant
+    from numpy_quant_tpu_torch.tensor import FTensor, PackedQTensor
+    out = dict(payload=0, scales=0, colsums=0, float=0, tables=0)
+    for v in model.values:
+        if not isinstance(v, Constant):
+            continue
+        d = v.data
+        if isinstance(d, PackedQTensor):
+            out["payload"] += d.planes.numel() * d.planes.element_size()
+            out["colsums"] += d.colsum.numel() * d.colsum.element_size()
+            sv = d.scale_vec()
+            out["scales"] += 0 if sv is None else sv.numel() * 4
+        elif isinstance(d, FTensor):
+            out["float"] += d.data.numel() * d.data.element_size()
+    for _, table in model.__dict__.get("_table_cache", {}).values():
+        out["tables"] += table.numel() * table.element_size()
+    return out
+
+
+@contextlib.contextmanager
+def decode_mode(dtype: str, mode: str):
+    """packed_execution=mode, in bf16 (low_precision_floats) or f32."""
+    from numpy_quant_tpu_torch import config
+    floats = config.low_precision_floats() if dtype == "bf16" \
+        else contextlib.nullcontext()
+    with packed_execution(mode), floats:
+        yield
+
+
+def decode_run(model, proto, prompt, dtype: str, mode: str):
+    """One greedy decode; returns (ids, per-step logits, launch counts)."""
+    from numpy_quant_tpu_torch.utils import generate_kv
+    rows = []
+    with decode_mode(dtype, mode):
+        ids, counts = counted(lambda: generate_kv(
+            model, prompt, proto._wte, proto._wpe, GPT_NEW, step_logits=rows))
+    return ids, rows, counts
+
+
+def decode_seconds(model, proto, prompt, runs: list, reps: int) -> dict:
+    """Wall seconds of ``reps`` greedy decodes of each (dtype, mode) in
+    ``runs``, taken in turns (forward, then backward order) so that a
+    host that slows for a while slows every mode alike."""
+    import torch
+    from numpy_quant_tpu_torch.utils import generate_kv
+    seconds = {run: [] for run in runs}
+    for rep in range(reps):
+        for run in (runs if rep % 2 == 0 else runs[::-1]):
+            with decode_mode(*run):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                generate_kv(model, prompt, proto._wte, proto._wpe, GPT_NEW)
+                seconds[run].append(time.perf_counter() - t0)
+    return seconds
+
+
+def compare_decodes(ids_a, rows_a, ids_b, rows_b) -> dict:
+    """Greedy runs a and b of one model: the largest |logit difference|
+    over the steps whose inputs agree in both (a row's ids equal up to
+    the step), that over the teacher-forced steps, and the rows that part,
+    each with its top-2 margin (of run b) at the step where they part."""
+    import numpy as np
+    same_upto = np.cumprod(ids_a == ids_b, axis=1).astype(bool)
+    max_diff = forced_diff = max_logit = 0.0
+    for t, (ra, rb) in enumerate(zip(rows_a, rows_b)):
+        diff = (ra - rb).abs().amax(dim=1).cpu().numpy()
+        live = same_upto[:, t]
+        if live.any():
+            max_diff = max(max_diff, float(diff[live].max()))
+        if t < GPT_PROMPT:  # inputs all from the prompt
+            forced_diff = max(forced_diff, float(diff.max()))
+        max_logit = max(max_logit, float(rb.abs().max()))
+    parted = []
+    for b in range(ids_a.shape[0]):
+        if same_upto[b, -1]:
+            continue
+        p = int(np.argmin(same_upto[b]))  # first position that differs
+        top2 = rows_b[p - 1][b].topk(2).values
+        parted.append((b, p, float(top2[0] - top2[1])))
+    return dict(max_diff=max_diff, forced_diff=forced_diff,
+                max_logit=max_logit, parted=parted)
+
+
+def decode_phase(card: str) -> dict:
+    """Phase 7: returns the f32 "kernel" run's launch counts."""
+    import numpy as np
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models.gpt import (GPT2_SMALL, gpt_decode_step,
+                                                  random_gpt2_weights)
+    t0 = time.perf_counter()
+    proto = gpt_decode_step(random_gpt2_weights(GPT2_SMALL, seed=0),
+                            GPT2_SMALL, batch_size=GPT_B, max_len=GPT_MAX_LEN)
+    model = Model.from_onnx(proto)
+    converted = model.quantize_weights(bit_width=4, group_size=WO_GROUP)
+    say("gpt2-setup", seconds=time.perf_counter() - t0, nodes=len(model.nodes),
+        converted=converted, device=model.device)
+    assert converted == WO_PER_STEP, converted
+    prompt = np.random.default_rng(0).integers(
+        0, GPT2_SMALL["vocab_size"], size=(GPT_B, GPT_PROMPT)).astype(np.int32)
+    steps = GPT_PROMPT + GPT_NEW - 1
+    modes = [(d, m) for d in ("f32", "bf16") for m in ("kernel", "unpack")]
+    runs = {}
+    for dtype, mode in modes:
+        ids, rows, counts = decode_run(model, proto, prompt, dtype, mode)
+        runs[dtype, mode] = ids, rows, counts
+    seconds = decode_seconds(model, proto, prompt, modes, DECODE_REPS)
+    for dtype, mode in modes:
+        ids, rows, counts = runs[dtype, mode]
+        wo = counts["splitk_wo_matmul"]
+        finite = all(bool(r.isfinite().all()) for r in rows)
+        wall = statistics.median(seconds[dtype, mode])
+        say("gpt2-decode", dtype=dtype, packed_execution=mode,
+            batch=GPT_B, prompt=GPT_PROMPT, new_tokens=GPT_NEW,
+            steps=steps, kernel_launches_per_step=wo / steps,
+            other_kernel_launches=sum(counts.values()) - wo,
+            tokens_per_s=GPT_B * GPT_NEW / wall,
+            ms_per_step=wall / steps * 1e3,
+            ms_per_step_runs=",".join(
+                f"{s / steps * 1e3:.2f}" for s in seconds[dtype, mode]),
+            finite=finite, card=card.replace(" ", "_"))
+        assert ids.shape == (GPT_B, GPT_PROMPT + GPT_NEW), ids.shape
+        assert (ids[:, :GPT_PROMPT] == prompt).all()
+        assert finite, f"{dtype} {mode}: non-finite logits"
+        assert wo == (WO_PER_STEP * steps if mode == "kernel" else 0), wo
+        assert sum(counts.values()) == wo, counts
+    say("gpt2-memory", **{f"{k}_bytes": v
+                          for k, v in device_bytes(model).items()})
+    ids_k, rows_k, counts = runs["f32", "kernel"]
+    ids_u, rows_u, _ = runs["f32", "unpack"]
+    cmp = compare_decodes(ids_k, rows_k, ids_u, rows_u)
+    # where greedy rows part, the two runs' logits at that step may differ
+    # by max_diff each, so the top-2 margin there is at most 2 * max_diff
+    unexplained = [c for c in cmp["parted"] if c[2] > 2 * cmp["max_diff"]]
+    gen = slice(GPT_PROMPT, None)
+    say("gpt2-f32-kernel-vs-unpack",
+        tokens_equal=f"{int((ids_k[:, gen] == ids_u[:, gen]).sum())}/"
+                     f"{ids_k[:, gen].size}",
+        rows_equal=f"{GPT_B - len(cmp['parted'])}/{GPT_B}",
+        rows_parted_within_margin=len(cmp["parted"]) - len(unexplained),
+        parted=";".join(f"row{b}@{p}:margin{m:.3g}" for b, p, m in cmp["parted"])
+        or "none",
+        max_abs_logit_diff=cmp["max_diff"],
+        teacher_forced_max_diff=cmp["forced_diff"],
+        max_abs_logit=cmp["max_logit"])
+    assert not unexplained, unexplained
+    assert cmp["forced_diff"] <= TEACHER_TOL * cmp["max_logit"], cmp
+    for mode in ("kernel", "unpack"):
+        ids_b = runs["bf16", mode][0]
+        say("gpt2-bf16-vs-f32-kernel", packed_execution=mode,
+            tokens_equal=f"{int((ids_b[:, gen] == ids_k[:, gen]).sum())}/"
+                         f"{ids_k[:, gen].size}")
+    return counts
 
 
 def main() -> int:
@@ -527,6 +849,14 @@ def main() -> int:
             (w4_unpack.argmax(1) == w4_ref32.argmax(1)).mean()),
         kernel_equals_unpack=bool(np.array_equal(w4_kernel, w4_unpack)),
         card=card.replace(" ", "_"))
+
+    # -- phase 6: the weight-only kernel against its plain version -----
+    wo_worst = check_wo()
+    wo_timing = time_wo(name)
+
+    # -- phase 7: the weight-only GPT-2 decode path at full width ------
+    wo_counts = decode_phase(card)
+    main_launches["splitk_wo_matmul"] = wo_counts["splitk_wo_matmul"]
     say("done", seconds=time.perf_counter() - t_start)
 
     rows = [{
@@ -547,6 +877,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    rows.append({
+        "name": "splitk_wo_matmul", "route": "cuda",
+        "source": "numpy_quant_tpu_torch/csrc/qmatmul_wo.cu",
+        "replaces": "numpy_quant_tpu/kernels/qmatmul.py:411",
+        "launches": main_launches["splitk_wo_matmul"],
+        "max_abs_err": wo_worst, "ms": wo_timing["ms"],
+        "plain_ms": wo_timing["plain_ms"], "bound_ms": wo_timing["bound_ms"],
+        "bound_by": wo_timing["bound_by"],
+        "library_ms": wo_timing["library_ms"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 
 ``load_jax_params`` installs, in the port's QModel, the integer payloads
 and quantization parameters of the JAX package's QModel for the same
-graph, given as plain numpy (the port never imports JAX):
+graph, given as plain numpy (the port never imports JAX); in a float
+Model after ``quantize_weights``, the weight-only constants alone (packed
+with a per-channel or grouped scale, or unpacked), with no
+``quant_params``:
 
     state = {
         "constants": {value name: {"payload": int array, "scale": ...,
@@ -24,15 +27,18 @@ import numpy as np
 import torch
 
 from .graph import Constant
-from .model import QModel, QuantizationParams
+from .model import Model, QModel, QuantizationParams
 from .tensor import PackedQTensor, QTensor
 
 
-def load_jax_params(qmodel: QModel, state: dict) -> int:
-    """Install ``state`` into ``qmodel`` on its device; returns the
-    number of constants replaced. Every quantized constant of the
-    port's graph must be present."""
+def load_jax_params(qmodel: Model, state: dict) -> int:
+    """Install ``state`` into ``qmodel`` (a QModel, or a weight-only float
+    Model) on its device; returns the number of constants replaced. Every
+    quantized constant of the port's graph must be present."""
     consts = state["constants"]
+    qparams = state.get("quant_params") or {}
+    if qparams and not isinstance(qmodel, QModel):
+        raise ValueError("quant_params given for a float (weight-only) Model")
     replaced = 0
     for value in qmodel.values:
         if not isinstance(value, Constant) \
@@ -55,10 +61,11 @@ def load_jax_params(qmodel: QModel, state: dict) -> int:
             int(c["bit_width"]), np.asarray(c["scale"], np.float32),
             None if zp is None else np.int64(zp))
         replaced += 1
-    for name, (scale, zp) in state["quant_params"].items():
+    for name, (scale, zp) in qparams.items():
         qmodel.quant_params[name] = QuantizationParams(
             np.asarray(scale, np.float32), None if zp is None else np.int64(zp))
-    qmodel.invalidate_params()
+    if isinstance(qmodel, QModel):
+        qmodel.invalidate_params()
     return replaced
 
 

@@ -6,8 +6,11 @@ from .qmatmul import (
     packed_qmatmul_reference,
     splitk_qmatmul,
     splitk_qmatmul_reference,
+    splitk_wo_matmul,
+    splitk_wo_matmul_reference,
 )
 
 __all__ = ["fused_attention_hs", "fused_attention_hs_reference",
            "packed_qmatmul", "packed_qmatmul_reference", "splitk_qmatmul",
-           "splitk_qmatmul_reference"]
+           "splitk_qmatmul_reference", "splitk_wo_matmul",
+           "splitk_wo_matmul_reference"]

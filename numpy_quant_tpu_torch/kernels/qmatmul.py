@@ -1,7 +1,8 @@
-"""Fused quantized matmul over packed weights.
+"""Fused matmuls over packed weights.
 
-Port of ``numpy_quant_tpu/kernels/qmatmul.py::splitk_qmatmul`` and
-``::packed_qmatmul``. Both compute, for x [M, K] and a packed b-bit
+Port of ``numpy_quant_tpu/kernels/qmatmul.py::splitk_qmatmul``,
+``::packed_qmatmul`` and ``::splitk_wo_matmul``. The first two compute,
+for x [M, K] and a packed b-bit
 symmetric weight W [K, N] with column sums colsum [1, N],
 
     xq  = quantize(x)             (quantize_x=True: divide, +zp, clip, rint)
@@ -22,10 +23,17 @@ PyTorch versions ``splitk_qmatmul_reference`` / ``packed_qmatmul_reference``.
 Each wrapper's ``launches`` attribute counts its kernel launches. Every
 epilogue step rounds once, as in the JAX kernels, so kernel and plain
 version agree bit for bit.
+
+``splitk_wo_matmul`` is the weight-only form: float x (f32 or bf16) times
+a split-K weight with a per-tensor, per-channel or grouped scale,
+dequantize-then-dot, computed by ``csrc/qmatmul_wo.cu`` on CUDA tensors
+and by ``splitk_wo_matmul_reference`` on CPU tensors. Its f32 sums run in
+another order than the plain version's, so the two agree to rounding.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -275,6 +283,170 @@ splitk_qmatmul.launches = 0
 packed_qmatmul.launches = 0
 
 
+# -- weight-only: float x times a split-K packed weight ----------------------
+
+_WO_TYPES = (torch.float32, torch.bfloat16)
+_WO_BLOCK_N, _WO_BLOCK_M = 128, 8   # csrc/qmatmul_wo.cu: BN, MT
+_WO_BLOCKS_PER_SM = 2
+
+
+class _WOParams(ctypes.Structure):
+    """Mirror of ``WOParams`` in csrc/qmatmul_wo.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "M", "N", "K", "KR", "bits", "x_bf16", "scale_rows", "gsz",
+        "splits", "rows_per_split", "w_vec")] + [("scale", ctypes.c_float)]
+
+
+def wo_groups_tile(k: int, kr: int, groups: int, bits: int) -> bool:
+    """Whether ``groups`` scale rows over K tile the split-K bit fields of
+    height ``kr`` evenly (within a field or across whole fields), which the
+    JAX kernel requires of a grouped scale. True at 8 bits (no fields) and
+    for a single row."""
+    if bits == 8 or groups <= 1:
+        return True
+    gsz = k // groups
+    return gsz > 0 and (kr % gsz == 0 or gsz % kr == 0)
+
+
+def _wo_scale(scale, k: int, n: int, kr: int, bits: int, group_size,
+              device):
+    """(scalar, rows, gsz): a per-tensor scale as an f32 python float, or
+    the scale rows as an f32 [G, N] tensor on ``device`` with G = 1 per
+    channel (gsz = K) or G = K/gsz grouped. Raises, as the JAX wrapper
+    does, for groups that tile the split-K bit fields neither way."""
+    if isinstance(scale, torch.Tensor):
+        s = scale.to(device=device, dtype=torch.float32)
+        if s.numel() == 1:
+            return float(s.reshape(())), None, k
+    else:
+        a = np.asarray(scale, np.float32)
+        if a.size == 1:  # a host scalar stays on the host
+            return float(a.reshape(())), None, k
+        s = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if s.ndim < 2 or s.shape[0] == 1:
+        if s.numel() != n:
+            raise ValueError(f"expected {n} channel scales, got {s.numel()}")
+        return None, s.reshape(1, n).contiguous(), k
+    g = int(s.shape[0])
+    gsz = k // g
+    if g * gsz != k or s.shape[1] != n:
+        raise ValueError(f"grouped scale {tuple(s.shape)} does not tile "
+                         f"[K={k}, N={n}]")
+    if group_size is not None and int(group_size) != gsz:
+        raise ValueError(f"group_size {group_size} != K/groups {gsz}")
+    if not wo_groups_tile(k, kr, g, bits):
+        raise ValueError(f"group_size {gsz} must divide or be a multiple "
+                         f"of the split-K field height {kr}")
+    return None, s.contiguous(), gsz
+
+
+def _wo_check(x, packed, bits: int):
+    if not isinstance(x, torch.Tensor) or x.ndim != 2:
+        raise ValueError("x must be a 2-D tensor [M, K]")
+    if x.dtype not in _WO_TYPES:
+        raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
+    if packed.device != x.device:
+        raise ValueError("x and the packed weight must lie on one device")
+    if bits not in (1, 2, 4, 8):
+        raise ValueError(f"split-K packs 1/2/4/8 bits, not {bits}")
+    want = torch.int8 if bits == 8 else torch.uint8
+    if packed.dtype != want or packed.ndim != 2:
+        raise TypeError(f"split-K payload at {bits} bits is a 2-D {want}")
+    if packed.shape[0] * (8 // bits) < x.shape[1]:
+        raise ValueError(f"payload {tuple(packed.shape)} holds fewer than "
+                         f"K={x.shape[1]} rows")
+
+
+def splitk_wo_matmul_reference(x, packed, scale, *, bits: int,
+                               group_size: int | None = None):
+    """Plain PyTorch version of ``splitk_wo_matmul``: the weight unpacked
+    and dequantized whole (one f32 product per element, rounded once to
+    x's type), then an f32 product of the upcast operands, cast once."""
+    k = x.shape[1]
+    n = packed.shape[1]
+    scalar, rows, gsz = _wo_scale(scale, k, n, packed.shape[0], bits,
+                                  group_size, x.device)
+    w = packed.to(torch.int8)[:k] if bits == 8 \
+        else unpack_splitk(packed, bits, k)
+    if scalar is not None:
+        s = torch.full((), scalar, dtype=torch.float32, device=x.device)
+    else:
+        s = rows if rows.shape[0] == 1 else \
+            torch.repeat_interleave(rows, gsz, dim=0)
+    wf = (w.to(torch.float32) * s).to(x.dtype)
+    y = torch.matmul(x.to(torch.float32), wf.to(torch.float32))
+    return y.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _wo_launch(x, packed, scalar, rows, gsz, bits: int) -> torch.Tensor:
+    dev = x.device
+    m, k = x.shape
+    kr, n = packed.shape
+    out = torch.empty((m, n), device=dev, dtype=x.dtype)
+    if out.numel() == 0:
+        return out
+    m_tiles = -(-m // _WO_BLOCK_M)
+    if m_tiles > _MAX_GRID_Y:
+        raise ValueError(f"M={m} rows exceed the kernel's grid")
+    # split the packed rows until about two blocks per SM are in flight
+    blocks = -(-n // _WO_BLOCK_N) * m_tiles
+    splits = max(1, min(kr, -(-_WO_BLOCKS_PER_SM
+                              * _sm_count(dev.index or 0) // blocks)))
+    rows_per_split = -(-kr // splits)
+    splits = -(-kr // rows_per_split)
+    ws = torch.empty((splits, m, n), device=dev, dtype=torch.float32) \
+        if splits > 1 else None
+    x = x.contiguous()
+    packed = packed.contiguous()
+    p = _WOParams(
+        M=m, N=n, K=k, KR=kr, bits=bits, x_bf16=int(x.dtype == torch.bfloat16),
+        scale_rows=0 if rows is None else rows.shape[0], gsz=gsz,
+        splits=splits, rows_per_split=rows_per_split,
+        w_vec=int(n % 4 == 0 and packed.data_ptr() % 4 == 0),
+        scale=0.0 if scalar is None else scalar)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _wo_library().nq_splitk_wo_matmul(
+        x.data_ptr(), packed.data_ptr(),
+        None if rows is None else rows.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), ctypes.byref(p), stream)
+    if rc != 0:
+        raise RuntimeError(f"nq_splitk_wo_matmul kernel launch failed: "
+                           f"CUDA error {rc}")
+    return out
+
+
+def splitk_wo_matmul(x, packed, scale, *, bits: int,
+                     group_size: int | None = None):
+    """y = x @ (unpack_splitk(packed) * expand(scale)), weight-only: float
+    compute, the dequantize fused into the weight load.
+
+    x [M, K] float32 or bfloat16; packed uint8 [ceil(K/r), N] split-K
+    payload (int8 [K, N] at 8 bits); scale a scalar (per tensor), [1, N] or
+    [N] (per output channel) or [K/g, N] (grouped), as a tensor or host
+    array. Returns [M, N] in x's dtype. CUDA tensors launch the kernel of
+    csrc/qmatmul_wo.cu (or raise); CPU tensors take
+    ``splitk_wo_matmul_reference``."""
+    _wo_check(x, packed, bits)
+    if x.device.type == "cpu":
+        return splitk_wo_matmul_reference(x, packed, scale, bits=bits,
+                                          group_size=group_size)
+    if x.device.type != "cuda":
+        raise ValueError(f"no splitk_wo_matmul kernel for device {x.device}")
+    scalar, rows, gsz = _wo_scale(scale, x.shape[1], packed.shape[1],
+                                  packed.shape[0], bits, group_size, x.device)
+    out = _wo_launch(x, packed, scalar, rows, gsz, bits)
+    splitk_wo_matmul.launches += 1
+    return out
+
+
+splitk_wo_matmul.launches = 0
+
+
 def _library() -> ctypes.CDLL:
     lib = load("qmatmul")
     if not getattr(lib, "_nq_typed", False):
@@ -283,5 +455,16 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(_QMMParams),
                                                    ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib._nq_typed = True
+    return lib
+
+
+def _wo_library() -> ctypes.CDLL:
+    lib = load("qmatmul_wo")
+    if not getattr(lib, "_nq_typed", False):
+        fn = lib.nq_splitk_wo_matmul
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_WOParams),
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         lib._nq_typed = True
     return lib

@@ -21,13 +21,15 @@ from .graph import (Constant, Node, Value, Variable, import_onnx,
                     only_rhs_of)
 from .ops.registry import onnx_operator_implementation
 from .passes.toolkit import PASSTHROUGH_OPS
-from .quantization import per_channel_scales, quant_parameters
+from .quantization import (per_channel_scales, quant_parameters, quantize,
+                           weight_only_scales)
 from .tensor import (
     FTensor,
     ITensor,
     PackedQTensor,
     QTensor,
     Tensor,
+    pack_qtensor,
     quantize_tensor,
 )
 
@@ -363,6 +365,61 @@ class Model:
         return QModel(list(qnodes_dict.values()), list(qvalues_dict.values()),
                       qinputs, qoutputs, bit_width, qparams_per_value,
                       quantized_ops=quantized_ops, device=self.device)
+
+    def quantize_weights(self, bit_width: int = 8, per_channel: bool = True,
+                         pack: bool = None, group_size: int = None) -> int:
+        """Weight-only quantization: replace 2-D float MatMul/Gemm weights
+        with symmetric integer weights while compute stays float (the
+        executor dequantizes per MatMul, or ``splitk_wo_matmul`` streams
+        the packed payload under ``packed_execution="kernel"``). Scales
+        come from the weights themselves (no calibration).
+
+        ``per_channel``: one abs-max scale per output channel (default),
+        else one per tensor. ``group_size``: one scale per
+        ``group_size`` input rows x output channel, stored compactly
+        [K/g, N], for weights consumed only as MatMul rhs whose K divides
+        evenly (others keep per-channel scales). ``pack``: bit-pack the
+        payload (default below 8 bits; split-K at 1/2/4, bit-planes
+        otherwise). Mutates this float model in place and returns the
+        number of converted weights."""
+        if getattr(self, "quant_params", None) is not None:
+            raise ValueError(
+                "quantize_weights is a FLOAT-executor mode; this model is "
+                "already integer-quantized (use pack_weights there)")
+        if pack is None:
+            pack = bit_width < 8
+        converted = 0
+        for value in self.values:
+            if not isinstance(value, Constant) \
+                    or not isinstance(value.data, FTensor) \
+                    or value.data.data.ndim != 2 \
+                    or not only_rhs_of(value, ("MatMul", "Gemm")):
+                continue
+            axes = {0 if n.op == "Gemm" and n.attrs.get("transB") else 1
+                    for n in value.outputs}
+            if len(axes) != 1:
+                continue
+            ch_axis = axes.pop()
+            # grouped scales assume the MatMul [K, N] orientation
+            groupable = bool(group_size) and ch_axis == 1 \
+                and all(n.op == "MatMul" for n in value.outputs)
+            # quantized on the host (IEEE f32 divide, as on the card),
+            # packed there, then moved to the device once
+            host = value.data.data.to("cpu", torch.float32)
+            scale, store_scale = weight_only_scales(
+                host.numpy(), bit_width, ch_axis, per_channel=per_channel,
+                group_size=group_size, groupable=groupable)
+            q = quantize(host, bit_width, scale, None)
+            qt = QTensor(q.to(torch.int8) if bit_width <= 8 else q,
+                         bit_width,
+                         scale if store_scale is None else store_scale, None)
+            if pack and bit_width <= 8:
+                value.data = pack_qtensor(qt).to(self.device)
+            else:
+                value.data = QTensor(qt.data.to(self.device), bit_width,
+                                     qt.scale, None)
+            converted += 1
+        return converted
 
 
 class QModel(Model):

@@ -1,13 +1,14 @@
 """ONNX operator implementations over the tensor layer (port of
 ``numpy_quant_tpu/ops/registry.py``), limited to the ops of the ViT
-classifier graph and its two fused ops. Any other op raises
-``NotImplementedError`` with its name."""
+classifier and GPT decode graphs, the two fused ops and weight-only
+MatMul/Gemm. Any other op raises ``NotImplementedError`` with its name."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .. import config
+from ..quantization import as_tensor
 from ..tensor import (
     FTensor,
     ITensor,
@@ -144,12 +145,47 @@ def _packed_matmul(a: QTensor, b: PackedQTensor) -> FTensor:
     return FTensor(y2.reshape(*lead, b.n))
 
 
+def _weight_only_matmul(a: FTensor, b) -> FTensor:
+    """Float activation x quantized weight (Model.quantize_weights): int
+    weights, float compute. Under ``packed_execution == "kernel"`` a
+    split-K packed weight whose scale groups tile its bit fields runs
+    ``splitk_wo_matmul``, which streams the packed payload and dequantizes
+    it in the weight load; otherwise the weight unpacks to int8 and
+    dequantizes here."""
+    from ..kernels.qmatmul import splitk_wo_matmul, wo_groups_tile
+
+    groups = int(b.scale.shape[0]) if getattr(b.scale, "ndim", 0) == 2 else 1
+    if isinstance(b, PackedQTensor) and b.layout == "splitk" \
+            and config.packed_execution == "kernel" \
+            and wo_groups_tile(b.k, b.planes.shape[0], groups, b.bit_width):
+        xd = a.data
+        scale = b.scale_vec()
+        y2 = splitk_wo_matmul(
+            xd.reshape(-1, xd.shape[-1]), b.planes,
+            float(np.float32(b.scale)) if scale is None else scale,
+            bits=b.bit_width)
+        return FTensor(y2.reshape(*xd.shape[:-1], b.n))
+    scale = b.scale_vec() if isinstance(b, PackedQTensor) else None
+    w = b.unpack() if isinstance(b, PackedQTensor) else b
+    s = w.scale
+    if getattr(s, "ndim", 0) == 2 and s.shape[0] > 1:
+        # grouped scales [K/g, N]: the group-batched product
+        # y = sum_g (x_g @ W_g) * s[g], as the JAX package computes it
+        kdim, ncol = w.data.shape
+        g = int(s.shape[0])
+        xd = a.data
+        x3 = xd.reshape(*xd.shape[:-1], g, kdim // g)
+        wq = w.data.reshape(g, kdim // g, ncol).to(xd.dtype)
+        part = torch.einsum("...gk,gkn->...gn", x3, wq)
+        if scale is None:
+            scale = as_tensor(s, xd.device)
+        return FTensor(torch.sum(part * scale.to(xd.dtype), dim=-2))
+    return a.matmul(w.dequantize())
+
+
 def _matmul(a: Tensor, b: Tensor) -> list[Tensor]:
     if isinstance(a, FTensor) and isinstance(b, (QTensor, PackedQTensor)):
-        raise NotImplementedError(
-            "weight-only MatMul (float activation x quantized weight, "
-            "Model.quantize_weights) is not ported; it comes with the "
-            "weight-only decode slice (splitk_wo_matmul)")
+        return [_weight_only_matmul(a, b)]
     if isinstance(b, PackedQTensor):
         if config.packed_execution == "kernel" and isinstance(a, QTensor):
             return [_packed_matmul(a, b)]
@@ -190,6 +226,10 @@ def _layer_norm(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
 
 def _gemm(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     x, w = inputs[0], inputs[1]
+    if isinstance(x, FTensor) and isinstance(w, (QTensor, PackedQTensor)):
+        # weight-only (Model.quantize_weights): dequantize before transB,
+        # so the stored per-channel scale keeps its orientation
+        w = (w.unpack() if isinstance(w, PackedQTensor) else w).dequantize()
     b = inputs[2] if len(inputs) > 2 else None
     alpha = float(attrs.get("alpha", 1.0))
     beta = float(attrs.get("beta", 1.0))
@@ -226,6 +266,42 @@ def _conv(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     if isinstance(x, QTensor):
         return [qconv2d(x, w, b, pads, strides, dils, group)]
     return [fconv2d(x, w, b, pads, strides, dils, group)]
+
+
+def _slice(inputs: list[Tensor]) -> list[Tensor]:
+    x = inputs[0]
+    starts, ends = inputs[1].data, inputs[2].data
+    ndim = len(x.shape) if isinstance(x, QTensor) else x.shape.size
+    axes = inputs[3].data if len(inputs) > 3 and inputs[3] is not None \
+        else np.arange(len(starts))
+    steps = inputs[4].data if len(inputs) > 4 and inputs[4] is not None \
+        else np.ones(len(starts), dtype=np.int64)
+    slices = [slice(None, None, None)] * ndim
+    for s, e, a, st in zip(starts, ends, axes, steps):
+        slices[int(a)] = slice(int(s), int(e), int(st))
+    return [x[tuple(slices)]]
+
+
+def _split(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
+    x = inputs[0]
+    axis = int(attrs.get("axis", 0))
+    dims = tuple(int(d) for d in x.shape.data)
+    if len(inputs) > 1 and inputs[1] is not None:
+        sizes = [int(s) for s in inputs[1].data]
+    elif "split" in attrs:
+        sizes = [int(s) for s in attrs["split"]]
+    else:
+        n_out = int(attrs.get("num_outputs", 2))
+        q, r = divmod(dims[axis], n_out)
+        sizes = [q + (1 if i < r else 0) for i in range(n_out)]
+    outs = []
+    start = 0
+    for s in sizes:
+        sl = [slice(None)] * len(dims)
+        sl[axis] = slice(start, start + s)
+        outs.append(x[tuple(sl)])
+        start += s
+    return outs
 
 
 def _constant(attrs: dict, device) -> list[Tensor]:
@@ -281,8 +357,12 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         if isinstance(x, QTensor):
             return [ITensor(np.array(x.shape, dtype=np.int64))]
         return [x.shape]
+    if op == "Slice":
+        return _slice(inputs)
     if op == "Softmax":
         return [inputs[0].softmax(axis=int(attrs.get("axis", -1)))]
+    if op == "Split":
+        return _split(inputs, attrs)
     if op == "Transpose":
         x = inputs[0]
         perm = attrs.get("perm")

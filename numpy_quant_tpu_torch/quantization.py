@@ -65,6 +65,29 @@ def per_channel_scales(data, bit_width: int, axis: int) -> np.ndarray:
     return scale.astype(np.float32)
 
 
+def weight_only_scales(arr: np.ndarray, bit_width: int, ch_axis: int,
+                       per_channel: bool = True, group_size: int = None,
+                       groupable: bool = False):
+    """The symmetric scale choice of Model.quantize_weights for a 2-D
+    weight (host numpy, the JAX package's code). Returns (full_scale,
+    store_scale): ``full_scale`` broadcasts against ``arr``;
+    ``store_scale`` is the compact grouped [K/g, N] array when the
+    grouped path applies, else None. ``groupable`` is the caller's
+    consumer-based decision (all-MatMul rhs with ch_axis == 1)."""
+    min_q, max_q = qrange(bit_width)
+    if groupable and group_size and arr.shape[0] % int(group_size) == 0:
+        g = int(group_size)
+        grp = arr.reshape(arr.shape[0] // g, g, arr.shape[1])
+        absmax = np.maximum(np.abs(grp).max(axis=1), np.float32(1e-12))
+        store_scale = (np.float32(2.0) * absmax
+                       / np.float32(max_q - min_q)).astype(np.float32)
+        return np.repeat(store_scale, g, axis=0), store_scale
+    if per_channel:
+        return per_channel_scales(arr, bit_width, ch_axis), None
+    absmax = max(float(np.abs(arr).max()), 1e-12)
+    return np.float32(2.0 * absmax / (max_q - min_q)), None
+
+
 def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     """A host scalar/array (or tensor) as a tensor of ``dtype`` on
     ``device`` -- the form a divisor must take to divide exactly."""

@@ -87,6 +87,9 @@ class ITensor:
     def take(self, indices: "ITensor", axis: int):
         return ITensor(self._data.take(indices.data, axis))
 
+    def __getitem__(self, ind) -> "ITensor":
+        return ITensor(self._data.__getitem__(ind))
+
     def __repr__(self):
         return f"ITensor({self._data!r})"
 
@@ -128,6 +131,22 @@ class FTensor:
 
     def transpose(self, *axes) -> "FTensor":
         return FTensor(_permute(self._data, axes))
+
+    def __getitem__(self, ind) -> "FTensor":
+        """Basic slicing (Slice, Split); a negative step selects the
+        indices it names, which torch's slicing does not take."""
+        if not isinstance(ind, tuple):
+            ind = (ind,)
+        data = self._data
+        plain = []
+        for axis, sl in enumerate(ind):
+            if isinstance(sl, slice) and sl.step is not None and sl.step < 0:
+                idx = torch.arange(*sl.indices(data.shape[axis]),
+                                   device=data.device)
+                data = torch.index_select(data, axis, idx)
+                sl = slice(None)
+            plain.append(sl)
+        return FTensor(data[tuple(plain)])
 
     def __neg__(self) -> "FTensor":
         return FTensor(-self._data)
@@ -302,6 +321,8 @@ class PackedQTensor:
     * ``"splitk"`` (bits 1/2/4; 8 = the plain int8 weight): [KR, N];
     * ``"bitplanes"`` (any bits, e.g. 3/5/6/7): uint8[b, ceil(K/8), N].
 
+    ``scale`` is a host float32 scalar (per tensor), [1, N] (per output
+    channel) or [K/g, N] (grouped, ``Model.quantize_weights(group_size=)``).
     The payload and colsum live on the model's device; the MatMul either
     unpacks to int8 (``config.packed_execution == "unpack"``) or runs the
     packed kernels of kernels/qmatmul.py on it."""
@@ -334,14 +355,15 @@ class PackedQTensor:
                              self.layout)
 
     def scale_vec(self):
-        """A per-channel scale as an f32 [1, N] tensor on the payload's
-        device (made once), or None for a per-tensor scale."""
+        """The scale as an f32 tensor on the payload's device (made once):
+        [1, N] per channel, [K/g, N] grouped; None for a per-tensor
+        scale."""
         if getattr(self.scale, "ndim", 0) == 0:
             return None
         if self._scale_vec is None:
+            s = np.asarray(self.scale, np.float32)
             self._scale_vec = torch.from_numpy(
-                np.asarray(self.scale, np.float32).reshape(1, self.n)
-            ).to(self.planes.device)
+                s.reshape(-1, self.n)).to(self.planes.device)
         return self._scale_vec
 
     def unpack(self) -> QTensor:

@@ -173,7 +173,11 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.convert\n"
             "import numpy_quant_tpu_torch.kernels\n"
             "import numpy_quant_tpu_torch.models.vit\n"
+            "import numpy_quant_tpu_torch.models.gpt\n"
             "import numpy_quant_tpu_torch.passes\n"
+            "import numpy_quant_tpu_torch.utils.generate\n"
+            "import numpy_quant_tpu_torch.profile_vit\n"
+            "import numpy_quant_tpu_torch.profile_gpt\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numpy_quant_tpu' or "
             "m.startswith('numpy_quant_tpu.')]\n"
