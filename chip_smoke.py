@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 ViT-Base and weight-only GPT-2 decode
-paths on one NVIDIA GPU.
+"""Drive the PyTorch port's int8 ViT-Base, weight-only GPT-2 decode and
+int8 GPT-2 full-context scoring paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -40,7 +40,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
      "unpack", f32 and bf16: 49 kernel launches per step, f32 "kernel"
      tokens equal to "unpack" tokens (a row may part only where the top-2
      margin is within the measured logit difference), tokens/s (median of
-     5 timed decodes per mode, the modes taken in turns).
+     5 timed decodes per mode, the modes taken in turns);
+  8. the blockwise attention kernel fused_attention_hs_blockq against its
+     plain version in every variant (exact, fast, fast with the static
+     shift x causal none, full and window 256 x out_requant off and on x
+     zero points zero and nonzero) at (B, N, H) = (2, 1024, 12),
+     (1, 1000, 4) and (1, 4096, 2), head dims 16, 32 and 128, narrow q at
+     N=4096, tile skipping off and the static shift's full walk; the
+     monolithic kernel's causal and
+     window forms at N=197 and 256; blockwise against monolithic at
+     N=1000 (at most 1% of (row, head) blocks may differ, each by one
+     probability step); then timed at the GPT-2 shape (B=8, N=1024, H=12,
+     causal, int8 out) beside its bound and its plain version;
+  9. the int8 GPT-2 scoring path at full width and depth: random GPT-2
+     small weights (seed 0) -> gpt_causal_lm(B=8, seq 1024) ->
+     Model.from_onnx -> calibration on 2 sequences -> quantize(int8) ->
+     unfused forward -> optimize() (12 causal FusedAttentionHS) -> fused
+     f32 forward, which must launch the blockwise kernel 12 times and the
+     monolithic one never and agree with the unfused forward (logits
+     within LOGIT_TOL, argmax wherever the top-1 margin is clear of it);
+     the bf16 mode; tokens scored per second (median of 5 forwards per
+     mode, in turns); one profiled bf16 forward; peak device memory.
 The last three lines are the kernels JSON line, the card's name and power
 limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
 """
@@ -93,6 +113,21 @@ WO_PER_STEP = 4 * 12 + 1
 TEACHER_TOL = 1e-4  # kernel vs unpack logits on forced steps, of max|logit|
 DECODE_REPS = 5  # timed decodes per (dtype, mode), in turns
 LEAD_CYCLES = 2_000_000  # ~1 ms of device sleep ahead of a cold timed call
+
+# blockwise attention (phase 8), head dim 64
+BQ_SHAPES = ((2, 1024, 12), (1, 1000, 4), (1, 4096, 2))  # (B, N, H)
+MASK_VAL = -3.2e8  # a dequantized -1e9-style causal mask constant
+NOSKIP_MASK = -2000.0  # too small for the kernel to skip masked tiles
+DEGENERATE_SCORE_MAX = 200.0  # every score clamps: the full-walk case
+QP_ZERO = dict(QP, zq=0, zk=0, zv=0, zp_p=0, sp=float(1.0 / 127.0))
+ATT_MODES = {"exact": (False, None), "fast": (True, None),
+             "fast_shift": (True, SCORE_MAX)}
+CAUSAL = {"none": (None, None), "full": (MASK_VAL, None),
+          "window256": (MASK_VAL, 256)}
+MONO_N, MONO_WINDOW = (197, 256), 64
+# GPT-2 scoring (phase 9): batch GPT_B at the full context
+GPT_SEQ = 1024
+SCORE_REPS = 5  # timed forwards per mode, in turns
 
 
 def say(phase: str, **fields) -> None:
@@ -154,21 +189,46 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def attention_inputs(b: int, nq: int, seed: int):
+def attention_inputs(b: int, nq: int, seed: int, n: int = N_TOK,
+                     heads: int = HEADS, d: int = HEAD_DIM):
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    shape = (b, N_TOK, HEADS * HEAD_DIM)
+    shape = (b, n, heads * d)
     q, k, v = (torch.from_numpy(rng.integers(-128, 128, size=shape)
                                 .astype(np.int8)).cuda() for _ in range(3))
     return q[:, :nq].contiguous(), k, v
+
+
+def attention_diff(got, want, heads: int, rq, qp: dict, label: str,
+                   int8_step: float | None = None) -> tuple[int, int, float]:
+    """An attention kernel's output against another version's: (flipped
+    (row, head) blocks, blocks, max |difference|). Raises unless at most
+    1% of the blocks differ (or one), each by at most one probability
+    step: 255 * sp * sv on f32 out; on int8 out that over the requant
+    scale, rounded, floor(255 * sp * sv / res_scale) + 1 (or
+    ``int8_step``)."""
+    import torch
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype, label
+    diff = (got.double() - want.double()).abs()
+    b, nq, hd = got.shape
+    blocks = diff.reshape(b, nq, heads, hd // heads).amax(dim=-1)
+    flips = int((blocks > 0).sum())
+    max_err = float(diff.max())
+    per_flip = 255.0 * qp["sp"] * qp["sv"] * 1.000001
+    if rq is not None:
+        per_flip = int8_step or float(int(per_flip / rq[0]) + 1)
+    if max_err > per_flip or flips > max(1, 0.01 * blocks.numel()):
+        raise AssertionError(f"{label}: {flips} of {blocks.numel()} blocks "
+                             f"differ, max |diff| {max_err}")
+    return flips, blocks.numel(), max_err
 
 
 def check_attention() -> float:
     """Kernel against plain version in every variant; returns the largest
     |difference| over the f32-output variants."""
     import itertools
-    import torch
     from numpy_quant_tpu_torch.kernels import attention as A
     worst = 0.0
     cases = [(False, rq, nq, None) for rq, nq in itertools.product(
@@ -179,21 +239,13 @@ def check_attention() -> float:
         q, k, v = attention_inputs(B_CHECK, nq, seed=i)
         kw = dict(QP, num_heads=HEADS, fast=fast, out_requant=rq,
                   score_max=sm)
-        got = A.fused_attention_hs(q, k, v, **kw)
-        want = A.fused_attention_hs_reference(q, k, v, **kw)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape and got.dtype == want.dtype
-        diff = (got.double() - want.double()).abs()
-        blocks = diff.reshape(B_CHECK, nq, HEADS, HEAD_DIM).amax(dim=-1)
-        flips = int((blocks > 0).sum())
-        max_err = float(diff.max())
-        per_flip = 1.0 if rq is not None else 255.0 * QP["sp"] * QP["sv"] * 1.000001
+        flips, blocks, max_err = attention_diff(
+            A.fused_attention_hs(q, k, v, **kw),
+            A.fused_attention_hs_reference(q, k, v, **kw), HEADS, rq, QP,
+            "fused_attention_hs against its plain version", int8_step=1.0)
         say("kernel-check", kernel="fused_attention_hs", fast=fast,
             out_requant=rq is not None, nq=nq, score_max=sm,
-            flipped_blocks=f"{flips}/{blocks.numel()}", max_abs_err=max_err)
-        if max_err > per_flip or flips > max(1, 0.01 * blocks.numel()):
-            raise AssertionError(f"fused_attention_hs disagrees with its "
-                                 f"plain version: {flips} blocks, {max_err}")
+            flipped_blocks=f"{flips}/{blocks}", max_abs_err=max_err)
         if rq is None:
             worst = max(worst, max_err)
     return worst
@@ -228,12 +280,14 @@ def time_attention(name: str) -> dict:
 
 
 def attention_flips(qmodel, x) -> tuple[int, int]:
-    """The kernel against its plain version on every attention layer's
-    real inputs (one recorded forward): flipped (row, head) blocks."""
+    """The attention kernels against their plain versions on every
+    attention layer's real inputs (one recorded forward): flipped (row,
+    head) blocks. The recorded values are dropped afterwards."""
     import torch
+    from numpy_quant_tpu_torch.graph import Variable
     from numpy_quant_tpu_torch.kernels import attention as A
     from numpy_quant_tpu_torch.ops.registry import attention_call
-    qmodel([x], record=True)
+    qmodel([x], record=True, as_numpy=False)
     recorded = {v.name: v.data for v in qmodel.values if v.data is not None}
     flips = blocks = 0
     for node in qmodel.nodes:
@@ -243,13 +297,19 @@ def attention_flips(qmodel, x) -> tuple[int, int]:
         q, k, v, kw, _ = attention_call(qmodel._node_inputs(node, recorded),
                                         node.attrs)
         got = A.fused_attention_hs(q, k, v, **kw)
-        want = A.fused_attention_hs_reference(q, k, v, **kw)
+        plain = A.fused_attention_hs_blockq_reference \
+            if A.blockwise(k.shape[1], None) else A.fused_attention_hs_reference
+        want = plain(q, k, v, **kw)
         diff = (got.double() - want.double()).abs()
         b, nq, hd = got.shape
         per_block = diff.reshape(b, nq, kw["num_heads"], -1).amax(dim=-1)
         flips += int((per_block > 0).sum())
         blocks += per_block.numel()
     torch.cuda.synchronize()
+    del recorded
+    for v in qmodel.values:
+        if isinstance(v, Variable):
+            v.data = None
     return flips, blocks
 
 
@@ -388,8 +448,8 @@ def counted(fn):
     before; returns its result and the counts read just after."""
     from numpy_quant_tpu_torch import kernels as K
     counters = {name: getattr(K, name) for name in (
-        "fused_attention_hs", "splitk_qmatmul", "packed_qmatmul",
-        "splitk_wo_matmul")}
+        "fused_attention_hs", "fused_attention_hs_blockq", "splitk_qmatmul",
+        "packed_qmatmul", "splitk_wo_matmul")}
     for f in counters.values():
         f.launches = 0
     out = fn()
@@ -707,6 +767,289 @@ def decode_phase(card: str) -> dict:
     return counts
 
 
+def attention_kw(heads: int, mode: str, causal: str, rq, qp: dict,
+                 **over) -> dict:
+    fast, score_max = ATT_MODES[mode]
+    mask, window = CAUSAL[causal]
+    kw = dict(qp, num_heads=heads, fast=fast, score_max=score_max,
+              out_requant=rq, causal_mask_val=mask, causal_window=window)
+    kw.update(over)
+    return kw
+
+
+def check_blockq() -> float:
+    """Phase 8: the blockwise kernel against its plain version, the
+    monolithic kernel's causal forms against theirs, and blockwise against
+    monolithic. Returns the largest |difference| of the f32-output
+    blockwise variants."""
+    import itertools
+    from numpy_quant_tpu_torch.kernels import attention as A
+    worst, seed = 0.0, 1000
+
+    def against_plain(b, n, h, nq, rq, qp, kw, label, fn=None, plain=None,
+                      d=HEAD_DIM):
+        """(flipped blocks, blocks, max |diff| on f32 out, else 0)."""
+        nonlocal seed
+        seed += 1
+        q, k, v = attention_inputs(b, nq, seed, n=n, heads=h, d=d)
+        fn = fn or A.fused_attention_hs_blockq
+        plain = plain or A.fused_attention_hs_blockq_reference
+        flips, blocks, err = attention_diff(
+            fn(q, k, v, **kw), plain(q, k, v, **kw), h, rq, qp, label)
+        return flips, blocks, err if rq is None else 0.0
+
+    def summary(kernel, shape, label, results):
+        err = max(r[2] for r in results)
+        say("kernel-check", kernel=kernel, shape=shape, cases=label,
+            variants=len(results),
+            flipped_blocks=f"{sum(r[0] for r in results)}/"
+                           f"{sum(r[1] for r in results)}",
+            max_abs_err_f32_out=err)
+        return err
+
+    variants = list(itertools.product(CAUSAL, (None, OUT_REQUANT),
+                                      ("nonzero", "zero")))
+    for b, n, h in BQ_SHAPES:
+        for mode in ATT_MODES:
+            res = []
+            for causal, rq, zp in variants:
+                qp = QP if zp == "nonzero" else QP_ZERO
+                res.append(against_plain(
+                    b, n, h, n, rq, qp, attention_kw(h, mode, causal, rq, qp),
+                    f"blockq B{b} N{n} H{h} {mode} {causal} rq={rq} zp={zp}"))
+            worst = max(worst, summary(
+                "fused_attention_hs_blockq", f"B{b}xN{n}xH{h}xD{HEAD_DIM}",
+                f"{mode}:causal_none/full/window256:rq_off/on:zp_nonzero/zero",
+                res))
+    # narrow q (no mask) at N = 4096
+    res = []
+    for nq, mode, rq, zp in itertools.product((1, 3), ATT_MODES,
+                                              (None, OUT_REQUANT),
+                                              ("nonzero", "zero")):
+        qp = QP if zp == "nonzero" else QP_ZERO
+        res.append(against_plain(1, 4096, 2, nq, rq, qp,
+                                 attention_kw(2, mode, "none", rq, qp),
+                                 f"blockq narrow nq={nq} {mode} rq={rq}"))
+    worst = max(worst, summary("fused_attention_hs_blockq", "B1xN4096xH2",
+                               "narrow_q1/3:all_modes:rq_off/on:zp",
+                               res))
+    # the other head dims the kernel is built for
+    for d in (16, 32, 128):
+        res = []
+        for mode, causal, rq in itertools.product(ATT_MODES, ("none", "full"),
+                                                  (None, OUT_REQUANT)):
+            res.append(against_plain(
+                1, 1000, 2, 1000, rq, QP, attention_kw(2, mode, causal, rq, QP),
+                f"blockq D{d} {mode} {causal} rq={rq}", d=d))
+        worst = max(worst, summary("fused_attention_hs_blockq",
+                                   f"B1xN1000xH2xD{d}",
+                                   "all_modes:causal_none/full:rq_off/on", res))
+    # a mask too small to skip tiles; the static shift's full walk
+    res = []
+    for mode, causal, rq in itertools.product(ATT_MODES, ("full", "window256"),
+                                              (None, OUT_REQUANT)):
+        res.append(against_plain(
+            1, 1000, 4, 1000, rq, QP,
+            attention_kw(4, mode, causal, rq, QP, causal_mask_val=NOSKIP_MASK),
+            f"blockq noskip {mode} {causal} rq={rq}"))
+        if mode == "fast_shift":
+            res.append(against_plain(
+                1, 1000, 4, 1000, rq, QP,
+                attention_kw(4, mode, causal, rq, QP,
+                             score_max=DEGENERATE_SCORE_MAX),
+                f"blockq full-walk {causal} rq={rq}"))
+    worst = max(worst, summary("fused_attention_hs_blockq", "B1xN1000xH4",
+                               "mask_-2000_no_skip+score_max_200_full_walk",
+                               res))
+    # the monolithic kernel's causal and window forms
+    for n in MONO_N:
+        res = []
+        for mode, window, rq, zp in itertools.product(
+                ATT_MODES, (None, MONO_WINDOW), (None, OUT_REQUANT),
+                ("nonzero", "zero")):
+            qp = QP if zp == "nonzero" else QP_ZERO
+            res.append(against_plain(
+                2, n, HEADS, n, rq, qp,
+                attention_kw(HEADS, mode, "full", rq, qp, causal_window=window),
+                f"monolithic causal N{n} {mode} window={window} rq={rq}",
+                fn=A.fused_attention_hs_monolithic,
+                plain=A.fused_attention_hs_reference))
+        summary("fused_attention_hs", f"B2xN{n}xH{HEADS}",
+                f"causal_full/window{MONO_WINDOW}:all_modes:rq:zp", res)
+    # blockwise against monolithic at N = 1000 (K/V still fit one block)
+    res = []
+    for mode, causal, rq in itertools.product(ATT_MODES, CAUSAL,
+                                              (None, OUT_REQUANT)):
+        res.append(against_plain(
+            1, 1000, 4, 1000, rq, QP, attention_kw(4, mode, causal, rq, QP),
+            f"blockq vs monolithic {mode} {causal} rq={rq}",
+            plain=A.fused_attention_hs_monolithic))
+    summary("fused_attention_hs_blockq_vs_monolithic", "B1xN1000xH4",
+            "all_modes:causal_none/full/window256:rq_off/on", res)
+    return worst
+
+
+def time_blockq(name: str) -> dict:
+    """The blockwise kernel at the GPT-2 scoring shape (causal, int8 out):
+    the serving form (fast, static shift) and the exact form, kernel and
+    plain version, beside the bound of the visible half. Returns the
+    serving form's numbers."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    rates = peaks(name)
+    b, n, h = GPT_B, GPT_SEQ, HEADS
+    q, k, v = attention_inputs(b, n, seed=99, n=n, heads=h)
+    res = {}
+    for label, mode in (("serving", "fast_shift"), ("exact", "exact")):
+        kw = attention_kw(h, mode, "full", OUT_REQUANT, QP)
+        ms = cuda_ms(lambda: A.fused_attention_hs_blockq(q, k, v, **kw))
+        plain_ms = cuda_ms(lambda: A.fused_attention_hs_blockq_reference(
+            q, k, v, **kw))
+        nbytes = 4 * q.numel()  # q, k, v read once; int8 out written once
+        # both products over the visible (causal) half of the scores
+        ops = 2 * 2 * b * h * (n * (n + 1) // 2) * HEAD_DIM
+        t_bytes, t_ops = nbytes / rates["bytes"] * 1e3, ops / rates["int8"] * 1e3
+        res[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops else "operations")
+        say("kernel-time", kernel="fused_attention_hs_blockq", form=label,
+            shape=f"B{b}xN{n}xH{h}xD{HEAD_DIM}", causal=True, ms=ms,
+            plain_ms=plain_ms, bound_ms=res[label]["bound_ms"],
+            bound_by=res[label]["bound_by"], bytes=nbytes, ops=ops,
+            library="none", card=name.replace(" ", "_"))
+    return res["serving"]
+
+
+def scoring_phase(card: str) -> dict:
+    """Phase 9: returns the launch counts of the f32 fused forward."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models.gpt import (GPT2_SMALL, gpt_causal_lm,
+                                                  random_gpt2_weights)
+    t0 = time.perf_counter()
+    vocab = GPT2_SMALL["vocab_size"]
+    proto = gpt_causal_lm(random_gpt2_weights(GPT2_SMALL, seed=0), GPT2_SMALL,
+                          batch_size=GPT_B, seq_len=GPT_SEQ)
+    model = Model.from_onnx(proto)
+    rng = np.random.default_rng(0)
+    # token embeddings of seeded random ids: 2 calibration sequences, then
+    # the scored batch
+    calib = proto._wte[rng.integers(0, vocab, size=(2, GPT_SEQ))]
+    embeds = torch.from_numpy(
+        proto._wte[rng.integers(0, vocab, size=(GPT_B, GPT_SEQ))]).cuda()
+    qmodel = model.quantize(bit_width=8,
+                            stats=model.calibration_stats([calib]))
+    del model
+    say("scoring-setup", seconds=time.perf_counter() - t0,
+        nodes=len(qmodel.nodes), device=qmodel.device)
+
+    def forward():
+        return qmodel([embeds], as_numpy=False)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    unfused = forward()
+    peak_unfused = torch.cuda.max_memory_allocated()
+    report = qmodel.optimize()
+    fnodes = [nd for nd in qmodel.nodes if nd.op == "FusedAttentionHS"]
+    say("scoring-optimize", fuse_attention=report["fuse_attention"],
+        fuse_gelu=report["fuse_gelu"], int8_dataflow=report["int8_dataflow"],
+        fusion_failures=len(report["fusion_failures"]),
+        causal_mask_vals=",".join(f"{nd.attrs.get('causal_mask_val'):.6g}"
+                                  for nd in fnodes),
+        windows=sum("causal_window" in nd.attrs for nd in fnodes))
+    assert report["fuse_attention"] == 12 and not report["fusion_failures"]
+    assert len(fnodes) == 12 and all(
+        nd.attrs.get("causal_mask_val") is not None
+        and "causal_window" not in nd.attrs for nd in fnodes)
+    torch.cuda.reset_peak_memory_stats()
+    fused, counts = counted(forward)
+    peak_fused = torch.cuda.max_memory_allocated()
+    assert fused.shape == (GPT_B, GPT_SEQ, vocab), fused.shape
+    assert bool(torch.isfinite(fused).all())
+    # As in phase 2: the fused kernel and torch sum softmax rows in other
+    # orders, so a few probabilities round one step apart; the logits must
+    # stay within LOGIT_TOL * max|logit| and the argmax equal wherever the
+    # unfused top-1 margin exceeds that.
+    scale = float(unfused.abs().max())
+    diff = float((fused - unfused).abs().max())
+    top2 = unfused.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL * scale
+    same = fused.argmax(-1) == unfused.argmax(-1)
+    flips, blocks = attention_flips(qmodel, embeds)
+    say("scoring-f32", batch=GPT_B, seq=GPT_SEQ,
+        blockq_launches=counts["fused_attention_hs_blockq"],
+        monolithic_launches=counts["fused_attention_hs"],
+        argmax_equal=f"{int(same.sum())}/{same.numel()}",
+        argmax_equal_clear_margin=f"{int(same[clear].sum())}/{int(clear.sum())}",
+        max_abs_diff=diff, max_abs_logit=scale,
+        attention_flipped_blocks=f"{flips}/{blocks}")
+    assert counts["fused_attention_hs_blockq"] == 12, counts
+    assert sum(counts.values()) == 12, counts
+    assert diff <= LOGIT_TOL * scale, (diff, scale)
+    assert bool(same[clear].all()), "fused and unfused argmax differ"
+    assert flips <= 0.01 * blocks, (flips, blocks)
+    del unfused, top2, clear, same
+
+    with config.low_precision_floats():
+        torch.cuda.reset_peak_memory_stats()
+        bf, bf_counts = counted(forward)
+        peak_bf16 = torch.cuda.max_memory_allocated()
+    assert bf.shape == fused.shape and bf.dtype == torch.float32
+    assert bool(torch.isfinite(bf).all())
+    agree = float((bf.argmax(-1) == fused.argmax(-1)).float().mean())
+    say("scoring-bf16", batch=GPT_B, seq=GPT_SEQ,
+        blockq_launches=bf_counts["fused_attention_hs_blockq"],
+        monolithic_launches=bf_counts["fused_attention_hs"],
+        argmax_agreement_f32=agree,
+        max_abs_diff_f32=float((bf - fused).abs().max()))
+    assert bf_counts["fused_attention_hs_blockq"] == 12, bf_counts
+    assert sum(bf_counts.values()) == 12, bf_counts
+    del bf, fused
+
+    modes = {"f32": contextlib.nullcontext, "bf16": config.low_precision_floats}
+    seconds = {m: [] for m in modes}
+    for rep in range(SCORE_REPS):
+        for m in (list(modes) if rep % 2 == 0 else list(modes)[::-1]):
+            with modes[m]():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                seconds[m].append(time.perf_counter() - t0)
+    for m, runs in seconds.items():
+        wall = statistics.median(runs)
+        say("scoring-throughput", dtype=m, batch=GPT_B, seq=GPT_SEQ,
+            tokens_per_s=GPT_B * GPT_SEQ / wall, ms_per_forward=wall * 1e3,
+            ms_runs=",".join(f"{r * 1e3:.2f}" for r in runs),
+            card=card.replace(" ", "_"))
+    say("scoring-memory", peak_unfused_f32_bytes=peak_unfused,
+        peak_fused_f32_bytes=peak_fused, peak_fused_bf16_bytes=peak_bf16)
+
+    from torch.profiler import ProfilerActivity, profile
+    with config.low_precision_floats():
+        forward()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    say("scoring-profile", dtype="bf16", wall_ms_unprofiled=wall_ms,
+        device_busy_ms=busy, busy_share=busy / wall_ms,
+        device_kernels=int(sum(r[2] for r in rows)),
+        top5=";".join(f"{k[:48].replace(' ', '_')}:{ms:.3f}ms:x{c}"
+                      for k, ms, c in rows[:5]))
+    assert busy > 0, "the profiler saw no device time"
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -857,6 +1200,15 @@ def main() -> int:
     # -- phase 7: the weight-only GPT-2 decode path at full width ------
     wo_counts = decode_phase(card)
     main_launches["splitk_wo_matmul"] = wo_counts["splitk_wo_matmul"]
+
+    # -- phase 8: the blockwise attention kernel ----------------------
+    bq_worst = check_blockq()
+    bq_timing = time_blockq(name)
+
+    # -- phase 9: the int8 GPT-2 scoring path at full context ---------
+    score_counts = scoring_phase(card)
+    main_launches["fused_attention_hs_blockq"] = \
+        score_counts["fused_attention_hs_blockq"]
     say("done", seconds=time.perf_counter() - t_start)
 
     rows = [{
@@ -886,6 +1238,14 @@ def main() -> int:
         "plain_ms": wo_timing["plain_ms"], "bound_ms": wo_timing["bound_ms"],
         "bound_by": wo_timing["bound_by"],
         "library_ms": wo_timing["library_ms"]})
+    rows.append({
+        "name": "fused_attention_hs_blockq", "route": "cuda",
+        "source": "numpy_quant_tpu_torch/csrc/attention_hs_blockq.cu",
+        "replaces": "numpy_quant_tpu/kernels/attention.py:634",
+        "launches": main_launches["fused_attention_hs_blockq"],
+        "max_abs_err": bq_worst, "ms": bq_timing["ms"],
+        "plain_ms": bq_timing["plain_ms"], "bound_ms": bq_timing["bound_ms"],
+        "bound_by": bq_timing["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

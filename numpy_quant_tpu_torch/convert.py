@@ -14,6 +14,11 @@ with a per-channel or grouped scale, or unpacked), with no
         "quant_params": {value name: (scale, zero_point or None)},
     }
 
+Payloads are integer weights (1-8 bits) or 32-bit biases; the latter include the
+GPT causal LM's additive mask constant, which ``quantize`` stores as a
+32-bit bias clipped at -2^31 on the scores' scale, so the dequantized
+mask value (the fused kernels' ``causal_mask_val``) carries across too.
+
 A packed weight (the JAX package's ``PackedQTensor``, after its
 ``pack_weights()``) is given as ``{"layout": "splitk" or "bitplanes",
 "k": K, "n": N, "bit_width": b, "scale": ..., "payload": the packed

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel numpy_quant_tpu/kernels/attention.py::
 // fused_attention_hs (its monolithic grid: exact and fast variants,
-// out_requant on/off, narrow q). Per (batch row, head):
+// out_requant on/off, narrow q, the decoder causal mask and its
+// sliding-window band; not the score-bias operand). Per (batch row, head):
 //   scores = q @ k^T (int32, zero-point corrected) -> dequant * scaling
 //   -> softmax (f32) -> probs quantized to int8 -> probs @ v (int32,
 //   zero-point corrected) -> f32 out, or int8 out (out_requant).
@@ -31,7 +32,8 @@
 // tensor cores; wgmma and TMA are later work.
 //
 // Numerics: the exact variant (fast=0) keeps the JAX op order -- int32
-// corrections; s = f32(scores)*(sq*sk), then *scaling; max; expf(s-m);
+// corrections; s = f32(scores)*(sq*sk), then *scaling; + mask where key
+// j is not visible from row i (j > i, or j <= i - window); max; expf(s-m);
 // e/sum; rint(clip(p/sp + zp_p)). The fast variant folds log2(e) into
 // the dequant constant and uses exp2f, an optional static score_max
 // shift (clamped to [-120, 80], no max pass), drops the zk row term,
@@ -45,11 +47,12 @@
 #include <math.h>
 #include <stdint.h>
 
+// Shared with csrc/attention_hs_blockq.cu (``skip`` is that kernel's).
 struct HSParams {
   int B, nq, N, H, D, zq, zk, zv, zp_p, fast, static_shift, need_lo,
-      need_hi, out_int8, has_res_zp;
+      need_hi, out_int8, has_res_zp, causal, window, skip;
   float c_score, scaling, czq, base, sp, zp_pf, c_out, res_scale, res_zp,
-      qmin, qmax;
+      qmin, qmax, mask;
 };
 
 namespace {
@@ -176,6 +179,11 @@ __global__ void __launch_bounds__(kWarps * 32)
                                : p.base;
         s = __fadd_rn(__fmul_rn(__int2float_rn(acc), p.c_score), col);
       }
+      // decoder mask: the graph Add(scaled scores, mask constant), at its
+      // position in the op order (p.mask is pre-scaled by log2(e) on the
+      // fast path)
+      if (p.causal && !(j <= r && (p.window <= 0 || j > r - p.window)))
+        s = __fadd_rn(s, p.mask);
       e_row[j] = s;
       local_max = fmaxf(local_max, s);
     }

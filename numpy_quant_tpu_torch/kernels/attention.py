@@ -1,10 +1,11 @@
 """Fused int8 attention on the raw [B, N, H*D] Q/K/V projections.
 
-Port of ``numpy_quant_tpu/kernels/attention.py::fused_attention_hs``:
-per head, in one kernel launch,
+Port of ``numpy_quant_tpu/kernels/attention.py::fused_attention_hs`` and
+its blockwise grid ``_fused_attention_hs_blockq``: per head, in one
+kernel launch,
 
     scores  = q_i8 @ k_i8^T            (int32, zero-point corrected)
-    s       = dequant(scores) * scaling
+    s       = dequant(scores) * scaling [+ causal mask]
     probs   = softmax(s)               (f32)
     probs_q = quantize(probs)          (int8, the calibrated qparams)
     ctx     = probs_q @ v_i8           (int32, zero-point corrected)
@@ -14,11 +15,17 @@ per head, in one kernel launch,
 serving mode's ``fast=True`` folds log2(e) into the dequant constant,
 uses exp2, an optional static ``score_max`` shift, drops the
 softmax-invariant zk row term and elides provably dead clip bounds).
+``causal_mask_val`` adds a decoder's dequantized mask constant above the
+diagonal (outside the ``causal_window`` band, when one is given) at the
+graph Add's position.
 
-``fused_attention_hs`` launches the hand-written CUDA kernel
-(``csrc/attention_hs.cu``) on CUDA tensors and takes the plain PyTorch
-version ``fused_attention_hs_reference`` only for CPU tensors. Its
-``launches`` attribute counts kernel launches.
+``fused_attention_hs`` dispatches as the JAX wrapper does
+(:func:`blockwise`): long sequences go to ``fused_attention_hs_blockq``,
+the rest to the monolithic kernel. Each wrapper launches its
+hand-written CUDA kernel (``csrc/attention_hs.cu``,
+``csrc/attention_hs_blockq.cu``) on CUDA tensors, takes its plain PyTorch
+version only for CPU tensors, and counts its kernel launches in its
+``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -29,32 +36,53 @@ import torch
 
 from .build import load
 
-KERNEL_DIMS = (16, 32, 64, 128)  # head dims the kernel is built for
+KERNEL_DIMS = (16, 32, 64, 128)  # head dims the kernels are built for
 _MAX_SMEM = 232448              # bytes of shared memory a block may use
+# JAX's _BLOCKWISE_N: at round_up(N, 128) >= this the blockwise grid runs
+BLOCKWISE_N = 1024
+BLOCK_Q = 256  # q rows per tile of the blockwise plain version (JAX's default)
+# the blockwise kernel's centred int32 context sum is bounded by 255^2 * N
+MAX_BLOCKQ_N = 33000
 
 
 class _HSParams(ctypes.Structure):
-    """Mirror of ``HSParams`` in csrc/attention_hs.cu."""
+    """Mirror of ``HSParams`` in csrc/attention_hs.cu and
+    csrc/attention_hs_blockq.cu."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "B", "nq", "N", "H", "D", "zq", "zk", "zv", "zp_p", "fast",
-        "static_shift", "need_lo", "need_hi", "out_int8", "has_res_zp")] \
+        "static_shift", "need_lo", "need_hi", "out_int8", "has_res_zp",
+        "causal", "window", "skip")] \
         + [(name, ctypes.c_float) for name in (
             "c_score", "scaling", "czq", "base", "sp", "zp_pf", "c_out",
-            "res_scale", "res_zp", "qmin", "qmax")]
+            "res_scale", "res_zp", "qmin", "qmax", "mask")]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def blockwise(n: int, block_q: int | None) -> bool:
+    """True when a call with ``n`` keys runs the blockwise grid: a forced
+    ``block_q``, or at least BLOCKWISE_N keys once padded to 128 lanes
+    (JAX ``kernels/attention.py:432-446``, whose score-bias clause the
+    port does not have)."""
+    return block_q is not None or _round_up(n, 128) >= BLOCKWISE_N
 
 
 def _constants(*, scaling, sq, zq, sk, sv, sp, zp_p, bit_width,
-               out_requant, fast, score_max) -> dict:
+               out_requant, fast, score_max, causal_mask_val=None,
+               **_) -> dict:
     """The float32 constants of the kernel, computed with the same f32
-    operations as the JAX kernel (``_attention_hs_kernel``)."""
+    operations as the JAX kernel (``_attention_hs_kernel``). The
+    wrappers' other keyword arguments are ignored."""
     f32 = np.float32
     sq, sk, sv, sp, scaling = f32(sq), f32(sk), f32(sv), f32(sp), f32(scaling)
     qmin = -2.0 ** (bit_width - 1)
     qmax = 2.0 ** (bit_width - 1) - 1.0
     c = {"qmin": qmin, "qmax": qmax, "sp": sp, "zp_pf": f32(zp_p),
-         "scaling": scaling, "c_out": f32(sp * sv)}
+         "scaling": scaling, "c_out": f32(sp * sv), "mask": f32(0.0)}
+    log2e = f32(np.log2(np.e))
     if fast:
-        log2e = f32(np.log2(np.e))
         c2 = f32(f32(sq * sk) * scaling * log2e)
         c["c_score"] = c2
         c["czq"] = f32(f32(-zq) * c2)
@@ -71,6 +99,10 @@ def _constants(*, scaling, sq, zq, sk, sv, sp, zp_p, bit_width,
         c["base"] = f32(0.0)
         c["static_shift"] = False
         c["need_lo"] = c["need_hi"] = True
+    if causal_mask_val is not None:
+        # the fast path works in the exp2 domain: the mask scales by log2(e)
+        c["mask"] = f32(f32(causal_mask_val) * log2e) if fast \
+            else f32(causal_mask_val)
     c["res_scale"] = f32(1.0)
     c["res_zp"] = None
     if out_requant is not None:
@@ -95,18 +127,36 @@ def _divide(x: torch.Tensor, divisor) -> torch.Tensor:
                           device=x.device)
 
 
-def fused_attention_hs_reference(xq, xk, xv, *, num_heads: int,
-                                 scaling: float, sq: float, zq: int,
-                                 sk: float, zk: int, sv: float, zv: int,
-                                 sp: float, zp_p: int, bit_width: int = 8,
-                                 out_requant: tuple | None = None,
-                                 fast: bool = False,
-                                 score_max: float | None = None):
-    """Plain PyTorch version of the kernel, each head independent, in
-    the same op order as the JAX kernel's variant."""
+def _mask_add(rows: torch.Tensor, n: int, mask, causal_window):
+    """[rows, n] f32: 0 where key j is visible from query row i (j <= i,
+    and j > i - causal_window with a band), ``mask`` elsewhere."""
+    j = torch.arange(n, device=rows.device)[None, :]
+    i = rows[:, None]
+    visible = j <= i
+    if causal_window is not None:
+        visible = visible & (j > i - int(causal_window))
+    return torch.where(visible, torch.zeros((), device=rows.device),
+                       torch.full((), float(mask), device=rows.device))
+
+
+def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
+                                        scaling: float, sq: float, zq: int,
+                                        sk: float, zk: int, sv: float,
+                                        zv: int, sp: float, zp_p: int,
+                                        bit_width: int = 8,
+                                        out_requant: tuple | None = None,
+                                        fast: bool = False,
+                                        score_max: float | None = None,
+                                        causal_mask_val: float | None = None,
+                                        causal_window: int | None = None,
+                                        block_q: int | None = BLOCK_Q):
+    """Plain PyTorch version of the blockwise kernel: q rows in tiles of
+    ``block_q`` (all rows in one tile when None), each tile's full rows
+    in the JAX kernel's op order, so memory grows with block_q * N."""
     k = _constants(scaling=scaling, sq=sq, zq=zq, sk=sk, sv=sv, sp=sp,
                    zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
-                   fast=fast, score_max=score_max)
+                   fast=fast, score_max=score_max,
+                   causal_mask_val=causal_mask_val)
     b, nq, hd = xq.shape
     n = xk.shape[1]
     d = hd // num_heads
@@ -115,60 +165,99 @@ def fused_attention_hs_reference(xq, xk, xv, *, num_heads: int,
     def heads(x, rows):  # [B, rows, H*D] -> [B, H, rows, D] int32
         return x.reshape(b, rows, num_heads, d).permute(0, 2, 1, 3).to(i32)
 
-    q, kk, v = heads(xq, nq), heads(xk, n), heads(xv, n)
-    raw = _int_bmm(q, kk.transpose(-1, -2))  # [B, H, nq, N]
+    q_all, kk, v = heads(xq, nq), heads(xk, n), heads(xv, n)
     ksum = kk.sum(dim=-1, dtype=i32)[:, :, None, :]  # [B, H, 1, N]
-    if fast:
-        if zq != 0:
-            percol = ksum.to(torch.float32) * float(k["czq"]) + float(k["base"])
+    vsum = v.sum(dim=-2, keepdim=True, dtype=i32)   # [B, H, 1, D]
+    kt = kk.transpose(-1, -2)
+    tiles = []
+    step = max(1, nq if block_q is None else int(block_q))
+    for r0 in range(0, max(nq, 1), step):  # one (empty) tile when nq == 0
+        q = q_all[:, :, r0:r0 + step]
+        raw = _int_bmm(q, kt)  # [B, H, rows, N]
+        mask = None
+        if causal_mask_val is not None:
+            rows = torch.arange(r0, r0 + q.shape[2], device=raw.device)
+            mask = _mask_add(rows, n, k["mask"], causal_window)
+        if fast:
+            if zq != 0:
+                percol = ksum.to(torch.float32) * float(k["czq"]) \
+                    + float(k["base"])
+            else:
+                percol = torch.full((), float(k["base"]), device=raw.device)
+            s = raw.to(torch.float32) * float(k["c_score"]) + percol
+            if mask is not None:
+                s = s + mask
+            if k["static_shift"]:
+                e = torch.exp2(torch.clamp(s, -120.0, 80.0))
+            else:
+                e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+            r = torch.ones((), device=e.device) \
+                / (e.sum(dim=-1, keepdim=True) * float(k["sp"]))
+            pq = e * r + float(k["zp_pf"])
+            if k["need_lo"] or k["need_hi"]:
+                pq = torch.clamp(pq, k["qmin"] if k["need_lo"] else None,
+                                 k["qmax"] if k["need_hi"] else None)
+            pq = torch.round(pq).to(torch.int8)
         else:
-            percol = torch.full((), float(k["base"]), device=raw.device)
-        s = raw.to(torch.float32) * float(k["c_score"]) + percol
-        if k["static_shift"]:
-            e = torch.exp2(torch.clamp(s, -120.0, 80.0))
-        else:
-            e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-        r = torch.ones((), device=e.device) \
-            / (e.sum(dim=-1, keepdim=True) * float(k["sp"]))
-        pq = e * r + float(k["zp_pf"])
-        if k["need_lo"] or k["need_hi"]:
-            pq = torch.clamp(pq, k["qmin"] if k["need_lo"] else None,
-                             k["qmax"] if k["need_hi"] else None)
-        pq = torch.round(pq).to(torch.int8)
-    else:
-        scores = raw
-        if zk != 0:
-            scores = scores - q.sum(dim=-1, keepdim=True, dtype=i32) * zk
-        if zq != 0:
-            scores = scores - ksum * zq
-        if zq != 0 and zk != 0:
-            scores = scores + zq * zk * d
-        s = scores.to(torch.float32) * float(k["c_score"])
-        s = s * float(k["scaling"])
-        m = s.amax(dim=-1, keepdim=True)
-        e = torch.exp(s - m)
-        probs = e / e.sum(dim=-1, keepdim=True)
-        pq = torch.round(torch.clamp(_divide(probs, k["sp"]) + float(k["zp_pf"]),
-                                     k["qmin"], k["qmax"])).to(torch.int8)
+            scores = raw
+            if zk != 0:
+                scores = scores - q.sum(dim=-1, keepdim=True, dtype=i32) * zk
+            if zq != 0:
+                scores = scores - ksum * zq
+            if zq != 0 and zk != 0:
+                scores = scores + zq * zk * d
+            s = scores.to(torch.float32) * float(k["c_score"])
+            s = s * float(k["scaling"])
+            if mask is not None:
+                s = s + mask
+            m = s.amax(dim=-1, keepdim=True)
+            e = torch.exp(s - m)
+            probs = e / e.sum(dim=-1, keepdim=True)
+            pq = torch.round(torch.clamp(
+                _divide(probs, k["sp"]) + float(k["zp_pf"]),
+                k["qmin"], k["qmax"])).to(torch.int8)
 
-    p32 = pq.to(i32)
-    ctx = _int_bmm(p32, v)  # [B, H, nq, D]
-    if zv != 0:
-        ctx = ctx - p32.sum(dim=-1, keepdim=True, dtype=i32) * zv
-    if zp_p != 0:
-        ctx = ctx - v.sum(dim=-2, keepdim=True, dtype=i32) * zp_p
-    if zp_p != 0 and zv != 0:
-        ctx = ctx + zp_p * zv * n
-    y = ctx.to(torch.float32) * float(k["c_out"])
-    if out_requant is not None:
-        yq = y if fast else _divide(y, k["res_scale"])
-        if k["res_zp"] is not None:
-            yq = yq + float(k["res_zp"])
-        y = torch.round(torch.clamp(yq, k["qmin"], k["qmax"])).to(torch.int8)
+        p32 = pq.to(i32)
+        ctx = _int_bmm(p32, v)  # [B, H, rows, D]
+        if zv != 0:
+            ctx = ctx - p32.sum(dim=-1, keepdim=True, dtype=i32) * zv
+        if zp_p != 0:
+            ctx = ctx - vsum * zp_p
+        if zp_p != 0 and zv != 0:
+            ctx = ctx + zp_p * zv * n
+        y = ctx.to(torch.float32) * float(k["c_out"])
+        if out_requant is not None:
+            yq = y if fast else _divide(y, k["res_scale"])
+            if k["res_zp"] is not None:
+                yq = yq + float(k["res_zp"])
+            y = torch.round(torch.clamp(yq, k["qmin"], k["qmax"])) \
+                .to(torch.int8)
+        tiles.append(y)
+    y = torch.cat(tiles, dim=2) if len(tiles) > 1 else tiles[0]
     return y.permute(0, 2, 1, 3).reshape(b, nq, hd)
 
 
-def _check(xq, xk, xv, num_heads):
+def fused_attention_hs_reference(xq, xk, xv, *, num_heads: int,
+                                 scaling: float, sq: float, zq: int,
+                                 sk: float, zk: int, sv: float, zv: int,
+                                 sp: float, zp_p: int, bit_width: int = 8,
+                                 out_requant: tuple | None = None,
+                                 fast: bool = False,
+                                 score_max: float | None = None,
+                                 causal_mask_val: float | None = None,
+                                 causal_window: int | None = None):
+    """Plain PyTorch version of the monolithic kernel, each head
+    independent, in the same op order as the JAX kernel's variant: the
+    blockwise plain version with all rows in one tile."""
+    return fused_attention_hs_blockq_reference(
+        xq, xk, xv, num_heads=num_heads, scaling=scaling, sq=sq, zq=zq,
+        sk=sk, zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
+        out_requant=out_requant, fast=fast, score_max=score_max,
+        causal_mask_val=causal_mask_val, causal_window=causal_window,
+        block_q=None)
+
+
+def _check(xq, xk, xv, num_heads, causal_mask_val):
     for t in (xq, xk, xv):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int8:
             raise TypeError("fused_attention_hs takes int8 tensors")
@@ -184,79 +273,184 @@ def _check(xq, xk, xv, num_heads):
         raise ValueError(f"{nq} query rows exceed {xk.shape[1]} keys")
     if hd % num_heads:
         raise ValueError(f"H*D={hd} is not divisible by {num_heads} heads")
+    # a causal mask indexes q rows by absolute position (JAX asserts it)
+    if causal_mask_val is not None and nq != xk.shape[1]:
+        raise ValueError(f"a causal mask needs all {xk.shape[1]} query "
+                         f"rows, got {nq}")
+
+
+def _launch_checks(xq, xk, xv, num_heads, name):
+    """Device, head dim and layout checks before a kernel launch; returns
+    the head dim."""
+    if xq.device.type != "cuda":
+        raise ValueError(f"no {name} for device {xq.device}")
+    d = xq.shape[2] // num_heads
+    if d not in KERNEL_DIMS:
+        raise ValueError(f"head dim {d} not in {KERNEL_DIMS}")
+    for t in (xq, xk, xv):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs contiguous, 16-byte aligned "
+                             "tensors")
+    return d
+
+
+def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
+            skip: bool = False) -> torch.Tensor:
+    """Launch ``csrc/<name>.cu`` on the current stream with the wrapper's
+    keyword arguments ``kw`` and their constants ``c``; counts the launch
+    in ``wrapper.launches``."""
+    out = torch.empty(xq.shape, device=xq.device,
+                      dtype=torch.float32 if kw["out_requant"] is None
+                      else torch.int8)
+    if out.numel() == 0:
+        return out
+    b, nq, _ = xq.shape
+    window = kw["causal_window"]
+    p = _HSParams(
+        B=b, nq=nq, N=xk.shape[1], H=kw["num_heads"], D=d, zq=int(kw["zq"]),
+        zk=int(kw["zk"]), zv=int(kw["zv"]), zp_p=int(kw["zp_p"]),
+        fast=int(kw["fast"]), static_shift=int(c["static_shift"]),
+        need_lo=int(c["need_lo"]), need_hi=int(c["need_hi"]),
+        out_int8=int(kw["out_requant"] is not None),
+        has_res_zp=int(c["res_zp"] is not None),
+        causal=int(kw["causal_mask_val"] is not None),
+        window=0 if window is None else int(window), skip=int(skip),
+        c_score=c["c_score"], scaling=c["scaling"], czq=c["czq"],
+        base=c["base"], sp=c["sp"], zp_pf=c["zp_pf"], c_out=c["c_out"],
+        res_scale=c["res_scale"],
+        res_zp=0.0 if c["res_zp"] is None else c["res_zp"],
+        qmin=c["qmin"], qmax=c["qmax"], mask=c["mask"])
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    rc = getattr(_library(name), f"nq_{name}")(
+        xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), out.data_ptr(),
+        ctypes.byref(p), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+    return out
 
 
 def fused_attention_hs(xq, xk, xv, *, num_heads: int, scaling: float,
                        sq: float, zq: int, sk: float, zk: int, sv: float,
                        zv: int, sp: float, zp_p: int, bit_width: int = 8,
                        out_requant: tuple | None = None, fast: bool = False,
-                       score_max: float | None = None):
+                       score_max: float | None = None,
+                       causal_mask_val: float | None = None,
+                       causal_window: int | None = None,
+                       block_q: int | None = None):
     """xq [B, nq, H*D], xk/xv [B, N, H*D] int8 (nq <= N: narrow q runs
-    fewer query rows against full K/V). Returns [B, nq, H*D] float32, or
-    int8 with ``out_requant=(scale, zero_point)``.
+    fewer query rows against full K/V; a causal mask needs nq == N).
+    Returns [B, nq, H*D] float32, or int8 with
+    ``out_requant=(scale, zero_point)``.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    ``fused_attention_hs_reference``."""
-    _check(xq, xk, xv, num_heads)
+    Long sequences (see :func:`blockwise`) go to
+    :func:`fused_attention_hs_blockq`, the rest to
+    :func:`fused_attention_hs_monolithic`."""
+    _check(xq, xk, xv, num_heads, causal_mask_val)
     kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
               zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
-              out_requant=out_requant, fast=fast, score_max=score_max)
+              out_requant=out_requant, fast=fast, score_max=score_max,
+              causal_mask_val=causal_mask_val, causal_window=causal_window)
+    if blockwise(xk.shape[1], block_q):
+        return fused_attention_hs_blockq(xq, xk, xv, block_q=block_q or BLOCK_Q,
+                                         **kw)
+    return fused_attention_hs_monolithic(xq, xk, xv, **kw)
+
+
+fused_attention_hs.launches = 0  # launches of the monolithic kernel
+
+
+def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
+                                  scaling: float, sq: float, zq: int,
+                                  sk: float, zk: int, sv: float, zv: int,
+                                  sp: float, zp_p: int, bit_width: int = 8,
+                                  out_requant: tuple | None = None,
+                                  fast: bool = False,
+                                  score_max: float | None = None,
+                                  causal_mask_val: float | None = None,
+                                  causal_window: int | None = None):
+    """The monolithic kernel whatever N (up to its shared memory): CUDA
+    tensors launch ``csrc/attention_hs.cu`` (or raise), counted in
+    ``fused_attention_hs.launches``; CPU tensors take
+    ``fused_attention_hs_reference``."""
+    _check(xq, xk, xv, num_heads, causal_mask_val)
+    kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
+              zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
+              out_requant=out_requant, fast=fast, score_max=score_max,
+              causal_mask_val=causal_mask_val, causal_window=causal_window)
     if xq.device.type == "cpu":
         return fused_attention_hs_reference(xq, xk, xv, **kw)
-    if xq.device.type != "cuda":
-        raise ValueError(f"no fused_attention_hs for device {xq.device}")
-    b, nq, hd = xq.shape
     n = xk.shape[1]
-    d = hd // num_heads
-    if d not in KERNEL_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_DIMS}")
-    for t in (xq, xk, xv):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("fused_attention_hs needs contiguous, "
-                             "16-byte aligned tensors")
-    lib = _library()
-    if lib.nq_attention_hs_smem_bytes(n, d) > _MAX_SMEM:
+    d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs")
+    if _library("attention_hs").nq_attention_hs_smem_bytes(n, d) > _MAX_SMEM:
         raise ValueError(f"N={n} keys at head dim {d} exceed the shared "
                          "memory of one block")
-    c = _constants(scaling=scaling, sq=sq, zq=zq, sk=sk, sv=sv, sp=sp,
-                   zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
-                   fast=fast, score_max=score_max)
-    out = torch.empty((b, nq, hd), device=xq.device,
-                      dtype=torch.float32 if out_requant is None
-                      else torch.int8)
-    if out.numel() == 0:
-        return out
-    p = _HSParams(
-        B=b, nq=nq, N=n, H=num_heads, D=d, zq=int(zq), zk=int(zk),
-        zv=int(zv), zp_p=int(zp_p), fast=int(fast),
-        static_shift=int(c["static_shift"]), need_lo=int(c["need_lo"]),
-        need_hi=int(c["need_hi"]), out_int8=int(out_requant is not None),
-        has_res_zp=int(c["res_zp"] is not None),
-        c_score=c["c_score"], scaling=c["scaling"], czq=c["czq"],
-        base=c["base"], sp=c["sp"], zp_pf=c["zp_pf"], c_out=c["c_out"],
-        res_scale=c["res_scale"],
-        res_zp=0.0 if c["res_zp"] is None else c["res_zp"],
-        qmin=c["qmin"], qmax=c["qmax"])
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    rc = lib.nq_attention_hs(xq.data_ptr(), xk.data_ptr(), xv.data_ptr(),
-                             out.data_ptr(), ctypes.byref(p), stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_hs kernel launch failed: CUDA error {rc}")
-    fused_attention_hs.launches += 1
-    return out
+    return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d,
+                   _constants(**kw), kw)
 
 
-fused_attention_hs.launches = 0
+def _skip_masked_tiles(c: dict, d: int, fast: bool) -> bool:
+    """True when every masked score provably leaves nothing behind, so the
+    blockwise kernel may skip key tiles that are masked for all of its
+    rows: exp(s + mask - m) is exactly 0 (exact path), exp2 of it is 0
+    (fast path), or it clamps to 2^-120 (static shift, which the kernel
+    adds in closed form). |s| <= S = 255^2 * D * |score constant| +
+    |base| before the mask, so s_j - m <= 2S; a margin of 256 covers exp,
+    exp2 and the clamp with room for f32 rounding."""
+    scale = abs(float(c["c_score"])) * (1.0 if fast else abs(float(c["scaling"])))
+    bound = 255.0 * 255.0 * d * scale + abs(float(c["base"]))
+    return float(c["mask"]) < -(2.0 * bound + 256.0)
 
 
-def _library() -> ctypes.CDLL:
-    lib = load("attention_hs")
+def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
+                              sq: float, zq: int, sk: float, zk: int,
+                              sv: float, zv: int, sp: float, zp_p: int,
+                              bit_width: int = 8,
+                              out_requant: tuple | None = None,
+                              fast: bool = False,
+                              score_max: float | None = None,
+                              causal_mask_val: float | None = None,
+                              causal_window: int | None = None,
+                              block_q: int = BLOCK_Q):
+    """The blockwise form of :func:`fused_attention_hs` for long
+    sequences: the same function of the same operands. CUDA tensors
+    launch ``csrc/attention_hs_blockq.cu`` (or raise), which streams K/V
+    through shared memory in tiles, so N is bounded only by its int32
+    context sums (MAX_BLOCKQ_N); CPU tensors take
+    ``fused_attention_hs_blockq_reference`` with q tiles of ``block_q``
+    rows (the kernel's own tiles are fixed)."""
+    _check(xq, xk, xv, num_heads, causal_mask_val)
+    kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
+              zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
+              out_requant=out_requant, fast=fast, score_max=score_max,
+              causal_mask_val=causal_mask_val, causal_window=causal_window)
+    if xq.device.type == "cpu":
+        return fused_attention_hs_blockq_reference(xq, xk, xv,
+                                                   block_q=block_q, **kw)
+    d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs_blockq")
+    n = xk.shape[1]
+    if n > MAX_BLOCKQ_N:
+        raise ValueError(f"N={n} keys exceed {MAX_BLOCKQ_N}: the int32 "
+                         "context sum could overflow")
+    c = _constants(**kw)
+    skip = causal_mask_val is not None and _skip_masked_tiles(c, d, fast)
+    return _launch(fused_attention_hs_blockq, "attention_hs_blockq", xq, xk,
+                   xv, d, c, kw, skip=skip)
+
+
+fused_attention_hs_blockq.launches = 0
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = load(name)
     if not getattr(lib, "_nq_typed", False):
-        fn = lib.nq_attention_hs
+        fn = getattr(lib, f"nq_{name}")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_HSParams),
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.nq_attention_hs_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.nq_attention_hs_smem_bytes.restype = ctypes.c_longlong
+        if name == "attention_hs":
+            lib.nq_attention_hs_smem_bytes.argtypes = [ctypes.c_int,
+                                                       ctypes.c_int]
+            lib.nq_attention_hs_smem_bytes.restype = ctypes.c_longlong
         lib._nq_typed = True
     return lib

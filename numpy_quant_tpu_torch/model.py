@@ -567,12 +567,13 @@ class QModel(Model):
         return outputs
 
     def _finalize_output(self, tensor: Tensor):
+        if isinstance(tensor, QTensor):
+            # dequantizes to the float dtype, bf16 in the serving mode
+            tensor = tensor.dequantize()
         if isinstance(tensor, FTensor):
             data = tensor.data
             return data.to(torch.float32) if data.dtype == torch.bfloat16 \
                 else data
-        if isinstance(tensor, QTensor):
-            return tensor.dequantize().data
         raise ValueError(f"Unsupported output tensor {type(tensor)}")
 
     def fuse_attention(self) -> int:

@@ -1,6 +1,6 @@
 """ONNX operator implementations over the tensor layer (port of
 ``numpy_quant_tpu/ops/registry.py``), limited to the ops of the ViT
-classifier and GPT decode graphs, the two fused ops and weight-only
+classifier and GPT causal-LM and decode graphs, the two fused ops and weight-only
 MatMul/Gemm. Any other op raises ``NotImplementedError`` with its name."""
 from __future__ import annotations
 
@@ -40,17 +40,24 @@ def attention_call(inputs: list[Tensor], attrs: dict):
     """The kernel operands and keyword arguments of a FusedAttentionHS
     node: (q, k, v, kwargs, narrow_q). Narrow q (dead-token
     elimination) arrives rank-2 [B, H*D] and runs as one query row
-    against full K/V."""
-    if len(inputs) > 3 or attrs.get("causal_mask_val") is not None:
+    against full K/V. A decoder's causal mask (``causal_mask_val``, the
+    dequantized mask constant, and the band ``causal_window``) is added
+    inside the kernel."""
+    if len(inputs) > 3:
         raise NotImplementedError(
-            "FusedAttentionHS with a score bias or causal mask is not ported")
+            "FusedAttentionHS with a score bias is not ported")
     xq, xk, xv = inputs[0], inputs[1], inputs[2]
     assert isinstance(xq, QTensor) and isinstance(xk, QTensor) \
         and isinstance(xv, QTensor)
     narrow_q = xq.data.ndim == 2
     qdata = xq.data[:, None, :] if narrow_q else xq.data
     score_max = attrs.get("score_max")
+    causal_mask_val = attrs.get("causal_mask_val")
+    causal_window = attrs.get("causal_window")
     kwargs = dict(
+        causal_mask_val=None if causal_mask_val is None
+        else float(causal_mask_val),
+        causal_window=None if causal_window is None else int(causal_window),
         num_heads=int(attrs["num_heads"]),
         # bf16 serving mode takes the fewer-passes softmax; f32 the
         # executor-exact one
@@ -71,8 +78,9 @@ def attention_call(inputs: list[Tensor], attrs: dict):
 
 def _fused_attention_hs(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     """The whole quantized attention block in one kernel launch
-    (kernels/attention.py::fused_attention_hs) on the raw [B, N, H*D]
-    Q/K/V projection outputs."""
+    (kernels/attention.py::fused_attention_hs, which hands long
+    sequences to the blockwise kernel) on the raw [B, N, H*D] Q/K/V
+    projection outputs."""
     from ..kernels.attention import fused_attention_hs
 
     q, k, v, kwargs, narrow_q = attention_call(inputs, attrs)

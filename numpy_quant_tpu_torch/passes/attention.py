@@ -1,17 +1,22 @@
-"""Attention fusion pass: MatMul -> scale -> Softmax -> MatMul chains,
-with the standard multi-head split/merge around them, become one
-FusedAttentionHS node backed by the hand-written CUDA kernel
+"""Attention fusion pass: MatMul -> scale -> [causal mask] -> Softmax ->
+MatMul chains, with the standard multi-head split/merge around them,
+become one FusedAttentionHS node backed by the hand-written CUDA kernels
 (kernels/attention.py). Port of ``numpy_quant_tpu/passes/attention.py``
-for the chains the port's kernel covers: no causal mask, no score bias,
-no pre-split [BH, N, D] form.
+for the chains the port's kernels cover: no mask, or the decoder's
+additive causal mask (full or sliding-window band), applied in the
+kernel at the graph Add's position. A general score-bias constant (T5
+relative bias, ALiBi) and the pre-split [BH, N, D] form are not ported:
+such chains stay unfused and are recorded as fusion failures.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..graph import Constant, Node
+from ..tensor import FTensor, QTensor
 from .toolkit import (
     consumers as _consumers,
+    dequant_const_array,
     host_array,
     perm_is,
     producer_map,
@@ -48,7 +53,18 @@ def fuse_attention(model) -> int:
         if int(sm.attrs.get("axis", -1)) != -1:
             fail(sm, f"softmax axis {sm.attrs.get('axis')} != -1")
             continue
-        scale_val = sm.inputs[0]
+        # optional additive causal mask (decoder graphs): the Softmax
+        # input may be Add(scaled scores, triangular const); the kernel
+        # adds the same value itself
+        mask_node, mask_val = _match_causal_mask(producer, sm.inputs[0])
+        if mask_node is None \
+                and _match_score_bias(producer, sm.inputs[0]) is not None:
+            fail(sm, "score-bias constant before Softmax: the score-bias "
+                 "form of FusedAttentionHS is not ported")
+            continue
+        scale_val = sm.inputs[0] if mask_node is None else \
+            mask_node.inputs[1 if isinstance(mask_node.inputs[0], Constant)
+                             else 0]
         mul = producer.get(scale_val.name)
         if mul is not None and mul.op == "MatMul":
             # exporter pre-scaled q (or k): scores feed softmax
@@ -83,6 +99,8 @@ def fuse_attention(model) -> int:
         chain_vals = [mm1.outputs[0]]
         if mul is not None:
             chain_vals.append(mul.outputs[0])
+        if mask_node is not None:
+            chain_vals.append(mask_node.outputs[0])
         if any(len(consumers(v)) != 1 for v in chain_vals):
             fail(sm, "scores/probabilities have consumers outside "
                  "the attention chain")
@@ -92,10 +110,17 @@ def fuse_attention(model) -> int:
                  "probs_scale": float(np.float32(probs_qp.scale)),
                  "probs_zero_point": 0 if probs_qp.zero_point is None
                  else int(probs_qp.zero_point)}
+        if mask_node is not None:
+            attrs["causal_mask_val"] = mask_val[0]
+            if mask_val[1] is not None:
+                # banded (sliding-window) causal mask
+                attrs["causal_window"] = mask_val[1]
         # calibrated max of the softmax INPUT: the fast serving kernel
-        # uses it as a STATIC exp2 shift instead of the per-row max
-        # pass (softmax is shift-invariant; a clamp keeps scores beyond
-        # the calibrated range finite)
+        # uses it as a STATIC exp2 shift instead of the per-row max pass
+        # (softmax is shift-invariant; a clamp keeps scores beyond the
+        # calibrated range finite). For causal graphs it is the max of
+        # the PRE-mask scores: the masked value's range is dominated by
+        # the large negative mask entries.
         sm_in_qp = model.quant_params.get(scale_val.name)
         if sm_in_qp is not None and sm_in_qp.zero_point is not None \
                 and getattr(sm_in_qp.scale, "ndim", 0) == 0:
@@ -120,7 +145,7 @@ def fuse_attention(model) -> int:
         for dn in dead:
             if dn in model.nodes:
                 model.nodes.remove(dn)
-        for dn in (mm1, mul, sm):
+        for dn in (mm1, mul, mask_node, sm):
             if dn is not None:
                 model.nodes.remove(dn)
         fused += 1
@@ -129,6 +154,67 @@ def fuse_attention(model) -> int:
             + ("FusedAttentionHS",)
     model.fusion_report["fused"] = fused
     return fused
+
+
+def _match_causal_mask(producer, value):
+    """Match ``Add(x, C)`` feeding a Softmax where C dequantizes to a
+    causal additive mask: 0 on a (possibly BANDED) region at or below
+    the diagonal, ONE large negative value everywhere else -- the
+    decoder-exporter idiom (models/gpt.py), including Mistral-style
+    sliding windows. Returns (add_node, (mask_value, window)) --
+    mask_value is the EXECUTOR-exact dequantized constant and window the
+    band width (None = full causal), so the fused kernel's add is
+    bit-identical to the unfused graph's -- or (None, None)."""
+    node = producer.get(value.name)
+    if node is None or node.op != "Add":
+        return None, None
+    consts = [v for v in node.inputs if isinstance(v, Constant)]
+    if len(consts) != 1 or consts[0].data is None:
+        return None, None
+    arr = dequant_const_array(consts[0])
+    if arr is None:
+        return None, None
+    if arr.ndim < 2 or arr.shape[-1] != arr.shape[-2] \
+            or any(s != 1 for s in arr.shape[:-2]):
+        return None, None
+    m = arr.reshape(arr.shape[-2], arr.shape[-1])
+    n = m.shape[0]
+    # band width from the last row's visible run (full causal = n)
+    window = int((m[n - 1] == 0).sum())
+    if window == 0:
+        return None, None
+    i, j = np.indices(m.shape)
+    visible = (j <= i) & (j > i - window)
+    if not (m[visible] == 0).all():
+        return None, None
+    masked = m[~visible]
+    if masked.size == 0:
+        return None, None  # window == n == 1: nothing to fuse on
+    if not (masked == masked[0]).all() or not masked[0] < -1e4:
+        return None, None
+    return node, (float(masked[0]), None if window >= n else window)
+
+
+def _match_score_bias(producer, value):
+    """The constant of ``Add(x, C)`` feeding a Softmax where C is a
+    general additive score bias the causal matcher did not claim (T5
+    relative position bias, ALiBi slopes, document masks): a float or
+    quantized constant of rank >= 2 that broadcasts over the batch dim.
+    The JAX package fuses it as a kernel operand; the port records the
+    chain as not fused. Returns the constant value or None."""
+    node = producer.get(value.name)
+    if node is None or node.op != "Add":
+        return None
+    consts = [v for v in node.inputs if isinstance(v, Constant)]
+    if len(consts) != 1 or consts[0].data is None:
+        return None
+    d = consts[0].data
+    if not isinstance(d, (QTensor, FTensor)):
+        return None
+    shape = tuple(d.data.shape)
+    if len(shape) < 2 or any(s != 1 for s in shape[:-3]):
+        return None
+    return consts[0]
 
 
 def _match_attention_hs(model, mm1, mm2, producer):

@@ -1,6 +1,7 @@
 """Shared graph-matching toolkit for the optimization passes: a
-name->producer map, a consumer scan, and scalar-constant extraction that
-sees through the PTQ pass's quantization of exporter scalars. The passes
+name->producer map, a consumer scan, and constant extraction (scalars and
+whole arrays) that sees through the PTQ pass's quantization of exporter
+constants. The passes
 operate on the port's own IR (``graph.py``).
 """
 from __future__ import annotations
@@ -53,6 +54,19 @@ def consumers(model, value) -> list[Node]:
 def perm_is(node: Node, perm: tuple) -> bool:
     """True if a Transpose node's ``perm`` attribute equals ``perm``."""
     return tuple(int(p) for p in node.attrs.get("perm", ())) == perm
+
+
+def dequant_const_array(value) -> np.ndarray | None:
+    """A Constant value's payload as the float array the executor sees
+    (dequantized if the PTQ pass quantized it), or None."""
+    if not isinstance(value, Constant) or value.data is None:
+        return None
+    d = value.data
+    if isinstance(d, QTensor):
+        return host_array(d.dequantize().data)
+    if isinstance(d, FTensor):
+        return host_array(d.data)
+    return None
 
 
 def scalar_const(produced: dict, value) -> float | None:
