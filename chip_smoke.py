@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's int8 ViT-Base, weight-only GPT-2 decode and
-int8 GPT-2 full-context scoring paths on one NVIDIA GPU.
+"""Drive the PyTorch port's int8 ViT-Base, weight-only GPT-2 decode, int8
+GPT-2 full-context scoring and int8 TinyLlama-1.1B scoring paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -60,7 +61,28 @@ Phases, one line each (any failure raises and the script exits non-zero):
      monolithic one never and agree with the unfused forward (logits
      within LOGIT_TOL, argmax wherever the top-1 margin is clear of it);
      the bf16 mode; tokens scored per second (median of 5 forwards per
-     mode, in turns); one profiled bf16 forward; peak device memory.
+     mode, in turns); one profiled bf16 forward; peak device memory;
+ 10. the pre-split attention kernel fused_attention against its plain
+     version in 441 variants (zero points all nonzero, all zero and each
+     alone zero; out_requant off, on, on without res_zp; mask none, causal,
+     window 6 and 512; N = 50, 197, 1000, 1024, 2048; head dims 16-128; odd
+     BH; a mask too small to skip tiles), with 0 flipped blocks required
+     where the kernel sums rows in torch's order, which torch's own CUDA
+     sum must still take; then at the TinyLlama scoring shape (B=4 x 32
+     heads, N=2048, D=64, causal, int8 out): against its plain version (0
+     flips), and timed beside its bound and its plain version;
+ 11. the int8 TinyLlama-1.1B scoring path at full width and depth: random
+     weights (seed 0) -> llama_causal_lm(B=4, seq 2048) -> Model.from_onnx
+     -> calibration on 2 sequences -> quantize(int8) -> unfused B=1 forward
+     in f32 and bf16 -> optimize() (22 FusedAttention plain fusions, 0
+     FusedAttentionHS, no failures) -> fused B=1 forward (22 launches,
+     logits within LOGIT_TOL of the unfused ones, argmax equal where the
+     margin clears it) -> fused B=1 bf16 forward (22 launches, the kernel
+     equal to its plain version on its operands; its distance from f32
+     beside the unfused bf16 walk's) -> fused B=4 forward (22 launches; row
+     0 against the B=1 forward) -> bf16; tokens/s
+     (median of 5 forwards per mode, in turns); one profiled bf16 forward;
+     peak device memory of the unfused B=1 and fused B=4 forwards.
 The last three lines are the kernels JSON line, the card's name and power
 limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
 """
@@ -128,6 +150,8 @@ MONO_N, MONO_WINDOW = (197, 256), 64
 # GPT-2 scoring (phase 9): batch GPT_B at the full context
 GPT_SEQ = 1024
 SCORE_REPS = 5  # timed forwards per mode, in turns
+# TinyLlama-1.1B scoring (phases 10-11): batch LLAMA_B at the full context
+LLAMA_B, LLAMA_SEQ = 4, 2048
 
 
 def say(phase: str, **fields) -> None:
@@ -286,23 +310,32 @@ def attention_flips(qmodel, x) -> tuple[int, int]:
     import torch
     from numpy_quant_tpu_torch.graph import Variable
     from numpy_quant_tpu_torch.kernels import attention as A
-    from numpy_quant_tpu_torch.ops.registry import attention_call
+    from numpy_quant_tpu_torch.ops.registry import (attention_call,
+                                                    plain_attention_call)
     qmodel([x], record=True, as_numpy=False)
     recorded = {v.name: v.data for v in qmodel.values if v.data is not None}
     flips = blocks = 0
     for node in qmodel.nodes:
-        if node.op != "FusedAttentionHS":
+        if node.op not in ("FusedAttentionHS", "FusedAttention"):
             continue
         # the operands as the executor hands them to the op (quantized)
-        q, k, v, kw, _ = attention_call(qmodel._node_inputs(node, recorded),
-                                        node.attrs)
-        got = A.fused_attention_hs(q, k, v, **kw)
-        plain = A.fused_attention_hs_blockq_reference \
-            if A.blockwise(k.shape[1], None) else A.fused_attention_hs_reference
-        want = plain(q, k, v, **kw)
+        ins = qmodel._node_inputs(node, recorded)
+        if node.op == "FusedAttention":
+            q, kt, v, kw = plain_attention_call(ins, node.attrs)
+            got = A.fused_attention(q, kt, v, **kw)
+            want = A.fused_attention_reference(q, kt, v, **kw)
+            heads = 1  # one (row, head) block per row of [BH, N, D]
+        else:
+            q, k, v, kw, _ = attention_call(ins, node.attrs)
+            got = A.fused_attention_hs(q, k, v, **kw)
+            plain = A.fused_attention_hs_blockq_reference \
+                if A.blockwise(k.shape[1], None) \
+                else A.fused_attention_hs_reference
+            want = plain(q, k, v, **kw)
+            heads = kw["num_heads"]
         diff = (got.double() - want.double()).abs()
         b, nq, hd = got.shape
-        per_block = diff.reshape(b, nq, kw["num_heads"], -1).amax(dim=-1)
+        per_block = diff.reshape(b, nq, heads, -1).amax(dim=-1)
         flips += int((per_block > 0).sum())
         blocks += per_block.numel()
     torch.cuda.synchronize()
@@ -449,7 +482,7 @@ def counted(fn):
     from numpy_quant_tpu_torch import kernels as K
     counters = {name: getattr(K, name) for name in (
         "fused_attention_hs", "fused_attention_hs_blockq", "splitk_qmatmul",
-        "packed_qmatmul", "splitk_wo_matmul")}
+        "packed_qmatmul", "splitk_wo_matmul", "fused_attention")}
     for f in counters.values():
         f.launches = 0
     out = fn()
@@ -918,6 +951,127 @@ def time_blockq(name: str) -> dict:
     return res["serving"]
 
 
+def plain_inputs(bh: int, n: int, d: int, seed: int):
+    """Random int8 q [BH, N, D], kt [BH, D, N] and v [BH, N, D] on the
+    card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.integers(-128, 128, size=(bh, n, d))
+                                .astype(np.int8)).cuda() for _ in range(3))
+    return q, k.transpose(1, 2).contiguous(), v
+
+
+def check_plain() -> tuple[float, int, int]:
+    """Phase 10: fused_attention against its plain version in every
+    variant: zero points (all nonzero, all zero, and each of zq, zk, zv,
+    zp_p alone zero), out_requant off / on / on without res_zp, mask none /
+    causal / window 6 / window 512, at N = 50, 197 (byte loads of k^T,
+    ragged key tiles), 1000, 1024 and 2048 (word loads), head dims 16, 32,
+    64 and 128, odd BH, and a mask too small to skip tiles. Returns (the
+    largest |difference| on f32 out, flipped (row, head) blocks, blocks)."""
+    import itertools
+    from numpy_quant_tpu_torch.kernels import attention as A
+    zps = {"nonzero": QP, "zero": QP_ZERO}
+    for name in ("zq", "zk", "zv", "zp_p"):
+        zps[f"{name}=0"] = dict(QP, **{name: 0})
+    rqs = {"off": None, "on": OUT_REQUANT, "on_no_zp": (OUT_REQUANT[0], None)}
+    masks = {"none": (None, None), "causal": (MASK_VAL, None),
+             "window6": (MASK_VAL, 6), "window512": (MASK_VAL, 512)}
+    worst, all_flips, all_blocks, seed = 0.0, 0, 0, 2000
+
+    def run(bh, n, d, qp, rq, mask, window, label):
+        nonlocal seed, worst, all_flips, all_blocks
+        seed += 1
+        q, kt, v = plain_inputs(bh, n, d, seed)
+        kw = dict(qp, out_requant=rq, causal_mask_val=mask,
+                  causal_window=window)
+        flips, blocks, err = attention_diff(
+            A.fused_attention(q, kt, v, **kw),
+            A.fused_attention_reference(q, kt, v, **kw), 1, rq, qp, label)
+        if rq is None:
+            worst = max(worst, err)
+        all_flips += flips
+        all_blocks += blocks
+        return flips, blocks, err if rq is None else 0.0
+
+    def summary(shape, n, cases, res):
+        flips = sum(r[0] for r in res)
+        say("kernel-check", kernel="fused_attention", shape=shape,
+            cases=cases, variants=len(res),
+            flipped_blocks=f"{flips}/{sum(r[1] for r in res)}",
+            max_abs_err_f32_out=max(r[2] for r in res))
+        # where the kernel sums rows in torch's order it equals the plain
+        # version bit for bit
+        if in_torch_order(n):
+            assert flips == 0, f"{shape}: {flips} flipped blocks in torch order"
+
+    # the kernel's row sums follow torch's CUDA order; a torch that sums in
+    # another order would bring flips back into the unfused comparison
+    torch_order = A.torch_sums_in_kernel_order("cuda")
+    say("kernel-check", kernel="fused_attention",
+        torch_sums_in_kernel_order=torch_order)
+    assert torch_order, "torch's CUDA sum no longer takes the kernel's order"
+    for bh, n in ((5, 50), (5, 197), (3, 1024), (3, 2048)):
+        res = [run(bh, n, HEAD_DIM, zps[z], rqs[r], *masks[m],
+                   f"plain BH{bh} N{n} zp={z} rq={r} mask={m}")
+               for z, r, m in itertools.product(zps, rqs, masks)]
+        summary(f"BH{bh}xN{n}xD{HEAD_DIM}", n,
+                "zp_6_forms:rq_off/on/on_no_zp:mask_none/causal/window6/512",
+                res)
+    for d, (bh, n) in itertools.product((16, 32, 128), ((7, 197), (3, 1000))):
+        res = [run(bh, n, d, zps[z], rqs[r], *masks[m],
+                   f"plain D{d} BH{bh} N{n} zp={z} rq={r} mask={m}")
+               for z, r, m in itertools.product(("nonzero", "zero"), rqs,
+                                                masks)]
+        summary(f"BH{bh}xN{n}xD{d}", n, "zp_nonzero/zero:rq:mask", res)
+    res = [run(3, 1024, HEAD_DIM, QP, rqs[r], NOSKIP_MASK, w,
+               f"plain noskip rq={r} window={w}")
+           for r, w in itertools.product(rqs, (None, 6, 512))]
+    summary(f"BH3xN1024xD{HEAD_DIM}", 1024, "mask_-2000_no_skip:rq:causal/window",
+            res)
+    return worst, all_flips, all_blocks
+
+
+def in_torch_order(n: int) -> bool:
+    """True at key counts where csrc/attention_plain.cu sums softmax rows in
+    torch's order, so that it equals its plain version bit for bit."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    return A.TORCH_ORDER_N[0] <= n < A.TORCH_ORDER_N[1] and n % 4 == 0
+
+
+def time_plain(name: str) -> dict:
+    """fused_attention at the TinyLlama scoring shape (B=4 x 32 heads,
+    N=2048, D=64, causal, int8 out): held against its plain version (no
+    flip: N is in torch's order), then kernel and plain version timed
+    (median of 20 CUDA-event calls) beside the bound of the visible
+    half."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    rates = peaks(name)
+    bh, n, d = LLAMA_B * 32, LLAMA_SEQ, 64
+    q, kt, v = plain_inputs(bh, n, d, seed=99)
+    kw = dict(QP, out_requant=OUT_REQUANT, causal_mask_val=MASK_VAL)
+    flips, blocks, _ = attention_diff(
+        A.fused_attention(q, kt, v, **kw),
+        A.fused_attention_reference(q, kt, v, **kw), 1, OUT_REQUANT, QP,
+        f"plain BH{bh} N{n} timing shape")
+    say("kernel-check", kernel="fused_attention", shape=f"BH{bh}xN{n}xD{d}",
+        cases="timing_shape:causal:rq_on", flipped_blocks=f"{flips}/{blocks}")
+    assert not in_torch_order(n) or flips == 0, (flips, blocks)
+    ms = cuda_ms(lambda: A.fused_attention(q, kt, v, **kw))
+    plain_ms = cuda_ms(lambda: A.fused_attention_reference(q, kt, v, **kw))
+    nbytes = 4 * q.numel()  # q, kt, v read once; int8 out written once
+    ops = 2 * 2 * bh * (n * (n + 1) // 2) * d
+    t_bytes, t_ops = nbytes / rates["bytes"] * 1e3, ops / rates["int8"] * 1e3
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    say("kernel-time", kernel="fused_attention", form="exact",
+        shape=f"BH{bh}xN{n}xD{d}", causal=True, out="int8", ms=ms,
+        plain_ms=plain_ms, bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+        bytes=nbytes, ops=ops, library="none", card=name.replace(" ", "_"))
+    return res
+
+
 def scoring_phase(card: str) -> dict:
     """Phase 9: returns the launch counts of the f32 fused forward."""
     import numpy as np
@@ -969,25 +1123,16 @@ def scoring_phase(card: str) -> dict:
     # orders, so a few probabilities round one step apart; the logits must
     # stay within LOGIT_TOL * max|logit| and the argmax equal wherever the
     # unfused top-1 margin exceeds that.
-    scale = float(unfused.abs().max())
-    diff = float((fused - unfused).abs().max())
-    top2 = unfused.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL * scale
-    same = fused.argmax(-1) == unfused.argmax(-1)
+    parity = logit_parity(fused, unfused)
     flips, blocks = attention_flips(qmodel, embeds)
     say("scoring-f32", batch=GPT_B, seq=GPT_SEQ,
         blockq_launches=counts["fused_attention_hs_blockq"],
         monolithic_launches=counts["fused_attention_hs"],
-        argmax_equal=f"{int(same.sum())}/{same.numel()}",
-        argmax_equal_clear_margin=f"{int(same[clear].sum())}/{int(clear.sum())}",
-        max_abs_diff=diff, max_abs_logit=scale,
-        attention_flipped_blocks=f"{flips}/{blocks}")
+        attention_flipped_blocks=f"{flips}/{blocks}", **parity)
     assert counts["fused_attention_hs_blockq"] == 12, counts
     assert sum(counts.values()) == 12, counts
-    assert diff <= LOGIT_TOL * scale, (diff, scale)
-    assert bool(same[clear].all()), "fused and unfused argmax differ"
     assert flips <= 0.01 * blocks, (flips, blocks)
-    del unfused, top2, clear, same
+    del unfused
 
     with config.low_precision_floats():
         torch.cuda.reset_peak_memory_stats()
@@ -1005,17 +1150,7 @@ def scoring_phase(card: str) -> dict:
     assert sum(bf_counts.values()) == 12, bf_counts
     del bf, fused
 
-    modes = {"f32": contextlib.nullcontext, "bf16": config.low_precision_floats}
-    seconds = {m: [] for m in modes}
-    for rep in range(SCORE_REPS):
-        for m in (list(modes) if rep % 2 == 0 else list(modes)[::-1]):
-            with modes[m]():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                forward()
-                torch.cuda.synchronize()
-                seconds[m].append(time.perf_counter() - t0)
-    for m, runs in seconds.items():
+    for m, runs in forward_seconds(forward, SCORE_REPS).items():
         wall = statistics.median(runs)
         say("scoring-throughput", dtype=m, batch=GPT_B, seq=GPT_SEQ,
             tokens_per_s=GPT_B * GPT_SEQ / wall, ms_per_forward=wall * 1e3,
@@ -1023,8 +1158,35 @@ def scoring_phase(card: str) -> dict:
             card=card.replace(" ", "_"))
     say("scoring-memory", peak_unfused_f32_bytes=peak_unfused,
         peak_fused_f32_bytes=peak_fused, peak_fused_bf16_bytes=peak_bf16)
+    say("scoring-profile", **bf16_profile(forward))
+    return counts
 
+
+def forward_seconds(forward, reps: int) -> dict:
+    """Wall seconds of ``reps`` forwards in f32 and in bf16, the modes taken
+    in turns, each timed from a synchronize to a synchronize."""
+    import torch
+    from numpy_quant_tpu_torch import config
+    modes = {"f32": contextlib.nullcontext, "bf16": config.low_precision_floats}
+    seconds = {m: [] for m in modes}
+    for rep in range(reps):
+        for m in (list(modes) if rep % 2 == 0 else list(modes)[::-1]):
+            with modes[m]():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward()
+                torch.cuda.synchronize()
+                seconds[m].append(time.perf_counter() - t0)
+    return seconds
+
+
+def bf16_profile(forward) -> dict:
+    """One profiled bf16 forward beside one unprofiled: device busy time,
+    its share of the unprofiled wall, device kernels, the top five by
+    device time. Raises if the profiler saw no device time."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+    from numpy_quant_tpu_torch import config
     with config.low_precision_floats():
         forward()
         torch.cuda.synchronize()
@@ -1041,12 +1203,169 @@ def scoring_phase(card: str) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    say("scoring-profile", dtype="bf16", wall_ms_unprofiled=wall_ms,
-        device_busy_ms=busy, busy_share=busy / wall_ms,
-        device_kernels=int(sum(r[2] for r in rows)),
-        top5=";".join(f"{k[:48].replace(' ', '_')}:{ms:.3f}ms:x{c}"
-                      for k, ms, c in rows[:5]))
     assert busy > 0, "the profiler saw no device time"
+    return dict(dtype="bf16", wall_ms_unprofiled=wall_ms, device_busy_ms=busy,
+                busy_share=busy / wall_ms,
+                device_kernels=int(sum(r[2] for r in rows)),
+                top5=";".join(f"{k[:48].replace(' ', '_')}:{ms:.3f}ms:x{c}"
+                              for k, ms, c in rows[:5]))
+
+
+def logit_parity(got, want) -> dict:
+    """Fused against unfused logits: max |difference|, max |logit| and the
+    argmax agreement overall and where the unfused top-1 margin clears
+    LOGIT_TOL * max|logit|. Raises unless the difference stays within that
+    and the argmax is equal wherever the margin clears it."""
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL * scale
+    same = got.argmax(-1) == want.argmax(-1)
+    res = dict(max_abs_diff=diff, max_abs_logit=scale,
+               argmax_equal=f"{int(same.sum())}/{same.numel()}",
+               argmax_equal_clear_margin=f"{int(same[clear].sum())}/"
+                                         f"{int(clear.sum())}")
+    assert diff <= LOGIT_TOL * scale, (diff, scale)
+    assert bool(same[clear].all()), "fused and unfused argmax differ"
+    return res
+
+
+def llama_phase(card: str) -> dict:
+    """Phase 11: TinyLlama-1.1B int8 scoring at full width and depth.
+    Returns the launch counts of the f32 fused forward at B=4."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    llama_causal_lm,
+                                                    random_llama_weights)
+    cfg, n = TINYLLAMA_1_1B, LLAMA_SEQ
+    layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
+    t0 = time.perf_counter()
+    proto = llama_causal_lm(random_llama_weights(cfg, seed=0), cfg,
+                            batch_size=LLAMA_B, seq_len=n)
+    model = Model.from_onnx(proto)
+    wte = proto._wte
+    del proto
+    rng = np.random.default_rng(0)
+    # token embeddings of seeded random ids: 2 calibration sequences, then
+    # the scored batch
+    calib = wte[rng.integers(0, vocab, size=(2, n))]
+    embeds = torch.from_numpy(
+        wte[rng.integers(0, vocab, size=(LLAMA_B, n))]).cuda()
+    t_build = time.perf_counter() - t0
+    qmodel = model.quantize(bit_width=8,
+                            stats=model.calibration_stats([calib]))
+    del model, calib
+    say("llama-setup", seconds=time.perf_counter() - t0,
+        build_seconds=t_build, nodes=len(qmodel.nodes), device=qmodel.device)
+
+    def forward(x=embeds):
+        return qmodel([x], as_numpy=False)[0]
+
+    one = embeds[:1]
+    torch.cuda.reset_peak_memory_stats()
+    unfused = forward(one)
+    peak_unfused = torch.cuda.max_memory_allocated()
+    # the unfused walk in the bf16 serving mode: a second witness for that
+    # mode's distance from f32, with no fused op in it
+    with config.low_precision_floats():
+        unfused_bf = forward(one)
+    report = qmodel.optimize()
+    plain = qmodel.fusion_report.get("plain_fusions", [])
+    fnodes = [nd for nd in qmodel.nodes if nd.op == "FusedAttention"]
+    hs = [nd for nd in qmodel.nodes if nd.op == "FusedAttentionHS"]
+    say("llama-optimize", fuse_attention=report["fuse_attention"],
+        fused_attention_nodes=len(fnodes), hs_nodes=len(hs),
+        plain_fusions=len(plain), int8_dataflow=report["int8_dataflow"],
+        fusion_failures=len(report["fusion_failures"]),
+        out_requant=sum(nd.attrs.get("out_requant") is not None
+                        for nd in fnodes),
+        causal_mask_vals=",".join(f"{nd.attrs.get('causal_mask_val'):.6g}"
+                                  for nd in fnodes[:3]) + ",...")
+    assert report["fuse_attention"] == layers and not report["fusion_failures"]
+    assert len(fnodes) == layers and not hs and len(plain) == layers
+    assert all(nd.attrs.get("causal_mask_val") is not None
+               and "causal_window" not in nd.attrs for nd in fnodes)
+
+    fused_one, counts_one = counted(lambda: forward(one))
+    assert fused_one.shape == (1, n, vocab) and bool(fused_one.isfinite().all())
+    flips, blocks = attention_flips(qmodel, one)
+    say("llama-f32-b1", batch=1, seq=n,
+        fused_attention_launches=counts_one["fused_attention"],
+        attention_flipped_blocks=f"{flips}/{blocks}",
+        fused_equals_unfused_bitwise=bool(torch.equal(fused_one, unfused)),
+        **logit_parity(fused_one, unfused))
+    assert counts_one["fused_attention"] == layers, counts_one
+    assert sum(counts_one.values()) == layers, counts_one
+    assert flips <= 0.01 * blocks, (flips, blocks)
+
+    # bf16 at B=1: the kernel is exact in both modes, so it must equal its
+    # plain version on the bf16 walk's operands too. The unfused bf16 walk
+    # takes its softmax in bf16, so it need not equal the fused one; how
+    # far each bf16 walk lands from its f32 walk is printed side by side.
+    with config.low_precision_floats():
+        fused_bf, counts_bf1 = counted(lambda: forward(one))
+        flips_bf, blocks_bf = attention_flips(qmodel, one)
+    assert bool(fused_bf.isfinite().all()) and bool(unfused_bf.isfinite().all())
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    say("llama-bf16-b1", batch=1, seq=n,
+        fused_attention_launches=counts_bf1["fused_attention"],
+        attention_flipped_blocks=f"{flips_bf}/{blocks_bf}",
+        fused_equals_unfused_bitwise=bool(torch.equal(fused_bf, unfused_bf)),
+        fused_vs_unfused_max_abs_diff=float((fused_bf - unfused_bf).abs().max()),
+        fused_vs_unfused_argmax=agree(fused_bf, unfused_bf),
+        fused_vs_f32_argmax=agree(fused_bf, fused_one),
+        unfused_vs_f32_argmax=agree(unfused_bf, unfused),
+        fused_vs_f32_max_abs_diff=float((fused_bf - fused_one).abs().max()),
+        unfused_vs_f32_max_abs_diff=float((unfused_bf - unfused).abs().max()))
+    assert counts_bf1["fused_attention"] == layers, counts_bf1
+    assert sum(counts_bf1.values()) == layers, counts_bf1
+    assert not in_torch_order(n) or flips_bf == 0, (flips_bf, blocks_bf)
+    del unfused, unfused_bf, fused_bf
+
+    # the main path: the fused f32 forward at B=4
+    torch.cuda.reset_peak_memory_stats()
+    fused, counts = counted(forward)
+    peak_fused = torch.cuda.max_memory_allocated()
+    assert fused.shape == (LLAMA_B, n, vocab) and bool(fused.isfinite().all())
+    # the graph built for B=4 serves B=1 alike (every reshape copies the
+    # batch dim; the RoPE tables and the mask broadcast over it)
+    b1 = logit_parity(fused[:1], fused_one)
+    say("llama-f32-b4", batch=LLAMA_B, seq=n,
+        fused_attention_launches=counts["fused_attention"],
+        other_kernel_launches=sum(counts.values()) - counts["fused_attention"],
+        row0_equals_b1_bitwise=bool(torch.equal(fused[:1], fused_one)),
+        row0_vs_b1_max_abs_diff=b1["max_abs_diff"],
+        row0_vs_b1_argmax=b1["argmax_equal"])
+    assert counts["fused_attention"] == layers, counts
+    assert sum(counts.values()) == layers, counts
+    del fused_one
+
+    with config.low_precision_floats():
+        bf, bf_counts = counted(forward)
+    assert bf.shape == fused.shape and bf.dtype == torch.float32
+    assert bool(bf.isfinite().all())
+    say("llama-bf16-b4", batch=LLAMA_B, seq=n,
+        fused_attention_launches=bf_counts["fused_attention"],
+        argmax_agreement_f32=float((bf.argmax(-1) == fused.argmax(-1))
+                                   .float().mean()),
+        max_abs_diff_f32=float((bf - fused).abs().max()))
+    assert bf_counts["fused_attention"] == layers, bf_counts
+    assert sum(bf_counts.values()) == layers, bf_counts
+    del bf, fused
+
+    for m, runs in forward_seconds(forward, SCORE_REPS).items():
+        wall = statistics.median(runs)
+        say("llama-throughput", dtype=m, batch=LLAMA_B, seq=n,
+            tokens_per_s=LLAMA_B * n / wall, ms_per_forward=wall * 1e3,
+            ms_runs=",".join(f"{r * 1e3:.2f}" for r in runs),
+            card=card.replace(" ", "_"))
+    say("llama-memory", peak_unfused_f32_b1_bytes=peak_unfused,
+        peak_fused_f32_b4_bytes=peak_fused)
+    say("llama-profile", batch=LLAMA_B, **bf16_profile(forward))
     return counts
 
 
@@ -1209,6 +1528,18 @@ def main() -> int:
     score_counts = scoring_phase(card)
     main_launches["fused_attention_hs_blockq"] = \
         score_counts["fused_attention_hs_blockq"]
+
+    # -- phase 10: the pre-split attention kernel ---------------------
+    plain_worst, plain_flips, plain_blocks = check_plain()
+    say("kernel-check", kernel="fused_attention", scope="phase_10_total",
+        flipped_blocks=f"{plain_flips}/{plain_blocks}",
+        flipped_share=plain_flips / plain_blocks, max_abs_err_f32_out=plain_worst)
+    assert plain_flips <= 0.001 * plain_blocks, (plain_flips, plain_blocks)
+    plain_timing = time_plain(name)
+
+    # -- phase 11: TinyLlama-1.1B int8 scoring at full context --------
+    llama_counts = llama_phase(card)
+    main_launches["fused_attention"] = llama_counts["fused_attention"]
     say("done", seconds=time.perf_counter() - t_start)
 
     rows = [{
@@ -1246,6 +1577,15 @@ def main() -> int:
         "max_abs_err": bq_worst, "ms": bq_timing["ms"],
         "plain_ms": bq_timing["plain_ms"], "bound_ms": bq_timing["bound_ms"],
         "bound_by": bq_timing["bound_by"], "library_ms": None})
+    rows.append({
+        "name": "fused_attention", "route": "cuda",
+        "source": "numpy_quant_tpu_torch/csrc/attention_plain.cu",
+        "replaces": "numpy_quant_tpu/kernels/attention.py:724",
+        "launches": main_launches["fused_attention"],
+        "max_abs_err": plain_worst, "ms": plain_timing["ms"],
+        "plain_ms": plain_timing["plain_ms"],
+        "bound_ms": plain_timing["bound_ms"],
+        "bound_by": plain_timing["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,11 @@ with a per-channel or grouped scale, or unpacked), with no
     }
 
 Payloads are integer weights (1-8 bits) or 32-bit biases; the latter include the
-GPT causal LM's additive mask constant, which ``quantize`` stores as a
-32-bit bias clipped at -2^31 on the scores' scale, so the dequantized
-mask value (the fused kernels' ``causal_mask_val``) carries across too.
+GPT and LLaMA causal LMs' additive mask constants, which ``quantize`` stores
+as 32-bit biases clipped at -2^31 on the scores' scale, so the dequantized
+mask value (the fused kernels' ``causal_mask_val``) carries across too. The
+LLaMA graph's RMSNorm weights and RoPE tables are 8-bit constants like any
+weight.
 
 A packed weight (the JAX package's ``PackedQTensor``, after its
 ``pack_weights()``) is given as ``{"layout": "splitk" or "bitplanes",

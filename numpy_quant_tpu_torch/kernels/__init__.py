@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (taken for CPU tensors) and a count of its launches."""
 from .attention import (
+    fused_attention,
     fused_attention_hs,
     fused_attention_hs_blockq,
     fused_attention_hs_blockq_reference,
     fused_attention_hs_reference,
+    fused_attention_reference,
 )
 from .qmatmul import (
     packed_qmatmul,
@@ -15,9 +17,11 @@ from .qmatmul import (
     splitk_wo_matmul_reference,
 )
 
-__all__ = ["fused_attention_hs", "fused_attention_hs_blockq",
+__all__ = ["fused_attention", "fused_attention_hs",
+           "fused_attention_hs_blockq",
            "fused_attention_hs_blockq_reference",
-           "fused_attention_hs_reference", "packed_qmatmul",
+           "fused_attention_hs_reference", "fused_attention_reference",
+           "packed_qmatmul",
            "packed_qmatmul_reference", "splitk_qmatmul",
            "splitk_qmatmul_reference", "splitk_wo_matmul",
            "splitk_wo_matmul_reference"]

@@ -1,8 +1,10 @@
-"""Fused int8 attention on the raw [B, N, H*D] Q/K/V projections.
+"""Fused int8 attention on the raw [B, N, H*D] Q/K/V projections, and on
+pre-split [BH, N, D] heads.
 
-Port of ``numpy_quant_tpu/kernels/attention.py::fused_attention_hs`` and
-its blockwise grid ``_fused_attention_hs_blockq``: per head, in one
-kernel launch,
+Port of ``numpy_quant_tpu/kernels/attention.py::fused_attention_hs``, its
+blockwise grid ``_fused_attention_hs_blockq``, and ``fused_attention`` (q
+[BH, N, D], k^T [BH, D, N], v [BH, N, D]; exact f32 only): per head, in
+one kernel launch,
 
     scores  = q_i8 @ k_i8^T            (int32, zero-point corrected)
     s       = dequant(scores) * scaling [+ causal mask]
@@ -21,9 +23,10 @@ graph Add's position.
 
 ``fused_attention_hs`` dispatches as the JAX wrapper does
 (:func:`blockwise`): long sequences go to ``fused_attention_hs_blockq``,
-the rest to the monolithic kernel. Each wrapper launches its
-hand-written CUDA kernel (``csrc/attention_hs.cu``,
-``csrc/attention_hs_blockq.cu``) on CUDA tensors, takes its plain PyTorch
+the rest to the monolithic kernel. ``fused_attention`` runs one kernel at
+any N. Each wrapper launches its hand-written CUDA kernel
+(``csrc/attention_hs.cu``, ``csrc/attention_hs_blockq.cu``,
+``csrc/attention_plain.cu``) on CUDA tensors, takes its plain PyTorch
 version only for CPU tensors, and counts its kernel launches in its
 ``launches`` attribute.
 """
@@ -43,6 +46,16 @@ BLOCKWISE_N = 1024
 BLOCK_Q = 256  # q rows per tile of the blockwise plain version (JAX's default)
 # the blockwise kernel's centred int32 context sum is bounded by 255^2 * N
 MAX_BLOCKQ_N = 33000
+
+
+class _PlainParams(ctypes.Structure):
+    """Mirror of ``PlainParams`` in csrc/attention_plain.cu."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "BH", "N", "D", "zq", "zk", "zv", "zp_p", "out_int8", "has_res_zp",
+        "causal", "window", "skip")] \
+        + [(name, ctypes.c_float) for name in (
+            "c_score", "scaling", "sp", "zp_pf", "c_out", "res_scale",
+            "res_zp", "qmin", "qmax", "mask")]
 
 
 class _HSParams(ctypes.Structure):
@@ -321,7 +334,7 @@ def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
         res_zp=0.0 if c["res_zp"] is None else c["res_zp"],
         qmin=c["qmin"], qmax=c["qmax"], mask=c["mask"])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
-    rc = getattr(_library(name), f"nq_{name}")(
+    rc = getattr(_library(name, _HSParams), f"nq_{name}")(
         xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), out.data_ptr(),
         ctypes.byref(p), stream)
     if rc != 0:
@@ -382,7 +395,8 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
         return fused_attention_hs_reference(xq, xk, xv, **kw)
     n = xk.shape[1]
     d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs")
-    if _library("attention_hs").nq_attention_hs_smem_bytes(n, d) > _MAX_SMEM:
+    if _library("attention_hs", _HSParams).nq_attention_hs_smem_bytes(n, d) \
+            > _MAX_SMEM:
         raise ValueError(f"N={n} keys at head dim {d} exceed the shared "
                          "memory of one block")
     return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d,
@@ -441,11 +455,195 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
 fused_attention_hs_blockq.launches = 0
 
 
-def _library(name: str) -> ctypes.CDLL:
+# -- the pre-split form: q [BH, N, D], kt [BH, D, N], v [BH, N, D] ---------
+
+# key counts at which torch's CUDA sum over a contiguous last dim (with
+# N % 4 == 0) takes the order csrc/attention_plain.cu sums softmax rows in:
+# one warp per row, 4-vector loads into 4 accumulators per lane, then a
+# shfl_down lane tree with offsets 16..1 (ATen Reduce.cuh)
+TORCH_ORDER_N = (128, 8192)
+
+
+def _torch_order_sum(x: np.ndarray) -> np.ndarray:
+    """The row sums of x [rows, N] in the kernel's order (torch's CUDA
+    order for N in TORCH_ORDER_N), replayed in float32 on the host: 128
+    strided partial sums, ((a0 + a1) + a2) + a3 per lane of 32, then the
+    lane tree with offsets 16..1."""
+    rows, n = x.shape
+    part = np.zeros((rows, 128), np.float32)
+    for k in range(0, n, 128):
+        chunk = x[:, k:k + 128]
+        part[:, :chunk.shape[1]] += chunk
+    lanes = part.reshape(rows, 32, 4)
+    v = ((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2]) + lanes[..., 3]
+    while v.shape[1] > 1:
+        half = v.shape[1] // 2
+        v = v[:, :half] + v[:, half:]
+    return v[:, 0]
+
+
+def torch_sums_in_kernel_order(device) -> bool:
+    """True when torch's sum over the last dim on ``device`` adds in the
+    order the kernel's softmax row sums take (seeded rows of 1024, summed
+    there and replayed on the host). The kernel equals the unfused
+    executor bit for bit only while this holds; a torch whose reduction
+    order changed makes it False."""
+    x = np.random.default_rng(0).random((64, 1024), dtype=np.float32)
+    got = torch.from_numpy(x).to(device).sum(dim=-1).cpu().numpy()
+    return bool(np.array_equal(got, _torch_order_sum(x)))
+
+
+def fused_attention_reference(q, kt, v, *, scaling: float, sq: float,
+                              zq: int, sk: float, zk: int, sv: float,
+                              zv: int, sp: float, zp_p: int,
+                              bit_width: int = 8,
+                              out_requant: tuple | None = None,
+                              causal_mask_val: float | None = None,
+                              causal_window: int | None = None,
+                              block_q: int | None = None):
+    """Plain PyTorch version of :func:`fused_attention`, in the op order of
+    JAX's ``_attention_kernel`` over the real keys (the TPU's pad keys add
+    nothing: their score is -inf, so their quantized probability is zp_p,
+    and v's pad rows hold zv). q rows run in tiles of ``block_q`` rows
+    (default: JAX's 256-row tiles at N >= 1024, else one tile); rows are
+    independent, so the tiling changes no bit."""
+    c = _constants(scaling=scaling, sq=sq, zq=zq, sk=sk, sv=sv, sp=sp,
+                   zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
+                   fast=False, score_max=None,
+                   causal_mask_val=causal_mask_val)
+    bh, n, d = q.shape
+    i32 = torch.int32
+    qi, kti, vi = q.to(i32), kt.to(i32), v.to(i32)
+    ksum = kti.sum(dim=1, keepdim=True, dtype=i32)  # [BH, 1, N]
+    vsum = vi.sum(dim=1, keepdim=True, dtype=i32)   # [BH, 1, D]
+    if block_q is None:
+        block_q = BLOCK_Q if blockwise(n, None) else n
+    step = max(1, int(block_q))
+    tiles = []
+    for r0 in range(0, max(n, 1), step):  # one (empty) tile when n == 0
+        qt = qi[:, r0:r0 + step]
+        scores = _int_bmm(qt, kti)  # [BH, rows, N]
+        corr = None
+        if zk != 0:
+            corr = qt.sum(dim=-1, keepdim=True, dtype=i32) * zk
+        if zq != 0:
+            t = ksum * zq
+            corr = t if corr is None else corr + t
+        if zq != 0 and zk != 0:
+            corr = corr - zq * zk * d
+        if corr is not None:
+            scores = scores - corr
+        s = scores.to(torch.float32) * float(c["c_score"])
+        s = s * float(c["scaling"])
+        if causal_mask_val is not None:
+            rows = torch.arange(r0, r0 + qt.shape[1], device=s.device)
+            s = s + _mask_add(rows, n, c["mask"], causal_window)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        probs = e / e.sum(dim=-1, keepdim=True)
+        pq = torch.round(torch.clamp(
+            _divide(probs, c["sp"]) + float(c["zp_pf"]),
+            c["qmin"], c["qmax"])).to(i32)
+        ctx = _int_bmm(pq, vi)  # [BH, rows, D]
+        if zv != 0:
+            ctx = ctx - pq.sum(dim=-1, keepdim=True, dtype=i32) * zv
+        if zp_p != 0:
+            ctx = ctx - vsum * zp_p
+        if zp_p != 0 and zv != 0:
+            ctx = ctx + zp_p * zv * n
+        y = ctx.to(torch.float32) * float(c["c_out"])
+        if out_requant is not None:
+            yq = _divide(y, c["res_scale"])
+            if c["res_zp"] is not None:
+                yq = yq + float(c["res_zp"])
+            y = torch.round(torch.clamp(yq, c["qmin"], c["qmax"])) \
+                .to(torch.int8)
+        tiles.append(y)
+    return torch.cat(tiles, dim=1) if len(tiles) > 1 else tiles[0]
+
+
+def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
+                    sk: float, zk: int, sv: float, zv: int, sp: float,
+                    zp_p: int, bit_width: int = 8,
+                    out_requant: tuple | None = None,
+                    causal_mask_val: float | None = None,
+                    causal_window: int | None = None):
+    """Pre-split int8 attention: q [BH, N, D], kt [BH, D, N] (keys
+    transposed), v [BH, N, D], all int8. Returns [BH, N, D] float32, or
+    int8 with ``out_requant=(scale, zero_point)``. Exact f32 only (JAX's
+    ``fused_attention`` has no fast form). CUDA tensors launch
+    ``csrc/attention_plain.cu`` (or raise), counted in
+    ``fused_attention.launches``; CPU tensors take
+    ``fused_attention_reference``. The kernel sums each softmax row in
+    torch's CUDA order (:func:`torch_sums_in_kernel_order`), so for N in
+    TORCH_ORDER_N (N % 4 == 0) it equals the unfused executor bit for
+    bit."""
+    for t in (q, kt, v):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int8:
+            raise TypeError("fused_attention takes int8 tensors")
+        if t.ndim != 3:
+            raise ValueError(f"expected rank-3 tensors, got {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError("q, kt and v must lie on one device")
+    bh, n, d = q.shape
+    if tuple(kt.shape) != (bh, d, n) or tuple(v.shape) != (bh, n, d):
+        raise ValueError(f"shapes q {tuple(q.shape)}, kt {tuple(kt.shape)}, "
+                         f"v {tuple(v.shape)} are not [BH, N, D], [BH, D, N], "
+                         "[BH, N, D]")
+    kw = dict(scaling=scaling, sq=sq, zq=zq, sk=sk, zk=zk, sv=sv, zv=zv,
+              sp=sp, zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
+              causal_mask_val=causal_mask_val, causal_window=causal_window)
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, kt, v, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"no fused_attention for device {q.device}")
+    if d not in KERNEL_DIMS:
+        raise ValueError(f"head dim {d} not in {KERNEL_DIMS}")
+    if n > MAX_BLOCKQ_N:
+        raise ValueError(f"N={n} keys exceed {MAX_BLOCKQ_N}: the int32 "
+                         "context sum could overflow")
+    for t in (q, kt, v):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("fused_attention needs contiguous, 16-byte "
+                             "aligned tensors")
+    out = torch.empty(q.shape, device=q.device,
+                      dtype=torch.float32 if out_requant is None
+                      else torch.int8)
+    if out.numel() == 0:
+        return out
+    c = _constants(fast=False, score_max=None, **kw)
+    p = _PlainParams(
+        BH=bh, N=n, D=d, zq=int(zq), zk=int(zk), zv=int(zv), zp_p=int(zp_p),
+        out_int8=int(out_requant is not None),
+        has_res_zp=int(c["res_zp"] is not None),
+        causal=int(causal_mask_val is not None),
+        window=0 if causal_window is None else int(causal_window),
+        skip=int(causal_mask_val is not None
+                 and _skip_masked_tiles(c, d, False)),
+        c_score=c["c_score"], scaling=c["scaling"], sp=c["sp"],
+        zp_pf=c["zp_pf"], c_out=c["c_out"], res_scale=c["res_scale"],
+        res_zp=0.0 if c["res_zp"] is None else c["res_zp"],
+        qmin=c["qmin"], qmax=c["qmax"], mask=c["mask"])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _library("attention_plain", _PlainParams).nq_attention_plain(
+        q.data_ptr(), kt.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ctypes.byref(p), stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_plain kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0
+
+
+def _library(name: str, params: type[ctypes.Structure]) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded, its ``nq_<name>`` entry typed
+    to take ``params`` by pointer."""
     lib = load(name)
     if not getattr(lib, "_nq_typed", False):
         fn = getattr(lib, f"nq_{name}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_HSParams),
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(params),
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
         if name == "attention_hs":

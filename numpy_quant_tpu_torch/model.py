@@ -2,7 +2,9 @@
 (port of ``numpy_quant_tpu/model.py``).
 
 The forward is an eager walk over the graph's nodes on the model's
-device; JAX's one-jitted-program lowering has no counterpart here.
+device that frees each value after its last consumer (as XLA frees the
+buffers of JAX's one compiled program); JAX's one-jitted-program lowering
+has no counterpart here.
 ``QModel`` quantizes float inputs of the integer ops on the fly,
 dequantizes quantized inputs of every other op, requantizes Gemm/Conv
 outputs and dequantizes quantized graph outputs -- the reference
@@ -100,14 +102,42 @@ class Model:
     def _post_node(self, node: Node, outputs: list[Tensor]) -> list[Tensor]:
         return outputs
 
+    def _last_uses(self) -> dict[int, list[str]]:
+        """{node index: names of the values whose last consumer it is}:
+        every value but the graph outputs, and a value no node consumes
+        at the node that produces it."""
+        keep = {o.name for o in self.outputs}
+        last: dict[str, int] = {}
+        for i, node in enumerate(self.nodes):
+            for v in node.inputs:
+                if v is not None:
+                    last[v.name] = i
+            for o in node.outputs:
+                last.setdefault(o.name, i)
+        by_node: dict[int, list[str]] = {}
+        for name, i in last.items():
+            if name not in keep:
+                by_node.setdefault(i, []).append(name)
+        return by_node
+
     def _forward(self, input_tensors: dict[str, Tensor],
-                 record: bool = False) -> dict[str, Tensor]:
+                 record: bool = False, visit=None) -> dict[str, Tensor]:
+        """Walk the nodes; returns the live values by name. Each value is
+        dropped after its last consumer (graph outputs are kept), as the
+        JAX package's compiled program frees each buffer, unless
+        ``record`` stores every value in ``value.data``. ``visit(name,
+        tensor)`` sees every value once, as it is made (constants and
+        inputs first)."""
         data: dict[str, Tensor] = {}
         for value in self.values:
             if isinstance(value, Constant):
                 data[value.name] = self._wrap_constant(value)
         data.update(input_tensors)
-        for node in self.nodes:
+        if visit is not None:
+            for name, tensor in data.items():
+                visit(name, tensor)
+        last_uses = {} if record else self._last_uses()
+        for i, node in enumerate(self.nodes):
             ins = self._node_inputs(node, data)
             outs = onnx_operator_implementation(node.op, ins, node.attrs,
                                                 device=self.device)
@@ -116,6 +146,11 @@ class Model:
                 data[o.name] = tensor
                 if record:
                     o.data = tensor
+                if visit is not None:
+                    visit(o.name, tensor)
+            ins = outs = None
+            for name in last_uses.get(i, ()):
+                data.pop(name, None)
         if record:
             for variable in self.inputs:
                 variable.data = input_tensors.get(variable.name, variable.data)
@@ -160,10 +195,14 @@ class Model:
         input_tensors = {
             v.name: self._wrap_input(torch.zeros(h, device=self.device), v)
             for v, h in zip(self.inputs, hints)}
+        shapes = {}
+
+        def visit(name, tensor):
+            shapes[name] = tuple(int(s) for s in tensor.data.shape)
+
         with torch.inference_mode():
-            data = self._forward(input_tensors)
-        return {name: tuple(int(s) for s in t.data.shape)
-                for name, t in data.items()}
+            self._forward(input_tensors, visit=visit)
+        return shapes
 
     # ------------------------------------------------------------------
     # Calibration + PTQ pass
@@ -172,19 +211,27 @@ class Model:
     @torch.inference_mode()
     def calibration_stats(self, inputs: list) -> dict:
         """Global min/max per value name (constants included), from one
-        eager forward."""
+        eager forward. Each value folds to its (min, max) as it is made, so
+        the walk frees it after its last use; the device extremes cross to
+        the host once, at the end."""
         input_tensors = {v.name: self._wrap_input(a, v)
                          for a, v in zip(inputs, self.inputs)}
-        data = self._forward(input_tensors)
-        stats = {}
-        for name, tensor in data.items():
+        stats, device = {}, {}
+
+        def visit(name, tensor):
             if isinstance(tensor, ITensor):
                 stats[name] = (np.float32(tensor.data.min()),
                                np.float32(tensor.data.max()))
             else:
                 d = tensor.data.to(torch.float32)
-                stats[name] = (np.float32(d.min().item()),
-                               np.float32(d.max().item()))
+                stats[name] = None  # filled below, in the walk's order
+                device[name] = torch.stack([d.min(), d.max()])
+
+        self._forward(input_tensors, visit=visit)
+        if device:
+            extremes = torch.stack(list(device.values())).cpu().numpy()
+            for name, (mn, mx) in zip(device, extremes):
+                stats[name] = (np.float32(mn), np.float32(mx))
         return stats
 
     @torch.inference_mode()
@@ -515,8 +562,8 @@ class QModel(Model):
                     t = quantize_tensor(t, self.bit_width, qp.scale, qp.zero_point)
                 elif (isinstance(t, QTensor)
                       and t.bit_width != self.bit_width
-                      and (idx < 2 or (idx == 2
-                                       and node.op == "FusedAttentionHS"))):
+                      and (idx < 2 or (idx == 2 and node.op in (
+                          "FusedAttention", "FusedAttentionHS")))):
                     # a 4x-width accumulator OPERAND (never a bias)
                     # requantizes with this value's calibrated params
                     qp = self.quant_params[v.name]
@@ -578,7 +625,8 @@ class QModel(Model):
 
     def fuse_attention(self) -> int:
         """Fuse MatMul -> scale -> Softmax -> MatMul chains with their
-        head split/merge into FusedAttentionHS nodes. See
+        head split/merge into FusedAttentionHS nodes, or (where the split
+        does not match) the core alone into FusedAttention nodes. See
         passes/attention.py."""
         from .passes import fuse_attention
         return fuse_attention(self)

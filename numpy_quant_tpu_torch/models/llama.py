@@ -1,0 +1,276 @@
+"""LLaMA-style causal decoder ONNX graphs (RMSNorm + RoPE + SwiGLU +
+grouped-query attention), built from numpy weights.
+
+Port of ``numpy_quant_tpu/models/llama.py::llama_causal_lm``: the same
+nodes, value names, attributes, inputs and outputs, emitted from a state
+dict in HuggingFace's ``LlamaForCausalLM`` key names
+(``model.layers.{i}.self_attn.q_proj.weight``, ...) instead of a live
+``transformers`` module:
+
+* RMSNorm        -> Mul/ReduceMean/Add(eps)/Sqrt/Div/Mul(weight) nodes
+* Linear, no bias -> MatMul against the transposed weight
+* RoPE            -> cos/sin initializers [1, 1, N, head_dim] at the graph's
+                     fixed length, applied with the Slice/Neg/Concat
+                     rotate_half idiom
+* repeat_kv (GQA) -> Unsqueeze/Expand/Reshape
+* SwiGLU          -> down(gate * Sigmoid(gate) * up)
+* LM head         -> MatMul with lm_head^T (not tied)
+
+An optional ``sliding_window`` config key bands the causal mask
+(Mistral-style attention), as ``mistral_causal_lm`` does in the JAX
+package. The graph takes float ``inputs_embeds`` [batch, seq, hidden]; the
+token embedding is a host gather from ``_wte``, which rides on the
+returned proto. The decode and prefill forms are not ported.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import onnx as O
+from ..onnx.builder import GraphBuilder
+from .vit import _f32
+
+# TinyLlama-1.1B (huggingface.co/TinyLlama/
+# TinyLlama-1.1B-intermediate-step-1431k-3T/config.json): LLaMA-2
+# architecture with grouped-query attention, 8 query heads per KV head
+TINYLLAMA_1_1B = {
+    "vocab_size": 32000, "hidden_size": 2048, "intermediate_size": 5632,
+    "num_hidden_layers": 22, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "max_position_embeddings": 2048,
+    "rms_norm_eps": 1e-5, "rope_theta": 10000.0, "initializer_range": 0.02,
+    "tie_word_embeddings": False,
+}
+
+
+def _cfg(config: dict) -> dict:
+    cfg = dict(TINYLLAMA_1_1B, **config)
+    cfg.setdefault("head_dim",
+                   int(cfg["hidden_size"]) // int(cfg["num_attention_heads"]))
+    if cfg.get("tie_word_embeddings"):
+        raise ValueError("tied LM heads are not built: the graph reads "
+                         "lm_head.weight")
+    return cfg
+
+
+def _rms_norm(g: GraphBuilder, x: str, weight: np.ndarray, eps: float,
+              name: str) -> str:
+    """LlamaRMSNorm: x / sqrt(mean(x^2, -1) + eps) * weight."""
+    sq = g.node("Mul", [x, x], out=f"{name}/Sq_out")
+    var = g.node("ReduceMean", [sq], out=f"{name}/Var_out", axes=[-1],
+                 keepdims=1)
+    e = g.const(np.array(np.float32(eps), dtype=np.float32), "rmseps")
+    ve = g.node("Add", [var, e], out=f"{name}/AddEps_out")
+    std = g.node("Sqrt", [ve], out=f"{name}/Sqrt_out")
+    normed = g.node("Div", [x, std], out=f"{name}/Div_out")
+    w = g.init(f"{name}.weight", _f32(weight))
+    return g.node("Mul", [normed, w], out=f"{name}/Mul_out")
+
+
+def _matmul_w(g: GraphBuilder, x: str, weight: np.ndarray, name: str) -> str:
+    """torch Linear without bias (weight [out, in]): one MatMul against
+    the transposed weight."""
+    w = g.init(f"{name}.weight_t", np.ascontiguousarray(_f32(weight).T))
+    return g.node("MatMul", [x, w], out=f"{name}/MatMul_out")
+
+
+def _rotate_half(g: GraphBuilder, t: str, head_dim: int, name: str) -> str:
+    """rotate_half(x) = concat(-x[..., d/2:], x[..., :d/2])."""
+    z = g.const(np.array([0], dtype=np.int64), "rh_zero")
+    h = g.const(np.array([head_dim // 2], dtype=np.int64), "rh_half")
+    d = g.const(np.array([head_dim], dtype=np.int64), "rh_full")
+    ax = g.const(np.array([-1], dtype=np.int64), "rh_axis")
+    lo = g.node("Slice", [t, z, h, ax], out=f"{name}/lo")
+    hi = g.node("Slice", [t, h, d, ax], out=f"{name}/hi")
+    neg = g.node("Neg", [hi], out=f"{name}/neg_hi")
+    return g.node("Concat", [neg, lo], out=f"{name}/rotated", axis=-1)
+
+
+def _apply_rope(g: GraphBuilder, t: str, cos: str, sin: str, head_dim: int,
+                name: str) -> str:
+    """t*cos + rotate_half(t)*sin on [B, heads, N, head_dim] (cos/sin
+    broadcast from [1, 1, N, head_dim])."""
+    tc = g.node("Mul", [t, cos], out=f"{name}/cos_mul")
+    rot = _rotate_half(g, t, head_dim, name)
+    ts = g.node("Mul", [rot, sin], out=f"{name}/sin_mul")
+    return g.node("Add", [tc, ts], out=f"{name}/roped")
+
+
+def _repeat_kv(g: GraphBuilder, t: str, n_kv: int, n_rep: int, seq: int,
+               head_dim: int, name: str) -> str:
+    """HF repeat_kv: [B, n_kv, N, D] -> [B, n_kv*n_rep, N, D] by
+    interleaved repetition (Unsqueeze + Expand + Reshape)."""
+    if n_rep == 1:
+        return t
+    ax2 = g.const(np.array([2], dtype=np.int64), "rkv_axes2")
+    u = g.node("Unsqueeze", [t, ax2], out=f"{name}/unsq")
+    target = g.const(np.array([1, n_kv, n_rep, seq, head_dim],
+                              dtype=np.int64), "rkv_target")
+    x = g.node("Expand", [u, target], out=f"{name}/expanded")
+    merged = g.const(np.array([0, n_kv * n_rep, seq, head_dim],
+                              dtype=np.int64), "rkv_merged")
+    return g.node("Reshape", [x, merged], out=f"{name}/merged")
+
+
+def rope_tables(config: dict, seq_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """cos/sin [1, 1, seq_len, head_dim] float32 of HF's default RoPE
+    (LlamaRotaryEmbedding, no scaling), computed on the host with the same
+    torch operations, so the tables are the same wherever the graph is
+    built."""
+    cfg = _cfg(config)
+    d = int(cfg["head_dim"])
+    with torch.no_grad():
+        exponents = torch.arange(0, d, 2, dtype=torch.int64) \
+            .to(dtype=torch.float) / d
+        inv_freq = 1.0 / (float(cfg["rope_theta"]) ** exponents)
+        inv_freq = inv_freq[None, :, None].float().expand(1, -1, 1)
+        positions = torch.arange(seq_len)[None][:, None, :].float()
+        freqs = (inv_freq.float() @ positions.float()).transpose(1, 2)
+        emb = torch.cat((freqs, freqs), dim=-1)
+        cos, sin = emb.cos() * 1.0, emb.sin() * 1.0
+    return cos.numpy()[None].astype(np.float32), \
+        sin.numpy()[None].astype(np.float32)
+
+
+def _llama_attention(g: GraphBuilder, w: dict, x: str, cfg: dict, key: str,
+                     seq_len: int, cos: str, sin: str, name: str,
+                     window: int | None = None) -> str:
+    """LlamaAttention (eager): q/k/v projections, RoPE on q and k,
+    grouped-query repeat of k and v, scaled scores plus the causal additive
+    mask (banded by ``window``), softmax, context, o_proj."""
+    n_heads = int(cfg["num_attention_heads"])
+    n_kv = int(cfg["num_key_value_heads"])
+    head_dim = int(cfg["head_dim"])
+    n_rep = n_heads // n_kv
+
+    q = _matmul_w(g, x, w[f"{key}.q_proj.weight"], f"{name}.q_proj")
+    k = _matmul_w(g, x, w[f"{key}.k_proj.weight"], f"{name}.k_proj")
+    v = _matmul_w(g, x, w[f"{key}.v_proj.weight"], f"{name}.v_proj")
+
+    def split_heads(t: str, n: int, which: str) -> str:
+        shape = g.const(np.array([0, seq_len, n, head_dim], dtype=np.int64),
+                        f"headshape{n}")
+        r = g.node("Reshape", [t, shape], out=f"{name}/{which}_Reshape")
+        return g.node("Transpose", [r], out=f"{name}/{which}_Transpose",
+                      perm=[0, 2, 1, 3])
+
+    qh = split_heads(q, n_heads, "q")
+    kh = split_heads(k, n_kv, "k")
+    vh = split_heads(v, n_kv, "v")
+    qh = _apply_rope(g, qh, cos, sin, head_dim, f"{name}/q_rope")
+    kh = _apply_rope(g, kh, cos, sin, head_dim, f"{name}/k_rope")
+    kh = _repeat_kv(g, kh, n_kv, n_rep, seq_len, head_dim, f"{name}/k_rep")
+    vh = _repeat_kv(g, vh, n_kv, n_rep, seq_len, head_dim, f"{name}/v_rep")
+
+    kt = g.node("Transpose", [kh], out=f"{name}/k_T", perm=[0, 1, 3, 2])
+    scores = g.node("MatMul", [qh, kt], out=f"{name}/scores")
+    scal = g.const(np.array(np.float32(head_dim ** -0.5), dtype=np.float32),
+                   "scaling")
+    scaled = g.node("Mul", [scores, scal], out=f"{name}/scaled")
+    i, j = np.indices((seq_len, seq_len))
+    visible = (j <= i) if window is None \
+        else (j <= i) & (j > i - int(window))
+    mask = np.where(visible, np.float32(0), np.float32(-1e9))
+    mc = g.init(f"{name}.causal_mask", mask[None, None].astype(np.float32))
+    masked = g.node("Add", [scaled, mc], out=f"{name}/masked")
+    probs = g.node("Softmax", [masked], out=f"{name}/probs", axis=-1)
+    ctx = g.node("MatMul", [probs, vh], out=f"{name}/context")
+    ctx = g.node("Transpose", [ctx], out=f"{name}/context_T",
+                 perm=[0, 2, 1, 3])
+    merge = g.const(np.array([0, seq_len, n_heads * head_dim],
+                             dtype=np.int64), "mergeshape")
+    merged = g.node("Reshape", [ctx, merge], out=f"{name}/merged")
+    return _matmul_w(g, merged, w[f"{key}.o_proj.weight"], f"{name}.o_proj")
+
+
+def _swiglu_mlp(g: GraphBuilder, w: dict, x: str, key: str, name: str) -> str:
+    """LlamaMLP: down_proj(silu(gate_proj(x)) * up_proj(x)), SiLU as
+    Sigmoid * x (the torch exporter's decomposition)."""
+    gate = _matmul_w(g, x, w[f"{key}.gate_proj.weight"], f"{name}.gate_proj")
+    sig = g.node("Sigmoid", [gate], out=f"{name}/Sigmoid_out")
+    silu = g.node("Mul", [gate, sig], out=f"{name}/SiLU_out")
+    up = _matmul_w(g, x, w[f"{key}.up_proj.weight"], f"{name}.up_proj")
+    h = g.node("Mul", [silu, up], out=f"{name}/Gate_out")
+    return _matmul_w(g, h, w[f"{key}.down_proj.weight"], f"{name}.down_proj")
+
+
+def _llama_block(g: GraphBuilder, w: dict, x: str, cfg: dict, i: int,
+                 seq_len: int, cos: str, sin: str,
+                 window: int | None = None) -> str:
+    """LlamaDecoderLayer: pre-RMSNorm attention + residual, pre-RMSNorm
+    SwiGLU MLP + residual."""
+    key, name = f"model.layers.{i}", f"layers.{i}"
+    eps = float(cfg["rms_norm_eps"])
+    ln1 = _rms_norm(g, x, w[f"{key}.input_layernorm.weight"], eps,
+                    f"{name}.input_norm")
+    att = _llama_attention(g, w, ln1, cfg, f"{key}.self_attn", seq_len, cos,
+                           sin, f"{name}.self_attn", window=window)
+    x1 = g.node("Add", [att, x], out=f"{name}/residual1")
+    ln2 = _rms_norm(g, x1, w[f"{key}.post_attention_layernorm.weight"], eps,
+                    f"{name}.post_norm")
+    mlp = _swiglu_mlp(g, w, ln2, f"{key}.mlp", f"{name}.mlp")
+    return g.node("Add", [mlp, x1], out=f"{name}/residual2")
+
+
+def llama_causal_lm(weights: dict, config: dict, batch_size: int = 2,
+                    seq_len: int = 16) -> O.ModelProto:
+    """LlamaForCausalLM over float ``inputs_embeds`` [batch, seq, hidden]
+    -> ``logits`` [batch, seq, vocab]. The RoPE tables and the causal mask
+    bake in at this fixed seq_len; every head reshape copies the batch dim
+    and the tables and mask broadcast over it, so the graph runs any
+    batch."""
+    cfg = _cfg(config)
+    g = GraphBuilder("llama_causal_lm")
+    h = g.input("inputs_embeds", [batch_size, seq_len,
+                                  int(cfg["hidden_size"])])
+    cos_np, sin_np = rope_tables(cfg, seq_len)
+    cos = g.init("rope.cos", cos_np)
+    sin = g.init("rope.sin", sin_np)
+    window = cfg.get("sliding_window")
+    for i in range(int(cfg["num_hidden_layers"])):
+        h = _llama_block(g, weights, h, cfg, i, seq_len, cos, sin,
+                         window=window)
+    h = _rms_norm(g, h, weights["model.norm.weight"],
+                  float(cfg["rms_norm_eps"]), "norm")
+    head = g.init("lm_head.weight_t",
+                  np.ascontiguousarray(_f32(weights["lm_head.weight"]).T))
+    g.node("MatMul", [h, head], out="logits", name="lm_head")
+    g.output("logits", [batch_size, seq_len, int(cfg["vocab_size"])])
+    model = g.model()
+    model._wte = _f32(weights["model.embed_tokens.weight"])  # [vocab, hidden]
+    model._head_dim = int(cfg["head_dim"])
+    return model
+
+
+def random_llama_weights(config: dict, seed: int = 0) -> dict[str, np.ndarray]:
+    """A LlamaForCausalLM state dict drawn like HF's init: normal(0,
+    ``initializer_range``) for the embedding, every projection and the LM
+    head, RMSNorm weights 1."""
+    cfg = _cfg(config)
+    rng = np.random.default_rng(seed)
+    std = np.float32(cfg["initializer_range"])
+    hid, inter = int(cfg["hidden_size"]), int(cfg["intermediate_size"])
+    hd = int(cfg["head_dim"])
+    q_out = int(cfg["num_attention_heads"]) * hd
+    kv_out = int(cfg["num_key_value_heads"]) * hd
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * std
+
+    w = {"model.embed_tokens.weight": normal(int(cfg["vocab_size"]), hid)}
+    for i in range(int(cfg["num_hidden_layers"])):
+        key = f"model.layers.{i}"
+        for proj, (n_out, n_in) in (("q_proj", (q_out, hid)),
+                                    ("k_proj", (kv_out, hid)),
+                                    ("v_proj", (kv_out, hid)),
+                                    ("o_proj", (hid, q_out))):
+            w[f"{key}.self_attn.{proj}.weight"] = normal(n_out, n_in)
+        for proj, (n_out, n_in) in (("gate_proj", (inter, hid)),
+                                    ("up_proj", (inter, hid)),
+                                    ("down_proj", (hid, inter))):
+            w[f"{key}.mlp.{proj}.weight"] = normal(n_out, n_in)
+        w[f"{key}.input_layernorm.weight"] = np.ones(hid, np.float32)
+        w[f"{key}.post_attention_layernorm.weight"] = np.ones(hid, np.float32)
+    w["model.norm.weight"] = np.ones(hid, np.float32)
+    w["lm_head.weight"] = normal(int(cfg["vocab_size"]), hid)
+    return w

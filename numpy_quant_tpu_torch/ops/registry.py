@@ -1,7 +1,8 @@
 """ONNX operator implementations over the tensor layer (port of
 ``numpy_quant_tpu/ops/registry.py``), limited to the ops of the ViT
-classifier and GPT causal-LM and decode graphs, the two fused ops and weight-only
-MatMul/Gemm. Any other op raises ``NotImplementedError`` with its name."""
+classifier, the GPT causal-LM and decode graphs and the LLaMA causal-LM
+graph, the three fused ops and weight-only MatMul/Gemm. Any other op raises
+``NotImplementedError`` with its name."""
 from __future__ import annotations
 
 import numpy as np
@@ -94,6 +95,68 @@ def _fused_attention_hs(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
                         np.float32(scale),
                         None if zp is None else np.int64(zp))]
     return [FTensor(out)]
+
+
+def plain_attention_call(inputs: list[Tensor], attrs: dict):
+    """The kernel operands and keyword arguments of a FusedAttention node:
+    (q, kt, v, kwargs). The quantized q-heads [..., N, D], transposed
+    k-heads [..., D, N] and v-heads [..., N, D] flatten to contiguous int8
+    [-1, N, D], [-1, D, N] and [-1, N, D]."""
+    q, kt, v = inputs[0], inputs[1], inputs[2]
+    assert isinstance(q, QTensor) and isinstance(kt, QTensor) \
+        and isinstance(v, QTensor)
+    n, d = q.data.shape[-2], q.data.shape[-1]
+    causal_mask_val = attrs.get("causal_mask_val")
+    causal_window = attrs.get("causal_window")
+    kwargs = dict(
+        causal_mask_val=None if causal_mask_val is None
+        else float(causal_mask_val),
+        causal_window=None if causal_window is None else int(causal_window),
+        scaling=float(attrs["scaling"]),
+        sq=float(np.float32(q.scale)), zq=_zp_of(q),
+        sk=float(np.float32(kt.scale)), zk=_zp_of(kt),
+        sv=float(np.float32(v.scale)), zv=_zp_of(v),
+        sp=float(attrs["probs_scale"]),
+        zp_p=int(attrs["probs_zero_point"]),
+        bit_width=q.bit_width,
+        out_requant=attrs.get("out_requant"))  # set by int8_dataflow
+    return (q.data.to(torch.int8).reshape(-1, n, d).contiguous(),
+            kt.data.to(torch.int8).reshape(-1, d, n).contiguous(),
+            v.data.to(torch.int8).reshape(-1, n, d).contiguous(), kwargs)
+
+
+def _fused_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
+    """The whole quantized attention block on pre-split heads in one kernel
+    launch (kernels/attention.py::fused_attention); the plain fusion leaves
+    the head shuffles in the graph."""
+    from ..kernels.attention import fused_attention
+
+    q, kt, v, kwargs = plain_attention_call(inputs, attrs)
+    out = fused_attention(q, kt, v, **kwargs)
+    out = out.reshape(inputs[0].data.shape)
+    out_requant = kwargs["out_requant"]
+    if out_requant is not None:
+        scale, zp = out_requant
+        return [QTensor(out, inputs[0].bit_width, np.float32(scale),
+                        None if zp is None else np.int64(zp))]
+    return [FTensor(out)]
+
+
+def _reduce_mean(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
+    """ONNX ReduceMean: ``axes`` as input (opset 18) or attribute; the
+    reference's ``axis`` spelling is accepted too, as in the JAX package."""
+    x = inputs[0]
+    if len(inputs) > 1 and inputs[1] is not None:
+        axes = tuple(int(a) for a in inputs[1].data)
+    elif "axes" in attrs:
+        axes = tuple(int(a) for a in attrs["axes"])
+    elif "axis" in attrs:
+        axes = (int(attrs["axis"]),)
+    else:
+        axes = tuple(range(x.data.ndim))
+    keepdims = bool(attrs.get("keepdims", 1))
+    return [x.mean(axis=axes[0] if len(axes) == 1 else axes,
+                   keepdims=keepdims)]
 
 
 def _fused_gelu(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
@@ -353,6 +416,10 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return _matmul(inputs[0], inputs[1])
     if op == "Mul":
         return [inputs[0] * inputs[1]]
+    if op == "Neg":
+        return [-inputs[0]]
+    if op == "ReduceMean":
+        return _reduce_mean(inputs, attrs)
     if op == "Reshape":
         x, shape = inputs[0], inputs[1]
         x_shape = x.shape if isinstance(x, QTensor) \
@@ -365,12 +432,16 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         if isinstance(x, QTensor):
             return [ITensor(np.array(x.shape, dtype=np.int64))]
         return [x.shape]
+    if op == "Sigmoid":
+        return [inputs[0].sigmoid()]
     if op == "Slice":
         return _slice(inputs)
     if op == "Softmax":
         return [inputs[0].softmax(axis=int(attrs.get("axis", -1)))]
     if op == "Split":
         return _split(inputs, attrs)
+    if op == "Sqrt":
+        return [inputs[0].sqrt()]
     if op == "Transpose":
         x = inputs[0]
         perm = attrs.get("perm")
@@ -387,6 +458,8 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return [x.expand_dims(axis=axes)]
     if op == "Where":
         return [where(inputs[0], inputs[1], inputs[2])]
+    if op == "FusedAttention":
+        return _fused_attention(inputs, attrs)
     if op == "FusedAttentionHS":
         return _fused_attention_hs(inputs, attrs)
     if op == "FusedGelu":

@@ -1,12 +1,15 @@
 """Attention fusion pass: MatMul -> scale -> [causal mask] -> Softmax ->
-MatMul chains, with the standard multi-head split/merge around them,
-become one FusedAttentionHS node backed by the hand-written CUDA kernels
-(kernels/attention.py). Port of ``numpy_quant_tpu/passes/attention.py``
+MatMul chains become one fused node backed by the hand-written CUDA
+kernels (kernels/attention.py): FusedAttentionHS when the standard
+multi-head split/merge surrounds the chain (the kernel splits and merges
+heads itself), else FusedAttention on the pre-split [BH, N, D] heads (the
+head shuffles stay in the graph, e.g. when RoPE and repeat_kv sit between
+the split and the scores). Port of ``numpy_quant_tpu/passes/attention.py``
 for the chains the port's kernels cover: no mask, or the decoder's
 additive causal mask (full or sliding-window band), applied in the
 kernel at the graph Add's position. A general score-bias constant (T5
-relative bias, ALiBi) and the pre-split [BH, N, D] form are not ported:
-such chains stay unfused and are recorded as fusion failures.
+relative bias, ALiBi) is not ported: such chains stay unfused and are
+recorded as fusion failures.
 """
 from __future__ import annotations
 
@@ -25,11 +28,13 @@ from .toolkit import (
 
 
 def fuse_attention(model) -> int:
-    """Fuse attention chains into FusedAttentionHS nodes: the kernel
+    """Fuse attention chains into FusedAttentionHS nodes (the kernel
     consumes the raw [B, N, H*D] projection outputs and splits/merges
-    heads itself, so none of the head shuffles touch device memory.
-    Returns the number of fused blocks. Every Softmax that does NOT fuse
-    is recorded with the reason in ``model.fusion_report["failures"]``.
+    heads itself, so none of the head shuffles touch device memory) or,
+    where the head-split pattern does not match, FusedAttention nodes
+    (recorded in ``model.fusion_report["plain_fusions"]``). Returns the
+    number of fused blocks. Every Softmax that does NOT fuse is recorded
+    with the reason in ``model.fusion_report["failures"]``.
     """
     model.fusion_report = {"fused": 0, "failures": []}
     if model.bit_width > 8:
@@ -130,16 +135,31 @@ def fuse_attention(model) -> int:
                 * np.float32(sm_in_qp.scale))
 
         hs = _match_attention_hs(model, mm1, mm2, producer)
-        if hs is None:
-            # the kernel of the pre-split [BH, N, D] layout
-            # (FusedAttention) is not ported: the chain stays unfused
-            fail(sm, "head-split pattern not matched (only "
-                 "FusedAttentionHS is ported)")
+        if hs is not None:
+            xq, xk, xv, out_value, num_heads, dead = hs
+            fnode = Node(f"{mm2.name}/fused_attention_hs",
+                         "FusedAttentionHS", dict(attrs, num_heads=num_heads),
+                         [xq, xk, xv], [out_value])
+        elif mul is None:
+            # pre-scaled scores carry no standalone scale node to anchor a
+            # safe plain fusion (the bare MatMul operands may be 2-D or
+            # batch-broadcast, which the [BH, N, D] layout cannot express)
+            fail(sm, "pre-scaled scores (no Mul/Div before Softmax):"
+                 " only the head-split pattern fuses this form, and"
+                 " it did not match")
             continue
-        xq, xk, xv, out_value, num_heads, dead = hs
-        fnode = Node(f"{mm2.name}/fused_attention_hs", "FusedAttentionHS",
-                     dict(attrs, num_heads=num_heads),
-                     [xq, xk, xv], [out_value])
+        else:
+            # plain fusion: the core on the pre-split [BH, N, D] heads; the
+            # head Reshape/Transpose shuffles stay in the graph. Causal
+            # graphs whose head-split chains carry extra structure (RoPE,
+            # repeat_kv: models/llama.py) take this path.
+            model.fusion_report.setdefault("plain_fusions", []).append(
+                (sm.name, "head-split pattern not matched; fused the "
+                 "core only (head shuffles remain in the graph)"))
+            fnode = Node(f"{mm2.name}/fused_attention", "FusedAttention",
+                         attrs, [mm1.inputs[0], mm1.inputs[1], mm2.inputs[1]],
+                         [mm2.outputs[0]])
+            dead = []
         idx = model.nodes.index(mm2)
         model.nodes[idx] = fnode
         for dn in dead:
@@ -151,7 +171,7 @@ def fuse_attention(model) -> int:
         fused += 1
     if fused:
         model.quantized_ops = tuple(model.quantized_ops) \
-            + ("FusedAttentionHS",)
+            + ("FusedAttention", "FusedAttentionHS")
     model.fusion_report["fused"] = fused
     return fused
 

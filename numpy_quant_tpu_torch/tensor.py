@@ -205,6 +205,11 @@ class FTensor:
     def sum(self, axis: int, keepdims: bool) -> "FTensor":
         return FTensor(torch.sum(self._data, dim=axis, keepdim=keepdims))
 
+    def sigmoid(self) -> "FTensor":
+        # the JAX package's composition 1 / (1 + exp(-x)), not
+        # torch.sigmoid (other roundings)
+        return ((-self).exp() + 1.0).inv()
+
     def softmax(self, axis: int) -> "FTensor":
         # max-subtracted, the reference's composition
         m = self + (-(self.max(axis=axis, keepdims=True)))
