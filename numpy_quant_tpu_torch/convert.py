@@ -18,8 +18,12 @@ Payloads are integer weights (1-8 bits) or 32-bit biases; the latter include the
 GPT and LLaMA causal LMs' additive mask constants, which ``quantize`` stores
 as 32-bit biases clipped at -2^31 on the scores' scale, so the dequantized
 mask value (the fused kernels' ``causal_mask_val``) carries across too. The
-LLaMA graph's RMSNorm weights and RoPE tables are 8-bit constants like any
-weight.
+T5 graphs' score-bias constants are 32-bit biases on the scores' scale as
+well: the encoder's relative position bias (``encoder.rel_bias``) and the
+decoder's combined bias + finfo.min constant (``decoder.rel_bias_masked``,
+clipped at -2^31), which ride into ``FusedAttentionHS`` as its 4th input.
+The LLaMA graph's RMSNorm weights and RoPE tables are 8-bit constants like
+any weight.
 
 A packed weight (the JAX package's ``PackedQTensor``, after its
 ``pack_weights()``) is given as ``{"layout": "splitk" or "bitplanes",

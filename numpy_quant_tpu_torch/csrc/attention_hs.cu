@@ -4,16 +4,20 @@
 // Replaces the TPU kernel numpy_quant_tpu/kernels/attention.py::
 // fused_attention_hs (its monolithic grid: exact and fast variants,
 // out_requant on/off, narrow q, the decoder causal mask and its
-// sliding-window band; not the score-bias operand). Per (batch row, head):
+// sliding-window band, and the per-head score-bias operand). Per (batch
+// row, head):
 //   scores = q @ k^T (int32, zero-point corrected) -> dequant * scaling
-//   -> softmax (f32) -> probs quantized to int8 -> probs @ v (int32,
-//   zero-point corrected) -> f32 out, or int8 out (out_requant).
+//   [+ bias] -> softmax (f32) -> probs quantized to int8 -> probs @ v
+//   (int32, zero-point corrected) -> f32 out, or int8 out (out_requant).
 //
 // Bound at ViT-Base (B=96, N=197, H=12, D=64) on an H100 SXM: the kernel
 // is memory-bound. With out_requant it must move 3*96*197*768 B in plus
 // 96*197*768 B out = 58.1 MB, 17 us at 3.35 TB/s; with f32 output
 // 101.7 MB, 30 us. Its int8 work, 4*B*H*N^2*D = 1.14e10 ops, takes
-// 5.8 us at 1,979 TOPS.
+// 5.8 us at 1,979 TOPS. At T5-small's decoder self-attention (B=8,
+// N=128, H=8, D=64, bias [8, 128, 128] f32, int8 out) it moves 3 x 0.5 MB
+// in, the 0.5 MB bias and 0.5 MB out, 2.6 MB, 0.8 us; its cross-attention
+// (128 query rows against N=512 keys, f32 out) moves 4.7 MB, 1.4 us.
 //
 // Design: one CTA per (tile of ROWS query rows, head, batch row). The
 // CTA stages its head's K and V slices ([N, D] int8 each) in shared
@@ -31,26 +35,36 @@
 // This simple design runs the products on the integer ALUs, not the
 // tensor cores; wgmma and TMA are later work.
 //
+// The score bias ([H, nq, N] f32, the same for every batch row) is read
+// from global memory along the row a warp owns, at the graph Add's
+// position.
+//
 // Numerics: the exact variant (fast=0) keeps the JAX op order -- int32
-// corrections; s = f32(scores)*(sq*sk), then *scaling; + mask where key
-// j is not visible from row i (j > i, or j <= i - window); max; expf(s-m);
-// e/sum; rint(clip(p/sp + zp_p)). The fast variant folds log2(e) into
-// the dequant constant and uses exp2f, an optional static score_max
-// shift (clamped to [-120, 80], no max pass), drops the zk row term,
-// r = 1/(sum*sp), and clips only the bounds the host says can be
-// crossed. Multiplies and adds use the _rn intrinsics so that no FMA
-// contraction changes a rounding; division is IEEE (__fdiv_rn); rounding
-// is half-to-even (__float2int_rn). Sums run in another order than
-// XLA's, so a quantized probability may differ by one step.
+// corrections; s = f32(scores)*(sq*sk), then *scaling; + bias[h, i, j];
+// + mask where key j is not visible from row i (j > i, or j <= i -
+// window); max; expf(s-m); e/sum; rint(clip(p/sp + zp_p)). Its row sum
+// adds the row's exp values from shared memory in the order of torch's
+// CUDA sum (torch_order.cuh), so where torch reduces the row in one warp
+// the kernel equals the unfused executor bit for bit. The fast variant
+// folds log2(e) into the dequant constant (and into the bias, on the
+// host) and uses exp2f, an optional static score_max shift (clamped to
+// [-120, 80], no max pass), drops the zk row term, r = 1/(sum*sp), and
+// clips only the bounds the host says can be crossed; its row sum is a
+// per-lane strided sum and a warp tree. Multiplies and adds use the _rn
+// intrinsics so that no FMA contraction changes a rounding; division is
+// IEEE (__fdiv_rn); rounding is half-to-even (__float2int_rn).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "torch_order.cuh"
+
 // Shared with csrc/attention_hs_blockq.cu (``skip`` is that kernel's).
 struct HSParams {
   int B, nq, N, H, D, zq, zk, zv, zp_p, fast, static_shift, need_lo,
-      need_hi, out_int8, has_res_zp, causal, window, skip;
+      need_hi, out_int8, has_res_zp, causal, window, skip, has_bias, sum_vec,
+      sum_lanes;
   float c_score, scaling, czq, base, sp, zp_pf, c_out, res_scale, res_zp,
       qmin, qmax, mask;
 };
@@ -103,6 +117,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     attention_hs_kernel(const int8_t* __restrict__ xq,
                         const int8_t* __restrict__ xk,
                         const int8_t* __restrict__ xv,
+                        const float* __restrict__ bias,
                         void* __restrict__ out, const HSParams p) {
   constexpr int W = D / 4;    // int8x4 words per head row
   constexpr int WS = W + 1;   // padded shared row stride in words
@@ -159,6 +174,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     int q_sum = 0;
 #pragma unroll
     for (int w = 0; w < W; ++w) q_sum = __dp4a(qw[w], 0x01010101, q_sum);
+    const float* b_row =
+        p.has_bias ? bias + ((size_t)h * p.nq + r) * n : nullptr;
 
     // scores -> dequantized logits (lane owns keys lane, lane+32, ...)
     float local_max = -INFINITY;
@@ -179,6 +196,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                                : p.base;
         s = __fadd_rn(__fmul_rn(__int2float_rn(acc), p.c_score), col);
       }
+      // score bias: the graph Add(scaled scores, bias) (pre-scaled by
+      // log2(e) on the fast path)
+      if (b_row) s = __fadd_rn(s, __ldg(b_row + j));
       // decoder mask: the graph Add(scaled scores, mask constant), at its
       // position in the op order (p.mask is pre-scaled by log2(e) on the
       // fast path)
@@ -202,7 +222,17 @@ __global__ void __launch_bounds__(kWarps * 32)
       e_row[j] = e;
       local_sum = __fadd_rn(local_sum, e);
     }
-    const float sum = warp_sum(local_sum);
+    float sum;
+    if (p.fast) {
+      sum = warp_sum(local_sum);
+    } else {
+      // the row is row (b*H + h)*nq + r of the unfused [B, H, nq, N] exp
+      __syncwarp();
+      const int shift =
+          (int)(((((size_t)b * p.H + h) * p.nq + r) * (size_t)n) & 3);
+      sum = torch_order_warp_sum(e_row, n, shift, p.sum_vec, p.sum_lanes,
+                                 lane);
+    }
 
     // probabilities -> int8 (and their row sum for the zv correction)
     int local_ps = 0;
@@ -267,7 +297,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <int D>
 cudaError_t launch(const int8_t* xq, const int8_t* xk, const int8_t* xv,
-                   void* out, const HSParams& p, cudaStream_t stream) {
+                   const float* bias, void* out, const HSParams& p,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(p.N, D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -277,7 +308,7 @@ cudaError_t launch(const int8_t* xq, const int8_t* xk, const int8_t* xv,
   }
   const dim3 grid((p.nq + kRows - 1) / kRows, p.H, p.B);
   attention_hs_kernel<D><<<grid, kWarps * 32, smem, stream>>>(xq, xk, xv,
-                                                               out, p);
+                                                               bias, out, p);
   return cudaGetLastError();
 }
 
@@ -287,20 +318,23 @@ extern "C" long long nq_attention_hs_smem_bytes(int n, int d) {
   return (long long)smem_bytes(n, d);
 }
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// Launches on `stream`; returns cudaGetLastError() of the launch. `bias`
+// is the [H, nq, N] f32 score bias, or null when params->has_bias is 0.
 extern "C" int nq_attention_hs(const void* xq, const void* xk,
-                               const void* xv, void* out,
+                               const void* xv, const void* bias, void* out,
                                const HSParams* params, void* stream) {
   const HSParams p = *params;
   const auto* q = static_cast<const int8_t*>(xq);
   const auto* k = static_cast<const int8_t*>(xk);
   const auto* v = static_cast<const int8_t*>(xv);
+  const auto* b = static_cast<const float*>(bias);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (p.has_bias && !b) return (int)cudaErrorInvalidValue;
   switch (p.D) {
-    case 16: return (int)launch<16>(q, k, v, out, p, s);
-    case 32: return (int)launch<32>(q, k, v, out, p, s);
-    case 64: return (int)launch<64>(q, k, v, out, p, s);
-    case 128: return (int)launch<128>(q, k, v, out, p, s);
+    case 16: return (int)launch<16>(q, k, v, b, out, p, s);
+    case 32: return (int)launch<32>(q, k, v, b, out, p, s);
+    case 64: return (int)launch<64>(q, k, v, b, out, p, s);
+    case 128: return (int)launch<128>(q, k, v, b, out, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

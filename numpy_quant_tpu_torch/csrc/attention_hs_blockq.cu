@@ -4,17 +4,22 @@
 // Replaces the TPU kernel numpy_quant_tpu/kernels/attention.py::
 // _fused_attention_hs_blockq (its q-row-tiled grid, K/V whole per batch
 // row): exact and fast variants, the static score_max shift, the decoder
-// causal mask and its sliding-window band, out_requant on/off, every
-// zero-point correction, narrow q (fewer query rows than keys, no mask)
-// and ragged N. It computes what csrc/attention_hs.cu computes; that
-// kernel stages K/V whole in shared memory and so stops at ~1,290 keys
-// at D=64, while this one streams them.
+// causal mask and its sliding-window band, the per-head score-bias
+// operand, out_requant on/off, every zero-point correction, narrow q
+// (fewer query rows than keys, no mask or bias) and ragged N. It computes
+// what csrc/attention_hs.cu computes; that kernel stages K/V whole in
+// shared memory and so stops at ~1,290 keys at D=64, while this one
+// streams them.
 //
 // Bound at GPT-2 small's full context (B=8, N=1024, H=12, D=64, causal,
 // int8 out) on an H100 SXM: it must move q, k, v (3 x 6.3 MB) and the
 // int8 output (6.3 MB), 25.2 MB, 7.5 us at 3.35 TB/s; the visible half
 // of its int8 products, 2 * 2 * B*H*N*(N+1)/2 * D = 1.29e10 ops, takes
-// 6.5 us at 1,979 TOPS. Either way a few microseconds.
+// 6.5 us at 1,979 TOPS. Either way a few microseconds. At T5-small's
+// encoder self-attention (B=8, N=512, H=8, D=64, bias [8, 512, 512] f32,
+// int8 out) it moves 4 x 2.1 MB of q, k, v and out plus the 8.4 MB bias,
+// 16.8 MB, 5.0 us at 3.35 TB/s; its int8 products, 4*B*H*N^2*D = 4.3e9
+// ops, take 2.2 us at 1,979 TOPS.
 //
 // Design: one CTA of 256 threads per (tile of BQ=64 query rows, head,
 // batch row). The q tile stays in shared memory; K (and, in the last
@@ -25,8 +30,10 @@
 // the 16 threads of a row with warp shuffles.
 //   Exact path (fast=0), three sweeps over the key tiles, each
 //   recomputing s from the exact integer dots: 1. the row max; 2. the
-//   row sum of expf(s - m); 3. probs = e / sum (__fdiv_rn), quantized as
-//   rint(clip(probs / sp + zp_p)) into a shared int8 tile, then P.V.
+//   row sum of expf(s - m), in the order of torch's CUDA sum
+//   (torch_order.cuh: one partial sum per key mod 128); 3. probs = e /
+//   sum (__fdiv_rn), quantized as rint(clip(probs / sp + zp_p)) into a
+//   shared int8 tile, then P.V.
 //   There is no online rescaling here: the quantized probabilities need
 //   the final max and sum, rounded as the unfused executor rounds them.
 //   Fast path, two sweeps: 1. the row max and sum with a per-tile online
@@ -38,9 +45,13 @@
 // equals the TPU kernel's uncentred algebra over its padded keys exactly,
 // because pad keys have pq = zp_p and v = zv.
 //
+// The score bias ([H, nq, N] f32, the same for every batch row) is read
+// from global memory (L2, after the first batch row) for the thread's 4x4
+// patch of each key tile, on every sweep, at the graph Add's position.
+//
 // Causal tile skipping (``skip``, set by the wrapper only when a static
-// bound from the qparams proves it exact): a key tile masked for every
-// row of the block is not walked. On the exact path a masked score gives
+// bound from the qparams proves it exact, never with a bias): a key tile
+// masked for every row of the block is not walked. On the exact path a masked score gives
 // e = expf(s + mask - m) = 0 exactly, so pq = rint(0 / sp + zp_p) = zp_p
 // and its centred term is 0: skipping changes no bit. On the fast path
 // without a shift exp2f gives 0 alike. With the static shift a masked
@@ -51,8 +62,12 @@
 //
 // Numerics as in csrc/attention_hs.cu: the JAX op order, _rn intrinsics
 // (no FMA contraction), IEEE division, half-to-even rounding, expf/exp2f
-// (never __expf). Sums run in another order than torch's, so a quantized
-// probability may differ by one step from the plain version.
+// (never __expf). The exact row sums take torch's order for N >= 128 with
+// N % 4 == 0 (where torch sums a row in one warp, which the wrapper's
+// caller can ask kernels/attention.py::in_torch_order), so there the exact
+// path equals the plain version and the unfused executor bit for bit; at
+// other N a quantized probability may differ by one step. The fast path's
+// sums run in its own order.
 //
 // This simple design runs both products on the integer ALUs with three
 // (exact) or two (fast) passes over K; wgmma, TMA and a one-sweep fast
@@ -62,10 +77,14 @@
 #include <math.h>
 #include <stdint.h>
 
-// Shared with csrc/attention_hs.cu.
+#include "torch_order.cuh"
+
+// Shared with csrc/attention_hs.cu (``sum_vec`` and ``sum_lanes`` are that
+// kernel's).
 struct HSParams {
   int B, nq, N, H, D, zq, zk, zv, zp_p, fast, static_shift, need_lo,
-      need_hi, out_int8, has_res_zp, causal, window, skip;
+      need_hi, out_int8, has_res_zp, causal, window, skip, has_bias, sum_vec,
+      sum_lanes;
   float c_score, scaling, czq, base, sp, zp_pf, c_out, res_scale, res_zp,
       qmin, qmax, mask;
 };
@@ -156,12 +175,14 @@ __device__ __forceinline__ void load_vt(Tiles<D>& t, const int8_t* xv,
   }
 }
 
-// the thread's 4x4 patch of dequantized (and masked) scores of the tile
-// at j0: rows 4*ty + i, keys tx + 16*j
+// the thread's 4x4 patch of dequantized (biased, masked) scores of the
+// tile at j0: rows 4*ty + i, keys tx + 16*j; `bias` points at the head's
+// [nq, N] bias rows, or is null
 template <int D>
 __device__ __forceinline__ void tile_scores(const Tiles<D>& t,
                                             const HSParams& p, int ty, int tx,
                                             int r0, int j0,
+                                            const float* __restrict__ bias,
                                             float (&s)[RPT][KPT]) {
   constexpr int W = D / 4;
   int acc[RPT][KPT];
@@ -201,6 +222,10 @@ __device__ __forceinline__ void tile_scores(const Tiles<D>& t,
                  : p.base;
         v = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), p.c_score), colc);
       }
+      // score bias at the graph Add's position (pre-scaled by log2(e) on
+      // the fast path)
+      if (bias && row < p.nq && col < p.N)
+        v = __fadd_rn(v, __ldg(bias + (size_t)row * p.N + col));
       // decoder mask at the graph Add's position (pre-scaled by log2(e)
       // on the fast path)
       if (p.causal && !(col <= row && (p.window <= 0 || col > row - p.window)))
@@ -221,7 +246,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     blockq_kernel(const int8_t* __restrict__ xq,
                   const int8_t* __restrict__ xk,
-                  const int8_t* __restrict__ xv, void* __restrict__ out,
+                  const int8_t* __restrict__ xv,
+                  const float* __restrict__ bias_all, void* __restrict__ out,
                   const HSParams p) {
   constexpr int W = D / 4;
   constexpr int C16 = D / 16;
@@ -232,6 +258,8 @@ __global__ void __launch_bounds__(kThreads)
   const int n = p.N, hd = p.H * D;
   const size_t q_base = (size_t)b * p.nq * hd + (size_t)h * D;
   const size_t kv_base = (size_t)b * n * hd + (size_t)h * D;
+  const float* bias =
+      p.has_bias ? bias_all + (size_t)h * p.nq * n : nullptr;
 
   for (int idx = tid; idx < BQ * C16; idx += kThreads) {
     const int r = idx / C16, c = idx - r * C16;
@@ -275,7 +303,7 @@ __global__ void __launch_bounds__(kThreads)
     load_k(t, xk, kv_base, hd, n, j0, tid);
     __syncthreads();
     float s[RPT][KPT];
-    tile_scores(t, p, ty, tx, r0, j0, s);
+    tile_scores(t, p, ty, tx, r0, j0, bias, s);
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       if (!fast) {
@@ -322,23 +350,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (!fast) {
-    // sweep 2 (exact): the row sum of expf(s - m)
+    // sweep 2 (exact): the row sum of expf(s - m) in torch's order: the
+    // thread's share of the row's 128 partial sums (key tx + 16 j + 64 h,
+    // mod 128)
+    float part[2][RPT][KPT];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) part[hf][i][j] = 0.f;
     for (int tile = t_lo; tile < t_hi; ++tile) {
       const int j0 = tile * BK;
       __syncthreads();
       load_k(t, xk, kv_base, hd, n, j0, tid);
       __syncthreads();
       float s[RPT][KPT];
-      tile_scores(t, p, ty, tx, r0, j0, s);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < KPT; ++j)
-          if (j0 + tx + 16 * j < n)
-            l[i] = __fadd_rn(l[i], expf(__fsub_rn(s[i][j], m[i])));
+      tile_scores(t, p, ty, tx, r0, j0, bias, s);
+      // the parity of the tile is the half of the 128-key period it fills
+      if (tile & 1) {
+        torch_order_add_exp(part[1], s, m, j0, tx, n);
+      } else {
+        torch_order_add_exp(part[0], s, m, j0, tx, n);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) l[i] = row_sum(l[i]);
+    for (int i = 0; i < RPT; ++i) l[i] = torch_order_tile_sum(part, i);
   }
 
   // the fast path's reciprocal r = 1 / (sum * sp)
@@ -384,7 +421,7 @@ __global__ void __launch_bounds__(kThreads)
     load_vt(t, xv, kv_base, hd, n, j0, tid);
     __syncthreads();
     float s[RPT][KPT];
-    tile_scores(t, p, ty, tx, r0, j0, s);
+    tile_scores(t, p, ty, tx, r0, j0, bias, s);
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       int8_t* prow = reinterpret_cast<int8_t*>(t.p[ty * RPT + i]);
@@ -454,28 +491,33 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 cudaError_t launch(const int8_t* xq, const int8_t* xk, const int8_t* xv,
-                   void* out, const HSParams& p, cudaStream_t stream) {
+                   const float* bias, void* out, const HSParams& p,
+                   cudaStream_t stream) {
   const dim3 grid((p.nq + BQ - 1) / BQ, p.H, p.B);
-  blockq_kernel<D><<<grid, kThreads, 0, stream>>>(xq, xk, xv, out, p);
+  blockq_kernel<D><<<grid, kThreads, 0, stream>>>(xq, xk, xv, bias, out, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
+// Launches on `stream`; returns cudaGetLastError() of the launch. `bias`
+// is the [H, nq, N] f32 score bias, or null when params->has_bias is 0.
 extern "C" int nq_attention_hs_blockq(const void* xq, const void* xk,
-                                      const void* xv, void* out,
-                                      const HSParams* params, void* stream) {
+                                      const void* xv, const void* bias,
+                                      void* out, const HSParams* params,
+                                      void* stream) {
   const HSParams p = *params;
   const auto* q = static_cast<const int8_t*>(xq);
   const auto* k = static_cast<const int8_t*>(xk);
   const auto* v = static_cast<const int8_t*>(xv);
+  const auto* b = static_cast<const float*>(bias);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (p.has_bias && !b) return (int)cudaErrorInvalidValue;
   switch (p.D) {
-    case 16: return (int)launch<16>(q, k, v, out, p, s);
-    case 32: return (int)launch<32>(q, k, v, out, p, s);
-    case 64: return (int)launch<64>(q, k, v, out, p, s);
-    case 128: return (int)launch<128>(q, k, v, out, p, s);
+    case 16: return (int)launch<16>(q, k, v, b, out, p, s);
+    case 32: return (int)launch<32>(q, k, v, b, out, p, s);
+    case 64: return (int)launch<64>(q, k, v, b, out, p, s);
+    case 128: return (int)launch<128>(q, k, v, b, out, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -47,11 +47,12 @@
 //
 // Numerics: the JAX op order, _rn intrinsics (no FMA contraction), IEEE
 // division, half-to-even rounding, expf (never __expf). The row sum of
-// sweep 2 runs in the order of torch's CUDA sum (torch_row_sum): for
-// 128 <= N < 8192 (N % 4 == 0) it adds the same numbers in the same order
-// as the unfused executor's softmax, so the kernel equals it bit for bit.
-// At other N torch reduces in other orders, and a quantized probability
-// may differ by one step from the plain version.
+// sweep 2 runs in the order of torch's CUDA sum (torch_order.cuh): for
+// N >= 128 with N % 4 == 0, where torch reduces a row in one warp, it adds
+// the same numbers in the same order as the unfused executor's softmax, so
+// the kernel equals it bit for bit. At other N torch reduces in other
+// orders, and a quantized probability may differ by one step from the
+// plain version.
 //
 // This simple design runs both products on the integer ALUs and reads K^T
 // three times; mma.sync/wgmma products and TMA are later work.
@@ -59,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "torch_order.cuh"
 
 // Mirror of kernels/attention.py::_PlainParams.
 struct PlainParams {
@@ -206,53 +209,6 @@ __device__ __forceinline__ void tile_scores(const Tiles<D>& t,
   }
 }
 
-// exp(s - m) of the tile into the partial sums of its half of the period
-__device__ __forceinline__ void add_exp(float (&part)[RPT][KPT],
-                                        const float (&s)[RPT][KPT],
-                                        const float (&m)[RPT], int j0, int tx,
-                                        int n) {
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < KPT; ++j)
-      if (j0 + tx + 16 * j < n)
-        part[i][j] = __fadd_rn(part[i][j], expf(__fsub_rn(s[i][j], m[i])));
-}
-
-// Row i's sum in the order of torch's CUDA sum over a contiguous last dim
-// of 128 <= N < 8192 (N % 4 == 0) elements (ATen's Reduce.cuh: one warp per
-// row, lane L loads 4-vectors at 4L + 128k into 4 accumulators, combined
-// ((a0 + a1) + a2) + a3, then a shfl_down tree over the 32 lanes with
-// offsets 16..1). Lane L's partials 4L..4L+3 sit in threads tx = 4c..4c+3
-// of the row's half warp (L = 16 h + 4 j + c); the quad leader tx = 4c
-// forms the lane values, and the tree runs on the leaders. Returns the sum
-// in all 16 threads of the row.
-__device__ __forceinline__ float torch_row_sum(const float (&part)[2][RPT][KPT],
-                                               int i) {
-  constexpr unsigned kAll = 0xffffffffu;
-  float v[2][KPT];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const float x0 = part[h][i][j];
-      const float x1 = __shfl_down_sync(kAll, x0, 1);
-      const float x2 = __shfl_down_sync(kAll, x0, 2);
-      const float x3 = __shfl_down_sync(kAll, x0, 3);
-      v[h][j] = __fadd_rn(__fadd_rn(__fadd_rn(x0, x1), x2), x3);
-    }
-  // offsets 16, 8, 4 within a leader; 2 and 1 across leaders
-  const float w2a = __fadd_rn(__fadd_rn(v[0][0], v[1][0]),
-                              __fadd_rn(v[0][2], v[1][2]));
-  const float w2b = __fadd_rn(__fadd_rn(v[0][1], v[1][1]),
-                              __fadd_rn(v[0][3], v[1][3]));
-  const float w3 = __fadd_rn(w2a, w2b);
-  const float w4 = __fadd_rn(w3, __shfl_down_sync(kAll, w3, 8));
-  const float r = __fadd_rn(w4, __shfl_down_sync(kAll, w4, 4));
-  // the row's tx = 0 holds the sum: lane 0 or 16 of the warp
-  return __shfl_sync(kAll, r, threadIdx.x & 16);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     plain_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ kt,
@@ -336,13 +292,13 @@ __global__ void __launch_bounds__(kThreads)
     tile_scores(t, p, ty, tx, r0, j0, s);
     // the parity of the tile is the half of the 128-key period it fills
     if (tile & 1) {
-      add_exp(part[1], s, m, j0, tx, n);
+      torch_order_add_exp(part[1], s, m, j0, tx, n);
     } else {
-      add_exp(part[0], s, m, j0, tx, n);
+      torch_order_add_exp(part[0], s, m, j0, tx, n);
     }
   }
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) l[i] = torch_row_sum(part, i);
+  for (int i = 0; i < RPT; ++i) l[i] = torch_order_tile_sum(part, i);
 
   // sweep 3: quantized probabilities, then P.V in int32
   int acc[RPT][DPT], psum[RPT], vsum[DPT];

@@ -7,7 +7,7 @@ blockwise grid ``_fused_attention_hs_blockq``, and ``fused_attention`` (q
 one kernel launch,
 
     scores  = q_i8 @ k_i8^T            (int32, zero-point corrected)
-    s       = dequant(scores) * scaling [+ causal mask]
+    s       = dequant(scores) * scaling [+ score bias] [+ causal mask]
     probs   = softmax(s)               (f32)
     probs_q = quantize(probs)          (int8, the calibrated qparams)
     ctx     = probs_q @ v_i8           (int32, zero-point corrected)
@@ -19,7 +19,14 @@ uses exp2, an optional static ``score_max`` shift, drops the
 softmax-invariant zk row term and elides provably dead clip bounds).
 ``causal_mask_val`` adds a decoder's dequantized mask constant above the
 diagonal (outside the ``causal_window`` band, when one is given) at the
-graph Add's position.
+graph Add's position. ``score_bias`` ([H, nq, N] float32, head-split
+forms only) adds a per-head score bias (T5's relative position bias, or
+its decoder's bias + causal constant) at the graph Add's position too.
+
+The exact forms sum each softmax row in the order of torch's CUDA sum
+(:func:`sum_order`, replayed on the host by :func:`torch_order_sum`), so
+that they equal the unfused executor bit for bit wherever torch reduces
+the row in one warp (:func:`in_torch_order`).
 
 ``fused_attention_hs`` dispatches as the JAX wrapper does
 (:func:`blockwise`): long sequences go to ``fused_attention_hs_blockq``,
@@ -46,6 +53,9 @@ BLOCKWISE_N = 1024
 BLOCK_Q = 256  # q rows per tile of the blockwise plain version (JAX's default)
 # the blockwise kernel's centred int32 context sum is bounded by 255^2 * N
 MAX_BLOCKQ_N = 33000
+# JAX's score-bias clause: a padded f32 bias block above this runs blockwise
+BIAS_BYTES = 2 * 1024 * 1024
+LOG2E = np.float32(np.log2(np.e))
 
 
 class _PlainParams(ctypes.Structure):
@@ -64,7 +74,7 @@ class _HSParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "B", "nq", "N", "H", "D", "zq", "zk", "zv", "zp_p", "fast",
         "static_shift", "need_lo", "need_hi", "out_int8", "has_res_zp",
-        "causal", "window", "skip")] \
+        "causal", "window", "skip", "has_bias", "sum_vec", "sum_lanes")] \
         + [(name, ctypes.c_float) for name in (
             "c_score", "scaling", "czq", "base", "sp", "zp_pf", "c_out",
             "res_scale", "res_zp", "qmin", "qmax", "mask")]
@@ -74,12 +84,18 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def blockwise(n: int, block_q: int | None) -> bool:
-    """True when a call with ``n`` keys runs the blockwise grid: a forced
-    ``block_q``, or at least BLOCKWISE_N keys once padded to 128 lanes
-    (JAX ``kernels/attention.py:432-446``, whose score-bias clause the
-    port does not have)."""
-    return block_q is not None or _round_up(n, 128) >= BLOCKWISE_N
+def blockwise(n: int, block_q: int | None, nq: int | None = None,
+              bias_heads: int | None = None) -> bool:
+    """True when a call with ``n`` keys (and ``nq`` query rows, default
+    ``n``) runs the blockwise grid, as JAX's wrapper decides
+    (``kernels/attention.py:432-446``): a forced ``block_q``, at least
+    BLOCKWISE_N keys once padded to 128 lanes, or a score bias of
+    ``bias_heads`` heads whose padded f32 block passes 2 MiB."""
+    if block_q is not None or _round_up(n, 128) >= BLOCKWISE_N:
+        return True
+    rows = n if nq is None else nq
+    return bias_heads is not None \
+        and bias_heads * _round_up(rows, 8) * _round_up(n, 128) * 4 > BIAS_BYTES
 
 
 def _constants(*, scaling, sq, zq, sk, sv, sp, zp_p, bit_width,
@@ -94,7 +110,7 @@ def _constants(*, scaling, sq, zq, sk, sv, sp, zp_p, bit_width,
     qmax = 2.0 ** (bit_width - 1) - 1.0
     c = {"qmin": qmin, "qmax": qmax, "sp": sp, "zp_pf": f32(zp_p),
          "scaling": scaling, "c_out": f32(sp * sv), "mask": f32(0.0)}
-    log2e = f32(np.log2(np.e))
+    log2e = LOG2E
     if fast:
         c2 = f32(f32(sq * sk) * scaling * log2e)
         c["c_score"] = c2
@@ -162,10 +178,12 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
                                         score_max: float | None = None,
                                         causal_mask_val: float | None = None,
                                         causal_window: int | None = None,
+                                        score_bias: torch.Tensor | None = None,
                                         block_q: int | None = BLOCK_Q):
     """Plain PyTorch version of the blockwise kernel: q rows in tiles of
     ``block_q`` (all rows in one tile when None), each tile's full rows
-    in the JAX kernel's op order, so memory grows with block_q * N."""
+    in the JAX kernel's op order, so memory grows with block_q * N. The
+    ``score_bias`` rows [H, rows, N] follow the q tiles."""
     k = _constants(scaling=scaling, sq=sq, zq=zq, sk=sk, sv=sv, sp=sp,
                    zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
                    fast=fast, score_max=score_max,
@@ -182,6 +200,9 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
     ksum = kk.sum(dim=-1, dtype=i32)[:, :, None, :]  # [B, H, 1, N]
     vsum = v.sum(dim=-2, keepdim=True, dtype=i32)   # [B, H, 1, D]
     kt = kk.transpose(-1, -2)
+    if score_bias is not None and fast:
+        # the fast path works in the exp2 domain
+        score_bias = score_bias * float(LOG2E)
     tiles = []
     step = max(1, nq if block_q is None else int(block_q))
     for r0 in range(0, max(nq, 1), step):  # one (empty) tile when nq == 0
@@ -198,6 +219,8 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
             else:
                 percol = torch.full((), float(k["base"]), device=raw.device)
             s = raw.to(torch.float32) * float(k["c_score"]) + percol
+            if score_bias is not None:
+                s = s + score_bias[None, :, r0:r0 + step]
             if mask is not None:
                 s = s + mask
             if k["static_shift"]:
@@ -221,6 +244,8 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
                 scores = scores + zq * zk * d
             s = scores.to(torch.float32) * float(k["c_score"])
             s = s * float(k["scaling"])
+            if score_bias is not None:
+                s = s + score_bias[None, :, r0:r0 + step]
             if mask is not None:
                 s = s + mask
             m = s.amax(dim=-1, keepdim=True)
@@ -258,7 +283,8 @@ def fused_attention_hs_reference(xq, xk, xv, *, num_heads: int,
                                  fast: bool = False,
                                  score_max: float | None = None,
                                  causal_mask_val: float | None = None,
-                                 causal_window: int | None = None):
+                                 causal_window: int | None = None,
+                                 score_bias: torch.Tensor | None = None):
     """Plain PyTorch version of the monolithic kernel, each head
     independent, in the same op order as the JAX kernel's variant: the
     blockwise plain version with all rows in one tile."""
@@ -267,10 +293,10 @@ def fused_attention_hs_reference(xq, xk, xv, *, num_heads: int,
         sk=sk, zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
         out_requant=out_requant, fast=fast, score_max=score_max,
         causal_mask_val=causal_mask_val, causal_window=causal_window,
-        block_q=None)
+        score_bias=score_bias, block_q=None)
 
 
-def _check(xq, xk, xv, num_heads, causal_mask_val):
+def _check(xq, xk, xv, num_heads, causal_mask_val, score_bias=None):
     for t in (xq, xk, xv):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int8:
             raise TypeError("fused_attention_hs takes int8 tensors")
@@ -290,6 +316,19 @@ def _check(xq, xk, xv, num_heads, causal_mask_val):
     if causal_mask_val is not None and nq != xk.shape[1]:
         raise ValueError(f"a causal mask needs all {xk.shape[1]} query "
                          f"rows, got {nq}")
+    if score_bias is None:
+        return
+    # a bias indexes q rows by absolute position too (JAX asserts nq == N)
+    if nq != xk.shape[1]:
+        raise ValueError(f"a score bias needs all {xk.shape[1]} query "
+                         f"rows, got {nq}")
+    want = (num_heads, nq, xk.shape[1])
+    if not isinstance(score_bias, torch.Tensor) \
+            or score_bias.dtype != torch.float32 \
+            or tuple(score_bias.shape) != want \
+            or score_bias.device != xq.device:
+        raise ValueError(f"score_bias must be a float32 {list(want)} tensor "
+                         f"on {xq.device}")
 
 
 def _launch_checks(xq, xk, xv, num_heads, name):
@@ -310,17 +349,21 @@ def _launch_checks(xq, xk, xv, num_heads, name):
 def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
             skip: bool = False) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on the current stream with the wrapper's
-    keyword arguments ``kw`` and their constants ``c``; counts the launch
-    in ``wrapper.launches``."""
+    keyword arguments ``kw`` (its ``score_bias`` already in the form's
+    domain) and their constants ``c``; counts the launch in
+    ``wrapper.launches``."""
     out = torch.empty(xq.shape, device=xq.device,
                       dtype=torch.float32 if kw["out_requant"] is None
                       else torch.int8)
     if out.numel() == 0:
         return out
     b, nq, _ = xq.shape
+    n = xk.shape[1]
     window = kw["causal_window"]
+    bias = kw["score_bias"]
+    vec, lanes = sum_order(n)
     p = _HSParams(
-        B=b, nq=nq, N=xk.shape[1], H=kw["num_heads"], D=d, zq=int(kw["zq"]),
+        B=b, nq=nq, N=n, H=kw["num_heads"], D=d, zq=int(kw["zq"]),
         zk=int(kw["zk"]), zv=int(kw["zv"]), zp_p=int(kw["zp_p"]),
         fast=int(kw["fast"]), static_shift=int(c["static_shift"]),
         need_lo=int(c["need_lo"]), need_hi=int(c["need_hi"]),
@@ -328,6 +371,7 @@ def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
         has_res_zp=int(c["res_zp"] is not None),
         causal=int(kw["causal_mask_val"] is not None),
         window=0 if window is None else int(window), skip=int(skip),
+        has_bias=int(bias is not None), sum_vec=int(vec), sum_lanes=lanes,
         c_score=c["c_score"], scaling=c["scaling"], czq=c["czq"],
         base=c["base"], sp=c["sp"], zp_pf=c["zp_pf"], c_out=c["c_out"],
         res_scale=c["res_scale"],
@@ -335,12 +379,22 @@ def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
         qmin=c["qmin"], qmax=c["qmax"], mask=c["mask"])
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     rc = getattr(_library(name, _HSParams), f"nq_{name}")(
-        xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), xk.data_ptr(), xv.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
         ctypes.byref(p), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     wrapper.launches += 1
     return out
+
+
+def _kernel_bias(score_bias, fast: bool):
+    """The bias as the kernels read it: contiguous, and scaled by log2(e)
+    once per call on the fast path (its exp2 domain), as the plain
+    versions scale it."""
+    if score_bias is None:
+        return None
+    return (score_bias * float(LOG2E) if fast else score_bias).contiguous()
 
 
 def fused_attention_hs(xq, xk, xv, *, num_heads: int, scaling: float,
@@ -350,21 +404,25 @@ def fused_attention_hs(xq, xk, xv, *, num_heads: int, scaling: float,
                        score_max: float | None = None,
                        causal_mask_val: float | None = None,
                        causal_window: int | None = None,
+                       score_bias: torch.Tensor | None = None,
                        block_q: int | None = None):
     """xq [B, nq, H*D], xk/xv [B, N, H*D] int8 (nq <= N: narrow q runs
-    fewer query rows against full K/V; a causal mask needs nq == N).
-    Returns [B, nq, H*D] float32, or int8 with
-    ``out_requant=(scale, zero_point)``.
+    fewer query rows against full K/V; a causal mask or a score bias
+    needs nq == N). ``score_bias``: float32 [H, nq, N], added to the
+    scaled scores of each batch row. Returns [B, nq, H*D] float32, or
+    int8 with ``out_requant=(scale, zero_point)``.
 
-    Long sequences (see :func:`blockwise`) go to
+    Long sequences and large biases (see :func:`blockwise`) go to
     :func:`fused_attention_hs_blockq`, the rest to
     :func:`fused_attention_hs_monolithic`."""
-    _check(xq, xk, xv, num_heads, causal_mask_val)
+    _check(xq, xk, xv, num_heads, causal_mask_val, score_bias)
     kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
               zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
               out_requant=out_requant, fast=fast, score_max=score_max,
-              causal_mask_val=causal_mask_val, causal_window=causal_window)
-    if blockwise(xk.shape[1], block_q):
+              causal_mask_val=causal_mask_val, causal_window=causal_window,
+              score_bias=score_bias)
+    if blockwise(xk.shape[1], block_q, nq=xq.shape[1],
+                 bias_heads=None if score_bias is None else num_heads):
         return fused_attention_hs_blockq(xq, xk, xv, block_q=block_q or BLOCK_Q,
                                          **kw)
     return fused_attention_hs_monolithic(xq, xk, xv, **kw)
@@ -381,16 +439,18 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
                                   fast: bool = False,
                                   score_max: float | None = None,
                                   causal_mask_val: float | None = None,
-                                  causal_window: int | None = None):
+                                  causal_window: int | None = None,
+                                  score_bias: torch.Tensor | None = None):
     """The monolithic kernel whatever N (up to its shared memory): CUDA
     tensors launch ``csrc/attention_hs.cu`` (or raise), counted in
     ``fused_attention_hs.launches``; CPU tensors take
     ``fused_attention_hs_reference``."""
-    _check(xq, xk, xv, num_heads, causal_mask_val)
+    _check(xq, xk, xv, num_heads, causal_mask_val, score_bias)
     kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
               zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
               out_requant=out_requant, fast=fast, score_max=score_max,
-              causal_mask_val=causal_mask_val, causal_window=causal_window)
+              causal_mask_val=causal_mask_val, causal_window=causal_window,
+              score_bias=score_bias)
     if xq.device.type == "cpu":
         return fused_attention_hs_reference(xq, xk, xv, **kw)
     n = xk.shape[1]
@@ -399,8 +459,9 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
             > _MAX_SMEM:
         raise ValueError(f"N={n} keys at head dim {d} exceed the shared "
                          "memory of one block")
-    return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d,
-                   _constants(**kw), kw)
+    c = _constants(**kw)
+    kw["score_bias"] = _kernel_bias(score_bias, fast)
+    return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d, c, kw)
 
 
 def _skip_masked_tiles(c: dict, d: int, fast: bool) -> bool:
@@ -410,7 +471,8 @@ def _skip_masked_tiles(c: dict, d: int, fast: bool) -> bool:
     (fast path), or it clamps to 2^-120 (static shift, which the kernel
     adds in closed form). |s| <= S = 255^2 * D * |score constant| +
     |base| before the mask, so s_j - m <= 2S; a margin of 256 covers exp,
-    exp2 and the clamp with room for f32 rounding."""
+    exp2 and the clamp with room for f32 rounding. A score bias is not
+    in that bound, so a call with one never skips."""
     scale = abs(float(c["c_score"])) * (1.0 if fast else abs(float(c["scaling"])))
     bound = 255.0 * 255.0 * d * scale + abs(float(c["base"]))
     return float(c["mask"]) < -(2.0 * bound + 256.0)
@@ -425,19 +487,21 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
                               score_max: float | None = None,
                               causal_mask_val: float | None = None,
                               causal_window: int | None = None,
+                              score_bias: torch.Tensor | None = None,
                               block_q: int = BLOCK_Q):
     """The blockwise form of :func:`fused_attention_hs` for long
     sequences: the same function of the same operands. CUDA tensors
     launch ``csrc/attention_hs_blockq.cu`` (or raise), which streams K/V
-    through shared memory in tiles, so N is bounded only by its int32
-    context sums (MAX_BLOCKQ_N); CPU tensors take
-    ``fused_attention_hs_blockq_reference`` with q tiles of ``block_q``
-    rows (the kernel's own tiles are fixed)."""
-    _check(xq, xk, xv, num_heads, causal_mask_val)
+    (and the bias rows of its q tile) through shared memory in tiles, so
+    N is bounded only by its int32 context sums (MAX_BLOCKQ_N); CPU
+    tensors take ``fused_attention_hs_blockq_reference`` with q tiles of
+    ``block_q`` rows (the kernel's own tiles are fixed)."""
+    _check(xq, xk, xv, num_heads, causal_mask_val, score_bias)
     kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
               zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
               out_requant=out_requant, fast=fast, score_max=score_max,
-              causal_mask_val=causal_mask_val, causal_window=causal_window)
+              causal_mask_val=causal_mask_val, causal_window=causal_window,
+              score_bias=score_bias)
     if xq.device.type == "cpu":
         return fused_attention_hs_blockq_reference(xq, xk, xv,
                                                    block_q=block_q, **kw)
@@ -447,7 +511,9 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
         raise ValueError(f"N={n} keys exceed {MAX_BLOCKQ_N}: the int32 "
                          "context sum could overflow")
     c = _constants(**kw)
-    skip = causal_mask_val is not None and _skip_masked_tiles(c, d, fast)
+    skip = causal_mask_val is not None and score_bias is None \
+        and _skip_masked_tiles(c, d, fast)
+    kw["score_bias"] = _kernel_bias(score_bias, fast)
     return _launch(fused_attention_hs_blockq, "attention_hs_blockq", xq, xk,
                    xv, d, c, kw, skip=skip)
 
@@ -455,42 +521,110 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
 fused_attention_hs_blockq.launches = 0
 
 
-# -- the pre-split form: q [BH, N, D], kt [BH, D, N], v [BH, N, D] ---------
+# -- torch's CUDA row-sum order ---------------------------------------------
+#
+# torch sums a contiguous [rows, N] float32 tensor over its last dim in
+# ATen's Reduce.cuh order: each row in one warp of up to 32 lanes (while
+# rows and N leave it so), each lane adding into 4 accumulators -- 4-vector
+# loads from N >= 128 on (the row's unaligned head and tail elements apart),
+# strided scalar loads below -- combined ((a0 + a1) + a2) + a3, then a
+# shfl_down lane tree with offsets lanes/2..1. The exact kernels add each
+# softmax row in that order (csrc/torch_order.cuh).
 
-# key counts at which torch's CUDA sum over a contiguous last dim (with
-# N % 4 == 0) takes the order csrc/attention_plain.cu sums softmax rows in:
-# one warp per row, 4-vector loads into 4 accumulators per lane, then a
-# shfl_down lane tree with offsets 16..1 (ATen Reduce.cuh)
-TORCH_ORDER_N = (128, 8192)
+TORCH_VEC_N = 128  # torch vectorizes the row loads from this many keys on
 
 
-def _torch_order_sum(x: np.ndarray) -> np.ndarray:
-    """The row sums of x [rows, N] in the kernel's order (torch's CUDA
-    order for N in TORCH_ORDER_N), replayed in float32 on the host: 128
-    strided partial sums, ((a0 + a1) + a2) + a3 per lane of 32, then the
-    lane tree with offsets 16..1."""
+def _last_pow2(x: int) -> int:
+    return 1 << (max(1, int(x)).bit_length() - 1)
+
+
+def sum_order(n: int) -> tuple[bool, int]:
+    """(vectorized loads, lanes) of the one-warp row sum over ``n`` keys
+    that the exact kernels replay."""
+    vec = n >= TORCH_VEC_N
+    return vec, min(32, _last_pow2(n // 4 if vec else n))
+
+
+def in_torch_order(rows: int, n: int, tiled: bool = False) -> bool:
+    """True when torch reduces each row of a contiguous [rows, n] float32
+    tensor in one warp as :func:`sum_order` says (Reduce.cuh's block shape:
+    at most 512 threads, and no split of a row across warps), so that the
+    monolithic kernel's exact row sums equal torch's. The ``tiled``
+    kernels (blockwise and pre-split) replay only the 32-lane vectorized
+    order of rows that start aligned: N >= 128 with N % 4 == 0."""
+    if tiled and (n < TORCH_VEC_N or n % 4):
+        return False
+    vec, lanes = sum_order(n)
+    p0 = min(_last_pow2(n // 4 if vec else n), 512)
+    p1 = min(_last_pow2(rows), 512)
+    width = min(p0, 32)
+    height = min(p1, 512 // width)
+    width = min(p0, 512 // height)
+    return width == lanes and -(-n // width) < min(height * 16, 256)
+
+
+def torch_order_sum(x: np.ndarray, row_ids=None) -> np.ndarray:
+    """The row sums of x [rows, N] float32 in the kernels' order (torch's,
+    where :func:`in_torch_order`), replayed on the host. ``row_ids`` are
+    the rows' indices in the summed tensor (default 0..rows-1): when N % 4
+    != 0 a row's misalignment, (row * N) % 4 elements, decides which
+    elements its head and tail hold."""
+    x = np.asarray(x, np.float32)
     rows, n = x.shape
-    part = np.zeros((rows, 128), np.float32)
-    for k in range(0, n, 128):
-        chunk = x[:, k:k + 128]
-        part[:, :chunk.shape[1]] += chunk
-    lanes = part.reshape(rows, 32, 4)
-    v = ((lanes[..., 0] + lanes[..., 1]) + lanes[..., 2]) + lanes[..., 3]
+    vec, lanes = sum_order(n)
+    ids = np.arange(rows) if row_ids is None else np.asarray(row_ids)
+    acc = np.zeros((rows, lanes, 4), np.float32)
+    if not vec:
+        # lane L, accumulator i adds keys L + i*lanes + 4*lanes*k in order
+        padded = np.zeros((rows, _round_up(n, 4 * lanes)), np.float32)
+        padded[:, :n] = x
+        for k in range(0, padded.shape[1], 4 * lanes):
+            acc += padded[:, k:k + 4 * lanes].reshape(rows, 4, lanes) \
+                .transpose(0, 2, 1)
+    else:
+        shift = (ids.astype(np.int64) * n) % 4
+        for s in range(4):
+            sel = np.nonzero(shift == s)[0]
+            if sel.size == 0:
+                continue
+            xs, a = x[sel], np.zeros((sel.size, lanes, 4), np.float32)
+            start, end = 0, n
+            if s:
+                # the unaligned head: lanes s..3 take elements 0..3-s
+                for lane in range(s, 4):
+                    a[:, lane, 0] = xs[:, lane - s]
+                start, end = 4 - s, n + s - 4
+            nvec = end // 4
+            body = np.zeros((sel.size, _round_up(nvec, lanes) * 4), np.float32)
+            body[:, :nvec * 4] = xs[:, start:start + nvec * 4]
+            for k in range(0, body.shape[1], 4 * lanes):
+                a += body[:, k:k + 4 * lanes].reshape(sel.size, lanes, 4)
+            # the tail: lane L takes element L after the last full vector
+            for lane in range(end % 4):
+                a[:, lane, 0] += xs[:, start + nvec * 4 + lane]
+            acc[sel] = a
+    v = ((acc[..., 0] + acc[..., 1]) + acc[..., 2]) + acc[..., 3]
     while v.shape[1] > 1:
         half = v.shape[1] // 2
         v = v[:, :half] + v[:, half:]
     return v[:, 0]
 
 
-def torch_sums_in_kernel_order(device) -> bool:
-    """True when torch's sum over the last dim on ``device`` adds in the
-    order the kernel's softmax row sums take (seeded rows of 1024, summed
-    there and replayed on the host). The kernel equals the unfused
-    executor bit for bit only while this holds; a torch whose reduction
+def torch_sums_in_kernel_order(device, rows: int = 64, n: int = 1024) -> bool:
+    """True when torch's sum over the last dim of a [rows, n] float32
+    tensor on ``device`` adds in the order the exact kernels' softmax row
+    sums take: seeded rows summed there and replayed on the host (at most
+    the first and last 256 rows). The kernels equal the unfused executor
+    bit for bit only at shapes where this holds; a torch whose reduction
     order changed makes it False."""
-    x = np.random.default_rng(0).random((64, 1024), dtype=np.float32)
-    got = torch.from_numpy(x).to(device).sum(dim=-1).cpu().numpy()
-    return bool(np.array_equal(got, _torch_order_sum(x)))
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((rows, n), generator=gen, device=device)
+    got = x.sum(dim=-1)
+    ids = np.unique(np.r_[np.arange(min(rows, 256)),
+                          np.arange(max(0, rows - 256), rows)])
+    sel = torch.from_numpy(ids).to(device)
+    want = torch_order_sum(x[sel].cpu().numpy(), row_ids=ids)
+    return bool(np.array_equal(got[sel].cpu().numpy(), want))
 
 
 def fused_attention_reference(q, kt, v, *, scaling: float, sq: float,
@@ -574,9 +708,9 @@ def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
     ``csrc/attention_plain.cu`` (or raise), counted in
     ``fused_attention.launches``; CPU tensors take
     ``fused_attention_reference``. The kernel sums each softmax row in
-    torch's CUDA order (:func:`torch_sums_in_kernel_order`), so for N in
-    TORCH_ORDER_N (N % 4 == 0) it equals the unfused executor bit for
-    bit."""
+    torch's CUDA order for 128 <= N with N % 4 == 0 (csrc/torch_order.cuh),
+    so where ``in_torch_order(BH * N, N, tiled=True)`` holds it equals the
+    unfused executor bit for bit."""
     for t in (q, kt, v):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int8:
             raise TypeError("fused_attention takes int8 tensors")
@@ -643,8 +777,10 @@ def _library(name: str, params: type[ctypes.Structure]) -> ctypes.CDLL:
     lib = load(name)
     if not getattr(lib, "_nq_typed", False):
         fn = getattr(lib, f"nq_{name}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(params),
-                                               ctypes.c_void_p]
+        # q, k (or k^T), v, [the score bias,] out
+        pointers = 4 if params is _PlainParams else 5
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.POINTER(params),
+                                                      ctypes.c_void_p]
         fn.restype = ctypes.c_int
         if name == "attention_hs":
             lib.nq_attention_hs_smem_bytes.argtypes = [ctypes.c_int,

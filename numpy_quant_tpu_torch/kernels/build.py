@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
-a plain C interface, loaded through ``ctypes``. The library lands in
-``build/kernels/`` at the repository root, named by a hash of its source
-and flags, so a changed source rebuilds and an unchanged one loads
+a plain C interface, loaded through ``ctypes``; the sources share the
+headers ``csrc/*.cuh``. The library lands in ``build/kernels/`` at the
+repository root, named by a hash of its source, the headers and the
+flags, so a changed source or header rebuilds and an unchanged one loads
 straight away. Nothing is built at import time: the first launch builds.
 """
 from __future__ import annotations
@@ -38,6 +39,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -565,9 +565,8 @@ class QModel(Model):
                       and (idx < 2 or (idx == 2 and node.op in (
                           "FusedAttention", "FusedAttentionHS")))):
                     # a 4x-width accumulator OPERAND (never a bias)
-                    # requantizes with this value's calibrated params
-                    qp = self.quant_params[v.name]
-                    t = t.requantize(self.bit_width, qp.scale, qp.zero_point)
+                    # narrows with this value's calibrated params
+                    t = self._narrow(t, v, node)
                 ins.append(t)
         elif (node.op in PASSTHROUGH_OPS
               and node.outputs
@@ -588,6 +587,21 @@ class QModel(Model):
                     t = t.dequantize()
                 ins.append(t)
         return ins
+
+    def _narrow(self, t: QTensor, value: Value, consumer: Node) -> QTensor:
+        """An accumulator operand ``value`` of ``consumer`` at the model bit
+        width, as the unfused graph handed it over: a FusedAttentionHS
+        stands where the head-split Reshape dequantized the accumulator and
+        the score or context MatMul quantized the floats (x / scale); any
+        other quantized op takes the accumulator itself and requantizes it
+        (x * (1 / scale), the reference's requantize). The two round a value
+        near a rounding boundary apart, and the fused node must equal the
+        chain it replaced."""
+        qp = self.quant_params[value.name]
+        if consumer.op == "FusedAttentionHS":
+            return quantize_tensor(t.dequantize(), self.bit_width, qp.scale,
+                                   qp.zero_point)
+        return t.requantize(self.bit_width, qp.scale, qp.zero_point)
 
     def _post_node(self, node: Node, outputs: list[Tensor]) -> list[Tensor]:
         if node.op in self.requantized_ops:

@@ -5,6 +5,15 @@ from .llama import (
     random_llama_weights,
     rope_tables,
 )
+from .t5 import (
+    T5_SMALL,
+    random_t5_weights,
+    relative_position_bias,
+    t5_conditional_generation,
+    t5_encoder,
+)
 
 __all__ = ["TINYLLAMA_1_1B", "llama_causal_lm", "random_llama_weights",
-           "rope_tables"]
+           "rope_tables", "T5_SMALL", "random_t5_weights",
+           "relative_position_bias", "t5_conditional_generation",
+           "t5_encoder"]

@@ -1,8 +1,8 @@
 """ONNX operator implementations over the tensor layer (port of
 ``numpy_quant_tpu/ops/registry.py``), limited to the ops of the ViT
-classifier, the GPT causal-LM and decode graphs and the LLaMA causal-LM
-graph, the three fused ops and weight-only MatMul/Gemm. Any other op raises
-``NotImplementedError`` with its name."""
+classifier, the GPT causal-LM and decode graphs, the LLaMA causal-LM graph
+and the T5 encoder-decoder graphs, the three fused ops and weight-only
+MatMul/Gemm. Any other op raises ``NotImplementedError`` with its name."""
 from __future__ import annotations
 
 import numpy as np
@@ -37,21 +37,42 @@ def _zp_of(t: QTensor) -> int:
     return 0 if t.zero_point is None else int(t.zero_point)
 
 
+def score_bias_operand(bias: Tensor, num_heads: int, nq: int, n: int):
+    """The 4th FusedAttentionHS input as the kernels take it: dequantized
+    exactly as the unfused Add dequantizes it, its leading 1-dims dropped,
+    a 2-D bias lifted to [1, nq, n], broadcast to a contiguous float32
+    [H, nq, n] on the device (JAX ``ops/registry.py:898-916``)."""
+    if isinstance(bias, QTensor):
+        bias = bias.dequantize()
+    arr = bias.data.to(torch.float32)
+    while arr.ndim > 3:
+        if arr.shape[0] != 1:
+            raise ValueError(f"score bias {tuple(bias.data.shape)} does not "
+                             "broadcast over the batch")
+        arr = arr[0]
+    if arr.ndim == 2:
+        arr = arr[None]
+    return torch.broadcast_to(arr, (num_heads, nq, n)).contiguous()
+
+
 def attention_call(inputs: list[Tensor], attrs: dict):
     """The kernel operands and keyword arguments of a FusedAttentionHS
     node: (q, k, v, kwargs, narrow_q). Narrow q (dead-token
     elimination) arrives rank-2 [B, H*D] and runs as one query row
     against full K/V. A decoder's causal mask (``causal_mask_val``, the
     dequantized mask constant, and the band ``causal_window``) is added
-    inside the kernel."""
-    if len(inputs) > 3:
-        raise NotImplementedError(
-            "FusedAttentionHS with a score bias is not ported")
+    inside the kernel, and so is the optional 4th input, a score-bias
+    constant (``score_bias``, [H, nq, N] float32)."""
     xq, xk, xv = inputs[0], inputs[1], inputs[2]
     assert isinstance(xq, QTensor) and isinstance(xk, QTensor) \
         and isinstance(xv, QTensor)
     narrow_q = xq.data.ndim == 2
     qdata = xq.data[:, None, :] if narrow_q else xq.data
+    num_heads = int(attrs["num_heads"])
+    score_bias = None
+    if len(inputs) > 3 and inputs[3] is not None:
+        score_bias = score_bias_operand(inputs[3], num_heads,
+                                        qdata.shape[1], xk.data.shape[1])
     score_max = attrs.get("score_max")
     causal_mask_val = attrs.get("causal_mask_val")
     causal_window = attrs.get("causal_window")
@@ -59,7 +80,8 @@ def attention_call(inputs: list[Tensor], attrs: dict):
         causal_mask_val=None if causal_mask_val is None
         else float(causal_mask_val),
         causal_window=None if causal_window is None else int(causal_window),
-        num_heads=int(attrs["num_heads"]),
+        score_bias=score_bias,
+        num_heads=num_heads,
         # bf16 serving mode takes the fewer-passes softmax; f32 the
         # executor-exact one
         fast=config.float_dtype == torch.bfloat16,
@@ -420,6 +442,8 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return [-inputs[0]]
     if op == "ReduceMean":
         return _reduce_mean(inputs, attrs)
+    if op == "Relu":
+        return [inputs[0].relu()]
     if op == "Reshape":
         x, shape = inputs[0], inputs[1]
         x_shape = x.shape if isinstance(x, QTensor) \
@@ -442,6 +466,8 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return _split(inputs, attrs)
     if op == "Sqrt":
         return [inputs[0].sqrt()]
+    if op == "Tanh":
+        return [inputs[0].tanh()]
     if op == "Transpose":
         x = inputs[0]
         perm = attrs.get("perm")

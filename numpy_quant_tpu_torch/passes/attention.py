@@ -1,15 +1,16 @@
-"""Attention fusion pass: MatMul -> scale -> [causal mask] -> Softmax ->
+"""Attention fusion pass: MatMul -> scale -> [mask/bias] -> Softmax ->
 MatMul chains become one fused node backed by the hand-written CUDA
 kernels (kernels/attention.py): FusedAttentionHS when the standard
 multi-head split/merge surrounds the chain (the kernel splits and merges
 heads itself), else FusedAttention on the pre-split [BH, N, D] heads (the
 head shuffles stay in the graph, e.g. when RoPE and repeat_kv sit between
-the split and the scores). Port of ``numpy_quant_tpu/passes/attention.py``
-for the chains the port's kernels cover: no mask, or the decoder's
-additive causal mask (full or sliding-window band), applied in the
-kernel at the graph Add's position. A general score-bias constant (T5
-relative bias, ALiBi) is not ported: such chains stay unfused and are
-recorded as fusion failures.
+the split and the scores). Port of ``numpy_quant_tpu/passes/attention.py``:
+no mask; the decoder's additive causal mask (full or sliding-window band);
+or a general score-bias constant (T5 relative bias, its decoder's combined
+bias + causal constant, ALiBi), which rides into FusedAttentionHS as a 4th
+input. Each is added in the kernel at the graph Add's position. A bias on a
+chain whose head split does not match stays unfused and is recorded as a
+fusion failure.
 """
 from __future__ import annotations
 
@@ -60,16 +61,17 @@ def fuse_attention(model) -> int:
             continue
         # optional additive causal mask (decoder graphs): the Softmax
         # input may be Add(scaled scores, triangular const); the kernel
-        # adds the same value itself
+        # adds the same value itself. A constant the causal matcher does
+        # not claim matches as a general per-head score bias (T5 relative
+        # position bias, its decoder's bias + causal constant, ALiBi),
+        # fused as a kernel operand.
         mask_node, mask_val = _match_causal_mask(producer, sm.inputs[0])
-        if mask_node is None \
-                and _match_score_bias(producer, sm.inputs[0]) is not None:
-            fail(sm, "score-bias constant before Softmax: the score-bias "
-                 "form of FusedAttentionHS is not ported")
-            continue
-        scale_val = sm.inputs[0] if mask_node is None else \
-            mask_node.inputs[1 if isinstance(mask_node.inputs[0], Constant)
-                             else 0]
+        bias_node, bias_const = (None, None) if mask_node is not None \
+            else _match_score_bias(producer, sm.inputs[0])
+        add_node = mask_node if mask_node is not None else bias_node
+        scale_val = sm.inputs[0] if add_node is None else \
+            add_node.inputs[1 if isinstance(add_node.inputs[0], Constant)
+                            else 0]
         mul = producer.get(scale_val.name)
         if mul is not None and mul.op == "MatMul":
             # exporter pre-scaled q (or k): scores feed softmax
@@ -104,8 +106,8 @@ def fuse_attention(model) -> int:
         chain_vals = [mm1.outputs[0]]
         if mul is not None:
             chain_vals.append(mul.outputs[0])
-        if mask_node is not None:
-            chain_vals.append(mask_node.outputs[0])
+        if add_node is not None:
+            chain_vals.append(add_node.outputs[0])
         if any(len(consumers(v)) != 1 for v in chain_vals):
             fail(sm, "scores/probabilities have consumers outside "
                  "the attention chain")
@@ -137,9 +139,30 @@ def fuse_attention(model) -> int:
         hs = _match_attention_hs(model, mm1, mm2, producer)
         if hs is not None:
             xq, xk, xv, out_value, num_heads, dead = hs
+            f_inputs = [xq, xk, xv]
+            if bias_node is not None:
+                bshape = tuple(bias_const.data.data.shape)
+                if len(bshape) >= 3 \
+                        and bshape[-3] not in (1, num_heads):
+                    fail(sm, f"score-bias constant head dim "
+                         f"{bshape[-3]} is not 1 or num_heads "
+                         f"{num_heads}")
+                    continue
+                # the bias constant rides as a 4th input: the executor
+                # dequantizes it exactly as the unfused Add would, then the
+                # kernel adds it per head (kernels/attention.py score_bias)
+                f_inputs.append(bias_const)
             fnode = Node(f"{mm2.name}/fused_attention_hs",
                          "FusedAttentionHS", dict(attrs, num_heads=num_heads),
-                         [xq, xk, xv], [out_value])
+                         f_inputs, [out_value])
+        elif bias_node is not None:
+            # the plain kernel's [BH, N, D] layout has no head index to
+            # slice a per-head bias by: only the shape-checked head-split
+            # pattern fuses biased attention
+            fail(sm, "score-bias constant present but the head-split"
+                 " pattern did not match (bias fuses via"
+                 " FusedAttentionHS only)")
+            continue
         elif mul is None:
             # pre-scaled scores carry no standalone scale node to anchor a
             # safe plain fusion (the bare MatMul operands may be 2-D or
@@ -165,7 +188,7 @@ def fuse_attention(model) -> int:
         for dn in dead:
             if dn in model.nodes:
                 model.nodes.remove(dn)
-        for dn in (mm1, mul, mask_node, sm):
+        for dn in (mm1, mul, add_node, sm):
             if dn is not None:
                 model.nodes.remove(dn)
         fused += 1
@@ -216,25 +239,28 @@ def _match_causal_mask(producer, value):
 
 
 def _match_score_bias(producer, value):
-    """The constant of ``Add(x, C)`` feeding a Softmax where C is a
-    general additive score bias the causal matcher did not claim (T5
-    relative position bias, ALiBi slopes, document masks): a float or
-    quantized constant of rank >= 2 that broadcasts over the batch dim.
-    The JAX package fuses it as a kernel operand; the port records the
-    chain as not fused. Returns the constant value or None."""
+    """Match ``Add(x, C)`` feeding a Softmax where C is a general additive
+    score-bias constant the causal matcher did not claim: T5 relative
+    position bias, ALiBi slopes, document masks, or the T5 decoder's
+    combined bias + causal constant. C is a float or quantized constant of
+    rank >= 2 whose dims before the last three are 1 (it broadcasts over
+    the batch); its last three dims broadcast to the scores' [H, Nq, Nk].
+    Returns (add_node, bias constant value) or (None, None): the value,
+    not a folded array, so that execution dequantizes it exactly as the
+    unfused Add would."""
     node = producer.get(value.name)
     if node is None or node.op != "Add":
-        return None
+        return None, None
     consts = [v for v in node.inputs if isinstance(v, Constant)]
     if len(consts) != 1 or consts[0].data is None:
-        return None
+        return None, None
     d = consts[0].data
     if not isinstance(d, (QTensor, FTensor)):
-        return None
+        return None, None
     shape = tuple(d.data.shape)
     if len(shape) < 2 or any(s != 1 for s in shape[:-3]):
-        return None
-    return consts[0]
+        return None, None
+    return node, consts[0]
 
 
 def _match_attention_hs(model, mm1, mm2, producer):

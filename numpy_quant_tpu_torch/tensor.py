@@ -202,6 +202,10 @@ class FTensor:
     def mean(self, axis, keepdims: bool) -> "FTensor":
         return FTensor(torch.mean(self._data, dim=axis, keepdim=keepdims))
 
+    def relu(self) -> "FTensor":
+        # the JAX package's (x > 0) * x (torch.relu keeps -0.0 apart)
+        return FTensor((self._data > 0) * self._data)
+
     def sum(self, axis: int, keepdims: bool) -> "FTensor":
         return FTensor(torch.sum(self._data, dim=axis, keepdim=keepdims))
 
@@ -218,6 +222,9 @@ class FTensor:
 
     def sqrt(self) -> "FTensor":
         return FTensor(torch.sqrt(self._data))
+
+    def tanh(self) -> "FTensor":
+        return FTensor(torch.tanh(self._data))
 
     def __repr__(self):
         return f"FTensor(shape={tuple(self._data.shape)})"
@@ -297,6 +304,14 @@ class QTensor:
 
     def dequantize(self) -> FTensor:
         return FTensor(_dequantize(self._data, self.scale, self.zero_point))
+
+    def relu(self) -> "QTensor":
+        """max(q, zero point): the quantized zero, as JAX computes it."""
+        zp = 0 if self.zero_point is None else self.zero_point
+        zp = torch.as_tensor(zp, dtype=self._data.dtype,
+                             device=self._data.device)
+        return QTensor(torch.maximum(self._data, zp), self.bit_width,
+                       self.scale, self.zero_point)
 
     def requantize(self, bit_width: int, scale, zero_point) -> "QTensor":
         qdata = _requantize(self._data, self.scale, self.zero_point,

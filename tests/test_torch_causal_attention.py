@@ -175,13 +175,20 @@ def test_blockwise_plain_equals_monolithic_plain():
                 TA.fused_attention_hs_reference(q, k, v, **kw).numpy())
 
 
-@pytest.mark.parametrize("n,block_q,want", [
-    (1024, None, True), (1000, None, True), (897, None, True),
-    (896, None, False), (197, None, False), (50, 8, True), (4096, None, True)])
-def test_dispatch(n, block_q, want):
+@pytest.mark.parametrize("n,block_q,want,bias_heads", [
+    pytest.param(n, bq, want, None, id=f"{n}-{bq}-{want}")
+    for n, bq, want in ((1024, None, True), (1000, None, True),
+                        (897, None, True), (896, None, False),
+                        (197, None, False), (50, 8, True), (4096, None, True))
+] + [pytest.param(n, None, want, 8, id=f"{n}-bias8-{want}")
+     for n, want in ((128, False), (256, False), (257, True), (512, True))])
+def test_dispatch(n, block_q, want, bias_heads):
     """JAX's rule: blockwise at round_up(N, 128) >= 1024 or a forced
-    block_q (897 and 1000 pad to 1024 lanes, 896 does not)."""
-    assert TA.blockwise(n, block_q) is want
+    block_q (897 and 1000 pad to 1024 lanes, 896 does not), or with a
+    score bias whose padded f32 block H * round_up(nq, 8) * round_up(N,
+    128) * 4 passes 2 MiB (at t5-small's H=8: N=256 is exactly 2 MiB, 257
+    pads to 264 rows x 384 lanes)."""
+    assert TA.blockwise(n, block_q, nq=n, bias_heads=bias_heads) is want
 
 
 def test_wrappers_take_plain_versions_on_cpu():
@@ -202,10 +209,29 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 def test_registry_refuses_score_bias_operand():
+    """The 4th FusedAttentionHS operand is accepted: dequantized as the
+    unfused Add dequantizes it (a 32-bit bias on the scores' scale), its
+    leading 1-dims dropped, broadcast to a contiguous float32 [H, nq, n];
+    one that does not broadcast over the batch is refused."""
     qt = QTensor(torch.zeros(1, 4, 16, dtype=torch.int8), 8,
                  np.float32(0.1), None)
-    with pytest.raises(NotImplementedError, match="score bias"):
-        attention_call([qt, qt, qt, qt], dict(num_heads=2))
+    attrs = dict(num_heads=2, scaling=1.0, probs_scale=1.0 / 255,
+                 probs_zero_point=-128)
+    raw = torch.arange(16, dtype=torch.int32).reshape(1, 1, 4, 4) - 8
+    bias = QTensor(raw, 32, np.float32(0.25), None)
+    *_, kw, narrow = attention_call([qt, qt, qt, bias], attrs)
+    sb = kw["score_bias"]
+    assert not narrow and sb.dtype == torch.float32 and sb.is_contiguous()
+    assert tuple(sb.shape) == (2, 4, 4)
+    want = bias.dequantize().data[0, 0]
+    for h in range(2):
+        np.testing.assert_array_equal(sb[h].numpy(), want.numpy())
+    two_d = FTensor(torch.ones(4, 4))
+    assert tuple(attention_call([qt, qt, qt, two_d], attrs)[3]["score_bias"]
+                 .shape) == (2, 4, 4)
+    assert attention_call([qt, qt, qt], attrs)[3]["score_bias"] is None
+    with pytest.raises(ValueError, match="broadcast over the batch"):
+        attention_call([qt, qt, qt, FTensor(torch.ones(2, 2, 4, 4))], attrs)
 
 
 # -- the causal-mask matcher ---------------------------------------------
@@ -424,22 +450,40 @@ def test_causal_lm_end_to_end(lm, seq, monkeypatch):
 
 
 def test_score_bias_is_recorded_not_fused(lm):
-    """A general additive bias before the Softmax (here the mask
-    initializer replaced by a random [1, 1, N, N] bias) is left unfused
-    and recorded, with the reason, as a fusion failure."""
+    """A general additive bias before the Softmax (here each mask
+    initializer replaced by one random [1, 1, N, N] bias, in JAX's graph and
+    the port's) fuses as the 4th FusedAttentionHS input: the optimize()
+    report equals JAX's, and the fused forward equals the unfused one bit
+    for bit."""
+    from numpy_quant_tpu import onnx as J_ONNX
     s = _setup(lm, 16)
-    proto = TG.gpt_causal_lm(lm["weights"], CFG, batch_size=B_LM, seq_len=16)
     rng = np.random.default_rng(4)
-    inits = proto.graph.initializer
-    for idx, t in enumerate(inits):
-        if t.name.endswith("causal_mask"):
-            inits[idx] = T_ONNX.from_array(
-                rng.normal(size=(1, 1, 16, 16)).astype(np.float32), t.name)
-    tm = Model.from_onnx(proto, device="cpu")
-    tq = tm.quantize(bit_width=8, stats=tm.calibration_stats([s["calib"]]))
+    bias = rng.normal(size=(1, 1, 16, 16)).astype(np.float32)
+
+    def biased(proto, onnx):
+        inits = proto.graph.initializer
+        for idx, t in enumerate(inits):
+            if t.name.endswith("causal_mask"):
+                inits[idx] = onnx.from_array(bias, t.name)
+        return proto
+
+    with jax.enable_x64(False):
+        jm = nq.Model.from_onnx(biased(
+            JG.gpt_causal_lm(module=lm["hf"], batch_size=B_LM, seq_len=16),
+            J_ONNX))
+        stats = jm.calibration_stats([s["calib"]])
+        jrep = jm.quantize(bit_width=8, stats=stats).optimize()
+    proto = biased(TG.gpt_causal_lm(lm["weights"], CFG, batch_size=B_LM,
+                                    seq_len=16), T_ONNX)
+    tq = Model.from_onnx(proto, device="cpu").quantize(bit_width=8,
+                                                       stats=stats)
     unfused = tq([s["x"]])[0]
     rep = tq.optimize()
-    assert rep["fuse_attention"] == 0
-    assert len(rep["fusion_failures"]) == CFG["n_layer"]
-    assert all("score-bias" in reason for _, reason in rep["fusion_failures"])
+    assert rep == {key: jrep[key] for key in rep}
+    assert rep["fuse_attention"] == CFG["n_layer"]
+    assert rep["fusion_failures"] == []
+    fnodes = [n for n in tq.nodes if n.op == "FusedAttentionHS"]
+    assert len(fnodes) == CFG["n_layer"]
+    assert all(len(n.inputs) == 4 and "causal_mask_val" not in n.attrs
+               for n in fnodes)
     np.testing.assert_array_equal(tq([s["x"]])[0], unfused)

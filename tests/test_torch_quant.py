@@ -175,6 +175,7 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.models.vit\n"
             "import numpy_quant_tpu_torch.models.gpt\n"
             "import numpy_quant_tpu_torch.models.llama\n"
+            "import numpy_quant_tpu_torch.models.t5\n"
             "import numpy_quant_tpu_torch.passes\n"
             "import numpy_quant_tpu_torch.utils.generate\n"
             "import numpy_quant_tpu_torch.profile_vit\n"
