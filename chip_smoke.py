@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's int8 ViT-Base, weight-only GPT-2 decode, int8
-GPT-2 full-context scoring, int8 TinyLlama-1.1B scoring and int8 T5-small
-encoder-decoder scoring paths on one NVIDIA GPU.
+GPT-2 full-context scoring, int8 TinyLlama-1.1B scoring, int8 T5-small
+encoder-decoder scoring, W8A16 ViT-Base and 1-16-bit MLP paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -104,8 +105,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
      block, equal to the unfused forward bit for bit) -> bf16 (launches,
      logits against f32); target tokens/s (median of 5 forwards per mode,
      in turns); one profiled bf16 forward; peak device memory.
-The last three lines are the kernels JSON line, the card's name and power
-limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
+ 14. the quantize boundaries and the 9-16-bit path: (a) the elementwise
+     kernels quantize and dequantize (csrc/elementwise.cu) against their
+     plain chains bit for bit at widths 1-64 in every form (f32/bf16 in;
+     int8/int32/int64 out; zero point none, scalar or a tensor; scale
+     scalar or per channel; a zero scale; ties, infinities, NaN and values
+     past the clip; contiguous, misaligned, transposed and strided data);
+     (b) both timed at ViT-Base's largest boundary and the GPT-2 and
+     TinyLlama scoring shapes beside their bytes bound, the chains and
+     torch's quantized-tensor calls (another function), and their host
+     time per call; (c) the ViT-Base int8 f32 forward equal with the
+     kernels and with the chains swapped in, the kernels' launches per
+     forward on the ViT, GPT-2, TinyLlama and T5 paths, aten calls and
+     wall time per forward of ViT-Base and T5-small with either; (d) the
+     reference's bit-width sweep, mlp.onnx at 1-16 bits on the two-circles
+     data: the card's integers equal the CPU port's, accuracy > 0.9 from 6
+     bits; (e) ViT-Base W8A16 (16-bit activations, 8-bit weights) in f32
+     at B=8 after optimize(): no fused attention (JAX's reason), closer to
+     the float logits than int8, images/s, idle share, peak memory.
+Phase 3 also times the bf16 forward with the plain chains swapped in and
+profiles one forward. The last three lines are the kernels JSON line, the
+card's name and power limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
 """
 from __future__ import annotations
 
@@ -183,6 +203,13 @@ SB_FORMS = ("per_head", "shared", "decoder")
 # T5-small scoring (phase 13): B sequences of T5_SRC source and T5_TGT
 # target tokens (t5's fine-tuning input length)
 T5_B, T5_SRC, T5_TGT = 8, 512, 128
+# quantize/dequantize (phase 14): the boundary kernels every path runs
+ELEMENTWISE = ("quantize", "dequantize")
+EW_WIDTHS = (1, 2, 3, 4, 7, 8, 9, 12, 16, 32, 64)
+EW_SHAPE = (37, 29)  # 1,073 elements: no multiple of the 4-wide vector
+EW_LAYOUTS = ("contiguous", "offset", "transposed", "strided")
+EW_SCALE, EW_ZP = 0.0213, -7  # the timed calls' qparams
+MLP_ACC_RULE = 6  # the reference's rule: accuracy > 0.9 from 6 bits
 
 
 def say(phase: str, **fields) -> None:
@@ -522,11 +549,18 @@ def counted(fn):
     from numpy_quant_tpu_torch import kernels as K
     counters = {name: getattr(K, name) for name in (
         "fused_attention_hs", "fused_attention_hs_blockq", "splitk_qmatmul",
-        "packed_qmatmul", "splitk_wo_matmul", "fused_attention")}
+        "packed_qmatmul", "splitk_wo_matmul", "fused_attention",
+        *ELEMENTWISE)}
     for f in counters.values():
         f.launches = 0
     out = fn()
     return out, {name: f.launches for name, f in counters.items()}
+
+
+def others(counts: dict) -> int:
+    """Launches of every kernel but the quantize boundaries', which every
+    path runs."""
+    return sum(v for k, v in counts.items() if k not in ELEMENTWISE)
 
 
 @contextlib.contextmanager
@@ -800,7 +834,7 @@ def decode_phase(card: str) -> dict:
         say("gpt2-decode", dtype=dtype, packed_execution=mode,
             batch=GPT_B, prompt=GPT_PROMPT, new_tokens=GPT_NEW,
             steps=steps, kernel_launches_per_step=wo / steps,
-            other_kernel_launches=sum(counts.values()) - wo,
+            other_kernel_launches=others(counts) - wo,
             tokens_per_s=GPT_B * GPT_NEW / wall,
             ms_per_step=wall / steps * 1e3,
             ms_per_step_runs=",".join(
@@ -810,7 +844,7 @@ def decode_phase(card: str) -> dict:
         assert (ids[:, :GPT_PROMPT] == prompt).all()
         assert finite, f"{dtype} {mode}: non-finite logits"
         assert wo == (WO_PER_STEP * steps if mode == "kernel" else 0), wo
-        assert sum(counts.values()) == wo, counts
+        assert others(counts) == wo, counts
     say("gpt2-memory", **{f"{k}_bytes": v
                           for k, v in device_bytes(model).items()})
     ids_k, rows_k, counts = runs["f32", "kernel"]
@@ -1196,7 +1230,7 @@ def scoring_phase(card: str) -> dict:
         attention_flipped_blocks=f"{flips}/{blocks}",
         fused_equals_unfused_bitwise=equal, **parity)
     assert counts["fused_attention_hs_blockq"] == 12, counts
-    assert sum(counts.values()) == 12, counts
+    assert others(counts) == 12, counts
     # the plain version's softmax runs in [B, H, BLOCK_Q, N] q tiles
     assert exact_in_order(GPT_B * HEADS * A.BLOCK_Q, GPT_SEQ, tiled=True)
     assert flips == 0 and equal, (flips, blocks, equal)
@@ -1215,7 +1249,7 @@ def scoring_phase(card: str) -> dict:
         argmax_agreement_f32=agree,
         max_abs_diff_f32=float((bf - fused).abs().max()))
     assert bf_counts["fused_attention_hs_blockq"] == 12, bf_counts
-    assert sum(bf_counts.values()) == 12, bf_counts
+    assert others(bf_counts) == 12, bf_counts
     del bf, fused
 
     for m, runs in forward_seconds(forward, SCORE_REPS).items():
@@ -1272,9 +1306,16 @@ def bf16_profile(forward) -> dict:
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     assert busy > 0, "the profiler saw no device time"
+    # the quantize boundaries' kernel, and torch's own elementwise kernels
+    qdq = sum(ms for k, ms, _ in rows if "qdq_kernel" in k)
+    torch_ew = sum(ms for k, ms, _ in rows
+                   if "elementwise_kernel" in k and "qdq_kernel" not in k)
     return dict(dtype="bf16", wall_ms_unprofiled=wall_ms, device_busy_ms=busy,
                 busy_share=busy / wall_ms,
                 device_kernels=int(sum(r[2] for r in rows)),
+                qdq_kernel_ms=qdq, qdq_share_of_busy=qdq / busy,
+                torch_elementwise_ms=torch_ew,
+                torch_elementwise_share_of_busy=torch_ew / busy,
                 top5=";".join(f"{k[:48].replace(' ', '_')}:{ms:.3f}ms:x{c}"
                               for k, ms, c in rows[:5]))
 
@@ -1365,7 +1406,7 @@ def llama_phase(card: str) -> dict:
         fused_equals_unfused_bitwise=bool(torch.equal(fused_one, unfused)),
         **logit_parity(fused_one, unfused))
     assert counts_one["fused_attention"] == layers, counts_one
-    assert sum(counts_one.values()) == layers, counts_one
+    assert others(counts_one) == layers, counts_one
     assert flips <= 0.01 * blocks, (flips, blocks)
 
     # bf16 at B=1: the kernel is exact in both modes, so it must equal its
@@ -1390,7 +1431,7 @@ def llama_phase(card: str) -> dict:
         fused_vs_f32_max_abs_diff=float((fused_bf - fused_one).abs().max()),
         unfused_vs_f32_max_abs_diff=float((unfused_bf - unfused).abs().max()))
     assert counts_bf1["fused_attention"] == layers, counts_bf1
-    assert sum(counts_bf1.values()) == layers, counts_bf1
+    assert others(counts_bf1) == layers, counts_bf1
     assert not exact_in_order(cfg["num_attention_heads"] * plain_tile(n), n,
                               tiled=True) or flips_bf == 0, (flips_bf, blocks_bf)
     del unfused, unfused_bf, fused_bf
@@ -1405,12 +1446,12 @@ def llama_phase(card: str) -> dict:
     b1 = logit_parity(fused[:1], fused_one)
     say("llama-f32-b4", batch=LLAMA_B, seq=n,
         fused_attention_launches=counts["fused_attention"],
-        other_kernel_launches=sum(counts.values()) - counts["fused_attention"],
+        other_kernel_launches=others(counts) - counts["fused_attention"],
         row0_equals_b1_bitwise=bool(torch.equal(fused[:1], fused_one)),
         row0_vs_b1_max_abs_diff=b1["max_abs_diff"],
         row0_vs_b1_argmax=b1["argmax_equal"])
     assert counts["fused_attention"] == layers, counts
-    assert sum(counts.values()) == layers, counts
+    assert others(counts) == layers, counts
     del fused_one
 
     with config.low_precision_floats():
@@ -1423,7 +1464,7 @@ def llama_phase(card: str) -> dict:
                                    .float().mean()),
         max_abs_diff_f32=float((bf - fused).abs().max()))
     assert bf_counts["fused_attention"] == layers, bf_counts
-    assert sum(bf_counts.values()) == layers, bf_counts
+    assert others(bf_counts) == layers, bf_counts
     del bf, fused
 
     for m, runs in forward_seconds(forward, SCORE_REPS).items():
@@ -1525,7 +1566,7 @@ def check_score_bias() -> dict:
         say("kernel-check", kernel=want, form="score_bias_dispatch",
             shape=f"B1xN{n}xH{SB_HEADS}", launches=counts[want],
             flipped_blocks=f"{flips}/{blocks}")
-        assert counts[want] == 1 and sum(counts.values()) == 1, counts
+        assert counts[want] == 1 and others(counts) == 1, counts
         try:
             A.fused_attention_hs(q[:, :1].contiguous(), k, v, **kw)
         except ValueError:
@@ -1635,9 +1676,10 @@ def requantize_differences(qmodel, x, cfg: dict) -> tuple[int, int]:
     return differ, entries
 
 
-def t5_phase(card: str) -> dict:
+def t5_phase(card: str) -> tuple[dict, dict]:
     """Phase 13: t5-small int8 teacher-forced scoring at full width and
-    depth. Returns the launch counts of the f32 fused forward."""
+    depth. Returns the launch counts of the f32 fused forward and the host
+    cost of its quantize boundaries (``boundary_cost``)."""
     import numpy as np
     import torch
     from numpy_quant_tpu_torch import Model, config
@@ -1712,7 +1754,7 @@ def t5_phase(card: str) -> dict:
         fused_equals_unfused_bitwise=equal, **logit_parity(fused, unfused))
     assert counts["fused_attention_hs_blockq"] == enc, counts
     assert counts["fused_attention_hs"] == 2 * dec, counts
-    assert sum(counts.values()) == n_att, counts
+    assert others(counts) == n_att, counts
     assert flips == 0 and equal, (flips, blocks, equal)
     del unfused
 
@@ -1731,7 +1773,7 @@ def t5_phase(card: str) -> dict:
         max_abs_logit_f32=float(fused.abs().max()))
     assert bf_counts["fused_attention_hs_blockq"] == enc, bf_counts
     assert bf_counts["fused_attention_hs"] == 2 * dec, bf_counts
-    assert sum(bf_counts.values()) == n_att, bf_counts
+    assert others(bf_counts) == n_att, bf_counts
     del bf, fused
 
     for m, runs in forward_seconds(forward, SCORE_REPS).items():
@@ -1745,7 +1787,500 @@ def t5_phase(card: str) -> dict:
     say("t5-memory", peak_unfused_f32_bytes=peak_unfused,
         peak_fused_f32_bytes=peak_fused, peak_fused_bf16_bytes=peak_bf16)
     say("t5-profile", **bf16_profile(forward))
-    return counts
+    cost = boundary_cost(forward)
+    say("t5-boundaries", **cost)
+    return counts, cost
+
+
+@contextlib.contextmanager
+def plain_chain():
+    """Swap the torch chains (the kernels' plain versions) in for the
+    elementwise kernels at every quantize boundary: the module functions
+    quantization.quantize/dequantize call."""
+    from numpy_quant_tpu_torch.kernels import elementwise as E
+    saved = E.quantize, E.dequantize
+    E.quantize, E.dequantize = E.quantize_reference, E.dequantize_reference
+    try:
+        yield
+    finally:
+        E.quantize, E.dequantize = saved
+
+
+def ew_layout(x, layout: str):
+    """``x`` (2-D, on the card) in one of the layouts the executor hands
+    the kernels: contiguous, contiguous from an odd element (no vector
+    access), transposed (dense, another dim order) or strided (not
+    dense)."""
+    import torch
+    if layout == "offset":
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+    if layout == "transposed":
+        return x.t().contiguous().t()
+    if layout == "strided":
+        big = torch.zeros(x.shape[0], 2 * x.shape[1], dtype=x.dtype,
+                          device=x.device)
+        big[:, ::2] = x
+        return big[:, ::2]
+    return x
+
+
+def ew_floats(bits: int, scale: float, rng):
+    """f32 [37, 29]: values across the grid and past the clip, exact ties
+    (k + 1/2) * scale, zeros of both signs, infinities and NaN."""
+    import numpy as np
+    n = EW_SHAPE[0] * EW_SHAPE[1]
+    top = 2.0 ** (bits - 1)
+    x = rng.uniform(-1.3, 1.3, size=n) * top * scale
+    kmax = int(min(top, 2 ** 20))
+    k = rng.integers(-kmax, kmax, size=n // 8, endpoint=True)
+    x[:k.size] = (k + 0.5) * scale
+    specials = [0.0, -0.0, np.inf, -np.inf, np.nan, 8 * top * scale,
+                -8 * top * scale, (top - 1) * scale, -top * scale]
+    x[-len(specials):] = specials
+    return x.astype(np.float32).reshape(EW_SHAPE)
+
+
+def ew_report(kname: str, label: str, got, want, state: dict) -> None:
+    """Hold one kernel output against the plain version's, bit for bit."""
+    import torch
+    state["variants"][kname] += 1
+    a, b = got, want
+    if got.dtype.is_floating_point:  # compare the bits
+        view = torch.int32 if got.dtype == torch.float32 else torch.int16
+        a, b = got.view(view), want.view(view)
+    diff = (got.double() - want.double()).abs()
+    diff = diff[torch.isfinite(diff)]
+    err = float(diff.max()) if diff.numel() else 0.0
+    state["worst"][kname] = max(state["worst"][kname], err)
+    if got.stride() != want.stride():
+        state["stride_differs"] += 1
+    if not torch.equal(a, b):
+        state["mismatches"] += 1
+        if state["first"] is None:
+            idx = tuple((a != b).nonzero()[0].tolist())
+            state["first"] = (f"{kname}:{label}:at{list(idx)}:got="
+                              f"{got[idx].item()}:want={want[idx].item()}")
+
+
+def check_elementwise() -> dict:
+    """Phase 14(a): both kernels against their plain versions on the card,
+    in every form; 0 mismatches required."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch.kernels import elementwise as E
+    state = {"variants": {k: 0 for k in ELEMENTWISE},
+             "worst": {k: 0.0 for k in ELEMENTWISE}, "mismatches": 0,
+             "stride_differs": 0, "first": None}
+    rng = np.random.default_rng(14)
+    rows, cols = EW_SHAPE
+    for bits in EW_WIDTHS:
+        # a power-of-two scale keeps (k + 1/2) * scale an exact tie; the
+        # per-channel scales are not
+        scale = np.float32(2.0 ** -(max(bits, 8) - 2))
+        channel = (scale * rng.uniform(0.5, 2.0, size=(1, cols))).astype(
+            np.float32)
+        zp_scalar = np.int64(3 - 2 ** (bits - 2)) if bits >= 2 else np.int64(0)
+        span = 2 ** (min(bits, 20) - 1)
+        x32 = torch.from_numpy(ew_floats(bits, float(scale), rng)).cuda()
+        outs = ([torch.int8] if bits <= 8 else []) + [torch.int32,
+                                                      torch.int64]
+        for in_dtype, out, zp_kind, per_channel, layout in itertools.product(
+                (torch.float32, torch.bfloat16), outs,
+                ("none", "scalar", "tensor"), (False, True), EW_LAYOUTS):
+            zp = {"none": None, "scalar": zp_scalar,
+                  "tensor": torch.from_numpy(rng.integers(
+                      -span, span, size=(rows, 1))).to(
+                      torch.int64 if out == torch.int64 else torch.int32)
+                  .cuda()}[zp_kind]
+            s = channel if per_channel else scale
+            x = ew_layout(x32.to(in_dtype), layout)
+            label = (f"b{bits}:{str(in_dtype)[6:]}->{str(out)[6:]}:zp_"
+                     f"{zp_kind}:{'channel' if per_channel else 'scalar'}:"
+                     f"{layout}")
+            ew_report("quantize", label, E.quantize(x, bits, s, zp, out),
+                      E.quantize_reference(x, bits, s, zp, out), state)
+    # a zero scale: 0/0 -> 0, x/0 -> the clip bounds
+    for bits, out, zp in itertools.product((8, 16, 32), (torch.int32,
+                                                         torch.int64),
+                                           (None, np.int64(5))):
+        x = torch.from_numpy(ew_floats(bits, 0.01, rng)).cuda()
+        for s in (np.float32(0.0), np.array([[0.0] + [0.01] * (cols - 1)],
+                                            np.float32)):
+            ew_report("quantize", f"zero_scale:b{bits}:{out}:{zp}",
+                      E.quantize(x, bits, s, zp, out),
+                      E.quantize_reference(x, bits, s, zp, out), state)
+    # dequantize: int8, int32 (8-bit values, 32-bit accumulators with
+    # wrapping corrections) and int64 (x64-mode accumulators past 2^24)
+    sources = {
+        torch.int8: rng.integers(-128, 128, size=EW_SHAPE),
+        torch.int32: np.concatenate([
+            rng.integers(-2 ** 31, 2 ** 31, size=rows * cols - 2),
+            [-2 ** 31, 2 ** 31 - 1]]).reshape(EW_SHAPE),
+        torch.int64: np.concatenate([
+            rng.integers(-2 ** 62, 2 ** 62, size=rows * cols - 4),
+            [-2 ** 63, 2 ** 63 - 1, 2 ** 24 + 1, -(2 ** 40) - 3]]
+        ).reshape(EW_SHAPE)}
+    # a float32 scalar, a Python float (f64: the int64 form multiplies by
+    # it unrounded) and a per-channel row
+    scales = {"scalar": np.float32(0.0137), "f64_scalar": 0.0137,
+              "channel": rng.uniform(1e-4, 0.1, size=(1, cols)).astype(
+                  np.float32)}
+    for in_dtype, q_np in sources.items():
+        q32 = torch.from_numpy(q_np).to(in_dtype).cuda()
+        zdt = torch.int64 if in_dtype == torch.int64 else torch.int32
+        big = 2 ** 62 if in_dtype == torch.int64 else 2 ** 31
+        zps = {"none": None, "scalar": np.int64(-3),
+               "rows": rng.integers(-big, big, size=(rows, 1)),
+               "cols": rng.integers(-big, big, size=(1, cols)),
+               "full": rng.integers(-big, big, size=EW_SHAPE),
+               "int64_cols": rng.integers(-2 ** 40, 2 ** 40, size=(1, cols))}
+        for (zp_kind, zp_np), (s_kind, s), out, layout in itertools.product(
+                zps.items(), scales.items(), (torch.float32, torch.bfloat16),
+                EW_LAYOUTS):
+            zp = zp_np if zp_np is None or np.ndim(zp_np) == 0 else \
+                torch.from_numpy(np.asarray(zp_np)).to(
+                    torch.int64 if zp_kind == "int64_cols" else zdt).cuda()
+            q = ew_layout(q32, layout)
+            label = (f"{str(in_dtype)[6:]}->{str(out)[6:]}:zp_{zp_kind}:"
+                     f"{s_kind}:{layout}")
+            ew_report("dequantize", label, E.dequantize(q, s, zp, out),
+                      E.dequantize_reference(q, s, zp, out), state)
+    torch.cuda.synchronize()
+    say("kernel-check", kernel="quantize,dequantize",
+        variants_quantize=state["variants"]["quantize"],
+        variants_dequantize=state["variants"]["dequantize"],
+        mismatches=state["mismatches"], first_mismatch=state["first"],
+        layouts_with_other_strides=state["stride_differs"],
+        max_abs_err_quantize=state["worst"]["quantize"],
+        max_abs_err_dequantize=state["worst"]["dequantize"])
+    assert state["mismatches"] == 0, state["first"]
+    return state
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors (or numpy arrays) equal bit for bit: same shape and
+    dtype, floats compared as their bit patterns."""
+    import numpy as np
+    import torch
+    if isinstance(a, np.ndarray):
+        a, b = torch.from_numpy(np.ascontiguousarray(a)), \
+            torch.from_numpy(np.ascontiguousarray(b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return torch.equal(a, b)
+
+
+def time_elementwise(name: str) -> dict:
+    """Phase 14(b): both kernels and their plain chains at the largest ViT
+    boundary (bf16, B=96 fc1 output), the GPT-2 and TinyLlama scoring
+    shapes (f32) and ViT W8A16's fc1 output (f32 -> int64 at 16 bits,
+    int64 accumulators), device time alone, beside the bytes bound; and
+    each kernel's and each chain's host time per call at a small shape.
+    At each shape both kernels first equal their chains bit for bit in
+    the forms the paths pass there: f32 and bf16 in and out (f32 only in
+    int64), a scalar and a per-channel [1, N] scale, zero points scalar,
+    [1, N] (column sums) and [M, 1] (row sums)."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch.kernels import elementwise as E
+    from numpy_quant_tpu_torch.models.llama import TINYLLAMA_1_1B
+    rate = peaks(name)["bytes"]
+    # label: ((rows, cols), float dtype, container, bits)
+    shapes = {"vit_fc1_bf16": ((B_TIME * N_TOK, 3072), torch.bfloat16,
+                               torch.int32, 8),
+              "gpt2_fc_f32": ((GPT_B * GPT_SEQ, 3072), torch.float32,
+                              torch.int32, 8),
+              "tinyllama_mlp_f32": ((LLAMA_B * LLAMA_SEQ,
+                                     TINYLLAMA_1_1B["intermediate_size"]),
+                                    torch.float32, torch.int32, 8),
+              "vit_w8a16_fc1_f32": ((B_F32 * N_TOK, 3072), torch.float32,
+                                    torch.int64, 16)}
+    res = {k: {"shapes": {}} for k in ELEMENTWISE}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    compared = {"forms": 0, "elements": 0, "mismatched_forms": []}
+
+    def hold(label: str, got, want) -> None:
+        compared["forms"] += 1
+        compared["elements"] += want.numel()
+        if not same_bits(got, want):
+            compared["mismatched_forms"].append(label)
+
+    for label, ((rows, cols), dtype, container, bits) in shapes.items():
+        x32 = torch.randn(rows, cols, device="cuda", generator=g)
+        x = x32.to(dtype)
+        span = 2 ** 40 if container == torch.int64 else 2 ** 20
+        acc = torch.randint(-span, span, (rows, cols), device="cuda",
+                            dtype=container, generator=g)
+        zrow = torch.randint(-span, span, (1, cols), device="cuda",
+                             dtype=container, generator=g)
+        zcol = torch.randint(-span, span, (rows, 1), device="cuda",
+                             dtype=container, generator=g)
+        channel = (EW_SCALE * np.random.default_rng(rows).uniform(
+            0.5, 2.0, size=(1, cols))).astype(np.float32)
+        n = rows * cols
+        # the path's forms at this shape, each kernel against its chain
+        floats = (torch.float32,) if container == torch.int64 \
+            else (torch.float32, torch.bfloat16)
+        for fdt in floats:
+            xf = x32.to(fdt)
+            for s, zp in ((EW_SCALE, EW_ZP), (channel, None)):
+                form = f"{label}:quantize:{str(fdt)[6:]}:" \
+                    f"{'channel' if zp is None else 'scalar'}"
+                hold(form, E.quantize(xf, bits, s, zp, container),
+                     E.quantize_reference(xf, bits, s, zp, container))
+            for (zname, z), s in itertools.product(
+                    (("scalar", EW_ZP), ("cols", zrow), ("rows", zcol)),
+                    (EW_SCALE, channel)):
+                form = f"{label}:dequantize:{str(fdt)[6:]}:zp_{zname}:" \
+                    f"{'scalar' if np.ndim(s) == 0 else 'channel'}"
+                hold(form, E.dequantize(acc, s, z, fdt),
+                     E.dequantize_reference(acc, s, z, fdt))
+        # torch's own quantized-tensor calls compute another function
+        # (rounding before the zero point, a reciprocal multiply; a scalar
+        # zero point): timed as a yardstick only
+        qt = torch.quantize_per_tensor(x32, EW_SCALE, EW_ZP, torch.qint32)
+        calls = {
+            "quantize": (lambda: E.quantize(x, bits, EW_SCALE, EW_ZP,
+                                            container),
+                         lambda: E.quantize_reference(x, bits, EW_SCALE,
+                                                      EW_ZP, container),
+                         lambda: torch.quantize_per_tensor(
+                             x32, EW_SCALE, EW_ZP, torch.qint32),
+                         n * x.element_size() + n * acc.element_size()),
+            "dequantize": (lambda: E.dequantize(acc, EW_SCALE, zrow, dtype),
+                           lambda: E.dequantize_reference(acc, EW_SCALE,
+                                                          zrow, dtype),
+                           qt.dequantize,
+                           (n + cols) * acc.element_size()
+                           + n * x.element_size())}
+        for kname, (kernel, plain, other, nbytes) in calls.items():
+            row = dict(ms=cuda_ms(kernel, lead=True),
+                       plain_ms=cuda_ms(plain, lead=True),
+                       different_function_ms=cuda_ms(other, lead=True),
+                       bound_ms=nbytes / rate * 1e3, bytes=nbytes)
+            res[kname]["shapes"][label] = row
+            say("kernel-time", kernel=kname, shape=f"{rows}x{cols}",
+                dtype=str(dtype)[6:], container=str(container)[6:],
+                bits=bits, label=label, **row,
+                different_function="torch.quantize_per_tensor" if
+                kname == "quantize" else "QTensor.dequantize(qint32)",
+                card=name.replace(" ", "_"))
+        del x32, x, acc, zcol, qt
+    torch.cuda.synchronize()
+    say("kernel-check", kernel="quantize,dequantize", scope="path_shapes",
+        forms=compared["forms"], elements_compared=compared["elements"],
+        mismatched_forms="|".join(compared["mismatched_forms"]) or None)
+    assert not compared["mismatched_forms"], compared["mismatched_forms"]
+    for kname in ELEMENTWISE:
+        res[kname].update(res[kname]["shapes"]["vit_fc1_bf16"])
+    # host time per call where the device is not the limit
+    small = torch.randn(8, 64, device="cuda")
+    small_acc = torch.randint(-99, 99, (8, 64), device="cuda",
+                              dtype=torch.int32)
+    zs = torch.randint(-99, 99, (1, 64), device="cuda", dtype=torch.int32)
+    host = {}
+    for label, fn in (
+            ("quantize_kernel", lambda: E.quantize(small, 8, EW_SCALE, EW_ZP)),
+            ("quantize_plain", lambda: E.quantize_reference(
+                small, 8, EW_SCALE, EW_ZP)),
+            ("dequantize_kernel", lambda: E.dequantize(small_acc, EW_SCALE,
+                                                       zs)),
+            ("dequantize_plain", lambda: E.dequantize_reference(
+                small_acc, EW_SCALE, zs))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        torch.cuda.synchronize()
+        host[f"{label}_us"] = (time.perf_counter() - t0) / 500 * 1e6
+    say("host-per-call", **host)
+    return res
+
+
+def boundary_cost(forward) -> dict:
+    """The host's share of the quantize boundaries in one f32 forward:
+    aten calls (the profiler's count of every aten op, nested ones
+    included) and wall ms with the kernels, then with the plain chains,
+    the two in turns (3 forwards each)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def aten_calls():
+        forward()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            forward()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.key.startswith("aten::"))
+
+    def wall_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    res = {"aten_calls_kernel": aten_calls()}
+    with plain_chain():
+        res["aten_calls_plain"] = aten_calls()
+    runs = {"kernel": [], "plain": []}
+    for rep in range(3):
+        for mode in (("kernel", "plain") if rep % 2 == 0
+                     else ("plain", "kernel")):
+            with plain_chain() if mode == "plain" else contextlib.nullcontext():
+                runs[mode].append(wall_ms())
+    res.update({f"ms_{m}": statistics.median(r) for m, r in runs.items()})
+    res.update({f"ms_runs_{m}": ",".join(f"{v:.2f}" for v in r)
+                for m, r in runs.items()})
+    return res
+
+
+def routing_phase(qmodel, x8, launches: dict, t5_cost: dict) -> None:
+    """Phase 14(c): every path took the boundary kernels; the ViT-Base
+    int8 f32 forward equals itself with the plain chains swapped in, bit
+    for bit."""
+    kernel, kc = counted(lambda: qmodel([x8])[0])
+    with plain_chain():
+        plain, pc = counted(lambda: qmodel([x8])[0])
+    equal = same_bits(kernel, plain)
+    say("routing", vit_int8_f32_kernel_equals_plain_chain=equal,
+        logits_compared=plain.size,
+        vit_kernel_launches=f"{kc['quantize']}+{kc['dequantize']}",
+        vit_plain_chain_launches=f"{pc['quantize']}+{pc['dequantize']}",
+        **{f"{path}_launches": f"{c['quantize']}+{c['dequantize']}"
+           for path, c in launches.items()})
+    assert equal, "kernel and plain-chain ViT-Base forwards differ"
+    assert pc["quantize"] == pc["dequantize"] == 0, pc
+    for path, c in launches.items():
+        assert c["quantize"] > 0 and c["dequantize"] > 0, (path, c)
+    cost = boundary_cost(lambda: qmodel([x8], as_numpy=False)[0])
+    say("vit-boundaries", **cost)
+    assert t5_cost["aten_calls_kernel"] < t5_cost["aten_calls_plain"]
+
+
+def mlp_sweep_phase() -> None:
+    """Phase 14(d): the reference's bit-width sweep on the card. mlp.onnx
+    at 1-16 bits on the two-circles data (numpy, seed 3), calibrated once
+    on the CPU; the card's integer intermediates equal the CPU port's, its
+    labels equal, its accuracy above 0.9 from 6 bits."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models.mlp import load_mlp, two_circles
+    from numpy_quant_tpu_torch.tensor import QTensor
+    x, y = two_circles()
+    cpu = Model.from_onnx(load_mlp(), device="cpu")
+    card = Model.from_onnx(load_mlp())
+    stats = cpu.calibration_stats([x])
+    accs, compared = [], 0
+    for bits in range(1, 17):
+        qc = cpu.quantize(bit_width=bits, stats=stats)
+        qg = card.quantize(bit_width=bits, stats=stats)
+        (yc,), (yg,) = qc([x], record=True), qg([x], record=True)
+        ref = {v.name: v.data for v in qc.values}
+        for v in qg.values:
+            if isinstance(v.data, QTensor):
+                assert torch.equal(v.data.data.cpu(), ref[v.name].data), \
+                    (bits, v.name)
+                compared += 1
+        assert np.array_equal(yg.argmax(1), yc.argmax(1)), bits
+        assert np.abs(yg - yc).max() <= 1e-6, (bits, np.abs(yg - yc).max())
+        acc = float(np.mean(yg.argmax(1) == y))
+        accs.append(acc)
+        if bits >= MLP_ACC_RULE:
+            assert acc > 0.9, (bits, acc)
+    say("mlp-sweep", widths="1-16", integer_values_compared=compared,
+        accuracy=",".join(f"{a:.3f}" for a in accs),
+        min_accuracy_from_6_bits=min(accs[MLP_ACC_RULE - 1:]))
+
+
+def w8a16_phase(card: str, model, stats, x8, int8_logits) -> None:
+    """Phase 14(e): ViT-Base in W8A16 at full width and depth, f32, B=8,
+    after optimize(): no fused attention (JAX's reason), logits against
+    the float forward beside int8's, images/s, idle share, peak memory."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from numpy_quant_tpu_torch.models.vit import WEIGHT_CONFIGS
+    t0 = time.perf_counter()
+    q16 = model.quantize(stats=stats, quantize_conv=True,
+                         **WEIGHT_CONFIGS["w8a16"])
+    report = q16.optimize()
+    reasons = {r for _, r in report["fusion_failures"]}
+    say("w8a16-optimize", seconds=time.perf_counter() - t0,
+        fuse_attention=report["fuse_attention"],
+        fuse_gelu=report["fuse_gelu"], narrow_gather=report["narrow_gather"],
+        int8_dataflow=report["int8_dataflow"],
+        fusion_failures=len(report["fusion_failures"]),
+        reasons="|".join(sorted(reasons)).replace(" ", "_"))
+    assert report["fuse_attention"] == 0
+    assert len(report["fusion_failures"]) == 12
+    assert reasons == {"bit_width 16 > 8: the int8 attention kernels do "
+                       "not apply"}, reasons
+    ref = model([x8])[0]
+    torch.cuda.reset_peak_memory_stats()
+    logits, counts = counted(lambda: q16([x8])[0])
+    peak = torch.cuda.max_memory_allocated()
+    assert logits.shape == ref.shape and np.isfinite(logits).all()
+    # the int64 boundary forms at the path's shapes: the forward with the
+    # plain chains swapped in gives the same logits bit for bit
+    with plain_chain():
+        plain_equal = same_bits(logits, q16([x8])[0])
+    d16 = float(np.abs(logits - ref).max())
+    d8 = float(np.abs(int8_logits - ref).max())
+    agree16 = float((logits.argmax(1) == ref.argmax(1)).mean())
+    agree8 = float((int8_logits.argmax(1) == ref.argmax(1)).mean())
+
+    def forward():
+        return q16([x8], as_numpy=False)[0]
+
+    for _ in range(2):
+        forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        forward()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t1
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    assert busy > 0, "the profiler saw no device time"
+    say("w8a16", batch=B_F32, quantize_launches=counts["quantize"],
+        dequantize_launches=counts["dequantize"],
+        other_kernel_launches=others(counts),
+        kernel_equals_plain_chain_bitwise=plain_equal,
+        logits_compared=logits.size,
+        max_abs_diff_float=d16, int8_max_abs_diff_float=d8,
+        max_abs_logit_float=float(np.abs(ref).max()),
+        argmax_agreement_float=agree16, int8_argmax_agreement_float=agree8,
+        images_per_s=B_F32 / wall, ms_per_forward=wall * 1e3,
+        device_busy_ms=busy, idle_share=max(0.0, 1 - busy / (wall_prof * 1e3)),
+        peak_bytes=peak,
+        top5=";".join(f"{k[:48].replace(' ', '_')}:{ms:.3f}ms:x{c}"
+                      for k, ms, c in rows[:5]),
+        card=card.replace(" ", "_"))
+    assert counts["quantize"] > 0 and counts["dequantize"] > 0, counts
+    assert others(counts) == 0, counts
+    assert plain_equal, "W8A16: kernel and plain-chain logits differ"
+    assert d16 < d8, (d16, d8)
 
 
 def main() -> int:
@@ -1793,6 +2328,7 @@ def main() -> int:
     assert packed == PACKED_PER_FORWARD, packed
     assert config.packed_execution == "unpack"
     fused, counts = counted(lambda: qmodel([x8])[0])
+    counts_f32 = counts
     launches_f32 = counts["fused_attention_hs"]
     assert fused.shape == (B_F32, 1000) and np.isfinite(fused).all()
     # The exact kernel sums softmax rows in torch's order, so it equals its
@@ -1834,20 +2370,43 @@ def main() -> int:
         launches = counts["fused_attention_hs"]
         assert logits.shape == (B_SERVE, 1000) and np.isfinite(logits).all()
         assert launches == 12, launches
-        ips = images_per_s(qmodel, x, "unpack")
+        # the boundary kernels against the plain chains, in turns
+        ips_runs = {"kernel": [], "plain": []}
+        for mode in ("kernel", "plain", "plain", "kernel"):
+            with plain_chain() if mode == "plain" \
+                    else contextlib.nullcontext():
+                ips_runs[mode].append(images_per_s(qmodel, x, "unpack"))
+        ips = statistics.median(ips_runs["kernel"])
+        # the bf16 boundary forms at the path's shapes: the forward with
+        # the plain chains swapped in gives the same logits bit for bit
+        with plain_chain():
+            plain_logits = qmodel([x])[0]
+    bf16_equal = same_bits(logits, plain_logits)
     agree = float((logits.argmax(1) == ref32.argmax(1)).mean())
     say("bf16", batch=B_SERVE, launches=launches, label_agreement_f32=agree,
+        kernel_equals_plain_chain_bitwise=bf16_equal,
+        logits_compared=plain_logits.size,
         images_per_s=ips, ms_per_forward=B_SERVE / ips * 1e3,
+        images_per_s_runs_kernel=",".join(f"{v:.1f}"
+                                          for v in ips_runs["kernel"]),
+        images_per_s_runs_plain_chain=",".join(f"{v:.1f}"
+                                               for v in ips_runs["plain"]),
+        quantize_launches=counts["quantize"],
+        dequantize_launches=counts["dequantize"],
         card=card.replace(" ", "_"))
+    assert bf16_equal, "bf16 B=96: kernel and plain-chain logits differ"
+    say("bf16-profile", **bf16_profile(lambda: qmodel([x], as_numpy=False)[0]))
 
     # -- phase 4: the packed paths in f32 at batch 8 ------------------
     main_launches = {}
     qmodels = {"int8": qmodel}
-    for mode in WEIGHT_CONFIGS:
+    # the 8-bit-activation configurations, whose weights pack for the
+    # int8 kernels
+    for mode in (k for k, c in WEIGHT_CONFIGS.items() if c["bit_width"] <= 8):
         t0 = time.perf_counter()
         qm = qmodels.get(mode)
         if qm is None:
-            qm = model.quantize(bit_width=8, stats=stats, quantize_conv=True,
+            qm = model.quantize(stats=stats, quantize_conv=True,
                                 **WEIGHT_CONFIGS[mode])
             qm.optimize()
             packed = qm.pack_weights()
@@ -1929,7 +2488,16 @@ def main() -> int:
     sb_timing = time_score_bias(name)
 
     # -- phase 13: T5-small int8 scoring ------------------------------
-    t5_counts = t5_phase(card)
+    t5_counts, t5_cost = t5_phase(card)
+
+    # -- phase 14: quantize/dequantize at every boundary; 9-16 bits -----
+    ew_check = check_elementwise()
+    ew_timing = time_elementwise(name)
+    ew_launches = {"vit_int8_f32_b8": counts_f32, "gpt2_scoring": score_counts,
+                   "tinyllama_scoring": llama_counts, "t5_scoring": t5_counts}
+    routing_phase(qmodel, x8, ew_launches, t5_cost)
+    mlp_sweep_phase()
+    w8a16_phase(card, model, stats, x8, fused)
     say("done", seconds=time.perf_counter() - t_start)
 
     def score_bias(kname: str) -> dict:
@@ -1983,6 +2551,21 @@ def main() -> int:
         "plain_ms": plain_timing["plain_ms"],
         "bound_ms": plain_timing["bound_ms"],
         "bound_by": plain_timing["bound_by"], "library_ms": None})
+    for kname, line in (("quantize", 39), ("dequantize", 64)):
+        t = ew_timing[kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "numpy_quant_tpu_torch/csrc/elementwise.cu",
+            "replaces": f"numpy_quant_tpu/kernels/elementwise.py:{line}",
+            "launches": counts_f32[kname],
+            "max_abs_err": ew_check["worst"][kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "different_function_ms": t["different_function_ms"],
+            "variants_checked": ew_check["variants"][kname],
+            "launches_per_forward": {p: c[kname]
+                                     for p, c in ew_launches.items()},
+            "shapes": t["shapes"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

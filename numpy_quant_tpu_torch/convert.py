@@ -14,7 +14,9 @@ with a per-channel or grouped scale, or unpacked), with no
         "quant_params": {value name: (scale, zero_point or None)},
     }
 
-Payloads are integer weights (1-8 bits) or 32-bit biases; the latter include the
+Payloads are integer weights (1-16 bits) or 4x-width biases (32 bits at 8;
+up to 64 bits in a model above 8 bits, whose payloads, like those of the JAX
+package's x64 mode, are int64 containers); the 32-bit biases include the
 GPT and LLaMA causal LMs' additive mask constants, which ``quantize`` stores
 as 32-bit biases clipped at -2^31 on the scores' scale, so the dequantized
 mask value (the fused kernels' ``causal_mask_val``) carries across too. The
@@ -50,6 +52,9 @@ def load_jax_params(qmodel: Model, state: dict) -> int:
     qparams = state.get("quant_params") or {}
     if qparams and not isinstance(qmodel, QModel):
         raise ValueError("quant_params given for a float (weight-only) Model")
+    # a QModel's integer container; a weight-only float model's is int32
+    container = qmodel.container if isinstance(qmodel, QModel) \
+        else torch.int32
     replaced = 0
     for value in qmodel.values:
         if not isinstance(value, Constant) \
@@ -68,7 +73,7 @@ def load_jax_params(qmodel: Model, state: dict) -> int:
                              f"!= {tuple(value.data.shape)}")
         zp = c["zero_point"]
         value.data = QTensor(
-            torch.from_numpy(payload.astype(np.int32)).to(qmodel.device),
+            torch.tensor(payload, dtype=container).to(qmodel.device),
             int(c["bit_width"]), np.asarray(c["scale"], np.float32),
             None if zp is None else np.int64(zp))
         replaced += 1

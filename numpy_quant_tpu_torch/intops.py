@@ -1,0 +1,68 @@
+"""Integer helpers below both the quantization math (``quantization.py``)
+and the kernels' plain versions (``kernels/``): the signed clip range of a
+bit width, host values as device tensors, and the exact int8 product.
+Imports nothing of the package."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# _int_mm's CUDA limits: more than 16 rows, K and N multiples of 8
+_INT_MM_MIN_ROWS = 17
+_INT_MM_ALIGN = 8
+
+
+def qrange(bit_width: int) -> tuple[float, float]:
+    return -2.0 ** (bit_width - 1), 2.0 ** (bit_width - 1) - 1.0
+
+
+def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    """A host scalar/array (or tensor) as a tensor of ``dtype`` on
+    ``device`` -- the form a divisor must take to divide exactly."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    arr = np.asarray(x)
+    if arr.ndim == 0:
+        value = float(arr) if dtype.is_floating_point else int(arr)
+        return torch.full((), value, dtype=dtype, device=device)
+    host = torch.from_numpy(np.ascontiguousarray(
+        arr.astype(np.float32 if dtype.is_floating_point else np.int64)))
+    if torch.device(device).type == "cuda":
+        # a pageable copy would wait for the stream to drain; a pinned
+        # one is enqueued like a kernel (per-channel scale rows)
+        return host.pin_memory().to(device, non_blocking=True).to(dtype)
+    return host.to(device=device, dtype=dtype)
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    extra = size - t.shape[dim]
+    if extra <= 0:
+        return t
+    pad = [0, 0] * (t.ndim - 1 - dim) + [0, extra]
+    return torch.nn.functional.pad(t, pad)
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of integer tensors holding int8 values.
+
+    A 2-D rhs runs as ONE ``torch._int_mm`` over the flattened lhs rows.
+    On CUDA the operands are zero-padded to _int_mm's limits (exact:
+    zero rows and columns add nothing) and the result is sliced back.
+    A batched rhs (the unfused attention's score/context products) runs
+    as a float64 product, exact for int8 operands at any K below 2^38.
+    """
+    if b.ndim == 2:
+        lead = a.shape[:-1]
+        k, n = b.shape
+        a2 = a.reshape(-1, k).to(torch.int8)
+        b2 = b.to(torch.int8)
+        m = a2.shape[0]
+        if a2.is_cuda:
+            kp = -(-k // _INT_MM_ALIGN) * _INT_MM_ALIGN
+            np_ = -(-n // _INT_MM_ALIGN) * _INT_MM_ALIGN
+            a2 = _pad_to(_pad_to(a2, 1, kp), 0, max(m, _INT_MM_MIN_ROWS))
+            b2 = _pad_to(_pad_to(b2, 0, kp), 1, np_)
+        y = torch._int_mm(a2.contiguous(), b2.contiguous())[:m, :n]
+        return y.reshape(*lead, n)
+    y = torch.matmul(a.to(torch.float64), b.to(torch.float64))
+    return y.to(torch.int32)

@@ -8,6 +8,12 @@ from .attention import (
     fused_attention_hs_reference,
     fused_attention_reference,
 )
+from .elementwise import (
+    dequantize,
+    dequantize_reference,
+    quantize,
+    quantize_reference,
+)
 from .qmatmul import (
     packed_qmatmul,
     packed_qmatmul_reference,
@@ -17,11 +23,13 @@ from .qmatmul import (
     splitk_wo_matmul_reference,
 )
 
-__all__ = ["fused_attention", "fused_attention_hs",
+__all__ = ["dequantize", "dequantize_reference", "fused_attention",
+           "fused_attention_hs",
            "fused_attention_hs_blockq",
            "fused_attention_hs_blockq_reference",
            "fused_attention_hs_reference", "fused_attention_reference",
            "packed_qmatmul",
-           "packed_qmatmul_reference", "splitk_qmatmul",
+           "packed_qmatmul_reference", "quantize", "quantize_reference",
+           "splitk_qmatmul",
            "splitk_qmatmul_reference", "splitk_wo_matmul",
            "splitk_wo_matmul_reference"]

@@ -38,7 +38,7 @@ import functools
 import numpy as np
 import torch
 
-from ..quantization import int_matmul, qrange
+from ..intops import int_matmul, qrange
 from .build import load
 from .pack import unpack_bitplanes, unpack_splitk
 

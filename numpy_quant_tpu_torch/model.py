@@ -23,8 +23,8 @@ from .graph import (Constant, Node, Value, Variable, import_onnx,
                     only_rhs_of)
 from .ops.registry import onnx_operator_implementation
 from .passes.toolkit import PASSTHROUGH_OPS
-from .quantization import (per_channel_scales, quant_parameters, quantize,
-                           weight_only_scales)
+from .quantization import (container_dtype, per_channel_scales,
+                           quant_parameters, quantize, weight_only_scales)
 from .tensor import (
     FTensor,
     ITensor,
@@ -254,15 +254,21 @@ class Model:
         consumed only as their rhs) at another width than activations
         (W4A8 and the like; pack_weights() then stores exactly that many
         bits); a dict ``{weight name: bits}`` sets per-weight widths,
-        unlisted weights keep ``bit_width``."""
+        unlisted weights keep ``bit_width``.
+
+        Widths run from 1 to 16 bits. Up to 8 bits the QModel computes in
+        the JAX package's TPU-mode numerics (int32 containers); if any
+        width exceeds 8, in its x64 mode (int64 containers, exact int64
+        accumulators, 4x-width biases up to 64 bits)."""
         wbw_map = weight_bit_width if isinstance(weight_bit_width, dict) \
             else None
         wbw = weight_bit_width if isinstance(weight_bit_width, int) \
             else bit_width
         widths = [bit_width, wbw, *(wbw_map or {}).values()]
-        if max(widths) > 8:
-            raise NotImplementedError(
-                f"bit widths above 8 are not ported (got {max(widths)})")
+        if min(widths) < 1 or max(widths) > 16:
+            raise ValueError(f"bit widths run from 1 to 16, got "
+                             f"{min(widths)}..{max(widths)}")
+        container = container_dtype(max(widths))
         if stats is None:
             stats = self.calibration_stats(calibration_inputs)
         node_dict = {node.name: node for node in self.nodes}
@@ -327,13 +333,14 @@ class Model:
                 qvalues_dict[value.name] = Constant(
                     value.name, [],
                     quantize_tensor(value.data, cbw, qp.scale,
-                                    qp.zero_point))
+                                    qp.zero_point, container))
                 qparams_per_value[value.name] = qp
 
         def quantize_bias(bias, bias_scale):
             qparams_per_value[bias.name] = QuantizationParams(bias_scale, None)
             qbias = quantize_tensor(value_dict[bias.name].data,
-                                    4 * bit_width, bias_scale, None)
+                                    4 * bit_width, bias_scale, None,
+                                    container)
             qvalues_dict[bias.name] = Constant(bias.name, [], qbias)
 
         # per-node strategy
@@ -411,7 +418,8 @@ class Model:
             else ("MatMul", "Gemm")
         return QModel(list(qnodes_dict.values()), list(qvalues_dict.values()),
                       qinputs, qoutputs, bit_width, qparams_per_value,
-                      quantized_ops=quantized_ops, device=self.device)
+                      quantized_ops=quantized_ops, device=self.device,
+                      container=container)
 
     def quantize_weights(self, bit_width: int = 8, per_channel: bool = True,
                          pack: bool = None, group_size: int = None) -> int:
@@ -470,14 +478,17 @@ class Model:
 
 
 class QModel(Model):
-    """Quantized executor."""
+    """Quantized executor. ``container``: the integer dtype its quantize
+    boundaries write, int32 (TPU-mode numerics) or int64 (x64 mode, any
+    width above 8 bits); by default that of ``bit_width``."""
 
     def __init__(self, nodes, values, inputs, outputs, bit_width: int,
                  quant_params: dict[str, QuantizationParams],
                  quantized_ops: tuple = ("MatMul", "Gemm"),
-                 device: torch.device = None):
+                 device: torch.device = None, container: torch.dtype = None):
         super().__init__(nodes, values, inputs, outputs, device)
         self.bit_width = bit_width
+        self.container = container or container_dtype(bit_width)
         self.quant_params = quant_params
         self.quantized_ops = tuple(quantized_ops)
         # ops whose outputs requantize to the model bit width
@@ -489,7 +500,8 @@ class QModel(Model):
 
     def _device_params(self) -> dict[str, torch.Tensor]:
         """Constant payloads as executed: int8 storage for <= 8-bit
-        QTensors (the JAX package's TPU-mode layout, identical values),
+        QTensors (the JAX package's TPU-mode layout, identical values;
+        wider payloads keep their int64 containers),
         precomputed column sums of MatMul weights, and packed weights
         (PackedQTensor) as they are. Built once;
         ``invalidate_params`` drops it after a payload changes."""
@@ -522,7 +534,8 @@ class QModel(Model):
         data = value.data.data
         if data.ndim != 2 or not only_rhs_of(value, ("MatMul",)):
             return None
-        return data.to(torch.int32).sum(dim=0, keepdim=True, dtype=torch.int32)
+        idt = torch.int64 if data.dtype == torch.int64 else torch.int32
+        return data.to(idt).sum(dim=0, keepdim=True, dtype=idt)
 
     def _wrap_constant(self, value: Constant) -> Tensor:
         data = value.data
@@ -542,7 +555,7 @@ class QModel(Model):
         qp = self.quant_params[variable.name]
         if t.dtype == torch.float32:
             return quantize_tensor(FTensor(t), self.bit_width, qp.scale,
-                                   qp.zero_point)
+                                   qp.zero_point, self.container)
         if t.dtype == torch.int8:
             # pre-quantized with this input's calibrated params
             return QTensor(t, self.bit_width, qp.scale, qp.zero_point)
@@ -559,7 +572,8 @@ class QModel(Model):
                 t = data[v.name]
                 if isinstance(t, FTensor):
                     qp = self.quant_params[v.name]
-                    t = quantize_tensor(t, self.bit_width, qp.scale, qp.zero_point)
+                    t = quantize_tensor(t, self.bit_width, qp.scale,
+                                        qp.zero_point, self.container)
                 elif (isinstance(t, QTensor)
                       and t.bit_width != self.bit_width
                       and (idx < 2 or (idx == 2 and node.op in (
@@ -600,7 +614,7 @@ class QModel(Model):
         qp = self.quant_params[value.name]
         if consumer.op == "FusedAttentionHS":
             return quantize_tensor(t.dequantize(), self.bit_width, qp.scale,
-                                   qp.zero_point)
+                                   qp.zero_point, self.container)
         return t.requantize(self.bit_width, qp.scale, qp.zero_point)
 
     def _post_node(self, node: Node, outputs: list[Tensor]) -> list[Tensor]:
@@ -618,7 +632,7 @@ class QModel(Model):
                     qp = self.quant_params[value.name]
                     if isinstance(t, FTensor):
                         t = quantize_tensor(t, self.bit_width, qp.scale,
-                                            qp.zero_point)
+                                            qp.zero_point, self.container)
                     elif isinstance(t, QTensor) \
                             and t.bit_width != self.bit_width:
                         t = t.requantize(self.bit_width, qp.scale,

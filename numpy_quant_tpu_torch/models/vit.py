@@ -28,12 +28,16 @@ VIT_BASE = {
 }
 
 
-# quantize() options of the served weight configurations (activations
-# int8): int8 weights, W4A8 per-channel (bench.py's NQ_TPU_BENCH_MODE=w4a8)
-# and W3A8, whose odd width packs as bit-planes
-WEIGHT_CONFIGS = {"int8": {},
-                  "w4a8": dict(weight_bit_width=4, per_channel_weights=True),
-                  "w3a8": dict(weight_bit_width=3)}
+# quantize() options of the served configurations: int8 weights and
+# activations, W4A8 per-channel (bench.py's NQ_TPU_BENCH_MODE=w4a8), W3A8,
+# whose odd width packs as bit-planes, and W8A16
+WEIGHT_CONFIGS = {
+    "int8": dict(bit_width=8),
+    "w4a8": dict(bit_width=8, weight_bit_width=4, per_channel_weights=True),
+    "w3a8": dict(bit_width=8, weight_bit_width=3),
+    # 16-bit activations, 8-bit weights: the x64-mode integer path. f32
+    # only: a 16-bit grid over bf16 values is meaningless.
+    "w8a16": dict(bit_width=16, weight_bit_width=8)}
 
 
 def _f32(a) -> np.ndarray:

@@ -280,7 +280,10 @@ def _matmul(a: Tensor, b: Tensor) -> list[Tensor]:
     if isinstance(a, FTensor) and isinstance(b, (QTensor, PackedQTensor)):
         return [_weight_only_matmul(a, b)]
     if isinstance(b, PackedQTensor):
-        if config.packed_execution == "kernel" and isinstance(a, QTensor):
+        # the packed kernels take int8 activations: a wider one takes the
+        # exact int64 product of the unpacked weight
+        if config.packed_execution == "kernel" and isinstance(a, QTensor) \
+                and a.bit_width <= 8:
             return [_packed_matmul(a, b)]
         return [a.matmul(b.unpack())]
     return [a.matmul(b)]

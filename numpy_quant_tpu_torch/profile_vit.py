@@ -1,12 +1,14 @@
 """Where the time of one int8 ViT-Base forward goes on the GPU.
 
     python3 -m numpy_quant_tpu_torch.profile_vit [--batch 96] [--f32]
-        [--mode {int8,w4a8,w3a8}] [--packed-execution {unpack,kernel}]
+        [--mode {int8,w4a8,w3a8,w8a16}] [--packed-execution {unpack,kernel}]
 
 Builds the chip_smoke.py main path (random ViT-Base weights, seed 0;
 calibration on 2 images; quantize with quantize_conv in the chosen
-weight configuration -- int8, W4A8 per-channel or W3A8; optimize();
-pack_weights()), then profiles three forwards in the bf16 serving mode
+configuration -- int8, W4A8 per-channel, W3A8 or, with --f32, W8A16;
+optimize(); pack_weights(), which in W8A16 packs the 8-bit MatMul
+weights for the exact int64 product of their unpacked values), then
+profiles three forwards in the bf16 serving mode
 (or f32 with ``--f32``) under the chosen packed execution with
 torch.profiler and prints: wall time per forward, device busy time per
 forward, the device's idle share, and the device time by kernel, largest
@@ -35,11 +37,13 @@ def main() -> None:
     ap.add_argument("--f32", action="store_true",
                     help="profile the f32 mode instead of bf16 serving")
     ap.add_argument("--mode", choices=list(WEIGHT_CONFIGS), default="int8",
-                    help="weight configuration (activations are int8)")
+                    help="quantize configuration (w8a16 needs --f32)")
     ap.add_argument("--packed-execution", choices=("unpack", "kernel"),
                     default="unpack",
                     help="how MatMuls with packed weights run")
     args = ap.parse_args()
+    if args.mode == "w8a16" and not args.f32:
+        ap.error("w8a16 runs in f32 only (pass --f32)")
     if not torch.cuda.is_available():
         raise SystemExit("profile_vit: no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -49,7 +53,7 @@ def main() -> None:
     model = Model.from_onnx(vit_image_classifier(
         random_vit_weights(VIT_BASE, seed=0), VIT_BASE))
     calib = rng.normal(size=(2, 3, 224, 224)).astype(np.float32) * 0.5
-    qmodel = model.quantize(bit_width=8, stats=model.calibration_stats([calib]),
+    qmodel = model.quantize(stats=model.calibration_stats([calib]),
                             quantize_conv=True, **WEIGHT_CONFIGS[args.mode])
     qmodel.optimize()
     packed = qmodel.pack_weights()

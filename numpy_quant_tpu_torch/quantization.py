@@ -1,8 +1,13 @@
 """Quantization math core (PyTorch).
 
-Port of ``numpy_quant_tpu/quantization.py`` in its TPU-mode numerics
-(x64 off): int32 containers, float32 scale math, int8 x int8 -> int32
-products. The reference's quirks carry over unchanged:
+Port of ``numpy_quant_tpu/quantization.py``. Up to 8 bits it follows the
+JAX package's TPU-mode numerics (x64 off): int32 containers, float32
+scale math, int8 x int8 -> int32 products. Above 8 bits it follows its
+x64 mode, the only one in which JAX computes 9-16-bit matmuls exactly:
+int64 containers, the zero point added in float64, dequantize products
+taken in float64 and rounded once to float32, exact int64 accumulators.
+The container carries the mode: int64 data is x64-mode data. The
+reference's quirks carry over unchanged:
 
 * signed integer range [-2^(b-1), 2^(b-1)-1];
 * rounding is round-half-to-even everywhere (``torch.round`` is, like
@@ -11,22 +16,19 @@ products. The reference's quirks carry over unchanged:
 * quantize DIVIDES by the scale, requantize multiplies by ``1/scale``;
 * q_matmul's zero-point correction is a tensor of row/column sums.
 
-Scale divisors are 0-d tensors on the operand's device: PyTorch's CUDA
-``tensor / python_scalar`` multiplies by the reciprocal, which is not
-the IEEE quotient the JAX package computes.
+``quantize`` and ``dequantize`` run the elementwise kernels of
+``kernels/elementwise.py`` (their plain versions on CPU tensors). Scale
+divisors of the remaining torch arithmetic are 0-d tensors on the
+operand's device: PyTorch's CUDA ``tensor / python_scalar`` multiplies by
+the reciprocal, which is not the IEEE quotient the JAX package computes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-# _int_mm's CUDA limits: more than 16 rows, K and N multiples of 8
-_INT_MM_MIN_ROWS = 17
-_INT_MM_ALIGN = 8
-
-
-def qrange(bit_width: int) -> tuple[float, float]:
-    return -2.0 ** (bit_width - 1), 2.0 ** (bit_width - 1) - 1.0
+from .intops import as_tensor, int_matmul, qrange
+from .kernels import elementwise as _elementwise
 
 
 def quant_parameters(min_val, max_val, bit_width: int, asymmetric: bool):
@@ -88,80 +90,45 @@ def weight_only_scales(arr: np.ndarray, bit_width: int, ch_axis: int,
     return np.float32(2.0 * absmax / (max_q - min_q)), None
 
 
-def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
-    """A host scalar/array (or tensor) as a tensor of ``dtype`` on
-    ``device`` -- the form a divisor must take to divide exactly."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    arr = np.asarray(x)
-    if arr.ndim == 0:
-        value = float(arr) if dtype.is_floating_point else int(arr)
-        return torch.full((), value, dtype=dtype, device=device)
-    host = torch.from_numpy(np.ascontiguousarray(
-        arr.astype(np.float32 if dtype.is_floating_point else np.int64)))
-    if torch.device(device).type == "cuda":
-        # a pageable copy would wait for the stream to drain; a pinned
-        # one is enqueued like a kernel (per-channel scale rows)
-        return host.pin_memory().to(device, non_blocking=True).to(dtype)
-    return host.to(device=device, dtype=dtype)
+def container_dtype(bit_width: int) -> torch.dtype:
+    """The integer container of ``bit_width``-bit values: int32 (TPU-mode
+    numerics) up to 8 bits, int64 (x64 mode) above."""
+    return torch.int32 if bit_width <= 8 else torch.int64
 
 
-def quantize(data: torch.Tensor, bit_width: int, scale, zero_point) -> torch.Tensor:
-    """float tensor -> int32 container tensor (divide, +zp, clip, rint)."""
-    q = data.to(torch.float32) / as_tensor(scale, data.device)
-    if zero_point is not None:
-        q = as_tensor(zero_point, data.device) + q
-    if np.any(np.asarray(scale) == 0):
-        # a constant-valued tensor's zero scale gives 0/0: XLA's
-        # float->int conversion maps that NaN to 0, torch's does not
-        q = torch.nan_to_num(q, nan=0.0)
-    min_qval, max_qval = qrange(bit_width)
-    q = torch.clamp(q, min_qval, max_qval)
-    return torch.round(q).to(torch.int32)
+def quantize(data: torch.Tensor, bit_width: int, scale, zero_point,
+             container: torch.dtype = None) -> torch.Tensor:
+    """float tensor -> integer container tensor (divide, +zp, clip, rint).
+    ``container`` (default ``container_dtype(bit_width)``): int32 computes
+    in float32, int64 adds the zero point in float64 (x64 mode)."""
+    return _elementwise.quantize(
+        data, bit_width, scale, zero_point,
+        out_dtype=container or container_dtype(bit_width))
 
 
-def dequantize(arr: torch.Tensor, scale, zero_point) -> torch.Tensor:
-    """Integer container tensor -> float32."""
-    if arr.dtype != torch.int32:
-        # narrow int8 storage widens before the zero-point subtract
-        arr = arr.to(torch.int32)
-    if zero_point is not None:
-        arr = arr - as_tensor(zero_point, arr.device, torch.int32)
-    return arr.to(torch.float32) * as_tensor(scale, arr.device)
+def dequantize(arr: torch.Tensor, scale, zero_point,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Integer container tensor -> float (``dtype``: float32, or bfloat16
+    rounded from the float32 value). int64 containers multiply in
+    float64."""
+    return _elementwise.dequantize(arr, scale, zero_point, out_dtype=dtype)
 
 
-def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
-    extra = size - t.shape[dim]
-    if extra <= 0:
-        return t
-    pad = [0, 0] * (t.ndim - 1 - dim) + [0, extra]
-    return torch.nn.functional.pad(t, pad)
-
-
-def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 product of integer tensors holding int8 values.
-
-    A 2-D rhs runs as ONE ``torch._int_mm`` over the flattened lhs rows.
-    On CUDA the operands are zero-padded to _int_mm's limits (exact:
-    zero rows and columns add nothing) and the result is sliced back.
-    A batched rhs (the unfused attention's score/context products) runs
-    as a float64 product, exact for int8 operands at any K below 2^38.
-    """
-    if b.ndim == 2:
-        lead = a.shape[:-1]
-        k, n = b.shape
-        a2 = a.reshape(-1, k).to(torch.int8)
-        b2 = b.to(torch.int8)
-        m = a2.shape[0]
-        if a2.is_cuda:
-            kp = -(-k // _INT_MM_ALIGN) * _INT_MM_ALIGN
-            np_ = -(-n // _INT_MM_ALIGN) * _INT_MM_ALIGN
-            a2 = _pad_to(_pad_to(a2, 1, kp), 0, max(m, _INT_MM_MIN_ROWS))
-            b2 = _pad_to(_pad_to(b2, 0, kp), 1, np_)
-        y = torch._int_mm(a2.contiguous(), b2.contiguous())[:m, :n]
-        return y.reshape(*lead, n)
-    y = torch.matmul(a.to(torch.float64), b.to(torch.float64))
-    return y.to(torch.int32)
+def wide_matmul(a: torch.Tensor, b: torch.Tensor,
+                bit_width: int) -> torch.Tensor:
+    """Exact int64 product of integer tensors holding values of at most
+    ``bit_width`` bits: x64 mode's int64 dot. On the CPU an int64
+    product; on CUDA (no int64 GEMM, and ``_int_mm`` takes int8 only) a
+    float64 product, exact while every partial sum stays below 2^53,
+    i.e. K * 2^(2b-2) < 2^53 (K < 2^23 at 16 bits)."""
+    if a.is_cuda:
+        k = a.shape[-1]
+        if k * 2.0 ** (2 * bit_width - 2) >= 2.0 ** 53:
+            raise ValueError(f"K={k} at {bit_width} bits leaves float64's "
+                             "exact integer range")
+        y = torch.matmul(a.to(torch.float64), b.to(torch.float64))
+        return y.to(torch.int64)
+    return torch.matmul(a.to(torch.int64), b.to(torch.int64))
 
 
 def q_matmul(arr_a, scale_a, zero_point_a, arr_b, scale_b, zero_point_b,
@@ -169,45 +136,58 @@ def q_matmul(arr_a, scale_a, zero_point_a, arr_b, scale_b, zero_point_b,
     """Integer matmul with tensor zero-point correction.
 
     Returns (acc, scale, zero_point) with real = (acc - zero_point) *
-    scale; zero_point is None or an int32 correction tensor.
+    scale; zero_point is None or a correction tensor. With an int64
+    operand (x64 mode) acc and corrections are int64 and the product is
+    ``wide_matmul``'s; else they are int32 and the product is
+    ``int_matmul``'s, which takes at most 8-bit values.
     ``b_colsum``: precomputed column sums of arr_b (weight constants).
     """
-    if bit_width > 8:
-        raise NotImplementedError(
-            f"{bit_width}-bit matmuls are not ported (int8 only)")
+    wide = arr_a.dtype == torch.int64 or arr_b.dtype == torch.int64
+    if not wide and bit_width > 8:
+        raise ValueError(f"{bit_width}-bit operands need an int64 "
+                         "container (x64 mode)")
     k = arr_a.shape[-1]
-    acc = int_matmul(arr_a, arr_b)
+    acc = wide_matmul(arr_a, arr_b, bit_width) if wide \
+        else int_matmul(arr_a, arr_b)
     scale = (np.asarray(scale_a, np.float32) * np.asarray(scale_b, np.float32))
     if scale.ndim == 0:
         scale = np.float32(scale)
     if zero_point_a is None and zero_point_b is None:
         return acc, scale, None
-    i32 = torch.int32
+    idt = torch.int64 if wide else torch.int32
     dev = acc.device
     if zero_point_a is not None and b_colsum is None:
-        b_colsum = arr_b.to(i32).sum(dim=-2, keepdim=True, dtype=i32)
+        b_colsum = arr_b.to(idt).sum(dim=-2, keepdim=True, dtype=idt)
     if zero_point_a is None:
-        a_rowsum = arr_a.to(i32).sum(dim=-1, keepdim=True, dtype=i32)
-        zero_point = a_rowsum * as_tensor(zero_point_b, dev, i32)
+        a_rowsum = arr_a.to(idt).sum(dim=-1, keepdim=True, dtype=idt)
+        zero_point = a_rowsum * as_tensor(zero_point_b, dev, idt)
     elif zero_point_b is None:
-        zero_point = b_colsum.to(i32) * as_tensor(zero_point_a, dev, i32)
+        zero_point = b_colsum.to(idt) * as_tensor(zero_point_a, dev, idt)
     else:
-        a_rowsum = arr_a.to(i32).sum(dim=-1, keepdim=True, dtype=i32)
-        zpa = as_tensor(zero_point_a, dev, i32)
-        zpb = as_tensor(zero_point_b, dev, i32)
-        zero_point = a_rowsum * zpb + b_colsum.to(i32) * zpa - zpa * zpb * k
+        a_rowsum = arr_a.to(idt).sum(dim=-1, keepdim=True, dtype=idt)
+        zpa = as_tensor(zero_point_a, dev, idt)
+        zpb = as_tensor(zero_point_b, dev, idt)
+        zero_point = a_rowsum * zpb + b_colsum.to(idt) * zpa - zpa * zpb * k
     return acc, scale, zero_point
 
 
 def requantize(arr, arr_scale, arr_zero_points, res_scale, res_zero_point,
                bit_width: int) -> torch.Tensor:
     """Requantize to new (scale, zero_point, bit_width) via the float
-    path: multiply by 1/res_scale, +zp, rint, then clip."""
+    path: multiply by 1/res_scale, +zp, rint, then clip. The result is
+    int64 (x64 mode: the zero point added in float64) for an int64 input,
+    else int32."""
+    wide = arr.dtype == torch.int64
     min_qval, max_qval = qrange(bit_width)
     dequant = dequantize(arr, arr_scale, arr_zero_points)
     inv_scale = np.float32(1.0) / np.asarray(res_scale, np.float32)
     scaled = as_tensor(inv_scale, dequant.device) * dequant
     if res_zero_point is not None:
-        scaled = as_tensor(res_zero_point, dequant.device) + scaled
+        if wide:
+            scaled = as_tensor(res_zero_point, dequant.device,
+                               torch.float64) + scaled.to(torch.float64)
+        else:
+            scaled = as_tensor(res_zero_point, dequant.device) + scaled
     q = torch.clamp(torch.round(scaled), min_qval, max_qval)
-    return q.to(torch.int32)
+    return q.to(torch.int64 if wide else torch.int32)
+

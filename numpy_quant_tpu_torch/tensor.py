@@ -8,8 +8,9 @@ Port of ``numpy_quant_tpu/tensor.py``:
 * ``FTensor`` wraps a float tensor on the model's device (float32, or
   bfloat16 under ``config.low_precision_floats``).
 * ``QTensor`` wraps an integer tensor (int32 container, or int8 storage
-  for constants of <= 8 bits) plus (bit_width, scale) and a zero_point
-  that is None, a host integer or an int32 correction tensor.
+  for constants of <= 8 bits; int64 containers in a model above 8 bits)
+  plus (bit_width, scale) and a zero_point that is None, a host integer
+  or an int32 (int64) correction tensor.
 * ``PackedQTensor`` holds a 2-D symmetric weight packed to exactly
   bit_width bits per value (kernels/pack.py), made by ``pack_qtensor``.
 """
@@ -303,7 +304,9 @@ class QTensor:
                        self.bit_width, self.scale, zp)
 
     def dequantize(self) -> FTensor:
-        return FTensor(_dequantize(self._data, self.scale, self.zero_point))
+        # straight to the float data plane's dtype (bf16 in serving mode)
+        return FTensor(_dequantize(self._data, self.scale, self.zero_point,
+                                   dtype=config.float_dtype))
 
     def relu(self) -> "QTensor":
         """max(q, zero point): the quantized zero, as JAX computes it."""
@@ -425,8 +428,11 @@ def pack_qtensor(qt: QTensor) -> PackedQTensor:
 Tensor = Union[ITensor, FTensor, QTensor, PackedQTensor]
 
 
-def quantize_tensor(tensor: FTensor, bit_width: int, scale, zero_point) -> QTensor:
-    qdata = _quantize(tensor.data, bit_width, scale, zero_point)
+def quantize_tensor(tensor: FTensor, bit_width: int, scale, zero_point,
+                    container: torch.dtype = None) -> QTensor:
+    """``container``: the integer dtype of the data (quantization.quantize's
+    default by bit width when None)."""
+    qdata = _quantize(tensor.data, bit_width, scale, zero_point, container)
     return QTensor(qdata, bit_width, scale=scale, zero_point=zero_point)
 
 
@@ -461,7 +467,8 @@ def fconv2d(x: FTensor, w: FTensor, b: FTensor, pads, strides,
 
 def qconv2d(x: QTensor, w: QTensor, b: Optional[QTensor], pads, strides,
             dilations=(1, 1), group=1) -> QTensor:
-    """Integer conv2d: im2col + one int8 product (``q_matmul``).
+    """Integer conv2d: im2col + one integer product (``q_matmul``: int8
+    up to 8 bits, the exact int64 product above).
 
     x: NCHW QTensor (asymmetric activations pad with their zero point);
     w: [O, C, KH, KW] symmetric QTensor; b: optional 4x-bit-width bias at

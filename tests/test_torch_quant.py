@@ -171,7 +171,10 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import numpy_quant_tpu_torch\n"
             "import numpy_quant_tpu_torch.convert\n"
+            "import numpy_quant_tpu_torch.intops\n"
             "import numpy_quant_tpu_torch.kernels\n"
+            "import numpy_quant_tpu_torch.kernels.elementwise\n"
+            "import numpy_quant_tpu_torch.models.mlp\n"
             "import numpy_quant_tpu_torch.models.vit\n"
             "import numpy_quant_tpu_torch.models.gpt\n"
             "import numpy_quant_tpu_torch.models.llama\n"

@@ -38,9 +38,11 @@ CFG = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
            intermediate_size=128, image_size=32, patch_size=8,
            num_labels=10)
 PASSES = ("fuse_attention", "fuse_gelu", "narrow_gather", "int8_dataflow")
-MODES = TV.WEIGHT_CONFIGS  # int8, W4A8 per-channel, W3A8
+# the 8-bit-activation configurations: int8, W4A8 per-channel, W3A8
+MODES = {k: c for k, c in TV.WEIGHT_CONFIGS.items() if c["bit_width"] <= 8}
 # the dict form of weight_bit_width: per-weight widths, the rest at 8 bits
-MIXED = {"weight_bit_width": {"encoder.layer.0.intermediate.weight_t": 2,
+MIXED = {"bit_width": 8,
+         "weight_bit_width": {"encoder.layer.0.intermediate.weight_t": 2,
                               "encoder.layer.1.attention.value.weight_t": 5,
                               "classifier.weight": 4},
          "per_channel_weights": True}
@@ -71,7 +73,7 @@ def setup():
 
 def _jax_qmodel(s, mode="int8"):
     return nq.Model.from_onnx(s["jproto"]).quantize(
-        bit_width=8, stats=s["stats"], quantize_conv=True,
+        stats=s["stats"], quantize_conv=True,
         **(MIXED if mode == "mixed" else MODES[mode]))
 
 
@@ -80,7 +82,7 @@ def _port_model(s):
 
 
 def _port_qmodel(s, stats=None, mode="int8"):
-    return _port_model(s).quantize(bit_width=8, stats=stats or s["stats"],
+    return _port_model(s).quantize(stats=stats or s["stats"],
                                    quantize_conv=True,
                                    **(MIXED if mode == "mixed" else MODES[mode]))
 
