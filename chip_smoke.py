@@ -37,8 +37,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      1/2/4/8 bits, per-tensor, per-channel and grouped scales (groups
      within and across the split-K fields), f32 and bf16, on ragged
      shapes; then timed with a cold L2 at the five GPT-2 decode shapes
-     (M = 8, W4 g=128) beside its bound, the plain version and torch.matmul
-     on the weight dequantized beforehand;
+     (M = 8, W4 g=128), each with its launch plan (the cluster along K),
+     beside its bound, the plain version and torch.matmul on the weight
+     dequantized beforehand, in f32 and bf16;
   7. the weight-only decode path at full width: random GPT-2 small
      weights (seed 0) -> gpt_decode_step(B=8, max_len=64) ->
      Model.from_onnx -> quantize_weights(4, group_size=128) (49 weights)
@@ -52,8 +53,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      shift x causal none, full and window 256 x out_requant off and on x
      zero points zero and nonzero) at (B, N, H) = (2, 1024, 12),
      (1, 1000, 4) and (1, 4096, 2), head dims 16, 32 and 128, narrow q at
-     N=4096, tile skipping off and the static shift's full walk; the
-     monolithic kernel's causal and
+     N=4096, tile skipping off and the static shift's full walk, the exact
+     form at N = 8, 50, 100, 127, 130, 1000 and 1023 (no flipped block
+     where torch sums a row in one warp); the monolithic kernel's causal and
      window forms at N=197 and 256; blockwise against monolithic at
      N=1000 (at most 1% of (row, head) blocks may differ, each by one
      probability step); then timed at the GPT-2 shape (B=8, N=1024, H=12,
@@ -68,19 +70,21 @@ Phases, one line each (any failure raises and the script exits non-zero):
      the bf16 mode; tokens scored per second (median of 5 forwards per
      mode, in turns); one profiled bf16 forward; peak device memory;
  10. the pre-split attention kernel fused_attention against its plain
-     version in 441 variants (zero points all nonzero, all zero and each
+     version in 525 variants (zero points all nonzero, all zero and each
      alone zero; out_requant off, on, on without res_zp; mask none, causal,
-     window 6 and 512; N = 50, 197, 1000, 1024, 2048; head dims 16-128; odd
-     BH; a mask too small to skip tiles), with 0 flipped blocks required
-     where the kernel sums rows in torch's order, which torch's own CUDA
-     sum must still take; then at the TinyLlama scoring shape (B=4 x 32
-     heads, N=2048, D=64, causal, int8 out): against its plain version (0
-     flips), and timed beside its bound and its plain version;
+     window 6 and 512; N = 8, 50, 100, 127, 130, 197, 1000, 1023, 1024,
+     2048; head dims 16-128; odd BH; a mask too small to skip tiles), with
+     0 flipped blocks required wherever torch sums a row in one warp, which
+     torch's own CUDA sum must still do in the kernel's order; then at the
+     TinyLlama scoring shape (B=4 x 32 heads, N=2048, D=64, causal, int8
+     out): against its plain version (0 flips), and timed beside its bound
+     and its plain version;
  11. the int8 TinyLlama-1.1B scoring path at full width and depth: random
      weights (seed 0) -> llama_causal_lm(B=4, seq 2048) -> Model.from_onnx
      -> calibration on 2 sequences -> quantize(int8) -> unfused B=1 forward
      in f32 and bf16 -> optimize() (22 FusedAttention plain fusions, 0
      FusedAttentionHS, no failures) -> fused B=1 forward (22 launches,
+     whether the kernel skips masked key tiles at these qparams,
      logits within LOGIT_TOL of the unfused ones, argmax equal where the
      margin clears it) -> fused B=1 bf16 forward (22 launches, the kernel
      equal to its plain version on its operands; its distance from f32
@@ -189,6 +193,10 @@ ATT_MODES = {"exact": (False, None), "fast": (True, None),
 CAUSAL = {"none": (None, None), "full": (MASK_VAL, None),
           "window256": (MASK_VAL, 256)}
 MONO_N, MONO_WINDOW = (197, 256), 64
+# exact forms of the tiled kernels (phases 8, 10) at short N, N % 4 != 0
+# and the strided/vectorized edge: 0 flipped blocks where torch sums a row
+# in one warp
+EXACT_N = (8, 50, 100, 127, 130, 1000, 1023)
 # GPT-2 scoring (phase 9): batch GPT_B at the full context
 GPT_SEQ = 1024
 SCORE_REPS = 5  # timed forwards per mode, in turns
@@ -332,7 +340,7 @@ def check_attention() -> float:
         if not fast:
             # the exact form sums rows in torch's order (N % 4 != 0: each
             # row's own unaligned head and tail), so no block may flip
-            assert exact_in_order(B_CHECK * HEADS * nq, N_TOK, tiled=False) \
+            assert exact_in_order(B_CHECK * HEADS * nq, N_TOK) \
                 and flips == 0, (nq, rq, flips)
         if rq is None:
             worst = max(worst, max_err)
@@ -367,11 +375,12 @@ def time_attention(name: str) -> dict:
     return res["serving"]
 
 
-def attention_flips(qmodel, x) -> tuple[int, int]:
+def attention_flips(qmodel, x, skips: list | None = None) -> tuple[int, int]:
     """The attention kernels against their plain versions on every
     attention layer's real inputs (one recorded forward of ``x``, an input
-    or a list of inputs): flipped (row, head) blocks. The recorded values
-    are dropped afterwards."""
+    or a list of inputs): flipped (row, head) blocks. ``skips`` receives,
+    per FusedAttention call, whether its kernel skips masked key tiles.
+    The recorded values are dropped afterwards."""
     import torch
     from numpy_quant_tpu_torch.graph import Variable
     from numpy_quant_tpu_torch.kernels import attention as A
@@ -387,6 +396,8 @@ def attention_flips(qmodel, x) -> tuple[int, int]:
         ins = qmodel._node_inputs(node, recorded)
         if node.op == "FusedAttention":
             q, kt, v, kw = plain_attention_call(ins, node.attrs)
+            if skips is not None:
+                skips.append(A.skips_masked_tiles(q.shape[-1], **kw))
             got = A.fused_attention(q, kt, v, **kw)
             want = A.fused_attention_reference(q, kt, v, **kw)
             heads = 1  # one (row, head) block per row of [BH, N, D]
@@ -674,11 +685,13 @@ def time_wo(name: str) -> dict:
     against the plain version: kernel, plain version, bound and the
     library call (torch.matmul on the weight dequantized beforehand, in
     x's type: 8x (f32) or 4x (bf16) the payload's bytes), every call
-    with a cold L2, as in a decode step whose weights (62 MB) outrun it.
-    Returns the f32 768->3072 numbers."""
+    with a cold L2, as in a decode step whose weights (62 MB) outrun it;
+    each shape's launch plan (the cluster along K) beside it. Returns the
+    768->3072 numbers by dtype."""
     import torch
     from numpy_quant_tpu_torch.kernels import qmatmul as Q
     rates = peaks(name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     res = {}
     for tname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -705,15 +718,17 @@ def time_wo(name: str) -> dict:
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+            plan = Q.wo_plan(GPT_B, n, payload.shape[0], 4, sms)
             say("kernel-time", kernel="splitk_wo_matmul", bits=4,
                 scale=f"g{WO_GROUP}", dtype=tname,
-                shape=f"M{GPT_B}xK{k}xN{n}", ms=ms, plain_ms=plain_ms,
+                shape=f"M{GPT_B}xK{k}xN{n}", cluster=plan["cluster"],
+                blocks=plan["blocks"], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, library="matmul_on_dequantized_weight",
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 bytes=nbytes, ops=ops, max_abs_err=err, l2="cold",
                 card=name.replace(" ", "_"))
-            if (tname, k, n) == ("f32", 768, 3072):
-                res = row
+            if (k, n) == (768, 3072):
+                res[tname] = row
     del flush
     return res
 
@@ -908,8 +923,7 @@ def check_blockq() -> float:
             tiles = {nq}
             if plain is A.fused_attention_hs_blockq_reference:
                 tiles = {min(nq, A.BLOCK_Q), nq % A.BLOCK_Q or min(nq, A.BLOCK_Q)}
-            tiled = fn is not A.fused_attention_hs_monolithic
-            if all(exact_in_order(b * h * t, n, tiled) for t in tiles):
+            if all(exact_in_order(b * h * t, n) for t in tiles):
                 assert flips == 0, (label, flips, blocks)
         return flips, blocks, err if rq is None else 0.0
 
@@ -936,6 +950,17 @@ def check_blockq() -> float:
                 "fused_attention_hs_blockq", f"B{b}xN{n}xH{h}xD{HEAD_DIM}",
                 f"{mode}:causal_none/full/window256:rq_off/on:zp_nonzero/zero",
                 res))
+    # the exact form at short N, N % 4 != 0 and the 128-key edge
+    for n in EXACT_N:
+        res = []
+        for causal, rq, zp in variants:
+            qp = QP if zp == "nonzero" else QP_ZERO
+            res.append(against_plain(
+                1, n, 3, n, rq, qp, attention_kw(3, "exact", causal, rq, qp),
+                f"blockq exact N{n} {causal} rq={rq} zp={zp}"))
+        worst = max(worst, summary(
+            "fused_attention_hs_blockq", f"B1xN{n}xH3xD{HEAD_DIM}",
+            "exact_N:causal_none/full/window256:rq_off/on:zp", res))
     # narrow q (no mask) at N = 4096
     res = []
     for nq, mode, rq, zp in itertools.product((1, 3), ATT_MODES,
@@ -1050,8 +1075,9 @@ def check_plain() -> tuple[float, int, int]:
     zp_p alone zero), out_requant off / on / on without res_zp, mask none /
     causal / window 6 / window 512, at N = 50, 197 (byte loads of k^T,
     ragged key tiles), 1000, 1024 and 2048 (word loads), head dims 16, 32,
-    64 and 128, odd BH, and a mask too small to skip tiles. Returns (the
-    largest |difference| on f32 out, flipped (row, head) blocks, blocks)."""
+    64 and 128, odd BH, a mask too small to skip tiles, and the exact
+    cases at EXACT_N. Returns (the largest |difference| on f32 out, flipped
+    (row, head) blocks, blocks)."""
     from numpy_quant_tpu_torch.kernels import attention as A
     zps = {"nonzero": QP, "zero": QP_ZERO}
     for name in ("zq", "zk", "zv", "zp_p"):
@@ -1085,7 +1111,8 @@ def check_plain() -> tuple[float, int, int]:
             max_abs_err_f32_out=max(r[2] for r in res))
         # where the kernel sums rows in torch's order it equals the plain
         # version (its [BH, rows of a q tile, N] softmax) bit for bit
-        if exact_in_order(bh * min(n, plain_tile(n)), n, tiled=True):
+        tile = min(n, A.plain_tile(n))
+        if all(exact_in_order(bh * t, n) for t in {tile, n % tile or tile}):
             assert flips == 0, f"{shape}: {flips} flipped blocks in torch order"
 
     for bh, n in ((5, 50), (5, 197), (3, 1024), (3, 2048)):
@@ -1106,21 +1133,29 @@ def check_plain() -> tuple[float, int, int]:
            for r, w in itertools.product(rqs, (None, 6, 512))]
     summary(f"BH3xN1024xD{HEAD_DIM}", 1024, "mask_-2000_no_skip:rq:causal/window",
             res)
+    # short N, N % 4 != 0 and the 128-key edge (every row alignment)
+    for n in EXACT_N:
+        res = [run(3, n, HEAD_DIM, zps[z], rqs[r], *masks[m],
+                   f"plain exact N{n} zp={z} rq={r} mask={m}")
+               for z, r, m in itertools.product(("nonzero", "zero"),
+                                                ("off", "on"),
+                                                ("none", "causal", "window6"))]
+        summary(f"BH3xN{n}xD{HEAD_DIM}", n, "exact_N:zp:rq_off/on:mask", res)
     return worst, all_flips, all_blocks
 
 
 _PROBES: dict = {}
 
 
-def exact_in_order(rows: int, n: int, tiled: bool) -> bool:
+def exact_in_order(rows: int, n: int) -> bool:
     """True where an exact attention kernel must equal its plain version
     (and the unfused executor) bit for bit: the kernel replays torch's row
     sum order for the plain version's softmax tensor [rows, n]
-    (kernels/attention.py::in_torch_order; ``tiled`` for the blockwise and
-    pre-split kernels), and torch's own CUDA sum takes that order there,
-    probed once per shape. A torch whose order changed fails the phase."""
+    (kernels/attention.py::in_torch_order), and torch's own CUDA sum takes
+    that order there, probed once per shape. A torch whose order changed
+    fails the phase."""
     from numpy_quant_tpu_torch.kernels import attention as A
-    if not A.in_torch_order(rows, n, tiled):
+    if not A.in_torch_order(rows, n):
         return False
     if (rows, n) not in _PROBES:
         _PROBES[rows, n] = A.torch_sums_in_kernel_order("cuda", rows, n)
@@ -1129,12 +1164,6 @@ def exact_in_order(rows: int, n: int, tiled: bool) -> bool:
     assert _PROBES[rows, n], (f"torch's CUDA sum over [{rows}, {n}] no "
                               "longer takes the kernels' order")
     return True
-
-
-def plain_tile(n: int) -> int:
-    """Query rows per tile of fused_attention_reference at ``n`` keys."""
-    from numpy_quant_tpu_torch.kernels import attention as A
-    return A.BLOCK_Q if A.blockwise(n, None) else n
 
 
 def time_plain(name: str) -> dict:
@@ -1154,7 +1183,7 @@ def time_plain(name: str) -> dict:
         f"plain BH{bh} N{n} timing shape")
     say("kernel-check", kernel="fused_attention", shape=f"BH{bh}xN{n}xD{d}",
         cases="timing_shape:causal:rq_on", flipped_blocks=f"{flips}/{blocks}")
-    assert not exact_in_order(bh * plain_tile(n), n, tiled=True) \
+    assert not exact_in_order(bh * A.plain_tile(n), n) \
         or flips == 0, (flips, blocks)
     ms = cuda_ms(lambda: A.fused_attention(q, kt, v, **kw))
     plain_ms = cuda_ms(lambda: A.fused_attention_reference(q, kt, v, **kw))
@@ -1232,7 +1261,7 @@ def scoring_phase(card: str) -> dict:
     assert counts["fused_attention_hs_blockq"] == 12, counts
     assert others(counts) == 12, counts
     # the plain version's softmax runs in [B, H, BLOCK_Q, N] q tiles
-    assert exact_in_order(GPT_B * HEADS * A.BLOCK_Q, GPT_SEQ, tiled=True)
+    assert exact_in_order(GPT_B * HEADS * A.BLOCK_Q, GPT_SEQ)
     assert flips == 0 and equal, (flips, blocks, equal)
     del unfused
 
@@ -1345,6 +1374,7 @@ def llama_phase(card: str) -> dict:
     import numpy as np
     import torch
     from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.kernels import attention as A
     from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
                                                     llama_causal_lm,
                                                     random_llama_weights)
@@ -1399,9 +1429,11 @@ def llama_phase(card: str) -> dict:
 
     fused_one, counts_one = counted(lambda: forward(one))
     assert fused_one.shape == (1, n, vocab) and bool(fused_one.isfinite().all())
-    flips, blocks = attention_flips(qmodel, one)
+    skips = []
+    flips, blocks = attention_flips(qmodel, one, skips)
     say("llama-f32-b1", batch=1, seq=n,
         fused_attention_launches=counts_one["fused_attention"],
+        masked_tiles_skipped=f"{sum(skips)}/{len(skips)}",
         attention_flipped_blocks=f"{flips}/{blocks}",
         fused_equals_unfused_bitwise=bool(torch.equal(fused_one, unfused)),
         **logit_parity(fused_one, unfused))
@@ -1432,8 +1464,8 @@ def llama_phase(card: str) -> dict:
         unfused_vs_f32_max_abs_diff=float((unfused_bf - unfused).abs().max()))
     assert counts_bf1["fused_attention"] == layers, counts_bf1
     assert others(counts_bf1) == layers, counts_bf1
-    assert not exact_in_order(cfg["num_attention_heads"] * plain_tile(n), n,
-                              tiled=True) or flips_bf == 0, (flips_bf, blocks_bf)
+    assert not exact_in_order(cfg["num_attention_heads"] * A.plain_tile(n),
+                              n) or flips_bf == 0, (flips_bf, blocks_bf)
     del unfused, unfused_bf, fused_bf
 
     # the main path: the fused f32 forward at B=4
@@ -1549,7 +1581,7 @@ def check_score_bias() -> dict:
             if mode == "exact":
                 # the plain version's softmax: [B, H, rows of a q tile, N]
                 rows = SB_B * SB_HEADS * (min(n, A.BLOCK_Q) if tiled else n)
-                assert exact_in_order(rows, n, tiled) and flips == 0, \
+                assert exact_in_order(rows, n) and flips == 0, \
                     (kname, n, d, flips, blocks)
             worst[kname] = max(worst[kname], err)
     # the bias clause: at H=8 a [8, 256, 256] bias is exactly 2 MiB
@@ -1623,7 +1655,7 @@ def time_score_bias(name: str) -> dict:
                 if mode == "exact":
                     rows = T5_B * SB_HEADS * (min(nq, A.BLOCK_Q) if blockq
                                               else nq)
-                    assert exact_in_order(rows, n, blockq) and flips == 0, \
+                    assert exact_in_order(rows, n) and flips == 0, \
                         (label, flips, blocks)
             ms = cuda_ms(lambda: A.fused_attention_hs(q, k, v, **kw),
                          lead=True)
@@ -1740,10 +1772,10 @@ def t5_phase(card: str) -> tuple[dict, dict]:
     # its plain version on the path's operands, and the fused forward
     # equals the unfused one bit for bit
     heads = cfg["num_heads"]
-    for rows, n, tiled in ((T5_B * heads * A.BLOCK_Q, T5_SRC, True),
-                           (T5_B * heads * T5_TGT, T5_TGT, False),
-                           (T5_B * heads * T5_TGT, T5_SRC, False)):
-        assert exact_in_order(rows, n, tiled), (rows, n)
+    for rows, n in ((T5_B * heads * A.BLOCK_Q, T5_SRC),
+                    (T5_B * heads * T5_TGT, T5_TGT),
+                    (T5_B * heads * T5_TGT, T5_SRC)):
+        assert exact_in_order(rows, n), (rows, n)
     flips, blocks = attention_flips(qmodel, x)
     equal = bool(torch.equal(fused, unfused))
     say("t5-f32", batch=T5_B, src=T5_SRC, tgt=T5_TGT,
@@ -2358,7 +2390,7 @@ def main() -> int:
     assert diff <= LOGIT_TOL * scale, (diff, scale)
     assert same[clear].all(), "fused and unfused labels differ"
     for nq in (N_TOK, 1):
-        assert exact_in_order(B_F32 * HEADS * nq, N_TOK, tiled=False)
+        assert exact_in_order(B_F32 * HEADS * nq, N_TOK)
     assert flips == 0, (flips, blocks)
 
     # -- phase 3: bf16 serving mode at batch 96 (bench.py's form) -----
@@ -2524,15 +2556,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    wo32, wo16 = wo_timing["f32"], wo_timing["bf16"]
     rows.append({
         "name": "splitk_wo_matmul", "route": "cuda",
         "source": "numpy_quant_tpu_torch/csrc/qmatmul_wo.cu",
         "replaces": "numpy_quant_tpu/kernels/qmatmul.py:411",
         "launches": main_launches["splitk_wo_matmul"],
-        "max_abs_err": wo_worst, "ms": wo_timing["ms"],
-        "plain_ms": wo_timing["plain_ms"], "bound_ms": wo_timing["bound_ms"],
-        "bound_by": wo_timing["bound_by"],
-        "library_ms": wo_timing["library_ms"]})
+        "max_abs_err": wo_worst, "ms": wo32["ms"],
+        "plain_ms": wo32["plain_ms"], "bound_ms": wo32["bound_ms"],
+        "bound_by": wo32["bound_by"], "library_ms": wo32["library_ms"],
+        "bf16": {key: wo16[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}})
     rows.append({
         "name": "fused_attention_hs_blockq", "route": "cuda",
         "source": "numpy_quant_tpu_torch/csrc/attention_hs_blockq.cu",

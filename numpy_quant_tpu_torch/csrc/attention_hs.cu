@@ -64,7 +64,7 @@
 struct HSParams {
   int B, nq, N, H, D, zq, zk, zv, zp_p, fast, static_shift, need_lo,
       need_hi, out_int8, has_res_zp, causal, window, skip, has_bias, sum_vec,
-      sum_lanes;
+      sum_lanes, sum_tile;  // sum_tile: csrc/attention_hs_blockq.cu's
   float c_score, scaling, czq, base, sp, zp_pf, c_out, res_scale, res_zp,
       qmin, qmax, mask;
 };

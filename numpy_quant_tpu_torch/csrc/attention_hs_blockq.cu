@@ -30,8 +30,9 @@
 // the 16 threads of a row with warp shuffles.
 //   Exact path (fast=0), three sweeps over the key tiles, each
 //   recomputing s from the exact integer dots: 1. the row max; 2. the
-//   row sum of expf(s - m), in the order of torch's CUDA sum
-//   (torch_order.cuh: one partial sum per key mod 128); 3. probs = e /
+//   row sum of expf(s - m), in the order of torch's CUDA sum (each
+//   warp stages its rows' exp tile in shared memory and streams it into
+//   its lanes' accumulators, torch_order.cuh); 3. probs = e /
 //   sum (__fdiv_rn), quantized as rint(clip(probs / sp + zp_p)) into a
 //   shared int8 tile, then P.V.
 //   There is no online rescaling here: the quantized probabilities need
@@ -62,12 +63,12 @@
 //
 // Numerics as in csrc/attention_hs.cu: the JAX op order, _rn intrinsics
 // (no FMA contraction), IEEE division, half-to-even rounding, expf/exp2f
-// (never __expf). The exact row sums take torch's order for N >= 128 with
-// N % 4 == 0 (where torch sums a row in one warp, which the wrapper's
-// caller can ask kernels/attention.py::in_torch_order), so there the exact
-// path equals the plain version and the unfused executor bit for bit; at
-// other N a quantized probability may differ by one step. The fast path's
-// sums run in its own order.
+// (never __expf). The exact row sums take torch's order at every N where
+// torch sums a row in one warp (kernels/attention.py::in_torch_order):
+// strided loads below 128 keys, 4-vectors with each row's unaligned head
+// and tail from 128 on, the row's alignment taken from the plain
+// version's q tiles of ``sum_tile`` rows. There the exact path equals the
+// plain version bit for bit. The fast path's sums run in its own order.
 //
 // This simple design runs both products on the integer ALUs with three
 // (exact) or two (fast) passes over K; wgmma, TMA and a one-sweep fast
@@ -79,12 +80,12 @@
 
 #include "torch_order.cuh"
 
-// Shared with csrc/attention_hs.cu (``sum_vec`` and ``sum_lanes`` are that
-// kernel's).
+// Shared with csrc/attention_hs.cu: ``sum_vec`` and ``sum_lanes`` give
+// torch's row-sum order, ``sum_tile`` the plain version's q tile rows.
 struct HSParams {
   int B, nq, N, H, D, zq, zk, zv, zp_p, fast, static_shift, need_lo,
       need_hi, out_int8, has_res_zp, causal, window, skip, has_bias, sum_vec,
-      sum_lanes;
+      sum_lanes, sum_tile;
   float c_score, scaling, czq, base, sp, zp_pf, c_out, res_scale, res_zp,
       qmin, qmax, mask;
 };
@@ -106,6 +107,7 @@ struct Tiles {
   int k[BK][D / 4 + 1];  // key tile
   int vt[D][PW];         // value tile transposed: vt[d] holds keys 0..BK-1
   int p[BQ][PW];         // quantized probabilities, int8 [row][key]
+  alignas(16) float e[BQ][BK + 4];  // exact sweep 2: exp(s - m), key tile
   int qsum[BQ];
   int ksum[BK];
 };
@@ -350,16 +352,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (!fast) {
-    // sweep 2 (exact): the row sum of expf(s - m) in torch's order: the
-    // thread's share of the row's 128 partial sums (key tx + 16 j + 64 h,
-    // mod 128)
-    float part[2][RPT][KPT];
+    // sweep 2 (exact): the row sum of expf(s - m) in torch's order. Warp w
+    // computes rows 8w..8w+7 of each tile's scores; it stages their exp in
+    // shared memory and streams them into its lanes' accumulators
+    // (torch_order.cuh), row 8w + i in a[i].
+    const int warp = tid >> 5, lane = tid & 31;
+    float a[8][4];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < KPT; ++j) part[hf][i][j] = 0.f;
+    for (int i = 0; i < 8; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
     for (int tile = t_lo; tile < t_hi; ++tile) {
       const int j0 = tile * BK;
       __syncthreads();
@@ -367,15 +367,23 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       float s[RPT][KPT];
       tile_scores(t, p, ty, tx, r0, j0, bias, s);
-      // the parity of the tile is the half of the 128-key period it fills
-      if (tile & 1) {
-        torch_order_add_exp(part[1], s, m, j0, tx, n);
-      } else {
-        torch_order_add_exp(part[0], s, m, j0, tx, n);
-      }
-    }
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) l[i] = torch_order_tile_sum(part, i);
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j)
+          t.e[ty * RPT + i][tx + 16 * j] = expf(__fsub_rn(s[i][j], m[i]));
+      __syncwarp();
+      torch_order_stream_rows(a, t.e[8 * warp], BK + 4, j0, min(BK, n - j0),
+                              n, (long long)b * p.H + h, r0 + 8 * warp, p.nq,
+                              p.sum_tile, p.sum_vec, p.sum_lanes, lane);
+      __syncwarp();
+    }
+    // the thread's rows 4 ty + i are the warp's rows 4 (ty & 1) + i
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float sum = torch_order_finish(a[i], p.sum_lanes);
+      if ((i >> 2) == (ty & 1)) l[i & 3] = sum;
+    }
   }
 
   // the fast path's reciprocal r = 1 / (sum * sp)

@@ -62,7 +62,7 @@ class _PlainParams(ctypes.Structure):
     """Mirror of ``PlainParams`` in csrc/attention_plain.cu."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "BH", "N", "D", "zq", "zk", "zv", "zp_p", "out_int8", "has_res_zp",
-        "causal", "window", "skip")] \
+        "causal", "window", "skip", "sum_vec", "sum_lanes", "sum_tile")] \
         + [(name, ctypes.c_float) for name in (
             "c_score", "scaling", "sp", "zp_pf", "c_out", "res_scale",
             "res_zp", "qmin", "qmax", "mask")]
@@ -74,7 +74,8 @@ class _HSParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "B", "nq", "N", "H", "D", "zq", "zk", "zv", "zp_p", "fast",
         "static_shift", "need_lo", "need_hi", "out_int8", "has_res_zp",
-        "causal", "window", "skip", "has_bias", "sum_vec", "sum_lanes")] \
+        "causal", "window", "skip", "has_bias", "sum_vec", "sum_lanes",
+        "sum_tile")] \
         + [(name, ctypes.c_float) for name in (
             "c_score", "scaling", "czq", "base", "sp", "zp_pf", "c_out",
             "res_scale", "res_zp", "qmin", "qmax", "mask")]
@@ -82,6 +83,12 @@ class _HSParams(ctypes.Structure):
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def plain_tile(n: int) -> int:
+    """Query rows per tile of :func:`fused_attention_reference` at ``n``
+    keys: JAX's 256-row tiles on its blockwise grid, else all rows."""
+    return BLOCK_Q if blockwise(n, None) else n
 
 
 def blockwise(n: int, block_q: int | None, nq: int | None = None,
@@ -347,11 +354,13 @@ def _launch_checks(xq, xk, xv, num_heads, name):
 
 
 def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
-            skip: bool = False) -> torch.Tensor:
+            skip: bool = False, sum_tile: int | None = None) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on the current stream with the wrapper's
     keyword arguments ``kw`` (its ``score_bias`` already in the form's
     domain) and their constants ``c``; counts the launch in
-    ``wrapper.launches``."""
+    ``wrapper.launches``. ``sum_tile`` is the plain version's q tile rows
+    (default: all rows), which set each exact row's alignment in torch's
+    sum order."""
     out = torch.empty(xq.shape, device=xq.device,
                       dtype=torch.float32 if kw["out_requant"] is None
                       else torch.int8)
@@ -372,7 +381,8 @@ def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
         causal=int(kw["causal_mask_val"] is not None),
         window=0 if window is None else int(window), skip=int(skip),
         has_bias=int(bias is not None), sum_vec=int(vec), sum_lanes=lanes,
-        c_score=c["c_score"], scaling=c["scaling"], czq=c["czq"],
+        sum_tile=max(1, int(sum_tile or nq)), c_score=c["c_score"],
+        scaling=c["scaling"], czq=c["czq"],
         base=c["base"], sp=c["sp"], zp_pf=c["zp_pf"], c_out=c["c_out"],
         res_scale=c["res_scale"],
         res_zp=0.0 if c["res_zp"] is None else c["res_zp"],
@@ -464,6 +474,16 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
     return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d, c, kw)
 
 
+def skips_masked_tiles(d: int, **kw) -> bool:
+    """Whether :func:`fused_attention`'s kernel skips the key tiles masked
+    for every row of a block, for a call with keyword arguments ``kw`` at
+    head dim ``d``."""
+    if kw.get("causal_mask_val") is None:
+        return False
+    return _skip_masked_tiles(_constants(fast=False, score_max=None, **kw), d,
+                              False)
+
+
 def _skip_masked_tiles(c: dict, d: int, fast: bool) -> bool:
     """True when every masked score provably leaves nothing behind, so the
     blockwise kernel may skip key tiles that are masked for all of its
@@ -515,7 +535,7 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
         and _skip_masked_tiles(c, d, fast)
     kw["score_bias"] = _kernel_bias(score_bias, fast)
     return _launch(fused_attention_hs_blockq, "attention_hs_blockq", xq, xk,
-                   xv, d, c, kw, skip=skip)
+                   xv, d, c, kw, skip=skip, sum_tile=block_q)
 
 
 fused_attention_hs_blockq.launches = 0
@@ -545,15 +565,11 @@ def sum_order(n: int) -> tuple[bool, int]:
     return vec, min(32, _last_pow2(n // 4 if vec else n))
 
 
-def in_torch_order(rows: int, n: int, tiled: bool = False) -> bool:
+def in_torch_order(rows: int, n: int) -> bool:
     """True when torch reduces each row of a contiguous [rows, n] float32
     tensor in one warp as :func:`sum_order` says (Reduce.cuh's block shape:
     at most 512 threads, and no split of a row across warps), so that the
-    monolithic kernel's exact row sums equal torch's. The ``tiled``
-    kernels (blockwise and pre-split) replay only the 32-lane vectorized
-    order of rows that start aligned: N >= 128 with N % 4 == 0."""
-    if tiled and (n < TORCH_VEC_N or n % 4):
-        return False
+    exact kernels' row sums equal torch's."""
     vec, lanes = sum_order(n)
     p0 = min(_last_pow2(n // 4 if vec else n), 512)
     p1 = min(_last_pow2(rows), 512)
@@ -651,7 +667,7 @@ def fused_attention_reference(q, kt, v, *, scaling: float, sq: float,
     ksum = kti.sum(dim=1, keepdim=True, dtype=i32)  # [BH, 1, N]
     vsum = vi.sum(dim=1, keepdim=True, dtype=i32)   # [BH, 1, D]
     if block_q is None:
-        block_q = BLOCK_Q if blockwise(n, None) else n
+        block_q = plain_tile(n)
     step = max(1, int(block_q))
     tiles = []
     for r0 in range(0, max(n, 1), step):  # one (empty) tile when n == 0
@@ -708,9 +724,10 @@ def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
     ``csrc/attention_plain.cu`` (or raise), counted in
     ``fused_attention.launches``; CPU tensors take
     ``fused_attention_reference``. The kernel sums each softmax row in
-    torch's CUDA order for 128 <= N with N % 4 == 0 (csrc/torch_order.cuh),
-    so where ``in_torch_order(BH * N, N, tiled=True)`` holds it equals the
-    unfused executor bit for bit."""
+    torch's CUDA order (csrc/torch_order.cuh) for the plain version's
+    softmax tensor, [BH, q tile rows, N], so wherever
+    ``in_torch_order(BH * rows, N)`` holds for its q tiles it equals the
+    plain version bit for bit."""
     for t in (q, kt, v):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int8:
             raise TypeError("fused_attention takes int8 tensors")
@@ -745,14 +762,15 @@ def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
     if out.numel() == 0:
         return out
     c = _constants(fast=False, score_max=None, **kw)
+    vec, lanes = sum_order(n)
     p = _PlainParams(
         BH=bh, N=n, D=d, zq=int(zq), zk=int(zk), zv=int(zv), zp_p=int(zp_p),
         out_int8=int(out_requant is not None),
         has_res_zp=int(c["res_zp"] is not None),
         causal=int(causal_mask_val is not None),
         window=0 if causal_window is None else int(causal_window),
-        skip=int(causal_mask_val is not None
-                 and _skip_masked_tiles(c, d, False)),
+        skip=int(skips_masked_tiles(d, **kw)),
+        sum_vec=int(vec), sum_lanes=lanes, sum_tile=max(1, plain_tile(n)),
         c_score=c["c_score"], scaling=c["scaling"], sp=c["sp"],
         zp_pf=c["zp_pf"], c_out=c["c_out"], res_scale=c["res_scale"],
         res_zp=0.0 if c["res_zp"] is None else c["res_zp"],

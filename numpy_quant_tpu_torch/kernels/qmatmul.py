@@ -286,15 +286,39 @@ packed_qmatmul.launches = 0
 # -- weight-only: float x times a split-K packed weight ----------------------
 
 _WO_TYPES = (torch.float32, torch.bfloat16)
-_WO_BLOCK_N, _WO_BLOCK_M = 128, 8   # csrc/qmatmul_wo.cu: BN, MT
-_WO_BLOCKS_PER_SM = 2
+# csrc/qmatmul_wo.cu: output columns and rows of x per block, values of v
+# per chunk, the largest cluster along K
+WO_TILE_N, WO_TILE_M, WO_CHUNK, WO_MAX_CLUSTER = 32, 8, 16, 16
+_WO_SCALE_SMEM = 32 * 1024  # a block stages its scale rows up to this size
 
 
 class _WOParams(ctypes.Structure):
     """Mirror of ``WOParams`` in csrc/qmatmul_wo.cu."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "M", "N", "K", "KR", "bits", "x_bf16", "scale_rows", "gsz",
-        "splits", "rows_per_split", "w_vec")] + [("scale", ctypes.c_float)]
+        "gsz_log2", "cluster", "rows_per_rank", "w_vec", "s_vec",
+        "scale_smem", "fast", "x_vec")] \
+        + [("scale", ctypes.c_float)]
+
+
+def wo_plan(m: int, n: int, kr: int, bits: int, sms: int) -> dict:
+    """The launch plan of ``splitk_wo_matmul``'s kernel for x [m, K] and a
+    payload of ``kr`` packed rows by ``n`` columns on a card of ``sms``
+    SMs: blocks of WO_TILE_N columns by WO_TILE_M rows of x, and the packed
+    rows split along K across a cluster of ``cluster`` blocks (a power of
+    two up to WO_MAX_CLUSTER), doubled while the grid has fewer blocks
+    than SMs and every rank keeps at least one chunk; rank r takes packed
+    rows [r * rows_per_rank, (r + 1) * rows_per_rank) of the payload."""
+    rows_per_chunk = WO_CHUNK // (8 // bits)
+    chunks = -(-kr // rows_per_chunk)
+    tiles = -(-n // WO_TILE_N) * -(-m // WO_TILE_M)
+    cluster = 1
+    while (cluster < WO_MAX_CLUSTER and tiles * cluster < sms
+           and 2 * cluster <= chunks):
+        cluster *= 2
+    rows_per_rank = -(-chunks // cluster) * rows_per_chunk
+    return {"tile_n": WO_TILE_N, "tile_m": WO_TILE_M, "cluster": cluster,
+            "rows_per_rank": rows_per_rank, "blocks": tiles * cluster}
 
 
 def wo_groups_tile(k: int, kr: int, groups: int, bits: int) -> bool:
@@ -390,30 +414,39 @@ def _wo_launch(x, packed, scalar, rows, gsz, bits: int) -> torch.Tensor:
     out = torch.empty((m, n), device=dev, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    m_tiles = -(-m // _WO_BLOCK_M)
-    if m_tiles > _MAX_GRID_Y:
+    if -(-m // WO_TILE_M) > _MAX_GRID_Y:
         raise ValueError(f"M={m} rows exceed the kernel's grid")
-    # split the packed rows until about two blocks per SM are in flight
-    blocks = -(-n // _WO_BLOCK_N) * m_tiles
-    splits = max(1, min(kr, -(-_WO_BLOCKS_PER_SM
-                              * _sm_count(dev.index or 0) // blocks)))
-    rows_per_split = -(-kr // splits)
-    splits = -(-kr // rows_per_split)
-    ws = torch.empty((splits, m, n), device=dev, dtype=torch.float32) \
-        if splits > 1 else None
+    plan = wo_plan(m, n, kr, bits, _sm_count(dev.index or 0))
     x = x.contiguous()
     packed = packed.contiguous()
+    scale_rows = 0 if rows is None else rows.shape[0]
+    # a single scale row is group 0 for every v (v >> 30 == 0)
+    gsz_log2 = 30 if scale_rows == 1 else \
+        gsz.bit_length() - 1 if gsz & (gsz - 1) == 0 else -1
+    w_vec = n % 4 == 0 and packed.data_ptr() % 4 == 0
+    s_vec = scale_rows > 0 and n % 4 == 0 and rows.data_ptr() % 16 == 0
+    # the kernel's form for bf16 x whose loads are all 4-byte payload words
+    # and float4 scale rows, one group per field in each chunk of
+    # WO_CHUNK values (WO_CHUNK / (8 / bits) packed rows)
+    fast = x.dtype == torch.bfloat16 and w_vec and s_vec and gsz_log2 >= 0 \
+        and (scale_rows == 1 or gsz % (WO_CHUNK * bits // 8) == 0)
+    # the other form stages a block's scale rows in shared memory
+    scale_smem = not fast and 0 < scale_rows * WO_TILE_N * 4 <= _WO_SCALE_SMEM
+    # bf16 x staged with 16-byte loads: every run of x it reads is aligned
+    x_vec = k % 8 == 0 and kr % 8 == 0 and plan["rows_per_rank"] % 8 == 0 \
+        and x.data_ptr() % 16 == 0
     p = _WOParams(
         M=m, N=n, K=k, KR=kr, bits=bits, x_bf16=int(x.dtype == torch.bfloat16),
-        scale_rows=0 if rows is None else rows.shape[0], gsz=gsz,
-        splits=splits, rows_per_split=rows_per_split,
-        w_vec=int(n % 4 == 0 and packed.data_ptr() % 4 == 0),
+        scale_rows=scale_rows, gsz=gsz, gsz_log2=gsz_log2,
+        cluster=plan["cluster"], rows_per_rank=plan["rows_per_rank"],
+        w_vec=int(w_vec), s_vec=int(s_vec), scale_smem=int(scale_smem),
+        fast=int(fast), x_vec=int(x_vec),
         scale=0.0 if scalar is None else scalar)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _wo_library().nq_splitk_wo_matmul(
         x.data_ptr(), packed.data_ptr(),
         None if rows is None else rows.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), ctypes.byref(p), stream)
+        ctypes.byref(p), stream)
     if rc != 0:
         raise RuntimeError(f"nq_splitk_wo_matmul kernel launch failed: "
                            f"CUDA error {rc}")
@@ -463,7 +496,7 @@ def _wo_library() -> ctypes.CDLL:
     lib = load("qmatmul_wo")
     if not getattr(lib, "_nq_typed", False):
         fn = lib.nq_splitk_wo_matmul
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(_WOParams),
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_WOParams),
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib._nq_typed = True

@@ -149,6 +149,18 @@ def test_blockwise_matches_jax_grid(form, nq, mode):
         _hold(want, got, MODES[mode][0])
 
 
+@pytest.mark.parametrize("form", ["none", "causal"])
+@pytest.mark.parametrize("n", [8, 130])
+def test_blockwise_exact_short_and_unaligned_rows_match_jax(n, form):
+    """The exact plain blockwise version at N=8 (prefill's short rows) and
+    N=130 (N % 4 != 0 above 128) against JAX's block_q=8 grid, out_requant
+    off and on: bit for bit."""
+    q, k, v = _inputs(2, n, 8, seed=n)
+    for rq in (None, OUT_REQUANT):
+        want, got = _pair(q, k, v, _kw("exact", form, rq), block_q=8)
+        _hold(want, got, False)
+
+
 def test_blockwise_full_context_matches_jax():
     """N=1024 (B=1, H=2, D=64), causal, exact: JAX's auto-dispatched
     blockwise grid against the port's, both chosen by the N rule. Rows of

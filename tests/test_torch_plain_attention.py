@@ -3,10 +3,11 @@ against the JAX package in TPU-mode numerics (x64 off):
 
 * ``fused_attention_reference`` (the plain version of
   ``csrc/attention_plain.cu``) against JAX's ``fused_attention`` in
-  interpret mode on seeded int8 inputs, at N=50 (JAX pads keys to 128
-  lanes and the head dim to 128) and N=1024 (its blockwise 256-row grid):
-  zero points zero and nonzero, no mask, causal and sliding window,
-  out_requant off and on. Bit equality at N=50; at N=1024 rows of 1024
+  interpret mode on seeded int8 inputs, at N=8 (prefill's short rows), 50
+  (JAX pads keys to 128 lanes and the head dim to 128), 130 (N % 4 != 0
+  above 128) and 1024 (its blockwise 256-row grid): zero points zero and
+  nonzero, no mask, causal and sliding window, out_requant off and on.
+  Bit equality below 1024 keys; at N=1024 rows of 1024
   probabilities sum in another order than XLA's, so a probability may
   round one step apart: at most 0.1% of the rows, each by one step
   (255*sp*sv, or that over the requant scale, rounded, on int8 out), the
@@ -81,9 +82,9 @@ def _kw(zp, mask, out_requant):
 @pytest.mark.parametrize("out_requant", [None, OUT_REQUANT])
 @pytest.mark.parametrize("mask", list(MASKS))
 @pytest.mark.parametrize("zp", ["nonzero", "zero"])
-@pytest.mark.parametrize("n", [50, 1024])
+@pytest.mark.parametrize("n", [8, 50, 130, 1024])
 def test_plain_version_matches_jax(n, zp, mask, out_requant):
-    q, kt, v = _inputs(3 if n == 50 else 2, n, 16, seed=n + len(mask))
+    q, kt, v = _inputs(3 if n < 1024 else 2, n, 16, seed=n + len(mask))
     kw = _kw(zp, mask, out_requant)
     want = np.asarray(jax_fa(jnp.asarray(q), jnp.asarray(kt), jnp.asarray(v),
                              interpret=True, **kw))
@@ -91,7 +92,7 @@ def test_plain_version_matches_jax(n, zp, mask, out_requant):
                              torch.from_numpy(v), **kw).numpy()
     assert got.shape == want.shape == q.shape and got.dtype == want.dtype
     assert np.abs(got.astype(np.float64)).max() > 0
-    if n == 50:
+    if n < 1024:
         np.testing.assert_array_equal(got, want)
         return
     diff = np.abs(got.astype(np.float64) - want.astype(np.float64))

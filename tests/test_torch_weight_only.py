@@ -330,3 +330,35 @@ def test_split_and_slice_match_jax():
         w = np.asarray(w)
         assert w.shape == t.shape
         np.testing.assert_array_equal(t, w)
+
+
+# (M, K, N): GPT-2 small's five decode shapes at B=8 (c_attn, attn c_proj,
+# c_fc, mlp c_proj, the tied head), then chip_smoke.py's ragged check shapes
+WO_PLAN_SHAPES = [(8, 768, 2304), (8, 768, 768), (8, 768, 3072),
+                  (8, 3072, 768), (8, 768, 50257),
+                  (133, 384, 149), (7, 384, 300), (133, 203, 149)]
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m,k,n", WO_PLAN_SHAPES)
+def test_wo_plan_covers_every_packed_row_once(m, k, n, bits):
+    """splitk_wo_matmul's launch plan on a 132-SM H100: a power-of-two
+    cluster of at most 16 blocks along K whose ranks take chunk-aligned
+    runs of packed rows, together every row of the payload exactly once;
+    at GPT-2's four per-layer decode shapes (W4) one to two blocks per SM,
+    and the LM head needs no split."""
+    sms = 132
+    kr = k if bits == 8 else -(-k // (8 // bits))
+    plan = TQ.wo_plan(m, n, kr, bits, sms)
+    c, per = plan["cluster"], plan["rows_per_rank"]
+    assert 1 <= c <= TQ.WO_MAX_CLUSTER and c & (c - 1) == 0
+    assert per % (TQ.WO_CHUNK // (8 // bits)) == 0
+    covered = np.zeros(kr, np.int64)
+    for rank in range(c):
+        covered[rank * per:min(kr, (rank + 1) * per)] += 1
+    assert (covered == 1).all()
+    if bits == 4 and m == 8:
+        if n == 50257:
+            assert c == 1
+        else:
+            assert sms <= plan["blocks"] <= 2 * sms, plan
