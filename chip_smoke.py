@@ -12,7 +12,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
   1. every hand-written kernel against its plain PyTorch version on the
      card, in every variant the paths use, then both timed at ViT-Base
      serving shapes beside the kernel's bound (and, for the packed
-     matmuls, beside torch._int_mm plus the eager epilogue); the exact
+     matmuls, beside torch._int_mm plus the eager epilogue, each x
+     loader form's launches, and 0 mismatches at the three ViT-Base shapes
+     at batch 96 as well as on the ragged shapes); the exact
      attention forms must show no flipped (row, head) block wherever they
      sum softmax rows in torch's order, which torch's own CUDA sum must
      still take at that shape (probed once per shape);
@@ -31,8 +33,11 @@ Phases, one line each (any failure raises and the script exits non-zero):
      W3A8, each after optimize() + pack_weights() (72 weights): the
      "kernel" forward launches its packed kernel 72 times and equals the
      "unpack" forward bit for bit;
-  5. W4A8 bf16 serving at batch 96 under "kernel" and "unpack": images/s,
-     launches per forward, labels against f32;
+  5. int8, W4A8 and W3A8 in bf16 serving at batch 96 under "kernel" and
+     "unpack" (taken in turns: kernel, unpack, unpack, kernel; medians):
+     images/s, launches per forward, the "kernel" logits equal to the
+     "unpack" ones bit for bit, labels against f32; one profiled W4A8 and
+     W3A8 "kernel" forward with the packed kernels' device time and share;
   6. the weight-only kernel splitk_wo_matmul against its plain version at
      1/2/4/8 bits, per-tensor, per-channel and grouped scales (groups
      within and across the split-K fields), f32 and bf16, on ragged
@@ -162,11 +167,16 @@ LOGIT_TOL = 0.1  # fused vs unfused f32 logits, relative to max|logits|
 
 # packed matmuls: the ragged check shape (no multiple of 8, 16 or 128;
 # K no multiple of r)
-QMM_CHECK = (133, 203, 149)  # M, K, N
+QMM_CHECK = (133, 203, 149)  # M, K, N: ragged K, the general x loader
+QMM_CHECK_ALIGNED = (133, 208, 149)  # K % 16 == 0: int8 x takes TMA
+QMM_CHECK_DEEP = (300, 8192, 72)  # K past a 32-wide panel: two K slabs
+QMM_FORMS = ("tma", "general")
 M_TIME = B_TIME * N_TOK      # ViT-Base rows at batch 96
 QMM_SHAPES = ((768, 768), (768, 3072), (3072, 768))  # (K, N) per layer
 X_SCALE, X_ZP, W_SCALE = 0.0213, 3, 0.0117
 PACKED_PER_FORWARD = 6 * 12  # Q, K, V, out, fc1, fc2 in 12 layers
+# launches per forward at each (K x N): Q, K, V, out; fc1; fc2
+QMM_PER_FORWARD = {"768x768": 4 * 12, "768x3072": 12, "3072x768": 12}
 
 # weight-only matmul: check shapes with ragged M and N (K = 384 lets every
 # width take both group forms), and one ragged K (no multiple of r)
@@ -461,56 +471,74 @@ def qmm_operands(layout: str, bits: int, m: int, k: int, n: int, seed: int,
             wvec, kw, torch.from_numpy(w.astype(np.int8)).cuda())
 
 
-def check_qmatmul() -> dict:
+def check_qmatmul() -> tuple[dict, dict]:
     """Both packed kernels against their plain versions in every variant
-    (per-tensor or per-channel scale, quantize_x, bias, out_requant) at
-    every width, on a ragged shape; returns the largest |difference| of
-    the f32-output variants per kernel. Bit equality is required."""
+    (per-tensor or per-channel scale, quantize_x, bias, out_requant; int8
+    or int32 x) at every width, on a ragged shape (the general x loader)
+    and on one whose K is 16-byte aligned (int8 x takes the TMA loader),
+    then once at a K deep enough for two panel slabs; returns the largest
+    |difference| of the f32-output variants per kernel and the launches
+    of each x form per kernel. Bit equality is required, and both forms
+    must run."""
     import torch
     from numpy_quant_tpu_torch.kernels import qmatmul as Q
-    m, k, n = QMM_CHECK
-    worst = {}
+    worst, forms = {}, {}
     for name, layout, widths in (
             ("splitk_qmatmul", "splitk", (1, 2, 4, 8)),
             ("packed_qmatmul", "bitplanes", range(1, 9))):
         fn = getattr(Q, name)
         ref = getattr(Q, name + "_reference")
         worst[name], mismatches, outputs, calls = 0.0, 0, 0, 0
-        for bits in widths:
-            for i, (pc, qx, bias, rq) in enumerate(
-                    itertools.product((False, True), repeat=4)):
-                x, payload, colsum, b, wvec, kw, _ = qmm_operands(
-                    layout, bits, m, k, n, seed=16 * bits + i,
-                    per_channel=pc, quantize_x=qx, bias=bias, requant=rq,
-                    x_dtype=torch.int32 if i % 4 == 1 else torch.int8)
-                got = fn(x, payload, colsum, b, wvec, **kw)
-                want = ref(x, payload, colsum, b, wvec, **kw)
-                torch.cuda.synchronize()
-                assert got.shape == want.shape and got.dtype == want.dtype
-                mismatches += int((got != want).sum())
-                outputs += got.numel()
-                calls += 1
-                if not rq:
-                    worst[name] = max(worst[name],
-                                      float((got - want).abs().max()))
+        before = dict(fn.launches_by_form)
+        cases = [(shape, bits, i, v) for shape in (QMM_CHECK,
+                                                   QMM_CHECK_ALIGNED)
+                 for bits in widths for i, v in enumerate(
+                     itertools.product((False, True), repeat=4))]
+        cases.append((QMM_CHECK_DEEP, 2 if layout == "splitk" else 3, 4,
+                      (False, False, True, False)))
+        for (m, k, n), bits, i, (pc, qx, bias, rq) in cases:
+            x, payload, colsum, b, wvec, kw, _ = qmm_operands(
+                layout, bits, m, k, n, seed=16 * bits + i,
+                per_channel=pc, quantize_x=qx, bias=bias, requant=rq,
+                x_dtype=torch.int32 if i % 4 == 1 else torch.int8)
+            got = fn(x, payload, colsum, b, wvec, **kw)
+            want = ref(x, payload, colsum, b, wvec, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.dtype == want.dtype
+            mismatches += int((got != want).sum())
+            outputs += got.numel()
+            calls += 1
+            if not rq:
+                worst[name] = max(worst[name],
+                                  float((got - want).abs().max()))
+        forms[name] = {f: fn.launches_by_form[f] - before[f]
+                       for f in QMM_FORMS}
         say("kernel-check", kernel=name, variants=calls,
-            shape=f"M{m}xK{k}xN{n}", mismatches=f"{mismatches}/{outputs}",
-            max_abs_err=worst[name])
+            shapes=",".join(f"M{m}xK{k}xN{n}" for m, k, n in (
+                QMM_CHECK, QMM_CHECK_ALIGNED, QMM_CHECK_DEEP)),
+            mismatches=f"{mismatches}/{outputs}", max_abs_err=worst[name],
+            **{f"launches_{f}": c for f, c in forms[name].items()})
         if mismatches:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {mismatches} outputs")
-    return worst
+        assert all(forms[name].values()), (name, forms[name])
+    return worst, forms
 
 
 def time_qmatmul(name: str) -> dict:
-    """The serving form (int8 x already quantized, f32 out) at the ViT-Base
-    shapes at batch 96: kernel, plain version, bound, and torch._int_mm on
-    the unpacked int8 weight plus the eager epilogue (not one call: the
-    product, then the elementwise correction and dequantize). Returns the
-    768->3072 numbers of each kernel at its path's width."""
+    """At the ViT-Base shapes at batch 96 (M = 18,912), where the
+    persistent walk takes many M tiles per block and K = 3072 the narrow
+    panel: each kernel against its plain version bit for bit (W8 and W4
+    split-K, W3 bit-planes), then the serving form (int8 x already
+    quantized, f32 out) timed with a device sleep ahead of each call:
+    kernel, plain version, bound, and torch._int_mm on the unpacked int8
+    weight plus the eager epilogue (not one call: the product, then the
+    elementwise correction and dequantize). Returns, per kernel at its
+    path's width, the 768->3072 numbers and every shape's."""
     import torch
     from numpy_quant_tpu_torch.kernels import qmatmul as Q
     mem_rate, int8_rate = peaks(name)["bytes"], peaks(name)["int8"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     res = {}
     for kname, layout, bits, per_channel in (
             ("splitk_qmatmul", "splitk", 8, False),
@@ -522,6 +550,13 @@ def time_qmatmul(name: str) -> dict:
             x, payload, colsum, _, wvec, kw, w8 = qmm_operands(
                 layout, bits, M_TIME, k, n, seed=1, per_channel=per_channel,
                 quantize_x=False, bias=False, requant=False)
+            before = dict(fn.launches_by_form)
+            got = fn(x, payload, colsum, None, wvec, **kw)
+            form = next(f for f in QMM_FORMS
+                        if fn.launches_by_form[f] != before[f])
+            mismatches = int((got != ref(x, payload, colsum, None, wvec,
+                                         **kw)).sum())
+            del got
             scale_row = torch.full((), X_SCALE, device="cuda") * wvec \
                 if per_channel else torch.full(
                     (), float(X_SCALE * W_SCALE), device="cuda")
@@ -531,26 +566,39 @@ def time_qmatmul(name: str) -> dict:
                 acc = torch._int_mm(x, w8)
                 return (acc - colsum * zp).to(torch.float32) * scale_row
 
-            ms = cuda_ms(lambda: fn(x, payload, colsum, None, wvec, **kw))
+            ms = cuda_ms(lambda: fn(x, payload, colsum, None, wvec, **kw),
+                         lead=True)
             plain_ms = cuda_ms(lambda: ref(x, payload, colsum, None, wvec,
-                                           **kw))
-            library_ms = cuda_ms(library)
+                                           **kw), lead=True)
+            library_ms = cuda_ms(library, lead=True)
             nbytes = (x.numel() + payload.numel() + 4 * n
                       + (4 * n if per_channel else 0) + 4 * M_TIME * n)
             ops = 2 * M_TIME * n * k
             t_bytes, t_ops = nbytes / mem_rate * 1e3, ops / int8_rate * 1e3
+            plan = Q.qmm_plan(M_TIME, n, k, bits, layout, sms)
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       mismatches=mismatches, form=form,
+                       plan={key: plan[key] for key in (
+                           "bn", "stages", "panels", "ranges", "slabs")})
             say("kernel-time", kernel=kname, bits=bits,
                 scale="per_channel" if per_channel else "per_tensor",
-                shape=f"M{M_TIME}xK{k}xN{n}", ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, library="_int_mm+eager_epilogue",
-                bound_ms=row["bound_ms"],
-                bound_by=row["bound_by"], bytes=nbytes, ops=ops,
+                shape=f"M{M_TIME}xK{k}xN{n}", form=form,
+                mismatches=f"{mismatches}/{M_TIME * n}", ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library="_int_mm+eager_epilogue", bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], x_bound=ms / row["bound_ms"],
+                bytes=nbytes, ops=ops,
+                plan=",".join(f"{key}={v}" for key, v in row["plan"].items()),
                 card=name.replace(" ", "_"))
-            if (k, n) == (768, 3072) and bits != 8:
-                res[kname] = row
+            assert mismatches == 0, (kname, bits, k, n, mismatches)
+            assert form == "tma", (kname, k, form)
+            if bits != 8:
+                res.setdefault(kname, {"shapes": {}})
+                res[kname]["shapes"][f"{k}x{n}"] = row
+                if (k, n) == (768, 3072):
+                    res[kname].update(row)
     return res
 
 
@@ -1337,12 +1385,15 @@ def bf16_profile(forward) -> dict:
     assert busy > 0, "the profiler saw no device time"
     # the quantize boundaries' kernel, and torch's own elementwise kernels
     qdq = sum(ms for k, ms, _ in rows if "qdq_kernel" in k)
+    # the packed matmuls' kernel (csrc/qmatmul.cu)
+    packed = sum(ms for k, ms, _ in rows if "qmatmul_kernel" in k)
     torch_ew = sum(ms for k, ms, _ in rows
                    if "elementwise_kernel" in k and "qdq_kernel" not in k)
     return dict(dtype="bf16", wall_ms_unprofiled=wall_ms, device_busy_ms=busy,
                 busy_share=busy / wall_ms,
                 device_kernels=int(sum(r[2] for r in rows)),
                 qdq_kernel_ms=qdq, qdq_share_of_busy=qdq / busy,
+                packed_kernel_ms=packed, packed_share_of_busy=packed / busy,
                 torch_elementwise_ms=torch_ew,
                 torch_elementwise_share_of_busy=torch_ew / busy,
                 top5=";".join(f"{k[:48].replace(' ', '_')}:{ms:.3f}ms:x{c}"
@@ -2335,7 +2386,7 @@ def main() -> int:
 
     worst = check_attention()
     timing = time_attention(name)
-    qworst = check_qmatmul()
+    qworst, qforms = check_qmatmul()
     qtiming = time_qmatmul(name)
 
     # -- phase 2: the main path in f32 --------------------------------
@@ -2464,27 +2515,42 @@ def main() -> int:
         if mode == "w3a8":
             main_launches[kname] = ck[kname]
 
-    # -- phase 5: W4A8 bf16 serving at batch 96 -----------------------
-    w4 = qmodels["w4a8"]
-    w4_ref32 = w4([x])[0]
-    with config.low_precision_floats():
-        w4_kernel, ck = packed_forward(w4, x, "kernel")
-        w4_unpack, cu = packed_forward(w4, x, "unpack")
-        ips_kernel = images_per_s(w4, x, "kernel")
-        ips_unpack = images_per_s(w4, x, "unpack")
-    assert np.isfinite(w4_kernel).all() and np.isfinite(w4_unpack).all()
-    assert ck["splitk_qmatmul"] == PACKED_PER_FORWARD, ck
-    assert ck["fused_attention_hs"] == 12 and cu["splitk_qmatmul"] == 0
-    main_launches["splitk_qmatmul"] = ck["splitk_qmatmul"]
-    say("w4a8-bf16", batch=B_SERVE, kernel_launches=ck["splitk_qmatmul"],
-        attention_launches=ck["fused_attention_hs"],
-        images_per_s_kernel=ips_kernel, images_per_s_unpack=ips_unpack,
-        label_agreement_f32_kernel=float(
-            (w4_kernel.argmax(1) == w4_ref32.argmax(1)).mean()),
-        label_agreement_f32_unpack=float(
-            (w4_unpack.argmax(1) == w4_ref32.argmax(1)).mean()),
-        kernel_equals_unpack=bool(np.array_equal(w4_kernel, w4_unpack)),
-        card=card.replace(" ", "_"))
+    # -- phase 5: the packed paths in bf16 serving at batch 96 ---------
+    for mode in ("int8", "w4a8", "w3a8"):
+        qm = qmodels[mode]
+        kname = "packed_qmatmul" if mode == "w3a8" else "splitk_qmatmul"
+        ref32 = qm([x])[0]
+        with config.low_precision_floats():
+            kernel, ck = packed_forward(qm, x, "kernel")
+            unpacked, cu = packed_forward(qm, x, "unpack")
+            ips_runs = {"kernel": [], "unpack": []}
+            for run in ("kernel", "unpack", "unpack", "kernel"):
+                ips_runs[run].append(images_per_s(qm, x, run))
+        assert np.isfinite(kernel).all() and np.isfinite(unpacked).all()
+        assert ck[kname] == PACKED_PER_FORWARD and cu[kname] == 0, (ck, cu)
+        assert ck["fused_attention_hs"] == 12, ck
+        equal = bool(np.array_equal(kernel, unpacked))
+        ips = {m: statistics.median(v) for m, v in ips_runs.items()}
+        if mode == "w4a8":
+            main_launches[kname] = ck[kname]
+        say("packed-bf16", mode=mode, batch=B_SERVE, kernel=kname,
+            kernel_launches=ck[kname],
+            attention_launches=ck["fused_attention_hs"],
+            images_per_s_kernel=ips["kernel"],
+            images_per_s_unpack=ips["unpack"],
+            kernel_over_unpack=ips["kernel"] / ips["unpack"],
+            images_per_s_runs_kernel=",".join(
+                f"{v:.1f}" for v in ips_runs["kernel"]),
+            images_per_s_runs_unpack=",".join(
+                f"{v:.1f}" for v in ips_runs["unpack"]),
+            label_agreement_f32_kernel=float(
+                (kernel.argmax(1) == ref32.argmax(1)).mean()),
+            kernel_equals_unpack=equal, card=card.replace(" ", "_"))
+        assert equal, f"{mode} bf16 B=96: kernel and unpack logits differ"
+        if mode != "int8":
+            with packed_execution("kernel"):
+                say("packed-bf16-profile", mode=mode, **bf16_profile(
+                    lambda: qm([x], as_numpy=False)[0]))
 
     # -- phase 6: the weight-only kernel against its plain version -----
     wo_worst = check_wo()
@@ -2555,7 +2621,10 @@ def main() -> int:
             "launches": main_launches[kname], "max_abs_err": qworst[kname],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            "launches_by_form_checked": qforms[kname],
+            "shapes": {shape: dict(row, launches_per_forward=QMM_PER_FORWARD[
+                shape]) for shape, row in t["shapes"].items()}})
     wo32, wo16 = wo_timing["f32"], wo_timing["bf16"]
     rows.append({
         "name": "splitk_wo_matmul", "route": "cuda",

@@ -17,12 +17,16 @@ symmetric weight W [K, N] with column sums colsum [1, N],
 uint8 [ceil(K/r), N] at 1/2/4 bits); ``packed_qmatmul`` reads bit-planes
 uint8 [b, ceil(K/8), N] at any width 1..8 (kernels/pack.py).
 
-On CUDA tensors the wrappers launch the hand-written kernels of
+On CUDA tensors the wrappers launch the hand-written kernel of
 ``csrc/qmatmul.cu`` (or raise); on CPU tensors they take the plain
 PyTorch versions ``splitk_qmatmul_reference`` / ``packed_qmatmul_reference``.
-Each wrapper's ``launches`` attribute counts its kernel launches. Every
-epilogue step rounds once, as in the JAX kernels, so kernel and plain
-version agree bit for bit.
+The kernel runs persistent blocks that each decode one weight panel into
+shared memory once; ``qmm_plan`` lays out its launch and ``qmm_form``
+picks its x loader (TMA for aligned int8 x, a converting loader for the
+rest). Each wrapper's ``launches`` attribute counts its kernel launches,
+``launches_by_form`` the same by x loader. Every epilogue step rounds
+once, as in the JAX kernels, so kernel and plain version agree bit for
+bit.
 
 ``splitk_wo_matmul`` is the weight-only form: float x (f32 or bf16) times
 a split-K weight with a per-tensor, per-channel or grouped scale,
@@ -44,7 +48,12 @@ from .pack import unpack_bitplanes, unpack_splitk
 
 _X_TYPES = {torch.int8: 0, torch.int32: 1, torch.float32: 2}
 _MAX_GRID_Y = 65535
-_BLOCK_M = 128  # rows of x per CUDA block (csrc/qmatmul.cu: BM)
+# csrc/qmatmul.cu: rows of x per M tile (one consumer warpgroup's), K bytes
+# per ring stage and panel chunk, the panel widths it instantiates
+QMM_BLOCK_M, QMM_BLOCK_K = 64, 128
+QMM_PANEL_WIDTHS = (128, 64, 32)
+QMM_MAX_STAGES = 12
+QMM_SMEM_MAX = 232_448  # shared bytes a block can use on Hopper (227 KB)
 
 
 class _QMMParams(ctypes.Structure):
@@ -52,9 +61,80 @@ class _QMMParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "M", "N", "K", "KR", "bits", "x_type", "quantize_x", "has_zp",
         "x_zp", "has_bias", "has_wvec", "out_int8", "has_res_zp",
-        "x_vec", "w_vec")] + [(name, ctypes.c_float) for name in (
+        "w_vec")] + [(name, ctypes.c_float) for name in (
             "x_scale", "scale", "inv_res", "res_zp", "xq_lo", "xq_hi",
-            "rq_lo", "rq_hi")]
+            "rq_lo", "rq_hi")] + [(name, ctypes.c_int) for name in (
+                "bn", "stages", "panels", "ranges", "m_tiles", "slab",
+                "slabs", "smem", "tma", "tma_out", "turns")]
+
+
+def _qmm_fixed_smem(bn: int) -> int:
+    """Shared bytes of a block besides its panel and ring: the two consumer
+    warpgroups' staged f32 output tiles, the panel's epilogue constants,
+    and the slack that aligns the panel to 1024 bytes."""
+    return 2 * QMM_BLOCK_M * bn * 4 + 3 * bn * 4 + 1024
+
+
+def qmm_plan(m: int, n: int, k: int, bits: int, layout: str,
+             sms: int) -> dict:
+    """The launch plan of ``splitk_qmatmul``/``packed_qmatmul``'s kernel
+    for x [m, k] times a packed [k, n] weight (``bits`` wide, ``layout``
+    "splitk" or "bitplanes"; neither changes the plan) on a card of
+    ``sms`` SMs.
+
+    A block holds an N-panel of ``bn`` columns, decoded once as int8 over
+    all of K (K padded to 128: ``slab`` bytes, ``slabs`` = 1) when the
+    panel, a ring of two x stages and the epilogue's staging fit in 227
+    KB; the widest of 128, 64, 32 that fits is taken. Deeper K keeps a
+    32-wide panel of ``slab`` rows, decoded again per slab and M tile.
+    The ring takes what shared memory is left, up to QMM_MAX_STAGES. The
+    grid is ``panels`` x ``ranges`` blocks, about one per SM: block b
+    takes panel b % panels and the 64-row M tiles of range b // panels
+    (``qmm_block_work``), in pairs, one tile of each pair to each of its
+    two consumer warpgroups. With the widest panel they take ``turns`` at
+    the products (a ring stage holds one tile's chunk), so that each one's
+    long epilogue overlaps the other's products; with narrower panels they
+    run together on both tiles of a stage."""
+    del bits, layout
+    kp = max(1, -(-k // QMM_BLOCK_K)) * QMM_BLOCK_K
+    for bn in QMM_PANEL_WIDTHS:
+        turns = bn == QMM_PANEL_WIDTHS[0]
+        stage = (1 if turns else 2) * QMM_BLOCK_M * QMM_BLOCK_K + 16
+        fixed = _qmm_fixed_smem(bn)
+        if kp * bn + 2 * stage + fixed <= QMM_SMEM_MAX:
+            slab = kp
+            break
+    else:
+        slab = (QMM_SMEM_MAX - fixed - 2 * stage) // (bn * QMM_BLOCK_K) \
+            * QMM_BLOCK_K
+    stages = min(QMM_MAX_STAGES, (QMM_SMEM_MAX - fixed - slab * bn) // stage)
+    m_tiles = max(1, -(-m // QMM_BLOCK_M))
+    panels = -(-n // bn)
+    ranges = max(1, min(m_tiles, sms // panels))
+    return {"bn": bn, "stages": stages, "panels": panels, "ranges": ranges,
+            "turns": int(turns), "m_tiles": m_tiles, "slab": slab,
+            "slabs": -(-kp // slab), "smem": slab * bn + stages * stage + fixed,
+            "blocks": panels * ranges}
+
+
+def qmm_block_work(plan: dict, block: int) -> tuple[int, int, int]:
+    """(panel, first M tile, end M tile) of block ``block`` under ``plan``,
+    as the kernel's ``block_work`` reckons them."""
+    r = block // plan["panels"]
+    lo = r * plan["m_tiles"] // plan["ranges"]
+    hi = (r + 1) * plan["m_tiles"] // plan["ranges"]
+    return block % plan["panels"], lo, hi
+
+
+def qmm_form(x_dtype, k: int, x_ptr: int) -> str:
+    """The kernel's x loader: "tma" (copies by the Tensor Memory
+    Accelerator) for int8 x whose rows and base are 16-byte aligned,
+    else "general" (loads that convert in registers: f32 x to quantize,
+    int8 or int32 x with ragged K). The wrappers narrow int32 x to int8
+    first where the narrowed rows are aligned."""
+    if x_dtype == torch.int8 and k > 0 and k % 16 == 0 and x_ptr % 16 == 0:
+        return "tma"
+    return "general"
 
 
 def _constants(*, bit_width, x_scale, w_scale, out_requant) -> dict:
@@ -183,13 +263,14 @@ def _check(x, payload, *, layout, bits, quantize_x, w_scale, w_scale_vec):
                              f"than K={k} rows")
 
 
-def _launch(entry: str, x, payload, colsum, bias, w_scale_vec, *, bits, bit_width, x_scale, x_zp, w_scale, quantize_x,
-            out_requant) -> torch.Tensor:
+def _launch(entry: str, x, payload, colsum, bias, w_scale_vec, *, bits,
+            bit_width, x_scale, x_zp, w_scale, quantize_x,
+            out_requant) -> tuple[torch.Tensor, str | None]:
+    """The kernel's output, and the x form it launched with (None when an
+    empty output needs no launch)."""
     dev = x.device
     m, k = x.shape
     n = payload.shape[-1]
-    if -(-m // _BLOCK_M) > _MAX_GRID_Y:
-        raise ValueError(f"M={m} rows exceed the kernel's grid")
     x = x.contiguous()
     payload = payload.contiguous()
     colsum = _row(colsum, n, dev, torch.int32)
@@ -201,9 +282,18 @@ def _launch(entry: str, x, payload, colsum, bias, w_scale_vec, *, bits, bit_widt
     out = torch.empty((m, n), device=dev, dtype=torch.float32
                       if out_requant is None else torch.int8)
     if out.numel() == 0:
-        return out
-    # rows that can be read a word (4 elements) at a time
-    x_vec = k % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+        return out, None
+    if x.dtype == torch.int32 and qmm_form(torch.int8, k, 0) == "tma":
+        # The int32 container of quantized values, narrowed once (exact:
+        # its values are int8, and a wider one wraps as the kernel's own
+        # narrowing does). The kernel reads x once per weight panel, 24
+        # times at ViT-Base's fc1 width, so 4-byte elements there would
+        # move 4x the bytes each time; the narrowed copy takes TMA.
+        x = x.to(torch.int8)
+    form = qmm_form(x.dtype, k, x.data_ptr())
+    plan = qmm_plan(m, n, k, bits, "splitk" if entry == "nq_splitk_qmatmul"
+                    else "bitplanes", _sm_count(dev.index or 0))
+    # payload rows that can be read a word (4 columns) at a time
     w_vec = n % 4 == 0 and payload.data_ptr() % 4 == 0
     p = _QMMParams(
         M=m, N=n, K=k, KR=payload.shape[-2], bits=bits,
@@ -211,13 +301,17 @@ def _launch(entry: str, x, payload, colsum, bias, w_scale_vec, *, bits, bit_widt
         has_zp=int(x_zp is not None), x_zp=0 if x_zp is None else int(x_zp),
         has_bias=int(bias is not None), has_wvec=int(wvec is not None),
         out_int8=int(out_requant is not None),
-        has_res_zp=int(c["res_zp"] is not None), x_vec=int(x_vec),
-        w_vec=int(w_vec),
+        has_res_zp=int(c["res_zp"] is not None), w_vec=int(w_vec),
         x_scale=c["x_scale"], scale=0.0 if c["scale"] is None else c["scale"],
         inv_res=c["inv_res"],
         res_zp=0.0 if c["res_zp"] is None else c["res_zp"],
         xq_lo=c["xq_lo"], xq_hi=c["xq_hi"], rq_lo=c["rq_lo"],
-        rq_hi=c["rq_hi"])
+        rq_hi=c["rq_hi"], tma=int(form == "tma"),
+        # f32 rows that TMA can store: 16-byte aligned
+        tma_out=int(out_requant is None and n % 4 == 0),
+        **{key: plan[key] for key in ("bn", "stages", "panels", "ranges",
+                                      "m_tiles", "slab", "slabs", "smem",
+                                      "turns")})
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_library(), entry)(
         x.data_ptr(), payload.data_ptr(), colsum.data_ptr(),
@@ -226,7 +320,7 @@ def _launch(entry: str, x, payload, colsum, bias, w_scale_vec, *, bits, bit_widt
         ctypes.byref(p), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    return out
+    return out, form
 
 
 def _dispatch(fn, reference, entry, layout, x, payload, colsum, bias,
@@ -238,8 +332,10 @@ def _dispatch(fn, reference, entry, layout, x, payload, colsum, bias,
         return reference(x, payload, colsum, bias, w_scale_vec, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no {entry} kernel for device {x.device}")
-    out = _launch(entry, x, payload, colsum, bias, w_scale_vec, **kw)
-    fn.launches += 1
+    out, form = _launch(entry, x, payload, colsum, bias, w_scale_vec, **kw)
+    if form is not None:
+        fn.launches += 1
+        fn.launches_by_form[form] += 1
     return out
 
 
@@ -281,6 +377,9 @@ def packed_qmatmul(x, planes, colsum, bias=None, w_scale_vec=None, *,
 
 splitk_qmatmul.launches = 0
 packed_qmatmul.launches = 0
+# launches by x loader (qmm_form), so that a run shows which form it took
+splitk_qmatmul.launches_by_form = {"tma": 0, "general": 0}
+packed_qmatmul.launches_by_form = {"tma": 0, "general": 0}
 
 
 # -- weight-only: float x times a split-K packed weight ----------------------
