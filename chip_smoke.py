@@ -9,7 +9,10 @@ NVIDIA GPU.
 Phases, one line each (any failure raises and the script exits non-zero):
   0. the card, the software, and the kernels' build (one nvcc per source,
      all started together);
-  1. every hand-written kernel against its plain PyTorch version on the
+  1. intops.int_matmul against a float64 product over a sweep of small
+     shapes (cuBLASLt's refused ones padded); the monolithic attention
+     kernel's shared-memory carve-up against its host mirror; every
+     hand-written kernel against its plain PyTorch version on the
      card, in every variant the paths use, then both timed at ViT-Base
      serving shapes beside the kernel's bound (and, for the packed
      matmuls, beside torch._int_mm plus the eager epilogue, each x
@@ -60,7 +63,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      (1, 1000, 4) and (1, 4096, 2), head dims 16, 32 and 128, narrow q at
      N=4096, tile skipping off and the static shift's full walk, the exact
      form at N = 8, 50, 100, 127, 130, 1000 and 1023 (no flipped block
-     where torch sums a row in one warp); the monolithic kernel's causal and
+     where torch sums a row in one warp); the monolithic kernel's exact form
+     at those N, its head dims 16, 32 and 128 in every form, every form at
+     D=128 with N=768 and 896 (K and V staged in turns), its causal and
      window forms at N=197 and 256; blockwise against monolithic at
      N=1000 (at most 1% of (row, head) blocks may differ, each by one
      probability step); then timed at the GPT-2 shape (B=8, N=1024, H=12,
@@ -101,10 +106,13 @@ Phases, one line each (any failure raises and the script exits non-zero):
      versions (monolithic and blockwise x exact, fast, static shift x the
      per-head, head-shared and decoder bias + causal forms x out_requant x
      zero points, H=8 at N = 128, 256, 512, 1024 with D=64 and at N=256
-     with D=32 and 128): no flipped block on the exact forms, the one-step
-     rule on the fast ones; the bias clause of the dispatch (N=256
+     with D=16, 32 and 128): no flipped block on the exact forms, the
+     one-step rule on the fast ones; the bias clause of the dispatch (N=256
      monolithic, 257 blockwise) and narrow q refused; then timed at
      t5-small's three attention shapes beside bound and plain version;
+     phases 1, 8 and 12 must have launched every template instantiation
+     of both head-split kernels (head dim x bias in or out x softmax
+     form);
  13. the int8 T5-small scoring path at full width and depth: random
      weights (seed 0) -> t5_conditional_generation(B=8, source 512, target
      128) -> Model.from_onnx -> calibration on 2 sequence pairs ->
@@ -203,6 +211,9 @@ ATT_MODES = {"exact": (False, None), "fast": (True, None),
 CAUSAL = {"none": (None, None), "full": (MASK_VAL, None),
           "window256": (MASK_VAL, 256)}
 MONO_N, MONO_WINDOW = (197, 256), 64
+# the monolithic kernel at D = 128 where K and V take turns in every form
+# (the fast forms read K again in their second score pass)
+MONO_TURNS_N = (768, 896)
 # exact forms of the tiled kernels (phases 8, 10) at short N, N % 4 != 0
 # and the strided/vectorized edge: 0 flipped blocks where torch sums a row
 # in one warp
@@ -223,6 +234,11 @@ SB_FORMS = ("per_head", "shared", "decoder")
 T5_B, T5_SRC, T5_TGT = 8, 512, 128
 # quantize/dequantize (phase 14): the boundary kernels every path runs
 ELEMENTWISE = ("quantize", "dequantize")
+# intops.int_matmul (phase 1): the sweep of small shapes cuBLASLt's int8
+# kernels refused before the M padding, [70, 48] @ [48, 40] among them
+INT_MM_M = (1, 8, 16, 17, 24, 31, 33, 40, 63, 65, 70, 100, 127, 131, 200)
+INT_MM_K = (2, 8, 16, 24, 48, 50, 64, 96, 120, 127, 128, 136, 200)
+INT_MM_N = (1, 8, 24, 31, 32, 40, 64, 100, 128, 200)
 EW_WIDTHS = (1, 2, 3, 4, 7, 8, 9, 12, 16, 32, 64)
 EW_SHAPE = (37, 29)  # 1,073 elements: no multiple of the 4-wide vector
 EW_LAYOUTS = ("contiguous", "offset", "transposed", "strided")
@@ -329,8 +345,19 @@ def attention_diff(got, want, heads: int, rq, qp: dict, label: str,
 
 def check_attention() -> float:
     """Kernel against plain version in every variant; returns the largest
-    |difference| over the f32-output variants."""
+    |difference| over the f32-output variants. First the monolithic
+    kernel's shared-memory carve-up against its host mirror
+    (kernels/attention.py::hs_smem_bytes, which plans every launch)."""
     from numpy_quant_tpu_torch.kernels import attention as A
+    lib = A._library("attention_hs", A._HSParams)
+    layouts = list(itertools.product((1, 8, 50, 128, 197, 256, 512, 896, 1000),
+                                     A.KERNEL_DIMS, (1, 2, 4, 8), (0, 1),
+                                     (0, 1)))
+    for n, d, warps, both, exact in layouts:
+        assert lib.nq_attention_hs_smem_bytes(n, d, warps, both, exact) \
+            == A.hs_smem_bytes(n, d, warps, both, exact), (n, d, warps)
+    say("kernel-check", kernel="fused_attention_hs", scope="smem_layout",
+        layouts=len(layouts), host_mirror_equal=True)
     worst = 0.0
     cases = [(False, rq, nq, None) for rq, nq in itertools.product(
         (None, OUT_REQUANT), (N_TOK, 1))]
@@ -937,6 +964,69 @@ def decode_phase(card: str) -> dict:
     return counts
 
 
+def forms_launched() -> dict:
+    """Phases 1, 8 and 12 together launch every template instantiation
+    (head dim x score bias in or out x softmax form) of both head-split
+    kernels: the instantiations each wrapper counted since the start."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    res = {}
+    for kname in ("fused_attention_hs", "fused_attention_hs_blockq"):
+        by_form = getattr(A, kname).launches_by_form
+        missing = [f for f in A.HS_FORMS if not by_form[f]]
+        res[kname] = len(A.HS_FORMS) - len(missing)
+        say("kernel-forms", kernel=kname, launched=res[kname],
+            instantiations=len(A.HS_FORMS), missing="|".join(missing) or None)
+        assert not missing, (kname, missing)
+    return res
+
+
+def check_int_matmul() -> dict:
+    """intops.int_matmul (torch._int_mm on zero-padded operands,
+    intops.int_mm_shape) against a float64 product over a sweep of small
+    shapes around [70, 48] @ [48, 40]: every product computed and exact.
+    Beside it, the rule behind the padding: each shape torch._int_mm
+    refuses with only K and N padded to 8 and M to 17 rows is one whose
+    M int_mm_shape pads further (K < 128, N >= 32)."""
+    import torch
+    from numpy_quant_tpu_torch import intops
+    g = torch.Generator(device="cuda").manual_seed(70)
+    shapes = list(itertools.product(INT_MM_M, INT_MM_K, INT_MM_N))
+    assert (70, 48, 40) in shapes
+    wrong, refused = [], []
+    for m, k, n in shapes:
+        a = torch.randint(-128, 128, (m, k), device="cuda", dtype=torch.int8,
+                          generator=g)
+        b = torch.randint(-128, 128, (k, n), device="cuda", dtype=torch.int8,
+                          generator=g)
+        got = intops.int_matmul(a, b)
+        want = (a.double() @ b.double()).to(torch.int32)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            wrong.append((m, k, n))
+        _, kp, np_ = intops.int_mm_shape(m, k, n)
+        try:
+            torch._int_mm(intops._pad_to(intops._pad_to(a, 1, kp), 0,
+                                         max(m, 17)).contiguous(),
+                          intops._pad_to(intops._pad_to(b, 0, kp), 1,
+                                         np_).contiguous())
+        except RuntimeError:
+            refused.append((m, k, n))
+    torch.cuda.synchronize()
+    outside = [s for s in refused
+               if intops.int_mm_shape(*s)[0] == max(s[0], 17)]
+    res = dict(shapes=len(shapes), wrong=len(wrong),
+               refused_without_row_padding=len(refused),
+               refused_outside_the_rule=len(outside),
+               refused_m=",".join(map(str, sorted({s[0] for s in refused}))),
+               refused_k=",".join(map(str, sorted({s[1] for s in refused}))),
+               refused_n=",".join(map(str, sorted({s[2] for s in refused}))),
+               padded_70x48x40="x".join(map(str, intops.int_mm_shape(70, 48,
+                                                                     40))))
+    say("int-matmul-check", **res)
+    assert not wrong, wrong[:20]
+    assert not outside, outside[:20]
+    return res
+
+
 def attention_kw(heads: int, mode: str, causal: str, rq, qp: dict,
                  **over) -> dict:
     fast, score_max = ATT_MODES[mode]
@@ -1049,6 +1139,46 @@ def check_blockq() -> float:
     worst = max(worst, summary("fused_attention_hs_blockq", "B1xN1000xH4",
                                "mask_-2000_no_skip+score_max_200_full_walk",
                                res))
+    # the monolithic kernel's exact form at short N, N % 4 != 0 and the
+    # 128-key edge (its K and V in turns from N = 1000 on), and its other
+    # head dims in every form
+    for n in EXACT_N:
+        res = []
+        for causal, rq, zp in variants:
+            qp = QP if zp == "nonzero" else QP_ZERO
+            res.append(against_plain(
+                1, n, 3, n, rq, qp, attention_kw(3, "exact", causal, rq, qp),
+                f"monolithic exact N{n} {causal} rq={rq} zp={zp}",
+                fn=A.fused_attention_hs_monolithic,
+                plain=A.fused_attention_hs_reference))
+        summary("fused_attention_hs", f"B1xN{n}xH3xD{HEAD_DIM}",
+                "exact_N:causal_none/full/window256:rq_off/on:zp", res)
+    for d in (16, 32, 128):
+        res = []
+        for mode, causal, rq in itertools.product(ATT_MODES, ("none", "full"),
+                                                  (None, OUT_REQUANT)):
+            res.append(against_plain(
+                2, N_TOK, 2, N_TOK, rq, QP,
+                attention_kw(2, mode, causal, rq, QP),
+                f"monolithic D{d} {mode} {causal} rq={rq}", d=d,
+                fn=A.fused_attention_hs_monolithic,
+                plain=A.fused_attention_hs_reference))
+        summary("fused_attention_hs", f"B2xN{N_TOK}xH2xD{d}",
+                "all_modes:causal_none/full:rq_off/on", res)
+    for n in MONO_TURNS_N:
+        for mode in ATT_MODES:
+            assert not A.hs_plan(n, n, 128, 2, exact=mode == "exact")[
+                "kv_both"], (n, mode)
+        res = []
+        for mode, causal, rq in itertools.product(ATT_MODES, ("none", "full"),
+                                                  (None, OUT_REQUANT)):
+            res.append(against_plain(
+                1, n, 2, n, rq, QP, attention_kw(2, mode, causal, rq, QP),
+                f"monolithic K/V in turns N{n} D128 {mode} {causal} rq={rq}",
+                d=128, fn=A.fused_attention_hs_monolithic,
+                plain=A.fused_attention_hs_reference))
+        summary("fused_attention_hs", f"B1xN{n}xH2xD128",
+                "kv_in_turns:all_modes:causal_none/full:rq_off/on", res)
     # the monolithic kernel's causal and window forms
     for n in MONO_N:
         res = []
@@ -1361,8 +1491,10 @@ def forward_seconds(forward, reps: int) -> dict:
 
 def bf16_profile(forward) -> dict:
     """One profiled bf16 forward beside one unprofiled: device busy time,
-    its share of the unprofiled wall, device kernels, the top five by
-    device time. Raises if the profiler saw no device time."""
+    its share of the unprofiled wall, device kernels, the device time of
+    the quantize boundaries, the packed matmuls, torch's elementwise
+    kernels and each attention kernel, the top five by device time.
+    Raises if the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from numpy_quant_tpu_torch import config
@@ -1389,11 +1521,17 @@ def bf16_profile(forward) -> dict:
     packed = sum(ms for k, ms, _ in rows if "qmatmul_kernel" in k)
     torch_ew = sum(ms for k, ms, _ in rows
                    if "elementwise_kernel" in k and "qdq_kernel" not in k)
+    # the attention kernels (csrc/attention_hs.cu, attention_hs_blockq.cu,
+    # attention_plain.cu)
+    attention = {name: sum(ms for k, ms, _ in rows if name in k)
+                 for name in ("attention_hs_kernel", "blockq_kernel",
+                              "plain_kernel")}
     return dict(dtype="bf16", wall_ms_unprofiled=wall_ms, device_busy_ms=busy,
                 busy_share=busy / wall_ms,
                 device_kernels=int(sum(r[2] for r in rows)),
                 qdq_kernel_ms=qdq, qdq_share_of_busy=qdq / busy,
                 packed_kernel_ms=packed, packed_share_of_busy=packed / busy,
+                **{f"{name}_ms": ms for name, ms in attention.items()},
                 torch_elementwise_ms=torch_ew,
                 torch_elementwise_share_of_busy=torch_ew / busy,
                 top5=";".join(f"{k[:48].replace(' ', '_')}:{ms:.3f}ms:x{c}"
@@ -1600,7 +1738,8 @@ def check_score_bias() -> dict:
                                       True)}
     worst = dict.fromkeys(kernels, 0.0)
     variants = 0
-    sizes = [(n, HEAD_DIM) for n in SB_N] + [(SB_D_N, 32), (SB_D_N, 128)]
+    sizes = [(n, HEAD_DIM) for n in SB_N] + [(SB_D_N, d) for d in (16, 32,
+                                                                  128)]
     for n, d in sizes:
         biases = {f: sb_operand(f, SB_HEADS, n, seed=n + i)
                   for i, f in enumerate(SB_FORMS)}
@@ -2384,6 +2523,7 @@ def main() -> int:
         cuda=torch.version.cuda, python=sys.version.split()[0])
     say("build", seconds=build_kernels())
 
+    check_int_matmul()
     worst = check_attention()
     timing = time_attention(name)
     qworst, qforms = check_qmatmul()
@@ -2584,6 +2724,7 @@ def main() -> int:
     # -- phase 12: the score-bias forms of the head-split kernels -----
     sb_check = check_score_bias()
     sb_timing = time_score_bias(name)
+    forms = forms_launched()
 
     # -- phase 13: T5-small int8 scoring ------------------------------
     t5_counts, t5_cost = t5_phase(card)
@@ -2611,7 +2752,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None, "score_bias": score_bias("fused_attention_hs")}]
+        "library_ms": None, "score_bias": score_bias("fused_attention_hs"),
+        "instantiations_launched": forms["fused_attention_hs"]}]
     for kname, line in (("splitk_qmatmul", 246), ("packed_qmatmul", 533)):
         t = qtiming[kname]
         rows.append({
@@ -2644,7 +2786,8 @@ def main() -> int:
         "max_abs_err": bq_worst, "ms": bq_timing["ms"],
         "plain_ms": bq_timing["plain_ms"], "bound_ms": bq_timing["bound_ms"],
         "bound_by": bq_timing["bound_by"], "library_ms": None,
-        "score_bias": score_bias("fused_attention_hs_blockq")})
+        "score_bias": score_bias("fused_attention_hs_blockq"),
+        "instantiations_launched": forms["fused_attention_hs_blockq"]})
     rows.append({
         "name": "fused_attention", "route": "cuda",
         "source": "numpy_quant_tpu_torch/csrc/attention_plain.cu",

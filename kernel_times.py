@@ -1,20 +1,36 @@
 #!/usr/bin/env python3
-"""Time fused_attention, splitk_wo_matmul, splitk_qmatmul and
-packed_qmatmul on one NVIDIA GPU, in the checkout this is run from:
+"""Time the port's hand-written kernels on one NVIDIA GPU, in the checkout
+this is run from:
 
     python3 kernel_times.py <tag>
 
-fused_attention at the TinyLlama-1.1B scoring shape (BH = 4 x 32, N = 2048,
-D = 64, causal, int8 out); splitk_wo_matmul at GPT-2's 768 -> 3072 decode
-shape (M = 8, W4 g=128, bf16 and f32, cold L2) beside torch.matmul on the
-weight dequantized beforehand; splitk_qmatmul (W4, per-channel scale) and
-packed_qmatmul (W3 bit-planes) at ViT-Base's three packed shapes at batch
-96 (M = 18,912; int8 x, f32 out) beside torch._int_mm on the unpacked
-weight plus the eager epilogue. Each is the median of 20 CUDA-event timed
-calls (chip_smoke.py's helpers), the packed matmuls behind a device sleep.
-Prints one line, ``[compare] {json}``. To hold two commits against each
-other, run it in a checkout of each, in turns (parent, change, change,
-parent), one after another on one card.
+- the head-split attention kernels: the monolithic fused_attention_hs at
+  ViT-Base B=96 (N=197, H=12, D=64; serving: fast, static shift, int8 out;
+  exact f32), the blockwise fused_attention_hs_blockq at GPT-2's scoring
+  shape (B=8, N=1024, H=12, causal, int8 out; serving and exact), and both
+  at t5-small's three attention shapes (B=8, H=8, int8 out, exact and
+  fast): the encoder's per-head bias (blockwise), the decoder's combined
+  bias + causal constant and cross-attention (monolithic);
+- a breakdown of the head-split kernels' time by scaling: the same calls
+  at head dim 16 (the products and their shared loads shrink 4x, the
+  softmax's float work does not) and, for the monolithic kernel, with one
+  query row (K/V staging alone);
+- fused_attention at the TinyLlama-1.1B scoring shape (BH = 4 x 32,
+  N = 2048, D = 64, causal, int8 out);
+- splitk_wo_matmul at GPT-2's 768 -> 3072 decode shape (M = 8, W4 g=128,
+  bf16 and f32, cold L2) beside torch.matmul on the weight dequantized
+  beforehand;
+- splitk_qmatmul (W4, per-channel scale) and packed_qmatmul (W3
+  bit-planes) at ViT-Base's three packed shapes at batch 96 (M = 18,912;
+  int8 x, f32 out) beside torch._int_mm on the unpacked weight plus the
+  eager epilogue;
+- quantize and dequantize at ViT-Base's bf16 fc1 output at batch 96.
+
+Each is the median of 20 CUDA-event timed calls (chip_smoke.py's helpers),
+the calls shorter than their Python wrapper behind a device sleep. Prints
+one line, ``[compare] {json}``. To hold two commits against each other,
+run it in a checkout of each, in turns (parent, change, change, parent),
+one after another on one card.
 """
 import json
 import os
@@ -23,15 +39,64 @@ import sys
 sys.path.insert(0, os.getcwd())
 
 
+def head_split_times(C, A) -> dict:
+    """The head-split kernels at the paths' shapes, and the breakdown."""
+    import torch
+    res = {}
+    vit_q, vit_k, vit_v = C.attention_inputs(C.B_TIME, C.N_TOK, seed=99)
+    for label, mode, rq in (("serving", "fast_shift", C.OUT_REQUANT),
+                            ("exact_f32", "exact", None)):
+        kw = C.attention_kw(C.HEADS, mode, "none", rq, C.QP)
+        res[f"hs_vit_{label}_ms"] = C.cuda_ms(
+            lambda: A.fused_attention_hs(vit_q, vit_k, vit_v, **kw))
+        # breakdown: one query row (staging alone), head dim 16
+        q1 = vit_q[:, :1].contiguous()
+        res[f"hs_vit_{label}_nq1_ms"] = C.cuda_ms(
+            lambda: A.fused_attention_hs(q1, vit_k, vit_v, **kw), lead=True)
+        q16, k16, v16 = C.attention_inputs(C.B_TIME, C.N_TOK, seed=98, d=16)
+        res[f"hs_vit_{label}_d16_ms"] = C.cuda_ms(
+            lambda: A.fused_attention_hs(q16, k16, v16, **kw))
+        del q1, q16, k16, v16
+    del vit_q, vit_k, vit_v
+    b, n, h = C.GPT_B, C.GPT_SEQ, C.HEADS
+    for d in (64, 16):
+        q, k, v = C.attention_inputs(b, n, seed=99, n=n, heads=h, d=d)
+        for label, mode in (("serving", "fast_shift"), ("exact", "exact")):
+            kw = C.attention_kw(h, mode, "full", C.OUT_REQUANT, C.QP)
+            key = f"blockq_gpt2_{label}" + ("" if d == 64 else f"_d{d}")
+            res[f"{key}_ms"] = C.cuda_ms(
+                lambda: A.fused_attention_hs_blockq(q, k, v, **kw))
+        del q, k, v
+    for label, nq, n, form in (("encoder", C.T5_SRC, C.T5_SRC, "per_head"),
+                               ("decoder", C.T5_TGT, C.T5_TGT, "decoder"),
+                               ("cross", C.T5_TGT, C.T5_SRC, None)):
+        q, k, v = C.attention_inputs(C.T5_B, nq, seed=nq + n, n=n,
+                                     heads=C.SB_HEADS)
+        bias = None if form is None else C.sb_operand(form, C.SB_HEADS, n,
+                                                      seed=n)
+        for mode in ("exact", "fast"):
+            kw = C.attention_kw(C.SB_HEADS, mode, "none", C.OUT_REQUANT, C.QP,
+                                score_bias=bias)
+            if form is None:
+                kw["scaling"] = 1.0
+            res[f"t5_{label}_{mode}_ms"] = C.cuda_ms(
+                lambda: A.fused_attention_hs(q, k, v, **kw), lead=True)
+        del q, k, v, bias
+    torch.cuda.synchronize()
+    return res
+
+
 def main() -> int:
     import torch
     import chip_smoke as C
     from numpy_quant_tpu_torch.kernels import attention as A, qmatmul as Q
+    from numpy_quant_tpu_torch.kernels import elementwise as E
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     res = {"tag": sys.argv[1] if len(sys.argv) > 1 else "",
            "card": C.card_line()}
+    res.update(head_split_times(C, A))
     bh, n, d = C.LLAMA_B * 32, C.LLAMA_SEQ, 64
     q, kt, v = C.plain_inputs(bh, n, d, seed=99)
     kw = dict(C.QP, out_requant=C.OUT_REQUANT, causal_mask_val=C.MASK_VAL)
@@ -72,6 +137,19 @@ def main() -> int:
             res[f"int_mm_epilogue_{kname}_{k}x{n}_ms"] = C.cuda_ms(
                 library, lead=True)
             del x, payload, w8
+    # the quantize boundaries at ViT-Base's bf16 fc1 output, batch 96
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rows, cols = C.B_TIME * C.N_TOK, 3072
+    x = torch.randn(rows, cols, device="cuda", generator=g).to(torch.bfloat16)
+    acc = torch.randint(-2 ** 20, 2 ** 20, (rows, cols), device="cuda",
+                        dtype=torch.int32, generator=g)
+    zrow = torch.randint(-2 ** 20, 2 ** 20, (1, cols), device="cuda",
+                         dtype=torch.int32, generator=g)
+    res["quantize_vit_fc1_bf16_ms"] = C.cuda_ms(
+        lambda: E.quantize(x, 8, C.EW_SCALE, C.EW_ZP, torch.int32), lead=True)
+    res["dequantize_vit_fc1_bf16_ms"] = C.cuda_ms(
+        lambda: E.dequantize(acc, C.EW_SCALE, zrow, torch.bfloat16),
+        lead=True)
     print("[compare]", json.dumps(res), flush=True)
     return 0
 

@@ -8,8 +8,7 @@
 // operand, out_requant on/off, every zero-point correction, narrow q
 // (fewer query rows than keys, no mask or bias) and ragged N. It computes
 // what csrc/attention_hs.cu computes; that kernel stages K/V whole in
-// shared memory and so stops at ~1,290 keys at D=64, while this one
-// streams them.
+// shared memory, while this one streams them.
 //
 // Bound at GPT-2 small's full context (B=8, N=1024, H=12, D=64, causal,
 // int8 out) on an H100 SXM: it must move q, k, v (3 x 6.3 MB) and the
@@ -19,265 +18,248 @@
 // encoder self-attention (B=8, N=512, H=8, D=64, bias [8, 512, 512] f32,
 // int8 out) it moves 4 x 2.1 MB of q, k, v and out plus the 8.4 MB bias,
 // 16.8 MB, 5.0 us at 3.35 TB/s; its int8 products, 4*B*H*N^2*D = 4.3e9
-// ops, take 2.2 us at 1,979 TOPS.
+// ops, take 2.2 us at 1,979 TOPS. The sweeps below recompute the scores
+// on the tensor cores, so what bounds this design is the softmax's float
+// work per score and sweep (two exp and two divisions per visible score
+// on the exact path, one exp2 and one product on the fast one).
 //
-// Design: one CTA of 256 threads per (tile of BQ=64 query rows, head,
-// batch row). The q tile stays in shared memory; K (and, in the last
-// sweep, V, transposed) stream through shared memory in tiles of BK=64
-// keys, so a block holds ~18 KB at D=64 whatever N is. Each thread owns
-// a 4x4 patch of the 64x64 score tile (rows 4*ty.., keys tx+16*j) and
-// computes it with __dp4a on the integer ALUs; row reductions run over
-// the 16 threads of a row with warp shuffles.
+// Design (csrc/attention_plain.cu's, on head-interleaved rows): one CTA
+// of 8 warps per (tile of BQ = 64 query rows, head, batch row), heaviest
+// (last) q tiles first. The q tile stays in shared memory and in
+// registers as mma fragments; K streams through shared memory in tiles of
+// BK = 64 keys, double-buffered with cp.async (the next tile's copy runs
+// while the current one is worked on; one barrier per tile); V streams a tile ahead through registers and is transposed to
+// [d][key] with byte permutes on its way into shared memory. Both products
+// run on the tensor cores with mma.sync.m16n8k32 (s8 x s8 -> s32),
+// fragments loaded with ldmatrix from tiles whose rows carry a 16-byte pad
+// (conflict-free); one more mma with an all-ones A gives each key's sum
+// over D (the zq correction). Warp w computes the scores of rows 16 (w/2).. and keys 32
+// (w%2).. of a tile, and the context of the same rows and head dims
+// D/2 (w%2)...
 //   Exact path (fast=0), three sweeps over the key tiles, each
 //   recomputing s from the exact integer dots: 1. the row max; 2. the
-//   row sum of expf(s - m), in the order of torch's CUDA sum (each
-//   warp stages its rows' exp tile in shared memory and streams it into
-//   its lanes' accumulators, torch_order.cuh); 3. probs = e /
-//   sum (__fdiv_rn), quantized as rint(clip(probs / sp + zp_p)) into a
-//   shared int8 tile, then P.V.
+//   row sum of expf(s - m), in the order of torch's CUDA sum (each warp
+//   stages its rows' exp tile in shared memory and streams it into its
+//   lanes' accumulators, torch_order.cuh); 3. probs = e / sum, quantized
+//   as rint(clip(probs / sp + zp_p)) into a shared int8 tile, then P.V.
 //   There is no online rescaling here: the quantized probabilities need
 //   the final max and sum, rounded as the unfused executor rounds them.
-//   Fast path, two sweeps: 1. the row max and sum with a per-tile online
-//   rescale (or, with the static shift, the plain clipped-exp2 sum);
-//   2. the probabilities and P.V.
+//   Fast path, two sweeps: 1. the row max and sum with a per-lane online
+//   rescale (or, with the static shift, the plain clipped-exp2 sum),
+//   combined over the 4 lanes and the 2 key halves of a row; 2. the
+//   probabilities and P.V.
 // The context is kept in centred form: sum_j (pq_j - zp_p)(v_j - zv) =
 // sum pq v - zv sum pq - zp_p sum v + zp_p zv n over the keys the block
 // walked, all in int32 (|.| <= 255^2 * N < 2^31, so N <= 33,000). It
 // equals the TPU kernel's uncentred algebra over its padded keys exactly,
-// because pad keys have pq = zp_p and v = zv.
+// because pad keys have pq = zp_p and v = zv. D = 16 pads to the mma's 32
+// bytes with zeros; the zq*zk*D term counts the real D.
 //
 // The score bias ([H, nq, N] f32, the same for every batch row) is read
-// from global memory (L2, after the first batch row) for the thread's 4x4
-// patch of each key tile, on every sweep, at the graph Add's position.
+// from global memory (L2, after the first batch row) at the graph Add's
+// position, on every sweep. It is a template flag (BIAS), so the
+// bias-free forms (GPT-2) carry no code or registers for it.
 //
 // Causal tile skipping (``skip``, set by the wrapper only when a static
 // bound from the qparams proves it exact, never with a bias): a key tile
-// masked for every row of the block is not walked. On the exact path a masked score gives
-// e = expf(s + mask - m) = 0 exactly, so pq = rint(0 / sp + zp_p) = zp_p
-// and its centred term is 0: skipping changes no bit. On the fast path
-// without a shift exp2f gives 0 alike. With the static shift a masked
-// score clamps to 2^-120: the skipped keys add (count) * 2^-120 to the
-// row sum in closed form, and their one quantized value
+// masked for every row of the block is not walked. On the exact path a
+// masked score gives e = expf(s + mask - m) = 0 exactly, so pq = rint(0 /
+// sp + zp_p) = zp_p and its centred term is 0: skipping changes no bit.
+// On the fast path without a shift exp2f gives 0 alike. With the static
+// shift a masked score clamps to 2^-120: the skipped keys add (count) *
+// 2^-120 to the row sum in closed form, and their one quantized value
 // rint(2^-120 * r + zp_p) is checked; if it is not zp_p for some row, the
 // block walks every key tile in its last sweep.
 //
-// Numerics as in csrc/attention_hs.cu: the JAX op order, _rn intrinsics
-// (no FMA contraction), IEEE division, half-to-even rounding, expf/exp2f
-// (never __expf). The exact row sums take torch's order at every N where
-// torch sums a row in one warp (kernels/attention.py::in_torch_order):
-// strided loads below 128 keys, 4-vectors with each row's unaligned head
-// and tail from 128 on, the row's alignment taken from the plain
-// version's q tiles of ``sum_tile`` rows. There the exact path equals the
-// plain version bit for bit. The fast path's sums run in its own order.
-//
-// This simple design runs both products on the integer ALUs with three
-// (exact) or two (fast) passes over K; wgmma, TMA and a one-sweep fast
-// path are later work.
+// Numerics as in csrc/attention_hs.cu: the integer products are exact;
+// every float step keeps the JAX op order, with _rn intrinsics (no FMA
+// contraction), IEEE division (div_rn from the divisor's reciprocal, or
+// __fdiv_rn), half-to-even rounding, expf/exp2f (never __expf). The exact
+// row sums take torch's order at every N where torch sums a row in one
+// warp (kernels/attention.py::in_torch_order): strided loads below 128
+// keys, 4-vectors with each row's unaligned head and tail from 128 on,
+// the row's alignment taken from the plain version's q tiles of
+// ``sum_tile`` rows. There the exact path equals the plain version bit
+// for bit. The fast path's sums run in its own order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
 #include "torch_order.cuh"
-
-// Shared with csrc/attention_hs.cu: ``sum_vec`` and ``sum_lanes`` give
-// torch's row-sum order, ``sum_tile`` the plain version's q tile rows.
-struct HSParams {
-  int B, nq, N, H, D, zq, zk, zv, zp_p, fast, static_shift, need_lo,
-      need_hi, out_int8, has_res_zp, causal, window, skip, has_bias, sum_vec,
-      sum_lanes, sum_tile;
-  float c_score, scaling, czq, base, sp, zp_pf, c_out, res_scale, res_zp,
-      qmin, qmax, mask;
-};
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int RPT = BQ / 16;    // rows per thread
-constexpr int KPT = BK / 16;    // keys per thread
-constexpr int PW = BK / 4 + 1;  // padded word stride of P and V^T rows
-constexpr int kOnes = 0x01010101;
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 64;        // keys per tile
+constexpr int PAD = 16;       // bytes of pad per row of an int8 tile
+constexpr int VP = BK + PAD;  // row pitch of the v^T and p tiles (bytes)
+constexpr int EP = BK + 4;    // row pitch of the exp tile (floats)
 constexpr float kMaskedExp2 = 0x1p-120f;  // a clamped masked score
 
 template <int D>
 struct Tiles {
-  int q[BQ][D / 4 + 1];  // q tile, int8x4 words, rows padded one word
-  int k[BK][D / 4 + 1];  // key tile
-  int vt[D][PW];         // value tile transposed: vt[d] holds keys 0..BK-1
-  int p[BQ][PW];         // quantized probabilities, int8 [row][key]
-  alignas(16) float e[BQ][BK + 4];  // exact sweep 2: exp(s - m), key tile
+  static constexpr int DP = D < 32 ? 32 : D;  // the mma's k is 32 bytes
+  static constexpr int QP = DP + PAD;         // row pitch of q and k (bytes)
+  alignas(16) int8_t q[BQ * QP];     // q tile [row][d]
+  alignas(16) int8_t k[2][BK * QP];  // key tiles [key][d]
+  union {
+    float e[BQ * EP];  // exact sweep 2: exp(s - m) [row][key]
+    struct {
+      int8_t vt[D * VP];  // last sweep: value tile [d][key]
+      int8_t p[BQ * VP];  // last sweep: quantized probabilities [row][key]
+    } pv;
+  } u;
   int qsum[BQ];
-  int ksum[BK];
+  float mx[2][BQ];  // the key halves' row maxima
+  float ls[2][BQ];  // the key halves' row sums (fast path)
+  int ps[2][BQ];    // the key halves' row sums of pq
+  int vsum[D];
+  float l[BQ];      // the row sums (exact path)
 };
 
-__device__ __forceinline__ void put4(int* dst, int4 v) {
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-// reductions over the 16 threads of one row (a half warp)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// the key tile at j0 (zero rows past N) and its row sums
+// The 4 x 4 byte blocks (4 keys x 4 dims) of a V tile a thread moves:
+// fetched from device memory a tile ahead, stored after the current
+// tile's work.
 template <int D>
-__device__ __forceinline__ void load_k(Tiles<D>& t, const int8_t* xk,
-                                       size_t kv_base, int hd, int n, int j0,
-                                       int tid) {
-  constexpr int C16 = D / 16;  // 16-byte chunks per head row
-  // BK * C16 is a multiple of 32, so every warp runs the loop whole and
-  // the C16 chunks of a key sit in neighbouring lanes
-  for (int idx = tid; idx < BK * C16; idx += kThreads) {
-    const int j = idx / C16, c = idx - j * C16;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (j0 + j < n)
-      v = __ldg(reinterpret_cast<const int4*>(xk + kv_base +
-                                              (size_t)(j0 + j) * hd + c * 16));
-    put4(&t.k[j][c * 4], v);
-    int part = __dp4a(v.x, kOnes, __dp4a(v.y, kOnes,
-                      __dp4a(v.z, kOnes, __dp4a(v.w, kOnes, 0))));
-#pragma unroll
-    for (int o = C16 / 2; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (c == 0) t.ksum[j] = part;
-  }
-}
+struct Fetch {
+  static constexpr int NB = (D * BK / 16 + kThreads - 1) / kThreads;
+  uint32_t x[NB][4];
+};
 
-// the value tile at j0, transposed into vt[d][key] bytes (zero past N)
+// the key tile at j0 into `k` (zero keys past N, zero dims past D)
 template <int D>
-__device__ __forceinline__ void load_vt(Tiles<D>& t, const int8_t* xv,
-                                        size_t kv_base, int hd, int n, int j0,
+__device__ __forceinline__ void stage_k(int8_t* k, const int8_t* xk,
+                                        size_t base, int hd, int n, int j0,
                                         int tid) {
-  constexpr int C16 = D / 16;
+  constexpr int C16 = Tiles<D>::DP / 16;
   for (int idx = tid; idx < BK * C16; idx += kThreads) {
-    const int j = idx / C16, c = idx - j * C16;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (j0 + j < n)
-      v = __ldg(reinterpret_cast<const int4*>(xv + kv_base +
-                                              (size_t)(j0 + j) * hd + c * 16));
-    const int8_t* bytes = reinterpret_cast<const int8_t*>(&v);
+    const int key = idx / C16, c = idx - key * C16;
+    const bool valid = j0 + key < n && 16 * c < D;
+    cp_async16(k + key * Tiles<D>::QP + 16 * c,
+               xk + base + (valid ? (size_t)(j0 + key) * hd + 16 * c : 0),
+               valid);
+  }
+  cp_async_commit();
+}
+
+// the thread's blocks of the value tile at j0 (zero keys past N)
+template <int D>
+__device__ __forceinline__ void fetch_v(Fetch<D>& f, const int8_t* v,
+                                        size_t base, int hd, int n, int j0,
+                                        int tid) {
+  constexpr int DB = D / 4, DL = DB < 4 ? DB : 4;
 #pragma unroll
-    for (int e = 0; e < 16; ++e)
-      reinterpret_cast<int8_t*>(t.vt[c * 16 + e])[j] = bytes[e];
+  for (int b = 0; b < Fetch<D>::NB; ++b) {
+    const int idx = tid + b * kThreads;
+    const int dl = idx % DL, rest = idx / DL;
+    const int kb = rest % (BK / 4), db = (rest / (BK / 4)) * DL + dl;
+    const int jg = j0 + 4 * kb;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      f.x[b][a] = idx < DB * (BK / 4) && jg + a < n
+                      ? __ldg(reinterpret_cast<const unsigned int*>(
+                            v + base + (size_t)(jg + a) * hd + 4 * db))
+                      : 0u;
   }
 }
 
-// the thread's 4x4 patch of dequantized (biased, masked) scores of the
-// tile at j0: rows 4*ty + i, keys tx + 16*j; `bias` points at the head's
-// [nq, N] bias rows, or is null
+// the fetched value blocks transposed into the d-major tile
 template <int D>
-__device__ __forceinline__ void tile_scores(const Tiles<D>& t,
-                                            const HSParams& p, int ty, int tx,
-                                            int r0, int j0,
-                                            const float* __restrict__ bias,
-                                            float (&s)[RPT][KPT]) {
-  constexpr int W = D / 4;
-  int acc[RPT][KPT];
+__device__ __forceinline__ void store_vt(int8_t* vt, const Fetch<D>& f,
+                                         int tid) {
+  constexpr int DB = D / 4, DL = DB < 4 ? DB : 4;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int b = 0; b < Fetch<D>::NB; ++b) {
+    const int idx = tid + b * kThreads;
+    if (idx >= DB * (BK / 4)) break;
+    const int dl = idx % DL, rest = idx / DL;
+    const int kb = rest % (BK / 4), db = (rest / (BK / 4)) * DL + dl;
+    uint32_t y[4];
+    transpose4(f.x[b], y);
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) acc[i][j] = 0;
-#pragma unroll 4
-  for (int w = 0; w < W; ++w) {
-    int qv[RPT], kv[KPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) qv[i] = t.q[ty * RPT + i][w];
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) kv[j] = t.k[tx + 16 * j][w];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) acc[i][j] = __dp4a(qv[i], kv[j], acc[i][j]);
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<uint32_t*>(&vt[(4 * db + c) * VP + 4 * kb]) = y[c];
   }
+}
+
+// The warp's 16 x 32 integer scores of a key tile: rows 16 rg + g (+8),
+// keys 32 kh + 8 nt + 2 tq (+1) in acc[nt][0..3] (mma's C layout), and
+// the keys' sums over D in ks[nt][0..1] (one more mma, A all ones)
+template <int D>
+__device__ __forceinline__ void tile_dots(
+    const int8_t* k, const uint32_t (&qa)[Tiles<D>::DP / 32][4], int kh,
+    int lane, int (&acc)[4][4], int (&ks)[4][2]) {
+  const uint32_t ones[4] = {kOnes, kOnes, kOnes, kOnes};
+  const int key = 32 * kh + (lane & 7) + 8 * (lane >> 4);
+  const int byte = 16 * ((lane >> 3) & 1);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i, row = r0 + r;
+  for (int np = 0; np < 2; ++np) {
+    int s0[4] = {0, 0, 0, 0}, s1[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int kj = tx + 16 * j, col = j0 + kj;
-      float v;
-      if (!p.fast) {
-        int a = acc[i][j];
-        if (p.zk) a -= t.qsum[r] * p.zk;
-        if (p.zq) a -= t.ksum[kj] * p.zq;
-        if (p.zq && p.zk) a += p.zq * p.zk * D;
-        v = __fmul_rn(__fmul_rn(__int2float_rn(a), p.c_score), p.scaling);
-      } else {
-        const float colc =
-            p.zq ? __fadd_rn(__fmul_rn(__int2float_rn(t.ksum[kj]), p.czq),
-                             p.base)
-                 : p.base;
-        v = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j]), p.c_score), colc);
-      }
-      // score bias at the graph Add's position (pre-scaled by log2(e) on
-      // the fast path)
-      if (bias && row < p.nq && col < p.N)
-        v = __fadd_rn(v, __ldg(bias + (size_t)row * p.N + col));
-      // decoder mask at the graph Add's position (pre-scaled by log2(e)
-      // on the fast path)
-      if (p.causal && !(col <= row && (p.window <= 0 || col > row - p.window)))
-        v = __fadd_rn(v, p.mask);
-      s[i][j] = v;
+    for (int e = 0; e < 4; ++e) acc[2 * np][e] = acc[2 * np + 1][e] = 0;
+#pragma unroll
+    for (int kc = 0; kc < Tiles<D>::DP / 32; ++kc) {
+      uint32_t b[4];
+      ldsm_x4(b, &k[(key + 16 * np) * Tiles<D>::QP + 32 * kc + byte]);
+      mma_s8(acc[2 * np], qa[kc], b[0], b[1]);
+      mma_s8(acc[2 * np + 1], qa[kc], b[2], b[3]);
+      mma_s8(s0, ones, b[0], b[1]);
+      mma_s8(s1, ones, b[2], b[3]);
     }
+    ks[2 * np][0] = s0[0];
+    ks[2 * np][1] = s0[1];
+    ks[2 * np + 1][0] = s1[0];
+    ks[2 * np + 1][1] = s1[1];
   }
 }
 
-__device__ __forceinline__ float clip_prob(float t, const HSParams& p,
-                                               bool lo, bool hi) {
-  if (lo) t = fmaxf(t, p.qmin);
-  if (hi) t = fminf(t, p.qmax);
-  return t;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, bool BIAS, int MODE>
+__global__ void __launch_bounds__(kThreads, 2)
     blockq_kernel(const int8_t* __restrict__ xq,
                   const int8_t* __restrict__ xk,
                   const int8_t* __restrict__ xv,
-                  const float* __restrict__ bias_all, void* __restrict__ out,
+                  const float* __restrict__ bias, void* __restrict__ out,
                   const HSParams p) {
-  constexpr int W = D / 4;
-  constexpr int C16 = D / 16;
-  constexpr int DPT = D / 16;  // output columns per thread
-  __shared__ Tiles<D> t;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * BQ;
+  using T = Tiles<D>;
+  constexpr int DP = T::DP, QP = T::QP;
+  constexpr int NTV = D / 16;  // context n-tiles per warp (D/2 dims)
+  __shared__ T t;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rg = warp >> 1, kh = warp & 1;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int n = p.N, hd = p.H * D;
   const size_t q_base = (size_t)b * p.nq * hd + (size_t)h * D;
   const size_t kv_base = (size_t)b * n * hd + (size_t)h * D;
-  const float* bias =
-      p.has_bias ? bias_all + (size_t)h * p.nq * n : nullptr;
+  constexpr bool fast = MODE != kExact, shift = MODE == kShift;
 
-  for (int idx = tid; idx < BQ * C16; idx += kThreads) {
-    const int r = idx / C16, c = idx - r * C16;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (r0 + r < p.nq)
-      v = __ldg(reinterpret_cast<const int4*>(xq + q_base +
-                                              (size_t)(r0 + r) * hd + c * 16));
-    put4(&t.q[r][c * 4], v);
+  // the q tile (zero rows past nq, zero dims past D)
+  for (int idx = tid; idx < BQ * (DP / 16); idx += kThreads) {
+    const int r = idx / (DP / 16), c = idx % (DP / 16);
+    const bool valid = r0 + r < p.nq && 16 * c < D;
+    cp_async16(&t.q[r * QP + 16 * c],
+               xq + q_base + (valid ? (size_t)(r0 + r) * hd + 16 * c : 0),
+               valid);
   }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
   if (tid < BQ) {
+    const int* row = reinterpret_cast<const int*>(&t.q[tid * QP]);
     int s = 0;
 #pragma unroll
-    for (int w = 0; w < W; ++w) s = __dp4a(t.q[tid][w], kOnes, s);
+    for (int w = 0; w < D / 4; ++w) s = __dp4a(row[w], kOnes, s);
     t.qsum[tid] = s;
   }
+  uint32_t qa[DP / 32][4];
+#pragma unroll
+  for (int kc = 0; kc < DP / 32; ++kc)
+    ldsm_x4(qa[kc], &t.q[(16 * rg + (lane & 7) + 8 * ((lane >> 3) & 1)) * QP +
+                         32 * kc + 16 * (lane >> 4)]);
 
   // the key tiles this block walks: all, or (skip) those holding a key
   // visible from one of its rows
@@ -289,122 +271,201 @@ __global__ void __launch_bounds__(kThreads)
   int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;
   int walked = min(n, t_hi * BK) - t_lo * BK;  // real keys walked
 
-  const bool fast = p.fast != 0, shift = fast && p.static_shift;
-  float m[RPT], l[RPT];
+  // the thread's two rows (tile rows ra, ra + 8)
+  const int ra = 16 * rg + g;
+  const int rows[2] = {r0 + ra, r0 + ra + 8};
+  __syncthreads();
+  const int rowc[2] = {hs_row_term<MODE, D>(p, t.qsum[ra]),
+                       hs_row_term<MODE, D>(p, t.qsum[ra + 8])};
+  const float* brow[2] = {nullptr, nullptr};
+  if (BIAS)
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
+    for (int i = 0; i < 2; ++i)
+      if (rows[i] < p.nq) brow[i] = bias + ((size_t)h * p.nq + rows[i]) * n;
 
-  // sweep 1: exact -- row max; fast -- max and sum (online per tile);
+  // A sweep over the key tiles t_lo..t_hi - 1: tile j's copy into one
+  // buffer runs while `body` works on the other; one barrier per tile
+  // (after it, the tile has landed and every warp is done with the tile
+  // before, so its buffer and the shared tiles may be rewritten).
+  auto sweep = [&](auto&& body) {
+    stage_k<D>(t.k[0], xk, kv_base, hd, n, t_lo * BK, tid);
+    for (int tile = t_lo; tile < t_hi; ++tile) {
+      const int cur = (tile - t_lo) & 1;
+      cp_async_wait_all();
+      __syncthreads();
+      if (tile + 1 < t_hi)
+        stage_k<D>(t.k[cur ^ 1], xk, kv_base, hd, n, (tile + 1) * BK, tid);
+      body(tile, t.k[cur]);
+    }
+  };
+  // the tile's scores of the thread's (row, key) pairs: s[nt][e]
+  auto scores = [&](const int8_t* k, int j0, float (&s)[4][4]) {
+    int acc[4][4], ks[4][2];
+    tile_dots<D>(k, qa, kh, lane, acc, ks);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = j0 + 32 * kh + 8 * nt + 2 * tq + c;
+        int kz;
+        float colc;
+        hs_key_terms<MODE>(p, ks[nt][c], kz, colc);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          s[nt][2 * i + c] = hs_score<MODE, BIAS>(
+              p, acc[nt][2 * i + c], rowc[i], kz, colc, col,
+              col < n ? brow[i] : nullptr);
+      }
+    if (hs_tile_masked(p, r0, BQ, j0, BK)) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = hs_mask(p, s[nt][e], rows[e >> 1],
+                             j0 + 32 * kh + 8 * nt + 2 * tq + (e & 1));
+    }
+  };
+
+  // sweep 1: exact -- the row max; fast -- max and sum, online per lane;
   // static shift -- the clipped-exp2 sum
-  for (int tile = t_lo; tile < t_hi; ++tile) {
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  sweep([&](int tile, const int8_t* k) {
     const int j0 = tile * BK;
-    __syncthreads();
-    load_k(t, xk, kv_base, hd, n, j0, tid);
-    __syncthreads();
-    float s[RPT][KPT];
-    tile_scores(t, p, ty, tx, r0, j0, bias, s);
+    float s[4][4];
+    scores(k, j0, s);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
+    for (int i = 0; i < 2; ++i) {
+      // the row's keys in this lane, -inf (exp 0) past N
+      float v[8];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          v[2 * nt + c] = j0 + 32 * kh + 8 * nt + 2 * tq + c < n
+                              ? s[nt][2 * i + c]
+                              : -INFINITY;
+      if (shift) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j0 + 32 * kh + 8 * (j >> 1) + 2 * tq + (j & 1) < n)
+            l[i] = __fadd_rn(l[i], hs_exp<MODE>(v[j], 0.f));
+        continue;
+      }
+      float tm = v[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) tm = fmaxf(tm, v[j]);
       if (!fast) {
+        m[i] = fmaxf(m[i], tm);
+      } else if (tm > -INFINITY) {
+        const float mn = fmaxf(m[i], tm);
+        float add = 0.f;
 #pragma unroll
-        for (int j = 0; j < KPT; ++j)
-          if (j0 + tx + 16 * j < n) m[i] = fmaxf(m[i], s[i][j]);
-      } else if (shift) {
-#pragma unroll
-        for (int j = 0; j < KPT; ++j)
-          if (j0 + tx + 16 * j < n)
-            l[i] = __fadd_rn(l[i], exp2f(fminf(fmaxf(s[i][j], -120.f), 80.f)));
-      } else {
-        float tm = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < KPT; ++j)
-          if (j0 + tx + 16 * j < n) tm = fmaxf(tm, s[i][j]);
-        if (tm > -INFINITY) {
-          const float mn = fmaxf(m[i], tm);
-          l[i] = __fmul_rn(l[i], exp2f(__fsub_rn(m[i], mn)));
-#pragma unroll
-          for (int j = 0; j < KPT; ++j)
-            if (j0 + tx + 16 * j < n)
-              l[i] = __fadd_rn(l[i], exp2f(__fsub_rn(s[i][j], mn)));
-          m[i] = mn;
-        }
+        for (int j = 0; j < 8; ++j)
+          add = __fadd_rn(add, hs_exp<MODE>(v[j], mn));
+        l[i] = __fadd_rn(m[i] == -INFINITY
+                             ? 0.f
+                             : __fmul_rn(l[i], exp2f(__fsub_rn(m[i], mn))),
+                         add);
+        m[i] = mn;
       }
     }
-  }
+  });
+  // combine the 4 lanes of a row, then the two key halves
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
+      const float lo2 = __shfl_xor_sync(0xffffffffu, l[i], o);
+      if (!fast)
+        m[i] = fmaxf(m[i], mo);
+      else if (shift)
+        l[i] = __fadd_rn(l[i], lo2);
+      else
+        hs_merge_online(m[i], l[i], mo, lo2);
+    }
+    if (tq == 0) {
+      t.mx[kh][ra + 8 * i] = m[i];
+      t.ls[kh][ra + 8 * i] = l[i];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ra + 8 * i;
     if (!fast) {
-      m[i] = row_max(m[i]);
+      m[i] = fmaxf(t.mx[0][r], t.mx[1][r]);
     } else if (shift) {
       // the skipped keys each clamp to exactly 2^-120
-      l[i] = __fadd_rn(row_sum(l[i]),
+      l[i] = __fadd_rn(__fadd_rn(t.ls[0][r], t.ls[1][r]),
                        __fmul_rn((float)(n - walked), kMaskedExp2));
     } else {
-      const float mx = row_max(m[i]);
-      l[i] = row_sum(m[i] == -INFINITY
-                         ? 0.f
-                         : __fmul_rn(l[i], exp2f(__fsub_rn(m[i], mx))));
-      m[i] = mx;
+      m[i] = t.mx[0][r];
+      l[i] = t.ls[0][r];
+      hs_merge_online(m[i], l[i], t.mx[1][r], t.ls[1][r]);
     }
   }
 
   if (!fast) {
-    // sweep 2 (exact): the row sum of expf(s - m) in torch's order. Warp w
-    // computes rows 8w..8w+7 of each tile's scores; it stages their exp in
-    // shared memory and streams them into its lanes' accumulators
-    // (torch_order.cuh), row 8w + i in a[i].
-    const int warp = tid >> 5, lane = tid & 31;
+    // sweep 2 (exact): the row sum of expf(s - m) in torch's order; warp w
+    // streams rows 8w..8w+7 of each exp tile, row 8w + i into a[i]
     float a[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
-    for (int tile = t_lo; tile < t_hi; ++tile) {
+    sweep([&](int tile, const int8_t* k) {
       const int j0 = tile * BK;
-      __syncthreads();
-      load_k(t, xk, kv_base, hd, n, j0, tid);
-      __syncthreads();
-      float s[RPT][KPT];
-      tile_scores(t, p, ty, tx, r0, j0, bias, s);
+      float s[4][4];
+      scores(k, j0, s);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int j = 0; j < KPT; ++j)
-          t.e[ty * RPT + i][tx + 16 * j] = expf(__fsub_rn(s[i][j], m[i]));
-      __syncwarp();
-      torch_order_stream_rows(a, t.e[8 * warp], BK + 4, j0, min(BK, n - j0),
-                              n, (long long)b * p.H + h, r0 + 8 * warp, p.nq,
-                              p.sum_tile, p.sum_vec, p.sum_lanes, lane);
-      __syncwarp();
-    }
-    // the thread's rows 4 ty + i are the warp's rows 4 (ty & 1) + i
+        for (int i = 0; i < 2; ++i) {
+          const float2 e2 = make_float2(hs_exp<MODE>(s[nt][2 * i], m[i]),
+                                        hs_exp<MODE>(s[nt][2 * i + 1], m[i]));
+          *reinterpret_cast<float2*>(
+              &t.u.e[(ra + 8 * i) * EP + 32 * kh + 8 * nt + 2 * tq]) = e2;
+        }
+      __syncthreads();
+      torch_order_stream_rows(a, &t.u.e[8 * warp * EP], EP, j0,
+                              min(BK, n - j0), n, (long long)b * p.H + h,
+                              r0 + 8 * warp, p.nq, p.sum_tile, p.sum_vec,
+                              p.sum_lanes, lane);
+    });
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float sum = torch_order_finish(a[i], p.sum_lanes);
-      if ((i >> 2) == (ty & 1)) l[i & 3] = sum;
+      if (lane == 0) t.l[8 * warp + i] = sum;
     }
+    __syncthreads();
+    l[0] = t.l[ra];
+    l[1] = t.l[ra + 8];
   }
 
-  // the fast path's reciprocal r = 1 / (sum * sp)
-  float rcp[RPT];
+  // the divisors' reciprocals (exact: for div_rn), the fast path's
+  // r = 1 / (sum * sp)
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  const float rsp = __frcp_rn(p.sp);
+  float rcp[2];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < 2; ++i)
     rcp[i] = fast ? __fdiv_rn(1.f, __fmul_rn(l[i], p.sp)) : 0.f;
   const bool need_lo = fast ? p.need_lo != 0 : true;
   const bool need_hi = fast ? p.need_hi != 0 : true;
+  auto clip = [&](float x) {
+    if (need_lo) x = fmaxf(x, p.qmin);
+    if (need_hi) x = fminf(x, p.qmax);
+    return x;
+  };
   if (shift && walked < n) {
     // a skipped key's quantized probability must be zp_p, or the block
     // walks them all
     int need = 0;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      if (r0 + ty * RPT + i >= p.nq) continue;
-      const float v = clip_prob(
-          __fadd_rn(__fmul_rn(kMaskedExp2, rcp[i]), p.zp_pf), p, need_lo,
-          need_hi);
-      if (__float2int_rn(v) != p.zp_p) need = 1;
-    }
+    for (int i = 0; i < 2; ++i)
+      if (rows[i] < p.nq &&
+          __float2int_rn(clip(__fadd_rn(__fmul_rn(kMaskedExp2, rcp[i]),
+                                        p.zp_pf))) != p.zp_p)
+        need = 1;
     if (__syncthreads_or(need)) {
       t_lo = 0;
       t_hi = (n + BK - 1) / BK;
@@ -412,98 +473,145 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // last sweep: quantized probabilities, then P.V in int32
-  int acc[RPT][DPT], psum[RPT], vsum[DPT];
+  // last sweep: quantized probabilities, then P.V on the tensor cores
+  int ctx[NTV][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    psum[i] = 0;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0;
-  }
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) vsum[c] = 0;
-  for (int tile = t_lo; tile < t_hi; ++tile) {
+  for (int nt = 0; nt < NTV; ++nt)
+    ctx[nt][0] = ctx[nt][1] = ctx[nt][2] = ctx[nt][3] = 0;
+  int psum[2] = {0, 0}, vsum = 0;
+  Fetch<D> fv;
+  __syncthreads();  // the exp tile (same shared bytes) is no longer read
+  fetch_v<D>(fv, xv, kv_base, hd, n, t_lo * BK, tid);
+  store_vt<D>(t.u.pv.vt, fv, tid);
+  sweep([&](int tile, const int8_t* k) {
     const int j0 = tile * BK;
-    __syncthreads();
-    load_k(t, xk, kv_base, hd, n, j0, tid);
-    load_vt(t, xv, kv_base, hd, n, j0, tid);
-    __syncthreads();
-    float s[RPT][KPT];
-    tile_scores(t, p, ty, tx, r0, j0, bias, s);
+    const bool more = tile + 1 < t_hi;
+    if (more) fetch_v<D>(fv, xv, kv_base, hd, n, j0 + BK, tid);
+    float s[4][4];
+    scores(k, j0, s);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      int8_t* prow = reinterpret_cast<int8_t*>(t.p[ty * RPT + i]);
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int kj = tx + 16 * j;
-        int8_t q = 0;  // keys past N: no term
-        if (j0 + kj < n) {
-          float v;
-          if (!fast) {
-            const float prob = __fdiv_rn(expf(__fsub_rn(s[i][j], m[i])), l[i]);
-            v = __fadd_rn(__fdiv_rn(prob, p.sp), p.zp_pf);
-          } else {
-            const float e = shift ? exp2f(fminf(fmaxf(s[i][j], -120.f), 80.f))
-                                  : exp2f(__fsub_rn(s[i][j], m[i]));
-            v = __fadd_rn(__fmul_rn(e, rcp[i]), p.zp_pf);
+      for (int i = 0; i < 2; ++i) {
+        const int kj = 32 * kh + 8 * nt + 2 * tq;
+        int pq[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          pq[c] = 0;  // keys past N: no term
+          if (j0 + kj + c < n) {
+            const float e = hs_exp<MODE>(s[nt][2 * i + c], m[i]);
+            const float x =
+                fast ? __fadd_rn(__fmul_rn(e, rcp[i]), p.zp_pf)
+                     : __fadd_rn(div_rn(div_rn(e, l[i], rl[i]), p.sp, rsp),
+                                 p.zp_pf);
+            pq[c] = __float2int_rn(clip(x));
           }
-          q = (int8_t)__float2int_rn(clip_prob(v, p, need_lo, need_hi));
         }
-        prow[kj] = q;
+        psum[i] += pq[0] + pq[1];
+        *reinterpret_cast<uint16_t*>(&t.u.pv.p[(ra + 8 * i) * VP + kj]) =
+            (uint16_t)((pq[0] & 0xff) | ((pq[1] & 0xff) << 8));
+      }
+    __syncthreads();
+    if (tid >= 128 && tid < 128 + D) {  // the tile's sum of v per head dim
+      const int* row =
+          reinterpret_cast<const int*>(&t.u.pv.vt[(tid - 128) * VP]);
+#pragma unroll
+      for (int w = 0; w < BK / 4; ++w) vsum = __dp4a(row[w], kOnes, vsum);
+    }
+#pragma unroll
+    for (int kc = 0; kc < BK / 32; ++kc) {
+      uint32_t pa[4];
+      ldsm_x4(pa, &t.u.pv.p[(16 * rg + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                VP + 32 * kc + 16 * (lane >> 4)]);
+      const int byte = 32 * kc + 16 * ((lane >> 3) & 1);
+      if constexpr (NTV == 1) {
+        uint32_t bb[2];
+        ldsm_x2(bb, &t.u.pv.vt[(kh * (D / 2) + (lane & 7)) * VP + byte]);
+        mma_s8(ctx[0], pa, bb[0], bb[1]);
+      } else {
+#pragma unroll
+        for (int np = 0; np < NTV / 2; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(bb, &t.u.pv.vt[(kh * (D / 2) + 16 * np + (lane & 7) +
+                                  8 * (lane >> 4)) * VP + byte]);
+          mma_s8(ctx[2 * np], pa, bb[0], bb[1]);
+          mma_s8(ctx[2 * np + 1], pa, bb[2], bb[3]);
+        }
       }
     }
     __syncthreads();
-#pragma unroll 4
-    for (int w = 0; w < BK / 4; ++w) {
-      int pv[RPT], vv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = t.p[ty * RPT + i][w];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) vv[c] = t.vt[tx + 16 * c][w];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        psum[i] = __dp4a(pv[i], kOnes, psum[i]);
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = __dp4a(pv[i], vv[c], acc[i][c]);
-      }
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) vsum[c] = __dp4a(vv[c], kOnes, vsum[c]);
-    }
-  }
+    if (more) store_vt<D>(t.u.pv.vt, fv, tid);
+  });
 
   // epilogue: centred context, dequantize, optional requantize
+  if (tid >= 128 && tid < 128 + D) t.vsum[tid - 128] = vsum;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = r0 + ty * RPT + i;
+  for (int i = 0; i < 2; ++i) {
+    psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+    psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+    if (tq == 0) t.ps[kh][ra + 8 * i] = psum[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rows[i];
     if (row >= p.nq) continue;
+    const int ps = t.ps[0][ra + 8 * i] + t.ps[1][ra + 8 * i];
     const size_t o_row = q_base + (size_t)row * hd;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int d = tx + 16 * c;
-      const long long centred = (long long)acc[i][c] -
-                                (long long)p.zv * psum[i] -
-                                (long long)p.zp_p * vsum[c] +
-                                (long long)p.zp_p * p.zv * walked;
-      const float y = __fmul_rn(__int2float_rn((int)centred), p.c_out);
+    for (int nt = 0; nt < NTV; ++nt) {
+      const int d = kh * (D / 2) + 8 * nt + 2 * tq;
+      float y[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int centred = ctx[nt][2 * i + c] - p.zv * ps -
+                            p.zp_p * t.vsum[d + c] + p.zp_p * p.zv * walked;
+        y[c] = __fmul_rn(__int2float_rn(centred), p.c_out);
+      }
       if (p.out_int8) {
-        float yq = fast ? y : __fdiv_rn(y, p.res_scale);
-        if (p.has_res_zp) yq = __fadd_rn(yq, p.res_zp);
-        yq = fminf(fmaxf(yq, p.qmin), p.qmax);
-        static_cast<int8_t*>(out)[o_row + d] = (int8_t)__float2int_rn(yq);
+        int yq[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float z = fast ? y[c] : __fdiv_rn(y[c], p.res_scale);
+          if (p.has_res_zp) z = __fadd_rn(z, p.res_zp);
+          yq[c] = __float2int_rn(fminf(fmaxf(z, p.qmin), p.qmax));
+        }
+        *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(out) + o_row + d) =
+            (uint16_t)((yq[0] & 0xff) | ((yq[1] & 0xff) << 8));
       } else {
-        static_cast<float*>(out)[o_row + d] = y;
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o_row + d) =
+            make_float2(y[0], y[1]);
       }
     }
   }
 }
 
-template <int D>
+template <int D, bool BIAS, int MODE>
 cudaError_t launch(const int8_t* xq, const int8_t* xk, const int8_t* xv,
                    const float* bias, void* out, const HSParams& p,
                    cudaStream_t stream) {
   const dim3 grid((p.nq + BQ - 1) / BQ, p.H, p.B);
-  blockq_kernel<D><<<grid, kThreads, 0, stream>>>(xq, xk, xv, bias, out, p);
+  blockq_kernel<D, BIAS, MODE><<<grid, kThreads, 0, stream>>>(xq, xk, xv,
+                                                              bias, out, p);
   return cudaGetLastError();
+}
+
+// the instantiation of the call's score bias and softmax form
+template <int D, bool BIAS>
+cudaError_t launch_form(const int8_t* xq, const int8_t* xk, const int8_t* xv,
+                        const float* b, void* out, const HSParams& p,
+                        cudaStream_t s) {
+  if (!p.fast) return launch<D, BIAS, kExact>(xq, xk, xv, b, out, p, s);
+  if (!p.static_shift) return launch<D, BIAS, kFast>(xq, xk, xv, b, out, p, s);
+  return launch<D, BIAS, kShift>(xq, xk, xv, b, out, p, s);
+}
+
+template <int D>
+cudaError_t launch_d(const int8_t* xq, const int8_t* xk, const int8_t* xv,
+                     const float* b, void* out, const HSParams& p,
+                     cudaStream_t s) {
+  return p.has_bias ? launch_form<D, true>(xq, xk, xv, b, out, p, s)
+                    : launch_form<D, false>(xq, xk, xv, b, out, p, s);
 }
 
 }  // namespace
@@ -521,11 +629,12 @@ extern "C" int nq_attention_hs_blockq(const void* xq, const void* xk,
   const auto* b = static_cast<const float*>(bias);
   const auto s = static_cast<cudaStream_t>(stream);
   if (p.has_bias && !b) return (int)cudaErrorInvalidValue;
+  if (p.sum_tile < 1) return (int)cudaErrorInvalidValue;
   switch (p.D) {
-    case 16: return (int)launch<16>(q, k, v, b, out, p, s);
-    case 32: return (int)launch<32>(q, k, v, b, out, p, s);
-    case 64: return (int)launch<64>(q, k, v, b, out, p, s);
-    case 128: return (int)launch<128>(q, k, v, b, out, p, s);
+    case 16: return (int)launch_d<16>(q, k, v, b, out, p, s);
+    case 32: return (int)launch_d<32>(q, k, v, b, out, p, s);
+    case 64: return (int)launch_d<64>(q, k, v, b, out, p, s);
+    case 128: return (int)launch_d<128>(q, k, v, b, out, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -72,6 +72,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
 #include "torch_order.cuh"
 
 // Mirror of kernels/attention.py::_PlainParams.
@@ -90,7 +91,6 @@ constexpr int BK = 64;        // keys per tile
 constexpr int PAD = 16;       // bytes of pad per row of an int8 tile
 constexpr int VP = BK + PAD;  // row pitch of the v^T and p tiles (bytes)
 constexpr int EP = BK + 4;    // row pitch of the exp tile (floats)
-constexpr int kOnes = 0x01010101;
 
 template <int D>
 struct Tiles {
@@ -120,61 +120,6 @@ struct Fetch {
   static constexpr int NB = (D * BK / 16 + kThreads - 1) / kThreads;
   uint32_t x[NB][4];
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 32, row) * b (32 x 8, col), s8 operands, s32 sums
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// y[b] byte a = x[a] byte b: a 4 x 4 byte block transposed
-__device__ __forceinline__ void transpose4(const uint32_t (&x)[4],
-                                           uint32_t (&y)[4]) {
-  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140);
-  const uint32_t t1 = __byte_perm(x[2], x[3], 0x5140);
-  const uint32_t t2 = __byte_perm(x[0], x[1], 0x7362);
-  const uint32_t t3 = __byte_perm(x[2], x[3], 0x7362);
-  y[0] = __byte_perm(t0, t1, 0x5410);
-  y[1] = __byte_perm(t0, t1, 0x7632);
-  y[2] = __byte_perm(t2, t3, 0x5410);
-  y[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// IEEE a / b rounded to nearest (what __fdiv_rn returns), from y = RN(1/b)
-// (__frcp_rn, once per divisor): q0 = RN(a y) lies within 1.5 ulp of a/b;
-// one residual step (r = a - b q, exact with an fma) makes it faithful,
-// and a second one then gives the correctly rounded quotient (Markstein's
-// theorem: y within half an ulp of 1/b, q within one ulp of a/b). It holds
-// where a/b is a normal number. The kernel divides e in [0, 1] by a row
-// sum in [1, N] and a probability in [0, 1] by sp; a quotient below the
-// normal range becomes a quantized probability of exactly zp_p whatever
-// its last bit, so the quantized probabilities are those of __fdiv_rn.
-__device__ __forceinline__ float div_rn(float a, float b, float y) {
-  float q = __fmul_rn(a, y);
-  q = __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
-  return __fmaf_rn(__fmaf_rn(-b, q, a), y, q);
-}
 
 // the thread's blocks of the key tile at j0 from k^T (D rows of N keys;
 // zero keys past N): block idx = 4 keys 4kb.. x 4 dims 4db..

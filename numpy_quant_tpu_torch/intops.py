@@ -7,9 +7,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# _int_mm's CUDA limits: more than 16 rows, K and N multiples of 8
+# _int_mm's CUDA limits: more than 16 rows, K and N multiples of 8; and
+# cuBLASLt's int8 kernels refuse (CUBLAS_STATUS_NOT_SUPPORTED) a product
+# with K below 128 and N from 32 on unless M is a multiple of 32 (swept on
+# an H100 80GB HBM3: chip_smoke.py's check_int_matmul)
 _INT_MM_MIN_ROWS = 17
 _INT_MM_ALIGN = 8
+_INT_MM_SHORT_K, _INT_MM_WIDE_N, _INT_MM_ROW_ALIGN = 128, 32, 32
 
 
 def qrange(bit_width: int) -> tuple[float, float]:
@@ -42,12 +46,25 @@ def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, pad)
 
 
+def int_mm_shape(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """The zero-padded (M, K, N) at which ``int_matmul`` runs an [M, K] @
+    [K, N] product on the card: K and N to multiples of 8, M to at least
+    17 rows and, for K < 128 with N >= 32, to a multiple of 32."""
+    kp = -(-k // _INT_MM_ALIGN) * _INT_MM_ALIGN
+    np_ = -(-n // _INT_MM_ALIGN) * _INT_MM_ALIGN
+    mp = max(m, _INT_MM_MIN_ROWS)
+    if kp < _INT_MM_SHORT_K and np_ >= _INT_MM_WIDE_N:
+        mp = -(-mp // _INT_MM_ROW_ALIGN) * _INT_MM_ROW_ALIGN
+    return mp, kp, np_
+
+
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int32 product of integer tensors holding int8 values.
 
     A 2-D rhs runs as ONE ``torch._int_mm`` over the flattened lhs rows.
-    On CUDA the operands are zero-padded to _int_mm's limits (exact:
-    zero rows and columns add nothing) and the result is sliced back.
+    On CUDA the operands are zero-padded to the shape :func:`int_mm_shape`
+    gives (exact: zero rows and columns add nothing) and the result is
+    sliced back.
     A batched rhs (the unfused attention's score/context products) runs
     as a float64 product, exact for int8 operands at any K below 2^38.
     """
@@ -58,9 +75,8 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         b2 = b.to(torch.int8)
         m = a2.shape[0]
         if a2.is_cuda:
-            kp = -(-k // _INT_MM_ALIGN) * _INT_MM_ALIGN
-            np_ = -(-n // _INT_MM_ALIGN) * _INT_MM_ALIGN
-            a2 = _pad_to(_pad_to(a2, 1, kp), 0, max(m, _INT_MM_MIN_ROWS))
+            mp, kp, np_ = int_mm_shape(m, k, n)
+            a2 = _pad_to(_pad_to(a2, 1, kp), 0, mp)
             b2 = _pad_to(_pad_to(b2, 0, kp), 1, np_)
         y = torch._int_mm(a2.contiguous(), b2.contiguous())[:m, :n]
         return y.reshape(*lead, n)

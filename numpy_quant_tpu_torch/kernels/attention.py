@@ -44,7 +44,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import load
+from .build import load, sm_count
 
 KERNEL_DIMS = (16, 32, 64, 128)  # head dims the kernels are built for
 _MAX_SMEM = 232448              # bytes of shared memory a block may use
@@ -69,13 +69,12 @@ class _PlainParams(ctypes.Structure):
 
 
 class _HSParams(ctypes.Structure):
-    """Mirror of ``HSParams`` in csrc/attention_hs.cu and
-    csrc/attention_hs_blockq.cu."""
+    """Mirror of ``HSParams`` in csrc/attention_common.cuh."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "B", "nq", "N", "H", "D", "zq", "zk", "zv", "zp_p", "fast",
         "static_shift", "need_lo", "need_hi", "out_int8", "has_res_zp",
         "causal", "window", "skip", "has_bias", "sum_vec", "sum_lanes",
-        "sum_tile")] \
+        "sum_tile", "warps", "passes", "kv_both")] \
         + [(name, ctypes.c_float) for name in (
             "c_score", "scaling", "czq", "base", "sp", "zp_pf", "c_out",
             "res_scale", "res_zp", "qmin", "qmax", "mask")]
@@ -83,6 +82,91 @@ class _HSParams(ctypes.Structure):
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+# -- launch plans of the head-split kernels ----------------------------------
+
+HS_SMS = 132  # SMs of an H100 SXM: the plan's default card
+HS_SM_SMEM = 233472  # shared memory of one SM: 228 KiB, 1 KiB of it per block
+HS_X = 6 * 16 * 4  # a row group's exchange: row maxima, sums, pq sums (bytes)
+# (warps, K and V side by side) in the monolithic kernel's order of choice:
+# the exact form runs a warp pair per row group, the fast forms one warp
+_HS_FORMS = {True: ((8, True), (4, True), (8, False), (4, False), (2, True),
+                    (2, False)),
+             False: ((4, True), (2, True), (4, False), (2, False), (1, True),
+                     (1, False))}
+
+
+def hs_smem_bytes(n: int, d: int, warps: int, kv_both: bool,
+                  exact: bool) -> int:
+    """Dynamic shared memory of ``csrc/attention_hs.cu`` (its ``Layout``):
+    K [Np][max(D, 32) + 16] and V^T [D][Np + 16] int8 (Np = N padded to 32
+    keys), side by side or in one region they take in turns; per row group
+    (a warp pair on the exact form, one warp on the fast ones) a [16][Np +
+    8] f32 row buffer (exact form only), a [16][Np + 16] int8 probability
+    buffer and HS_X bytes of exchange; the keys' score terms [Np] and v
+    sums [D] (32-bit)."""
+    np_ = _round_up(max(int(n), 1), 32)
+    kbytes = np_ * (max(d, 32) + 16)
+    vbytes = d * (np_ + 16)
+    kv = kbytes + vbytes if kv_both else max(kbytes, vbytes)
+    groups = warps // 2 if exact else warps
+    rows = 16 * (np_ + 8) * 4 if exact else 0
+    return _round_up(kv, 16) + groups * (rows + 16 * (np_ + 16) + HS_X) \
+        + 4 * (np_ + d)
+
+
+def hs_plan(nq: int, n: int, d: int, batch_heads: int,
+            sms: int = HS_SMS, exact: bool = True) -> dict:
+    """The monolithic kernel's launch for the exact or a fast form:
+    ``warps`` (a row group of 16 query rows per warp pair on the exact
+    form, per warp on the fast ones), ``kv_both`` (K and V staged side by
+    side, else in turns) and ``passes`` (row groups per group of warps),
+    so a CTA covers 16 * groups * passes query rows of one (batch row,
+    head). The first form in _HS_FORMS whose shared memory fits one block
+    (warps past the last row group only help stage K and V: narrow q);
+    and as many passes as still give every SM twice the CTAs it holds at
+    once (by shared memory, and by registers: 16 warps of 128), so that K
+    and V are staged once per (batch row, head) where the card stays full
+    (one pass where K and V take turns). Raises when no form fits."""
+    rows = max(1, -(-int(nq) // 16))
+    for warps, both in _HS_FORMS[exact]:
+        if hs_smem_bytes(n, d, warps, both, exact) <= _MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"N={n} keys at head dim {d} exceed the shared "
+                         "memory of one block")
+    groups = warps // (2 if exact else 1)
+    smem = hs_smem_bytes(n, d, warps, both, exact)
+    passes = 1
+    if both:
+        held = max(1, min(HS_SM_SMEM // (smem + 1024), 16 // warps))
+        most = -(-rows // groups)
+        while passes < most and batch_heads * -(-rows // (
+                groups * (passes + 1))) >= 2 * sms * held:
+            passes += 1
+    return {"warps": warps, "passes": passes, "kv_both": both,
+            "smem": smem,
+            "grid": (-(-int(nq) // (16 * groups * passes)), batch_heads)}
+
+
+SOFTMAX_FORMS = ("exact", "fast", "shift")  # the kernels' MODE template
+
+
+def hs_form(d: int, has_bias: bool, softmax: str) -> str:
+    """The template instantiation of a head-split kernel a call launches:
+    its head dim, the score bias compiled in or out, and the softmax form
+    (exact; fast; fast with the static score_max shift)."""
+    return f"d{d}" + ("+bias" if has_bias else "") + f":{softmax}"
+
+
+def softmax_form(fast: bool, score_max) -> str:
+    """The softmax form of a call's ``fast`` and ``score_max``."""
+    return "exact" if not fast else "fast" if score_max is None else "shift"
+
+
+HS_FORMS = tuple(hs_form(d, bias, sm) for d in KERNEL_DIMS
+                 for bias in (False, True) for sm in SOFTMAX_FORMS)
 
 
 def plain_tile(n: int) -> int:
@@ -354,13 +438,14 @@ def _launch_checks(xq, xk, xv, num_heads, name):
 
 
 def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
-            skip: bool = False, sum_tile: int | None = None) -> torch.Tensor:
+            skip: bool = False, sum_tile: int | None = None,
+            plan: dict | None = None) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on the current stream with the wrapper's
     keyword arguments ``kw`` (its ``score_bias`` already in the form's
     domain) and their constants ``c``; counts the launch in
     ``wrapper.launches``. ``sum_tile`` is the plain version's q tile rows
     (default: all rows), which set each exact row's alignment in torch's
-    sum order."""
+    sum order; ``plan`` the monolithic kernel's :func:`hs_plan`."""
     out = torch.empty(xq.shape, device=xq.device,
                       dtype=torch.float32 if kw["out_requant"] is None
                       else torch.int8)
@@ -381,7 +466,10 @@ def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
         causal=int(kw["causal_mask_val"] is not None),
         window=0 if window is None else int(window), skip=int(skip),
         has_bias=int(bias is not None), sum_vec=int(vec), sum_lanes=lanes,
-        sum_tile=max(1, int(sum_tile or nq)), c_score=c["c_score"],
+        sum_tile=max(1, int(sum_tile or nq)),
+        warps=plan["warps"] if plan else 0,
+        passes=plan["passes"] if plan else 0,
+        kv_both=int(plan["kv_both"]) if plan else 0, c_score=c["c_score"],
         scaling=c["scaling"], czq=c["czq"],
         base=c["base"], sp=c["sp"], zp_pf=c["zp_pf"], c_out=c["c_out"],
         res_scale=c["res_scale"],
@@ -395,6 +483,8 @@ def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     wrapper.launches += 1
+    wrapper.launches_by_form[hs_form(
+        d, bias is not None, softmax_form(kw["fast"], kw["score_max"]))] += 1
     return out
 
 
@@ -439,6 +529,7 @@ def fused_attention_hs(xq, xk, xv, *, num_heads: int, scaling: float,
 
 
 fused_attention_hs.launches = 0  # launches of the monolithic kernel
+fused_attention_hs.launches_by_form = dict.fromkeys(HS_FORMS, 0)
 
 
 def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
@@ -463,15 +554,13 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
               score_bias=score_bias)
     if xq.device.type == "cpu":
         return fused_attention_hs_reference(xq, xk, xv, **kw)
-    n = xk.shape[1]
     d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs")
-    if _library("attention_hs", _HSParams).nq_attention_hs_smem_bytes(n, d) \
-            > _MAX_SMEM:
-        raise ValueError(f"N={n} keys at head dim {d} exceed the shared "
-                         "memory of one block")
+    plan = hs_plan(xq.shape[1], xk.shape[1], d, xq.shape[0] * num_heads,
+                   sm_count(xq.device.index or 0), exact=not fast)
     c = _constants(**kw)
     kw["score_bias"] = _kernel_bias(score_bias, fast)
-    return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d, c, kw)
+    return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d, c, kw,
+                   plan=plan)
 
 
 def skips_masked_tiles(d: int, **kw) -> bool:
@@ -539,6 +628,7 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
 
 
 fused_attention_hs_blockq.launches = 0
+fused_attention_hs_blockq.launches_by_form = dict.fromkeys(HS_FORMS, 0)
 
 
 # -- torch's CUDA row-sum order ---------------------------------------------
@@ -801,8 +891,7 @@ def _library(name: str, params: type[ctypes.Structure]) -> ctypes.CDLL:
                                                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         if name == "attention_hs":
-            lib.nq_attention_hs_smem_bytes.argtypes = [ctypes.c_int,
-                                                       ctypes.c_int]
+            lib.nq_attention_hs_smem_bytes.argtypes = [ctypes.c_int] * 5
             lib.nq_attention_hs_smem_bytes.restype = ctypes.c_longlong
         lib._nq_typed = True
     return lib

@@ -37,13 +37,12 @@ another order than the plain version's, so the two agree to rounding.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from ..intops import int_matmul, qrange
-from .build import load
+from .build import load, sm_count
 from .pack import unpack_bitplanes, unpack_splitk
 
 _X_TYPES = {torch.int8: 0, torch.int32: 1, torch.float32: 2}
@@ -292,7 +291,7 @@ def _launch(entry: str, x, payload, colsum, bias, w_scale_vec, *, bits,
         x = x.to(torch.int8)
     form = qmm_form(x.dtype, k, x.data_ptr())
     plan = qmm_plan(m, n, k, bits, "splitk" if entry == "nq_splitk_qmatmul"
-                    else "bitplanes", _sm_count(dev.index or 0))
+                    else "bitplanes", sm_count(dev.index or 0))
     # payload rows that can be read a word (4 columns) at a time
     w_vec = n % 4 == 0 and payload.data_ptr() % 4 == 0
     p = _QMMParams(
@@ -501,11 +500,6 @@ def splitk_wo_matmul_reference(x, packed, scale, *, bits: int,
     return y.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _wo_launch(x, packed, scalar, rows, gsz, bits: int) -> torch.Tensor:
     dev = x.device
     m, k = x.shape
@@ -515,7 +509,7 @@ def _wo_launch(x, packed, scalar, rows, gsz, bits: int) -> torch.Tensor:
         return out
     if -(-m // WO_TILE_M) > _MAX_GRID_Y:
         raise ValueError(f"M={m} rows exceed the kernel's grid")
-    plan = wo_plan(m, n, kr, bits, _sm_count(dev.index or 0))
+    plan = wo_plan(m, n, kr, bits, sm_count(dev.index or 0))
     x = x.contiguous()
     packed = packed.contiguous()
     scale_rows = 0 if rows is None else rows.shape[0]

@@ -155,6 +155,50 @@ def test_int_matmul_exact(shape):
         y.numpy(), a.astype(np.int64) @ b.astype(np.int64))
 
 
+# (M, K, N) of int_matmul's 2-D products -> the zero-padded shape it hands
+# torch._int_mm on the card: [70, 48] @ [48, 40], which cuBLASLt refused
+# unpadded, and the paths' shapes (ViT-Base at B=96 and its narrowed last
+# layer at B=8, GPT-2 and TinyLlama scoring, T5-small, the reference MLP)
+INT_MM_SHAPES = [
+    ((70, 48, 40), (96, 48, 40)),
+    ((18912, 768, 768), (18912, 768, 768)),
+    ((18912, 768, 3072), (18912, 768, 3072)),
+    ((18912, 3072, 768), (18912, 3072, 768)),
+    ((8, 768, 768), (17, 768, 768)),
+    ((8, 768, 1000), (17, 768, 1000)),
+    ((8192, 768, 2304), (8192, 768, 2304)),
+    ((8192, 2048, 5632), (8192, 2048, 5632)),
+    ((8192, 5632, 2048), (8192, 5632, 2048)),
+    ((4096, 512, 2048), (4096, 512, 2048)),
+    ((1024, 2048, 512), (1024, 2048, 512)),
+    ((1000, 2, 5), (1000, 8, 8)),
+    ((1000, 5, 2), (1000, 8, 8)),
+    ((17, 120, 32), (32, 120, 32)),
+    ((131, 8, 128), (160, 8, 128)),
+    ((33, 127, 31), (33, 128, 32)),
+]
+
+
+@pytest.mark.parametrize("shape,padded", INT_MM_SHAPES)
+def test_int_mm_padding(shape, padded):
+    """The padding rule (intops.int_mm_shape), and the product over the
+    zero-padded operands sliced back equals the unpadded one."""
+    from numpy_quant_tpu_torch import intops
+    assert intops.int_mm_shape(*shape) == padded
+    m, k, n = shape
+    if m * k * n > 1 << 20:
+        return
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, size=(k, n)).astype(np.int8))
+    mp, kp, np_ = padded
+    ap = intops._pad_to(intops._pad_to(a, 1, kp), 0, mp).long()
+    bp = intops._pad_to(intops._pad_to(b, 0, kp), 1, np_).long()
+    assert ap.shape == (mp, kp) and bp.shape == (kp, np_)
+    np.testing.assert_array_equal((ap @ bp)[:m, :n].numpy(),
+                                  (a.long() @ b.long()).numpy())
+
+
 @pytest.mark.parametrize("batched_rhs", [False, True])
 def test_int_matmul_batched_exact(batched_rhs):
     rng = np.random.default_rng(7 + batched_rhs)

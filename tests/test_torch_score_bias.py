@@ -189,6 +189,25 @@ def test_bias_clause_answers_as_jax(n, want):
     assert not TA.blockwise(n, None, nq=n)
 
 
+@pytest.mark.parametrize("heads", [1, 8, 12])
+@pytest.mark.parametrize("d", TA.KERNEL_DIMS)
+def test_biased_calls_pick_a_bias_instantiation_that_fits(d, heads):
+    """Every biased call (nq == N) that the bias clause leaves on the
+    monolithic kernel gets a plan within one block's shared memory in both
+    softmax forms, and launches the instantiation with the bias compiled
+    in; the same call without a bias takes the bias-free one."""
+    for n in range(1, 897):
+        mono = not TA.blockwise(n, None, nq=n, bias_heads=heads)
+        if mono:
+            for exact in (True, False):
+                plan = TA.hs_plan(n, n, d, 8 * heads, exact=exact)
+                assert plan["smem"] <= 232448
+    for sm in TA.SOFTMAX_FORMS:
+        assert TA.hs_form(d, True, sm) != TA.hs_form(d, False, sm)
+        assert {TA.hs_form(d, b, sm) for b in (True, False)} \
+            <= set(TA.HS_FORMS)
+
+
 def test_bias_needs_every_query_row():
     """A bias indexes q rows by absolute position: narrow q with a bias
     raises (JAX asserts nq == N), as does a bias of the wrong shape."""

@@ -193,3 +193,59 @@ def test_streamed_order_equals_torch_order(n):
         if ids:
             want = TA.torch_order_sum(row[None], row_ids=ids[:1])[0]
             assert got == want, (n, shift)
+
+
+def _hs_warp_rows(plan: dict, nq: int):
+    """The monolithic kernel's exact row sums by warp (its row-group walk
+    in csrc/attention_hs.cu): ((CTA, pass, warp), rows) for every warp
+    that sums query rows under an exact form's ``plan``
+    (kernels/attention.py::hs_plan). Warp pair w of CTA x takes row group
+    (x * passes + pass) * pairs + w, 16 rows; its warp kh sums rows 8
+    kh.."""
+    pairs, passes = plan["warps"] // 2, plan["passes"]
+    for x in range(plan["grid"][0]):
+        for pas in range(passes):
+            for w in range(plan["warps"]):
+                r0 = 16 * ((x * passes + pas) * pairs + w // 2) + 8 * (w % 2)
+                if r0 < nq:
+                    yield (x, pas, w), range(r0, min(r0 + 8, nq))
+
+
+@pytest.mark.parametrize("nq,n,d,bh", [(197, 197, 64, 96 * 12),
+                                       (197, 197, 64, 8 * 12),
+                                       (1, 197, 64, 12), (128, 512, 64, 64),
+                                       (1000, 1000, 64, 4),
+                                       (300, 896, 16, 24)])
+def test_monolithic_warps_own_every_row_once(nq, n, d, bh):
+    """The kernel's row-group walk (a warp pair per 16 rows, each warp
+    summing 8 of them) gives every query row to exactly one warp."""
+    plan = TA.hs_plan(nq, n, d, bh)
+    seen = np.zeros(nq, np.int64)
+    for (cta, pas, warp), rows in _hs_warp_rows(plan, nq):
+        assert cta < plan["grid"][0] and pas < plan["passes"]
+        assert warp < plan["warps"] and 0 < len(rows) <= 8
+        seen[list(rows)] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b,h,nq,n", [(2, 3, 197, 197), (2, 2, 1, 197),
+                                      (1, 3, 128, 128), (1, 2, 128, 512),
+                                      (1, 2, 50, 50), (1, 3, 127, 130)])
+def test_monolithic_rows_sum_in_torch_order(b, h, nq, n):
+    """The monolithic kernel's exact row sums replayed by its row-to-warp
+    walk (_hs_warp_rows under kernels/attention.py::hs_plan): the warp
+    owning query row r of head (bb, hh) sums it alone, as one warp of
+    Reduce.cuh does, at the row's misalignment in the unfused [B, H, nq,
+    N] exp tensor, ((bb * H + hh) * nq + r) * N % 4; every row so equals
+    torch_order_sum of that tensor's rows."""
+    vec, lanes = TA.sum_order(n)
+    x = np.random.default_rng(n + nq).random((b * h * nq, n), dtype=F32)
+    want = TA.torch_order_sum(x)
+    plan = TA.hs_plan(nq, n, 64, b * h)
+    for bb, hh in np.ndindex(b, h):
+        for _, rows in _hs_warp_rows(plan, nq):
+            for r in rows:
+                flat = (bb * h + hh) * nq + r
+                got = _reduce_cuh_row(x[flat], (flat * n) % 4 if vec else 0,
+                                      lanes, vec)
+                assert got == want[flat], (bb, hh, r)
