@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's int8 ViT-Base, weight-only GPT-2 decode, int8
 GPT-2 full-context scoring, int8 TinyLlama-1.1B scoring, int8 T5-small
-encoder-decoder scoring, W8A16 ViT-Base and 1-16-bit MLP paths on one
-NVIDIA GPU.
+encoder-decoder scoring, W8A16 ViT-Base, 1-16-bit MLP and TinyLlama-1.1B
+decode and prefill paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -140,6 +140,32 @@ Phases, one line each (any failure raises and the script exits non-zero):
      bits; (e) ViT-Base W8A16 (16-bit activations, 8-bit weights) in f32
      at B=8 after optimize(): no fused attention (JAX's reason), closer to
      the float logits than int8, images/s, idle share, peak memory.
+ 15. TinyLlama-1.1B decode and prefill at full width and depth (the
+     weights of phase 11, shared): (f) first the kernels at the path's new
+     shapes against their plain versions and timed -- splitk_wo_matmul at
+     M = 8, W4 g=128 for 2048 -> 2048, 256, 5632, 32000 and 5632 -> 2048
+     (f32, bf16, cold L2, its launch plan, beside torch.matmul on the
+     dequantized weight), quantize/dequantize at the int8 cache write
+     [8, 4, 1, 64], DecodeAttention's cache probabilities [8, 32, 1, 2048]
+     (a strided slice) and cache fake-quant [8, 32, 2048, 64] (bit for
+     bit), fused_attention at BH = 32, N = 512 causal (no flipped block);
+     (a) llama_decode_step(B=8, cache 2048) -> Model.from_onnx ->
+     decode_calibration over a 32-id prompt -> merged stats ->
+     quantize(int8) twice, one optimize()d (22 DecodeAttention, no
+     failure); (e) the float prefill (P=32) against the calibration caches;
+     then quantize_weights(4, group_size=128) of the float step (155
+     weights); (b, c) greedy decodes of 32 + 32 tokens in f32 and bf16:
+     int8 unfused (cut to 32 + 8), int8 fused with a float and with the
+     int8 cache, W4 under "kernel" and "unpack", each the median of 3 taken
+     in turns: tokens/s, ms/step, aten calls and device busy time per step
+     (one profiled 2-step decode), idle share, quantize/dequantize and
+     splitk_wo_matmul launches per step (155 under "kernel", 0 under
+     "unpack"); KV-cache bytes (int8 one quarter of f32); int8-cache tokens
+     equal to float-cache tokens; fused vs unfused and "kernel" vs
+     "unpack" in f32 under phase 7's margin rule; (d) seeded sampling
+     reproducible, top_k=1 equal to greedy, ids in the vocabulary; (e) the
+     int8 prefill at P=512, B=1: 22 plain fusions, 22 fused_attention
+     launches, fused f32 equal to unfused bit for bit, tokens/s.
 Phase 3 also times the bf16 forward with the plain chains swapped in and
 profiles one forward. The last three lines are the kernels JSON line, the
 card's name and power limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
@@ -244,6 +270,18 @@ EW_SHAPE = (37, 29)  # 1,073 elements: no multiple of the 4-wide vector
 EW_LAYOUTS = ("contiguous", "offset", "transposed", "strided")
 EW_SCALE, EW_ZP = 0.0213, -7  # the timed calls' qparams
 MLP_ACC_RULE = 6  # the reference's rule: accuracy > 0.9 from 6 bits
+# TinyLlama-1.1B decode (phase 15): a server answering DEC_B requests, one
+# full-context cache each, DEC_PROMPT teacher-forced ids + DEC_NEW new ones
+DEC_B, DEC_LEN, DEC_PROMPT, DEC_NEW = 8, 2048, 32, 32
+DEC_REPS = 3  # timed decodes per mode, in turns
+DEC_UNFUSED_NEW = 8  # the unfused int8 runs: the prompt + 8 new tokens
+DEC_SAMPLED_NEW = 8  # new tokens of each sampled decode
+DEC_PROFILE_PROMPT, DEC_PROFILE_NEW = 1, 2  # the profiled decode: 2 steps
+# (K, N) of q/o, k/v, gate/up, down and the LM head
+LLAMA_WO_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                   (2048, 32000))
+LLAMA_WO_PER_STEP = 22 * 7 + 1  # 7 projections per layer, the head
+PREFILL_N = 512  # the int8 prefill (B=1); the float one runs DEC_PROMPT
 
 
 def say(phase: str, **fields) -> None:
@@ -755,14 +793,14 @@ def check_wo() -> float:
     return worst
 
 
-def time_wo(name: str) -> dict:
-    """The decode shapes at M = 8, W4 g=128, f32 and bf16, each first held
-    against the plain version: kernel, plain version, bound and the
-    library call (torch.matmul on the weight dequantized beforehand, in
-    x's type: 8x (f32) or 4x (bf16) the payload's bytes), every call
-    with a cold L2, as in a decode step whose weights (62 MB) outrun it;
-    each shape's launch plan (the cluster along K) beside it. Returns the
-    768->3072 numbers by dtype."""
+def time_wo(name: str, shapes=DECODE_SHAPES, path: str = "gpt2") -> dict:
+    """The decode shapes (K, N) at M = 8, W4 g=128, f32 and bf16, each
+    first held against the plain version: kernel, plain version, bound and
+    the library call (torch.matmul on the weight dequantized beforehand,
+    in x's type: 8x (f32) or 4x (bf16) the payload's bytes), every call
+    with a cold L2, as in a decode step whose weights outrun it (62 MB on
+    GPT-2, 551 MB on TinyLlama); each shape's launch plan (the cluster
+    along K) beside it. Returns the rows by dtype and "KxN"."""
     import torch
     from numpy_quant_tpu_torch.kernels import qmatmul as Q
     rates = peaks(name)
@@ -770,10 +808,11 @@ def time_wo(name: str) -> dict:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     res = {}
     for tname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for k, n in DECODE_SHAPES:
+        for k, n in shapes:
             x, payload, scale = wo_operands(4, GPT_B, k, n, k // WO_GROUP,
                                             seed=k + n, dtype=dtype)
-            err, _ = wo_compare(x, payload, scale, 4, f"decode {k}->{n}")
+            err, top = wo_compare(x, payload, scale, 4,
+                                  f"{path} decode {k}->{n}")
             w = Q.unpack_splitk(payload, 4, k).float()
             w_deq = (w * torch.repeat_interleave(scale, WO_GROUP, dim=0)) \
                 .to(dtype)
@@ -792,18 +831,19 @@ def time_wo(name: str) -> dict:
             t_ops = ops / rates[tname] * 1e3
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=err, max_err_over_max_y=err / top)
             plan = Q.wo_plan(GPT_B, n, payload.shape[0], 4, sms)
-            say("kernel-time", kernel="splitk_wo_matmul", bits=4,
+            say("kernel-time", kernel="splitk_wo_matmul", path=path, bits=4,
                 scale=f"g{WO_GROUP}", dtype=tname,
                 shape=f"M{GPT_B}xK{k}xN{n}", cluster=plan["cluster"],
                 blocks=plan["blocks"], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, library="matmul_on_dequantized_weight",
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                bytes=nbytes, ops=ops, max_abs_err=err, l2="cold",
+                bytes=nbytes, ops=ops, max_abs_err=err,
+                tolerance=f"{WO_TOL[tname]}*max|y|", l2="cold",
                 card=name.replace(" ", "_"))
-            if (k, n) == (768, 3072):
-                res[tname] = row
+            res.setdefault(tname, {})[f"{k}x{n}"] = row
     del flush
     return res
 
@@ -866,12 +906,15 @@ def decode_seconds(model, proto, prompt, runs: list, reps: int) -> dict:
     return seconds
 
 
-def compare_decodes(ids_a, rows_a, ids_b, rows_b) -> dict:
+def compare_decodes(ids_a, rows_a, ids_b, rows_b,
+                    prompt: int = GPT_PROMPT) -> dict:
     """Greedy runs a and b of one model: the largest |logit difference|
     over the steps whose inputs agree in both (a row's ids equal up to
-    the step), that over the teacher-forced steps, and the rows that part,
-    each with its top-2 margin (of run b) at the step where they part."""
+    the step), that over the teacher-forced steps (the first ``prompt``),
+    and the rows that part, each with its top-2 margin (of run b) at the
+    step where they part. A shorter run b is compared over its length."""
     import numpy as np
+    ids_a = ids_a[:, :ids_b.shape[1]]
     same_upto = np.cumprod(ids_a == ids_b, axis=1).astype(bool)
     max_diff = forced_diff = max_logit = 0.0
     for t, (ra, rb) in enumerate(zip(rows_a, rows_b)):
@@ -879,7 +922,7 @@ def compare_decodes(ids_a, rows_a, ids_b, rows_b) -> dict:
         live = same_upto[:, t]
         if live.any():
             max_diff = max(max_diff, float(diff[live].max()))
-        if t < GPT_PROMPT:  # inputs all from the prompt
+        if t < prompt:  # inputs all from the prompt
             forced_diff = max(forced_diff, float(diff.max()))
         max_logit = max(max_logit, float(rb.abs().max()))
     parted = []
@@ -1557,21 +1600,20 @@ def logit_parity(got, want) -> dict:
     return res
 
 
-def llama_phase(card: str) -> dict:
-    """Phase 11: TinyLlama-1.1B int8 scoring at full width and depth.
-    Returns the launch counts of the f32 fused forward at B=4."""
+def llama_phase(card: str, weights) -> dict:
+    """Phase 11: TinyLlama-1.1B int8 scoring at full width and depth on
+    ``weights`` (random, seed 0; shared with phase 15). Returns the launch
+    counts of the f32 fused forward at B=4."""
     import numpy as np
     import torch
     from numpy_quant_tpu_torch import Model, config
     from numpy_quant_tpu_torch.kernels import attention as A
     from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    llama_causal_lm,
-                                                    random_llama_weights)
+                                                    llama_causal_lm)
     cfg, n = TINYLLAMA_1_1B, LLAMA_SEQ
     layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
     t0 = time.perf_counter()
-    proto = llama_causal_lm(random_llama_weights(cfg, seed=0), cfg,
-                            batch_size=LLAMA_B, seq_len=n)
+    proto = llama_causal_lm(weights, cfg, batch_size=LLAMA_B, seq_len=n)
     model = Model.from_onnx(proto)
     wte = proto._wte
     del proto
@@ -2505,6 +2547,414 @@ def w8a16_phase(card: str, model, stats, x8, int8_logits) -> None:
     assert d16 < d8, (d16, d8)
 
 
+def ew_path_check(name: str) -> dict:
+    """Phase 15(f): quantize/dequantize at the decode path's new shapes,
+    each against its chain bit for bit, then timed beside the bytes
+    bound: the int8 cache write [8, 4, 1, 64] (a present, f32 -> int8),
+    DecodeAttention's cache probabilities p_past [8, 32, 1, 2048] (a
+    strided slice of the [.., 2049] softmax, f32 and bf16 -> int8 and
+    back) and its cache fake-quant [8, 32, 2048, 64] (f32 and bf16)."""
+    import torch
+    from numpy_quant_tpu_torch.kernels import elementwise as E
+    rate = peaks(name)["bytes"]
+    g = torch.Generator(device="cuda").manual_seed(15)
+    heads, n_kv, hd = 32, 4, 64
+    shapes = {"cache_write": ((DEC_B, n_kv, 1, hd), None),
+              "p_past": ((DEC_B, heads, 1, DEC_LEN + 1), DEC_LEN),
+              "cache_fake_quant": ((DEC_B, heads, DEC_LEN, hd), None)}
+    res, forms = {}, 0
+    for label, (shape, cut) in shapes.items():
+        full = torch.randn(shape, device="cuda", generator=g)
+        if label == "p_past":
+            full = torch.softmax(full * 4.0, dim=-1)
+        x32 = full[..., :cut] if cut else full
+        scale, zp = (1.0 / 255.0, -128) if label == "p_past" \
+            else (EW_SCALE, EW_ZP)
+        for fdt in (torch.float32, torch.bfloat16):
+            if label == "cache_write" and fdt == torch.bfloat16:
+                continue  # presents leave the graph as f32
+            x = x32.to(fdt) if cut is None else full.to(fdt)[..., :cut]
+            q = E.quantize(x, 8, scale, zp, torch.int8)
+            want = E.quantize_reference(x, 8, scale, zp, torch.int8)
+            assert same_bits(q, want), f"quantize {label} {fdt}"
+            deq = E.dequantize(q, scale, zp, torch.float32)
+            assert same_bits(deq, E.dequantize_reference(
+                q, scale, zp, torch.float32)), f"dequantize {label} {fdt}"
+            forms += 2
+            n = x.numel()
+            for kname, kernel, plain, nbytes in (
+                    ("quantize",
+                     lambda: E.quantize(x, 8, scale, zp, torch.int8),
+                     lambda: E.quantize_reference(x, 8, scale, zp,
+                                                  torch.int8),
+                     n * x.element_size() + n),
+                    ("dequantize",
+                     lambda: E.dequantize(q, scale, zp, torch.float32),
+                     lambda: E.dequantize_reference(q, scale, zp,
+                                                    torch.float32),
+                     n + 4 * n)):
+                row = dict(ms=cuda_ms(kernel, lead=True),
+                           plain_ms=cuda_ms(plain, lead=True),
+                           bound_ms=nbytes / rate * 1e3, bytes=nbytes)
+                key = f"{label}_{str(fdt)[6:]}"
+                res.setdefault(kname, {})[key] = row
+                say("kernel-time", kernel=kname, path="tinyllama_decode",
+                    label=label, shape="x".join(map(str, x.shape)),
+                    dtype=str(fdt)[6:], container="int8",
+                    contiguous=x.is_contiguous(), **row,
+                    card=name.replace(" ", "_"))
+        del full, x32
+    say("kernel-check", kernel="quantize,dequantize",
+        scope="tinyllama_decode_shapes", forms=forms, mismatched_forms=0)
+    return res
+
+
+def plain_decode_shape(name: str) -> dict:
+    """Phase 15(f): fused_attention at the int8 prefill's shape (BH = 32,
+    N = 512, D = 64, causal), int8 and f32 out, against its plain version
+    (no flipped block where torch sums its rows in the kernel's order),
+    then timed beside its bound and the plain version."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    rates = peaks(name)
+    bh, n, d = 32, PREFILL_N, 64
+    q, kt, v = plain_inputs(bh, n, d, seed=15)
+    in_order = exact_in_order(bh * A.plain_tile(n), n)
+    res = {}
+    for out, rq in (("int8", OUT_REQUANT), ("f32", None)):
+        kw = dict(QP, out_requant=rq, causal_mask_val=MASK_VAL)
+        flips, blocks, err = attention_diff(
+            A.fused_attention(q, kt, v, **kw),
+            A.fused_attention_reference(q, kt, v, **kw), 1, rq, QP,
+            f"plain BH{bh} N{n} prefill {out}")
+        assert not in_order or flips == 0, (out, flips, blocks)
+        ms = cuda_ms(lambda: A.fused_attention(q, kt, v, **kw), lead=True)
+        plain_ms = cuda_ms(lambda: A.fused_attention_reference(
+            q, kt, v, **kw), lead=True)
+        nbytes = 3 * q.numel() + q.numel() * (1 if rq else 4)
+        ops = 2 * 2 * bh * (n * (n + 1) // 2) * d
+        t_bytes = nbytes / rates["bytes"] * 1e3
+        t_ops = ops / rates["int8"] * 1e3
+        res[out] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                        flipped_blocks=f"{flips}/{blocks}",
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations")
+        say("kernel-time", kernel="fused_attention", path="tinyllama_prefill",
+            form="exact", shape=f"BH{bh}xN{n}xD{d}", causal=True, out=out,
+            in_torch_order=in_order, **res[out], bytes=nbytes, ops=ops,
+            library="none", card=name.replace(" ", "_"))
+    return res
+
+
+def float_prefill_check(weights, step, last, prompt, wte) -> None:
+    """Phase 15(e): the float prefill of the prompt (P = DEC_PROMPT, one
+    graph built for B=1 serving all DEC_B rows) against the caches that
+    decode_calibration built for it: slots 0..P-2 from its last input list,
+    slot P-1 from one more step. Bounded like phase 7's teacher-forced
+    logits, relative to max|cache|."""
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    llama_prefill)
+    t0 = time.perf_counter()
+    model = Model.from_onnx(llama_prefill(weights, TINYLLAMA_1_1B,
+                                          DEC_PROMPT))
+    outs = model([torch.from_numpy(wte[prompt]).cuda()], as_numpy=False)
+    res = step(last, as_numpy=False)
+    worst = rel = 0.0
+    for i in range(len(res) - 1):
+        cache = last[4 + i][:, :, :DEC_PROMPT].clone()
+        cache[:, :, DEC_PROMPT - 1:] = res[1 + i]
+        diff = float((outs[1 + i] - cache).abs().max())
+        worst = max(worst, diff)
+        rel = max(rel, diff / float(cache.abs().max()))
+    say("llama-prefill-f32", prefill=DEC_PROMPT, batch=DEC_B,
+        presents=len(res) - 1, max_abs_diff_vs_decode_caches=worst,
+        max_diff_over_max_cache=rel, tolerance=TEACHER_TOL,
+        seconds=time.perf_counter() - t0)
+    assert rel <= TEACHER_TOL, (worst, rel)
+
+
+def int8_prefill_phase(card: str, weights) -> dict:
+    """Phase 15(e): the int8 prefill at P = PREFILL_N, B=1: calibration on
+    2 sequences, quantize(int8), unfused forward, optimize() (22 plain
+    fusions), fused f32 forward equal to the unfused one bit for bit
+    wherever torch sums the rows in the kernel's order (probed) with 22
+    fused_attention launches; prefill tokens/s in f32 and bf16 (median of
+    3, in turns). Returns the fused forward's launch counts."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.kernels import attention as A
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    llama_prefill)
+    cfg, n = TINYLLAMA_1_1B, PREFILL_N
+    layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
+    t0 = time.perf_counter()
+    proto = llama_prefill(weights, cfg, n)
+    wte = proto._wte
+    model = Model.from_onnx(proto)
+    del proto
+    rng = np.random.default_rng(151)
+    calib = wte[rng.integers(0, vocab, size=(2, n))]
+    x = torch.from_numpy(wte[rng.integers(0, vocab, size=(1, n))]).cuda()
+    qmodel = model.quantize(bit_width=8, stats=model.calibration_stats([calib]))
+    del model
+
+    def forward():
+        return qmodel([x], as_numpy=False)
+
+    unfused = forward()
+    report = qmodel.optimize()
+    fused, counts = counted(forward)
+    equal = all(torch.equal(a, b) for a, b in zip(fused, unfused))
+    in_order = exact_in_order(cfg["num_attention_heads"] * A.plain_tile(n), n)
+    diff = max(float((a - b).abs().max()) for a, b in zip(fused, unfused))
+    say("llama-prefill-int8", prefill=n, batch=1,
+        fuse_attention=report["fuse_attention"],
+        plain_fusions=len(qmodel.fusion_report.get("plain_fusions", [])),
+        fuse_decode_attention=report["fuse_decode_attention"],
+        fusion_failures=len(report["fusion_failures"]),
+        fused_attention_launches=counts["fused_attention"],
+        outputs=len(fused), fused_equals_unfused_bitwise=equal,
+        max_abs_diff=diff, in_torch_order=in_order,
+        setup_seconds=time.perf_counter() - t0)
+    assert report["fuse_attention"] == layers, report
+    assert not report["fusion_failures"], report["fusion_failures"]
+    assert counts["fused_attention"] == layers, counts
+    assert others(counts) == layers, counts
+    assert all(bool(t.isfinite().all()) for t in fused)
+    assert not in_order or equal, "prefill: fused != unfused in torch order"
+    del fused, unfused
+    for m, runs in forward_seconds(forward, 3).items():
+        wall = statistics.median(runs)
+        say("llama-prefill-throughput", dtype=m, prefill=n, batch=1,
+            tokens_per_s=n / wall, ms_per_prefill=wall * 1e3,
+            ms_runs=",".join(f"{r * 1e3:.2f}" for r in runs),
+            card=card.replace(" ", "_"))
+    return counts
+
+
+def decode_profile(model, prompt, wte, rope, cache) -> dict:
+    """One profiled greedy decode of DEC_PROFILE_PROMPT + DEC_PROFILE_NEW
+    tokens (the step's cost does not depend on the position: every step
+    reads the whole cache): device busy time and aten calls per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from numpy_quant_tpu_torch.utils import generate_kv
+    steps = DEC_PROFILE_PROMPT + DEC_PROFILE_NEW - 1
+    short = prompt[:, :DEC_PROFILE_PROMPT]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        generate_kv(model, short, wte, None, DEC_PROFILE_NEW, rope=rope,
+                    kv_cache_dtype=cache)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    assert busy > 0, "the profiler saw no device time"
+    aten = sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("aten::"))
+    return dict(busy_ms_per_step=busy / steps, aten_calls_per_step=aten / steps)
+
+
+def cache_bytes(model, prompt, wte, rope, cache) -> int:
+    """Device bytes of the KV caches generate_kv hands the step model (one
+    step, seen by a wrapper on the model)."""
+    from numpy_quant_tpu_torch.utils import generate_kv
+    seen = []
+
+    class Spy:
+        def __getattr__(self, key):
+            return getattr(model, key)
+
+        def __call__(self, inputs, **kw):
+            seen.append(sum(t.numel() * t.element_size() for t in inputs[4:]))
+            return model(inputs, **kw)
+    generate_kv(Spy(), prompt[:, :1], wte, None, 1, rope=rope,
+                kv_cache_dtype=cache)
+    return seen[0]
+
+
+def llama_decode_phase(card: str, weights) -> dict:
+    """Phase 15: TinyLlama-1.1B decode at full width and depth. Returns
+    the launch counts and timings the kernels line reports."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    llama_decode_step)
+    from numpy_quant_tpu_torch.utils import (decode_calibration, generate_kv,
+                                             merge_calibration_stats)
+    cfg = TINYLLAMA_1_1B
+    layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
+    # (a) build, calibrate on the teacher-forced prompt, quantize, fuse
+    t0 = time.perf_counter()
+    proto = llama_decode_step(weights, cfg, batch_size=DEC_B,
+                              max_len=DEC_LEN)
+    wte, rope = proto._wte, proto._rope_tables
+    model = Model.from_onnx(proto)
+    del proto
+    t_build = time.perf_counter() - t0
+    prompt = np.random.default_rng(15).integers(
+        0, vocab, size=(DEC_B, DEC_PROMPT)).astype(np.int32)
+    batches = decode_calibration(model, prompt, wte, None, rope=rope)
+    stats = merge_calibration_stats(*[model.calibration_stats(b)
+                                      for b in batches])
+    last = batches[-1]
+    del batches
+    t_calib = time.perf_counter() - t0 - t_build
+    unfused = model.quantize(bit_width=8, stats=stats)
+    fused = model.quantize(bit_width=8, stats=stats)
+    report = fused.optimize()
+    n_dec = sum(nd.op == "DecodeAttention" for nd in fused.nodes)
+    say("llama-decode-setup", build_seconds=t_build,
+        calibration_seconds=t_calib, calibration_steps=DEC_PROMPT,
+        stats=len(stats), nodes_unfused=len(unfused.nodes),
+        nodes_fused=len(fused.nodes), decode_attention_nodes=n_dec,
+        fuse_attention=report["fuse_attention"],
+        int8_dataflow=report["int8_dataflow"],
+        fusion_failures=len(report["fusion_failures"]),
+        seconds=time.perf_counter() - t0)
+    assert report["fuse_decode_attention"] == n_dec == layers, report
+    assert not report["fusion_failures"], report["fusion_failures"]
+    # (e) the float prefill against the calibration caches
+    float_prefill_check(weights, model, last, prompt, wte)
+    del last
+    t0 = time.perf_counter()
+    converted = model.quantize_weights(bit_width=4, group_size=WO_GROUP)
+    say("llama-decode-w4", converted=converted,
+        seconds=time.perf_counter() - t0)
+    assert converted == LLAMA_WO_PER_STEP, converted
+    # mode: (model, kv cache dtype, packed execution)
+    modes = {"int8_unfused": (unfused, None, "unpack"),
+             "int8_fused": (fused, None, "unpack"),
+             "int8_fused_int8_cache": (fused, "int8", "unpack"),
+             "w4_kernel": (model, None, "kernel"),
+             "w4_unpack": (model, None, "unpack")}
+    runs = [(d, m) for d in ("f32", "bf16") for m in modes]
+    # the unfused int8 step is the slowest: its runs are cut short
+    new_tokens = {m: DEC_UNFUSED_NEW if m == "int8_unfused" else DEC_NEW
+                  for m in modes}
+    steps = {m: DEC_PROMPT + n - 1 for m, n in new_tokens.items()}
+
+    def decode(run, rows=None, new=None, **kw):
+        qm, cache, _ = modes[run[1]]
+        return generate_kv(qm, prompt, wte, None,
+                           new or new_tokens[run[1]], rope=rope,
+                           kv_cache_dtype=cache, step_logits=rows, **kw)
+
+    kv_bytes = {}
+    for run in runs:  # one step each: uploads the tables, warms up
+        with decode_mode(run[0], modes[run[1]][2]):
+            kv_bytes[run[1]] = cache_bytes(modes[run[1]][0], prompt, wte,
+                                           rope, modes[run[1]][1])
+    say("llama-decode-kv-cache", layers=layers, batch=DEC_B,
+        cache_len=DEC_LEN, kv_heads=cfg["num_key_value_heads"],
+        int8_cache_bytes=kv_bytes["int8_fused_int8_cache"],
+        f32_cache_bytes=kv_bytes["int8_fused"],
+        ratio=kv_bytes["int8_fused"] / kv_bytes["int8_fused_int8_cache"])
+    assert kv_bytes["int8_fused"] == 4 * kv_bytes["int8_fused_int8_cache"]
+    # (b), (c) greedy decodes of every mode, taken in turns
+    results, seconds = {}, {run: [] for run in runs}
+    for rep in range(DEC_REPS):
+        for run in (runs if rep % 2 == 0 else runs[::-1]):
+            with decode_mode(run[0], modes[run[1]][2]):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                if rep == 0:
+                    rows = []
+                    ids, counts = counted(lambda: decode(run, rows))
+                    results[run] = ids, rows, counts
+                else:
+                    decode(run)
+                torch.cuda.synchronize()
+                seconds[run].append(time.perf_counter() - start)
+    for run in runs:
+        with decode_mode(run[0], modes[run[1]][2]):
+            prof = decode_profile(modes[run[1]][0], prompt, wte, rope,
+                                  modes[run[1]][1])
+        ids, rows, counts = results[run]
+        wall = statistics.median(seconds[run])
+        wo = counts["splitk_wo_matmul"]
+        finite = all(bool(r.isfinite().all()) for r in rows)
+        new, n = new_tokens[run[1]], steps[run[1]]
+        say("llama-decode", dtype=run[0], mode=run[1], batch=DEC_B,
+            prompt=DEC_PROMPT, new_tokens=new, steps=n,
+            cut_short=new < DEC_NEW,
+            tokens_per_s=DEC_B * new / wall,
+            ms_per_step=wall / n * 1e3,
+            ms_per_step_runs=",".join(f"{t / n * 1e3:.2f}"
+                                      for t in seconds[run]),
+            aten_calls_per_step=prof["aten_calls_per_step"],
+            device_busy_ms_per_step=prof["busy_ms_per_step"],
+            idle_share=max(0.0, 1 - prof["busy_ms_per_step"]
+                           / (wall / n * 1e3)),
+            splitk_wo_launches_per_step=wo / n,
+            quantize_launches_per_step=counts["quantize"] / n,
+            dequantize_launches_per_step=counts["dequantize"] / n,
+            finite=finite, card=card.replace(" ", "_"))
+        assert ids.shape == (DEC_B, DEC_PROMPT + new), ids.shape
+        assert (ids[:, :DEC_PROMPT] == prompt).all() and finite, run
+        want_wo = LLAMA_WO_PER_STEP * n if run[1] == "w4_kernel" else 0
+        assert wo == want_wo and others(counts) == wo, (run, counts)
+    gen = slice(DEC_PROMPT, None)
+
+    def agree(a, b):
+        return f"{int((a[:, gen] == b[:, gen]).sum())}/{a[:, gen].size}"
+    for dtype in ("f32", "bf16"):
+        a = results[dtype, "int8_fused_int8_cache"][0]
+        b = results[dtype, "int8_fused"][0]
+        say("llama-decode-int8-cache", dtype=dtype,
+            int8_cache_equals_float_cache=bool(np.array_equal(a, b)))
+        assert np.array_equal(a, b), f"{dtype}: int8 cache != float cache"
+    for label, (ka, kb), tol in (
+            ("fused_vs_unfused", ("int8_fused", "int8_unfused"), None),
+            ("w4_kernel_vs_unpack", ("w4_kernel", "w4_unpack"), TEACHER_TOL)):
+        ids_a, rows_a, _ = results["f32", ka]
+        ids_b, rows_b, _ = results["f32", kb]
+        cmp = compare_decodes(ids_a, rows_a, ids_b, rows_b, DEC_PROMPT)
+        # where greedy rows part, the runs' logits at that step may differ
+        # by max_diff each, so the top-2 margin there is at most twice it
+        unexplained = [c for c in cmp["parted"] if c[2] > 2 * cmp["max_diff"]]
+        say("llama-decode-f32", compare=label,
+            tokens_equal=agree(ids_a[:, :ids_b.shape[1]], ids_b),
+            first_step_max_diff=float((rows_a[0] - rows_b[0]).abs().max()),
+            rows_equal=f"{DEC_B - len(cmp['parted'])}/{DEC_B}",
+            rows_parted_within_margin=len(cmp["parted"]) - len(unexplained),
+            parted=";".join(f"row{b}@{p}:margin{m:.3g}"
+                            for b, p, m in cmp["parted"]) or "none",
+            max_abs_logit_diff=cmp["max_diff"],
+            teacher_forced_max_diff=cmp["forced_diff"],
+            max_abs_logit=cmp["max_logit"])
+        assert not unexplained, (label, unexplained)
+        assert tol is None or cmp["forced_diff"] <= tol * cmp["max_logit"], cmp
+    for mode in modes:
+        say("llama-decode-bf16-vs-f32", mode=mode, tokens_equal=agree(
+            results["bf16", mode][0], results["f32", mode][0]))
+    # (d) sampling on the int8-cache server
+    run = ("f32", "int8_fused_int8_cache")
+    kw = dict(temperature=0.8, top_k=50, top_p=0.95, min_p=0.02,
+              repetition_penalty=1.1)
+    sampled = [decode(run, new=DEC_SAMPLED_NEW, generator=torch.Generator(
+        device="cuda").manual_seed(5), **kw) for _ in range(2)]
+    top1 = decode(run, new=DEC_SAMPLED_NEW, temperature=0.8, top_k=1,
+                  generator=torch.Generator(device="cuda").manual_seed(6))
+    greedy = results[run][0][:, :DEC_PROMPT + DEC_SAMPLED_NEW]
+    say("llama-decode-sampling", new_tokens=DEC_SAMPLED_NEW,
+        seeded_twice_equal=bool(np.array_equal(*sampled)),
+        in_vocab=bool(sampled[0].min() >= 0 and sampled[0].max() < vocab),
+        sampled_vs_greedy=agree(sampled[0][:, :greedy.shape[1]], greedy),
+        top_k_1_equals_greedy=bool(np.array_equal(top1, greedy)))
+    assert np.array_equal(*sampled) and np.array_equal(top1, greedy)
+    assert sampled[0].min() >= 0 and sampled[0].max() < vocab
+    del unfused, fused, model
+    return {"counts": {run[1]: results[run][2] for run in runs
+                       if run[0] == "f32"},
+            "steps": steps}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2694,7 +3144,7 @@ def main() -> int:
 
     # -- phase 6: the weight-only kernel against its plain version -----
     wo_worst = check_wo()
-    wo_timing = time_wo(name)
+    wo_timing = {t: rows["768x3072"] for t, rows in time_wo(name).items()}
 
     # -- phase 7: the weight-only GPT-2 decode path at full width ------
     wo_counts = decode_phase(card)
@@ -2718,7 +3168,13 @@ def main() -> int:
     plain_timing = time_plain(name)
 
     # -- phase 11: TinyLlama-1.1B int8 scoring at full context --------
-    llama_counts = llama_phase(card)
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    random_llama_weights)
+    t0 = time.perf_counter()
+    llama_weights = random_llama_weights(TINYLLAMA_1_1B, seed=0)
+    say("llama-weights", seconds=time.perf_counter() - t0,
+        bytes=sum(w.nbytes for w in llama_weights.values()))
+    llama_counts = llama_phase(card, llama_weights)
     main_launches["fused_attention"] = llama_counts["fused_attention"]
 
     # -- phase 12: the score-bias forms of the head-split kernels -----
@@ -2737,6 +3193,17 @@ def main() -> int:
     routing_phase(qmodel, x8, ew_launches, t5_cost)
     mlp_sweep_phase()
     w8a16_phase(card, model, stats, x8, fused)
+
+    # -- phase 15: TinyLlama-1.1B decode and prefill ------------------
+    t15 = time.perf_counter()
+    dec_wo = time_wo(name, LLAMA_WO_SHAPES, "tinyllama")
+    dec_ew = ew_path_check(name)
+    dec_plain = plain_decode_shape(name)
+    del model, qmodel, qmodels
+    decode = llama_decode_phase(card, llama_weights)
+    prefill_counts = int8_prefill_phase(card, llama_weights)
+    del llama_weights
+    say("llama-decode-phase", seconds=time.perf_counter() - t15)
     say("done", seconds=time.perf_counter() - t_start)
 
     def score_bias(kname: str) -> dict:
@@ -2777,7 +3244,11 @@ def main() -> int:
         "plain_ms": wo32["plain_ms"], "bound_ms": wo32["bound_ms"],
         "bound_by": wo32["bound_by"], "library_ms": wo32["library_ms"],
         "bf16": {key: wo16[key] for key in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}})
+                                            "bound_by", "library_ms")},
+        "tinyllama_decode": {
+            "launches_per_step": decode["counts"]["w4_kernel"][
+                "splitk_wo_matmul"] / decode["steps"]["w4_kernel"],
+            "shapes": dec_wo}})
     rows.append({
         "name": "fused_attention_hs_blockq", "route": "cuda",
         "source": "numpy_quant_tpu_torch/csrc/attention_hs_blockq.cu",
@@ -2796,7 +3267,10 @@ def main() -> int:
         "max_abs_err": plain_worst, "ms": plain_timing["ms"],
         "plain_ms": plain_timing["plain_ms"],
         "bound_ms": plain_timing["bound_ms"],
-        "bound_by": plain_timing["bound_by"], "library_ms": None})
+        "bound_by": plain_timing["bound_by"], "library_ms": None,
+        "tinyllama_prefill": {
+            "launches_per_prefill": prefill_counts["fused_attention"],
+            "shape": f"BH32xN{PREFILL_N}xD64", "by_out": dec_plain}})
     for kname, line in (("quantize", 39), ("dequantize", 64)):
         t = ew_timing[kname]
         rows.append({
@@ -2811,7 +3285,13 @@ def main() -> int:
             "variants_checked": ew_check["variants"][kname],
             "launches_per_forward": {p: c[kname]
                                      for p, c in ew_launches.items()},
-            "shapes": t["shapes"]})
+            "shapes": t["shapes"],
+            "tinyllama_decode": {
+                "launches_per_step": {
+                    mode: c[kname] / decode["steps"][mode]
+                    for mode, c in decode["counts"].items()},
+                "launches_per_int8_prefill": prefill_counts[kname],
+                "shapes": dec_ew[kname]}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,13 @@ this is run from:
   bit-planes) at ViT-Base's three packed shapes at batch 96 (M = 18,912;
   int8 x, f32 out) beside torch._int_mm on the unpacked weight plus the
   eager epilogue;
-- quantize and dequantize at ViT-Base's bf16 fc1 output at batch 96.
+- quantize and dequantize at ViT-Base's bf16 fc1 output at batch 96;
+- the TinyLlama-1.1B decode and prefill shapes: splitk_wo_matmul at M = 8,
+  W4 g=128 for 2048 -> 2048, 256, 5632, 32000 and 5632 -> 2048 (f32 and
+  bf16, cold L2), quantize/dequantize at the int8 cache write
+  [8, 4, 1, 64] and DecodeAttention's cache probabilities [8, 32, 1, 2048]
+  (a strided slice, f32 -> int8 and back), fused_attention at the int8
+  prefill's BH = 32, N = 512 (causal, int8 out).
 
 Each is the median of 20 CUDA-event timed calls (chip_smoke.py's helpers),
 the calls shorter than their Python wrapper behind a device sleep. Prints
@@ -82,6 +88,41 @@ def head_split_times(C, A) -> dict:
             res[f"t5_{label}_{mode}_ms"] = C.cuda_ms(
                 lambda: A.fused_attention_hs(q, k, v, **kw), lead=True)
         del q, k, v, bias
+    torch.cuda.synchronize()
+    return res
+
+
+def llama_decode_times(C, A, Q, E) -> dict:
+    """The kernels at the TinyLlama-1.1B decode and prefill shapes."""
+    import torch
+    res = {}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for k, n in C.LLAMA_WO_SHAPES:
+            x, pl, sc = C.wo_operands(4, C.DEC_B, k, n, k // C.WO_GROUP,
+                                      seed=k + n, dtype=dt)
+            res[f"wo_llama_{name}_{k}x{n}_ms"] = C.cuda_ms(
+                lambda: Q.splitk_wo_matmul(x, pl, sc, bits=4), flush=flush)
+            del x, pl, sc
+    del flush
+    g = torch.Generator(device="cuda").manual_seed(15)
+    present = torch.randn(C.DEC_B, 4, 1, 64, device="cuda", generator=g)
+    probs = torch.softmax(torch.randn(C.DEC_B, 32, 1, C.DEC_LEN + 1,
+                                      device="cuda", generator=g), dim=-1)
+    p_past = probs[..., :C.DEC_LEN]
+    q8 = E.quantize(p_past, 8, 1.0 / 255.0, -128, torch.int8)
+    for label, fn in (
+            ("quantize_cache_write", lambda: E.quantize(
+                present, 8, C.EW_SCALE, C.EW_ZP, torch.int8)),
+            ("quantize_p_past", lambda: E.quantize(
+                p_past, 8, 1.0 / 255.0, -128, torch.int8)),
+            ("dequantize_p_past", lambda: E.dequantize(
+                q8, 1.0 / 255.0, -128, torch.float32))):
+        res[f"{label}_ms"] = C.cuda_ms(fn, lead=True)
+    q, kt, v = C.plain_inputs(32, C.PREFILL_N, 64, seed=15)
+    kw = dict(C.QP, out_requant=C.OUT_REQUANT, causal_mask_val=C.MASK_VAL)
+    res["fused_attention_prefill_ms"] = C.cuda_ms(
+        lambda: A.fused_attention(q, kt, v, **kw), lead=True)
     torch.cuda.synchronize()
     return res
 
@@ -150,6 +191,7 @@ def main() -> int:
     res["dequantize_vit_fc1_bf16_ms"] = C.cuda_ms(
         lambda: E.dequantize(acc, C.EW_SCALE, zrow, torch.bfloat16),
         lead=True)
+    res.update(llama_decode_times(C, A, Q, E))
     print("[compare]", json.dumps(res), flush=True)
     return 0
 

@@ -421,6 +421,17 @@ class Model:
                       quantized_ops=quantized_ops, device=self.device,
                       container=container)
 
+    def fuse_decode_attention(self) -> int:
+        """Fuse KV-cache decode-step attention chains ([B, 1, H] query,
+        scores over [cache | current], slice/context) into single
+        DecodeAttention nodes: float dots with the cache dequantize fused
+        into the operands, no per-step zero-point correction sums over the
+        whole cache. Works on float models and QModels (ulp-equal there:
+        the dots run in float). Returns the number fused. See
+        passes/decode_attention.py."""
+        from .passes import fuse_decode_attention
+        return fuse_decode_attention(self)
+
     def quantize_weights(self, bit_width: int = 8, per_channel: bool = True,
                          pack: bool = None, group_size: int = None) -> int:
         """Weight-only quantization: replace 2-D float MatMul/Gemm weights
@@ -563,6 +574,11 @@ class QModel(Model):
 
     def _node_inputs(self, node: Node, data: dict[str, Tensor]) -> list[Tensor]:
         ins = []
+        if node.op == "DecodeAttention":
+            # raw tensors: the op replays the unfused chain's quantize and
+            # dequantize itself (ops/registry.py), so int8 caches stream in
+            # untouched
+            return [None if v is None else data[v.name] for v in node.inputs]
         if node.op in self.quantized_ops:
             # quantize float inputs on the fly ("TinyqQuant")
             for idx, v in enumerate(node.inputs):
@@ -686,9 +702,14 @@ class QModel(Model):
     def optimize(self, verbose: bool = False) -> dict:
         """Apply the graph passes that keep the executor's numerics:
         attention fusion, GELU fusion, dead-token elimination and early
-        int8 quantization. Returns a {pass: count} summary plus the
-        Softmaxes that did not fuse (node name, reason)."""
+        int8 quantization; decode-step graphs fuse their KV-cache attention
+        into DecodeAttention (ulp-equal: float dots). Returns a {pass:
+        count} summary plus the Softmaxes that did not fuse (node name,
+        reason)."""
         fused = self.fuse_attention()
+        # the [B, 1, H] KV-cache chain, which fuse_attention's
+        # full-sequence patterns reject
+        dec = self.fuse_decode_attention()
         gelu = self.fuse_gelu()
         narrowed = self.narrow_gather()
         planned = self.int8_dataflow()
@@ -696,6 +717,7 @@ class QModel(Model):
         if verbose:
             for name, reason in failures:
                 print(f"optimize: Softmax {name!r} not fused: {reason}")
-        return {"fuse_attention": fused, "fuse_gelu": gelu,
+        return {"fuse_attention": fused, "fuse_decode_attention": dec,
+                "fuse_gelu": gelu,
                 "narrow_gather": narrowed, "int8_dataflow": planned,
                 "fusion_failures": failures}

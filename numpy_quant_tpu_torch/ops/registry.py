@@ -1,15 +1,15 @@
 """ONNX operator implementations over the tensor layer (port of
 ``numpy_quant_tpu/ops/registry.py``), limited to the ops of the ViT
-classifier, the GPT causal-LM and decode graphs, the LLaMA causal-LM graph
-and the T5 encoder-decoder graphs, the three fused ops and weight-only
-MatMul/Gemm. Any other op raises ``NotImplementedError`` with its name."""
+classifier, the GPT causal-LM and decode graphs, the LLaMA causal-LM,
+decode and prefill graphs and the T5 encoder-decoder graphs, the four
+fused ops and weight-only MatMul/Gemm. Any other op raises ``NotImplementedError`` with its name."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .. import config
-from ..quantization import as_tensor
+from ..quantization import as_tensor, dequantize, quantize
 from ..tensor import (
     FTensor,
     ITensor,
@@ -162,6 +162,70 @@ def _fused_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
         return [QTensor(out, inputs[0].bit_width, np.float32(scale),
                         None if zp is None else np.int64(zp))]
     return [FTensor(out)]
+
+
+def _promoted(a: torch.Tensor, b: torch.Tensor):
+    """Both operands in their promoted float type (jnp's promotion;
+    torch.matmul takes one type)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
+    """Fused decode-step attention (passes/decode_attention.py): scores
+    over [cache | current], the scale/mask/bias epilogue, softmax and the
+    context, with the cache dequantize fused into the dot operands. Every
+    quantization the unfused executor applies is replayed with the same
+    calibrated params through quantization.quantize/dequantize (the hand
+    kernels on the card): fake-quant of q, the caches, the step key and
+    the cache probabilities, dequantize of int8 inputs; an accumulator
+    arriving at another width requantizes first, as the unfused executor
+    narrows it. The three dots are float products (torch.matmul; JAX's
+    jnp.einsum outside any kernel). The fake-quant values are float32, so
+    a quantized model's dots run in float32 in the bf16 serving mode too
+    (TF32 off); a float model's run in the data plane's dtype."""
+    q, kc, kh, vc, vh = inputs[:5]
+    extras = list(inputs[5:])
+    cache_len = int(attrs["cache_len"])
+    bw = attrs.get("bit_width")
+
+    def as_float(t, qp_key):
+        qp = attrs.get(qp_key)
+        if isinstance(t, QTensor):
+            if bw is not None and t.bit_width != bw and qp is not None:
+                t = t.requantize(bw, np.float32(qp[0]), qp[1])
+            return t.dequantize().data
+        if qp is None:
+            return t.data
+        scale = np.float32(qp[0])
+        return dequantize(quantize(t.data, bw, scale, qp[1],
+                                   container=torch.int8), scale, qp[1])
+
+    qf = as_float(q, "q_qp")            # [B, H, 1, D]
+    kcf = as_float(kc, "ktc_qp")        # [B, H, L, D]
+    khf = as_float(kh, "kts_qp")        # [B, H, 1, D]
+    s_past = torch.matmul(*_promoted(qf, kcf.transpose(-1, -2)))
+    s_self = torch.matmul(*_promoted(qf, khf.transpose(-1, -2)))
+    s = torch.cat(_promoted(s_past, s_self), dim=-1)
+    for kind, val in attrs["epilogue"]:
+        if kind == "mul":
+            s = s * torch.full((), float(val), dtype=s.dtype, device=s.device)
+        else:
+            e = extras[int(val)]
+            e = e.dequantize().data if isinstance(e, QTensor) else e.data
+            s, e = _promoted(s, e)
+            s = s + e
+    probs = FTensor(s).softmax(axis=-1).data
+    p_past, p_self = probs[..., :cache_len], probs[..., cache_len:]
+    if bw is not None and attrs.get("p_qp") is not None:
+        sp, zp = np.float32(attrs["p_qp"][0]), attrs["p_qp"][1]
+        p_past = dequantize(quantize(p_past, bw, sp, zp,
+                                     container=torch.int8), sp, zp)
+    vcf = as_float(vc, "vc_qp")         # [B, H, L, D]
+    ctx = torch.matmul(*_promoted(p_past, vcf))
+    vhf = vh.dequantize().data if isinstance(vh, QTensor) else vh.data
+    ctx = ctx + torch.mul(*_promoted(p_self, vhf))
+    return [FTensor(ctx)]
 
 
 def _reduce_mean(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
@@ -487,6 +551,8 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return [x.expand_dims(axis=axes)]
     if op == "Where":
         return [where(inputs[0], inputs[1], inputs[2])]
+    if op == "DecodeAttention":
+        return _decode_attention(inputs, attrs)
     if op == "FusedAttention":
         return _fused_attention(inputs, attrs)
     if op == "FusedAttentionHS":

@@ -244,14 +244,87 @@ def test_generate_kv_keeps_every_step_logits(gpt):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("kv_cache_dtype", "int8"), ("rope", (1, 1)), ("score_bias", 1),
-    ("memory", 1), ("temperature", 0.7), ("top_k", 5), ("top_p", 0.9),
-    ("min_p", 0.1), ("key", 0), ("repetition_penalty", 1.2)])
+    ("score_bias", 1), ("memory", 1), ("key", 0)])
 def test_unported_options_raise(gpt, option, value):
+    """The T5 and Whisper step forms are later slices; a JAX PRNG key is
+    refused in favour of generator=."""
     tm = Model.from_onnx(gpt["t_step"], device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice|slice"):
+    with pytest.raises(NotImplementedError, match="later slice|generator="):
         TGEN.generate_kv(tm, gpt["prompt"], gpt["t_step"]._wte,
                          gpt["t_step"]._wpe, NEW, **{option: value})
+
+
+class _JaxNoise:
+    """JAX's generate_kv per-step Gumbel draws (one key split per step),
+    handed to the port's sampler in order."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def __call__(self, shape, generator):
+        self.key, sub = jax.random.split(self.key)
+        return torch.from_numpy(np.array(jax.random.gumbel(sub, shape)))
+
+
+def _tiny_llama_step():
+    """(JAX step proto, port step proto) of a 2-layer LLaMA on the same
+    weights (RoPE and grouped-query caches)."""
+    from transformers import LlamaConfig
+    from transformers.models.llama.modeling_llama import LlamaForCausalLM
+    from numpy_quant_tpu.models import llama as JL
+    from numpy_quant_tpu_torch.models import llama as TL
+    cfg = dict(vocab_size=96, hidden_size=64, intermediate_size=96,
+               num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, max_position_embeddings=64,
+               tie_word_embeddings=False)
+    weights = TL.random_llama_weights(cfg, seed=0)
+    hf = LlamaForCausalLM(LlamaConfig(**cfg, attn_implementation="eager"))
+    hf.eval().load_state_dict({k: torch.from_numpy(v)
+                               for k, v in weights.items()})
+    with jax.enable_x64(False):
+        jp = JL.llama_decode_step(batch_size=B, max_len=MAX_LEN, module=hf)
+    return jp, TL.llama_decode_step(weights, cfg, batch_size=B,
+                                    max_len=MAX_LEN)
+
+
+@pytest.mark.parametrize("option,value", [
+    ("kv_cache_dtype", "int8"), ("rope", None), ("temperature", 0.7),
+    ("top_k", 5), ("top_p", 0.9), ("min_p", 0.1),
+    ("repetition_penalty", 1.2)])
+def test_ported_options_match_jax(gpt, option, value, monkeypatch):
+    """The options the port once refused decode as JAX's generate_kv does:
+    an int8 cache on the float step raises JAX's ValueError and on the
+    int8 step gives JAX's tokens; rope= decodes a LLaMA step; the sampling
+    knobs draw JAX's per-step noise and pick JAX's tokens;
+    repetition_penalty equals JAX's greedy pick."""
+    jp, tp = gpt["j_step"], gpt["t_step"]
+    jm, tm = nq.Model.from_onnx(jp), Model.from_onnx(tp, device="cpu")
+    args = (gpt["prompt"],)
+    jwpe, twpe, kw = jp._wpe, tp._wpe, {option: value}
+    if option == "kv_cache_dtype":
+        for gen, model, proto in ((JGEN, jm, jp), (TGEN, tm, tp)):
+            with pytest.raises(ValueError, match="quantized step model"):
+                gen.generate_kv(model, *args, proto._wte, proto._wpe, NEW,
+                                **kw)
+        batches = JGEN.decode_calibration(jm, gpt["prompt"], jp._wte, jwpe)
+        stats = nq.utils.merge_calibration_stats(
+            *[jm.calibration_stats(b) for b in batches])
+        jm, tm = (m.quantize(stats=stats, bit_width=8) for m in (jm, tm))
+    elif option == "rope":
+        jp, tp = _tiny_llama_step()
+        jm, tm = nq.Model.from_onnx(jp), Model.from_onnx(tp, device="cpu")
+        jwpe = twpe = None
+        kw = {"rope": jp._rope_tables}
+    elif option != "repetition_penalty":
+        key = jax.random.PRNGKey(2)
+        monkeypatch.setattr(TGEN, "_gumbel", _JaxNoise(key))
+        kw = dict(kw, key=key)
+    want = np.asarray(JGEN.generate_kv(jm, *args, jp._wte, jwpe, NEW, **kw))
+    kw.pop("key", None)
+    if option == "rope":
+        kw = {"rope": tp._rope_tables}
+    got = TGEN.generate_kv(tm, *args, tp._wte, twpe, NEW, **kw)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_generate_kv_refuses_too_long_and_wrong_batch(gpt):

@@ -224,7 +224,9 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.models.llama\n"
             "import numpy_quant_tpu_torch.models.t5\n"
             "import numpy_quant_tpu_torch.passes\n"
+            "import numpy_quant_tpu_torch.passes.decode_attention\n"
             "import numpy_quant_tpu_torch.utils.generate\n"
+            "import numpy_quant_tpu_torch.utils.serialization\n"
             "import numpy_quant_tpu_torch.profile_vit\n"
             "import numpy_quant_tpu_torch.profile_gpt\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
