@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's int8 ViT-Base, weight-only GPT-2 decode, int8
 GPT-2 full-context scoring, int8 TinyLlama-1.1B scoring, int8 T5-small
-encoder-decoder scoring, W8A16 ViT-Base, 1-16-bit MLP and TinyLlama-1.1B
-decode and prefill paths on one NVIDIA GPU.
+encoder-decoder scoring, W8A16 ViT-Base, 1-16-bit MLP, TinyLlama-1.1B
+decode and prefill paths, and the serving paths (map_batches/serve_stream
+over ViT-Base, the continuous-batching engine, prefill admission and the
+full-sequence generators over TinyLlama-1.1B) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -166,6 +168,37 @@ Phases, one line each (any failure raises and the script exits non-zero):
      reproducible, top_k=1 equal to greedy, ids in the vocabulary; (e) the
      int8 prefill at P=512, B=1: 22 plain fusions, 22 fused_attention
      launches, fused f32 equal to unfused bit for bit, tokens/s.
+ 16. serving at full width: (a) run before phase 15, on phase 3's
+     optimized, packed int8 ViT-Base in bf16 at B=96: map_batches and
+     serve_stream(depth=2) over 4 seeded batches under "unpack" and
+     "kernel", each output equal to its batch's __call__ bit for bit,
+     images/s of both and of a plain __call__ loop, launches per forward;
+     (b) the continuous-batching engine on phase 15's int8 fused step (B=8
+     slots, cache 2048) over 24 requests from seed 16 (prompts of 12, 24
+     and 40 ids, 8 each, budgets 8-40, submitted interleaved): E1 dense
+     with the int8 cache, E2 paged (16-row blocks, 21 allocatable: at
+     least one preemption), E3 steps_per_sync=4, each request's tokens
+     equal to generate_kv's over its group on the same step model; the
+     step counts equal the schedule computed without the engine;
+     tokens/s, host syncs per step call, the source line of each host
+     sync of three steady steps and one profiled step's idle share; E4 every 4th request sampled at temperature 0.8: the greedy
+     requests equal E1's, and on group 1 (admitted together) two seeded
+     runs and the steps_per_sync=4 run give equal tokens; E5 the W4 g=128
+     float step under "kernel" over group 1, equal to its generate_kv,
+     155 splitk_wo_matmul launches per step; (c) prefill admission with
+     phase 15's int8 llama_prefill (P=512) of 8 prompts of 64-480 ids
+     (seed 17): 22 fused_attention launches per admission, each first
+     token the argmax of the prefill logits at row plen-1, the slot's int8
+     cache rows [0, plen) equal to the plain quantize of the presents (and
+     the quantize kernel at that shape held to it in 15(f)), agreement
+     with a teacher-forced engine reported; (d) generate (B=2, 16 + 32
+     greedy), beam_search (4 beams, 16 new) and generate_speculative (a
+     2-layer draft from TinyLlama's first layers, k=4) on an int8,
+     optimize()d llama_causal_lm at L=64: generate equal to the argmax of
+     one forward of its final ids, beam scores sorted and equal to their
+     tokens' summed log-softmax within BEAM_TOL, speculative equal to
+     generate, and with the target as its own draft equal to it in
+     ceil(32 / 5) = 7 target forwards.
 Phase 3 also times the bf16 forward with the plain chains swapped in and
 profiles one forward. The last three lines are the kernels JSON line, the
 card's name and power limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
@@ -282,6 +315,23 @@ LLAMA_WO_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
                    (2048, 32000))
 LLAMA_WO_PER_STEP = 22 * 7 + 1  # 7 projections per layer, the head
 PREFILL_N = 512  # the int8 prefill (B=1); the float one runs DEC_PROMPT
+VIT_STEPS = 4  # seeded ViT-Base batches of B_SERVE under map_batches
+SERVE_PLENS, SERVE_PER_GROUP = (12, 24, 40), 8  # the engine's three groups
+SERVE_BUDGETS = (8, 40)  # new tokens per request, uniform, inclusive
+SERVE_PAGED = (16, 22)  # block size, blocks: 21 allocatable of 16 rows
+SERVE_K = 4  # steps_per_sync of the chunked runs
+SERVE_TEMP = 0.8  # every 4th request's temperature in the sampled runs
+ADMIT_PLENS, ADMIT_BUDGETS = (64, 480), (8, 24)  # 16c's 8 requests
+GEN_LEN, GEN_B, GEN_PROMPT, GEN_NEW = 64, 2, 16, 32  # 16d's generate
+BEAM_W, BEAM_NEW, SPEC_K, DRAFT_LAYERS = 4, 16, 4, 2
+BEAM_TOL = 1e-4  # beam score against the summed log-softmax, relative
+# launches phase 16 requires of each kernel on the serving paths
+SERVE_LAUNCHES = {
+    "fused_attention_hs_per_vit_forward": 12,
+    "splitk_qmatmul_per_vit_forward_kernel": PACKED_PER_FORWARD,
+    "splitk_wo_matmul_per_w4_engine_step": LLAMA_WO_PER_STEP,
+    "fused_attention_per_prefill_admission": 22,
+    "fused_attention_per_generate_forward": 22}
 
 
 def say(phase: str, **fields) -> None:
@@ -2548,18 +2598,21 @@ def w8a16_phase(card: str, model, stats, x8, int8_logits) -> None:
 
 
 def ew_path_check(name: str) -> dict:
-    """Phase 15(f): quantize/dequantize at the decode path's new shapes,
-    each against its chain bit for bit, then timed beside the bytes
-    bound: the int8 cache write [8, 4, 1, 64] (a present, f32 -> int8),
-    DecodeAttention's cache probabilities p_past [8, 32, 1, 2048] (a
-    strided slice of the [.., 2049] softmax, f32 and bf16 -> int8 and
-    back) and its cache fake-quant [8, 32, 2048, 64] (f32 and bf16)."""
+    """Phase 15(f): quantize/dequantize at the decode and serving paths'
+    new shapes, each against its chain bit for bit, then timed beside the
+    bytes bound: the int8 cache write [8, 4, 1, 64] (a present, f32 ->
+    int8), a prefill admission's cache write [1, 4, 512, 64] (its
+    presents, f32 -> int8; phase 16(c)), DecodeAttention's cache
+    probabilities p_past [8, 32, 1, 2048] (a strided slice of the
+    [.., 2049] softmax, f32 and bf16 -> int8 and back) and its cache
+    fake-quant [8, 32, 2048, 64] (f32 and bf16)."""
     import torch
     from numpy_quant_tpu_torch.kernels import elementwise as E
     rate = peaks(name)["bytes"]
     g = torch.Generator(device="cuda").manual_seed(15)
     heads, n_kv, hd = 32, 4, 64
     shapes = {"cache_write": ((DEC_B, n_kv, 1, hd), None),
+              "prefill_cache_write": ((1, n_kv, PREFILL_N, hd), None),
               "p_past": ((DEC_B, heads, 1, DEC_LEN + 1), DEC_LEN),
               "cache_fake_quant": ((DEC_B, heads, DEC_LEN, hd), None)}
     res, forms = {}, 0
@@ -2570,8 +2623,10 @@ def ew_path_check(name: str) -> dict:
         x32 = full[..., :cut] if cut else full
         scale, zp = (1.0 / 255.0, -128) if label == "p_past" \
             else (EW_SCALE, EW_ZP)
+        path = "tinyllama_prefill_admission" \
+            if label == "prefill_cache_write" else "tinyllama_decode"
         for fdt in (torch.float32, torch.bfloat16):
-            if label == "cache_write" and fdt == torch.bfloat16:
+            if label.endswith("cache_write") and fdt == torch.bfloat16:
                 continue  # presents leave the graph as f32
             x = x32.to(fdt) if cut is None else full.to(fdt)[..., :cut]
             q = E.quantize(x, 8, scale, zp, torch.int8)
@@ -2598,14 +2653,13 @@ def ew_path_check(name: str) -> dict:
                            bound_ms=nbytes / rate * 1e3, bytes=nbytes)
                 key = f"{label}_{str(fdt)[6:]}"
                 res.setdefault(kname, {})[key] = row
-                say("kernel-time", kernel=kname, path="tinyllama_decode",
-                    label=label, shape="x".join(map(str, x.shape)),
+                say("kernel-time", kernel=kname, path=path, label=label, shape="x".join(map(str, x.shape)),
                     dtype=str(fdt)[6:], container="int8",
                     contiguous=x.is_contiguous(), **row,
                     card=name.replace(" ", "_"))
         del full, x32
     say("kernel-check", kernel="quantize,dequantize",
-        scope="tinyllama_decode_shapes", forms=forms, mismatched_forms=0)
+        scope="tinyllama_decode_and_admission_shapes", forms=forms, mismatched_forms=0)
     return res
 
 
@@ -2675,13 +2729,14 @@ def float_prefill_check(weights, step, last, prompt, wte) -> None:
     assert rel <= TEACHER_TOL, (worst, rel)
 
 
-def int8_prefill_phase(card: str, weights) -> dict:
+def int8_prefill_phase(card: str, weights):
     """Phase 15(e): the int8 prefill at P = PREFILL_N, B=1: calibration on
     2 sequences, quantize(int8), unfused forward, optimize() (22 plain
     fusions), fused f32 forward equal to the unfused one bit for bit
     wherever torch sums the rows in the kernel's order (probed) with 22
     fused_attention launches; prefill tokens/s in f32 and bf16 (median of
-    3, in turns). Returns the fused forward's launch counts."""
+    3, in turns). Returns the fused forward's launch counts and the
+    optimized int8 prefill model (phase 16 admits prompts with it)."""
     import numpy as np
     import torch
     from numpy_quant_tpu_torch import Model
@@ -2732,7 +2787,7 @@ def int8_prefill_phase(card: str, weights) -> dict:
             tokens_per_s=n / wall, ms_per_prefill=wall * 1e3,
             ms_runs=",".join(f"{r * 1e3:.2f}" for r in runs),
             card=card.replace(" ", "_"))
-    return counts
+    return counts, qmodel
 
 
 def decode_profile(model, prompt, wte, rope, cache) -> dict:
@@ -2779,7 +2834,9 @@ def cache_bytes(model, prompt, wte, rope, cache) -> int:
 
 def llama_decode_phase(card: str, weights) -> dict:
     """Phase 15: TinyLlama-1.1B decode at full width and depth. Returns
-    the launch counts and timings the kernels line reports."""
+    the launch counts and timings the kernels line reports, and for phase
+    16 the int8 fused and the W4 g=128 step models with the embedding and
+    RoPE tables."""
     import numpy as np
     import torch
     from numpy_quant_tpu_torch import Model
@@ -2949,10 +3006,480 @@ def llama_decode_phase(card: str, weights) -> dict:
         top_k_1_equals_greedy=bool(np.array_equal(top1, greedy)))
     assert np.array_equal(*sampled) and np.array_equal(top1, greedy)
     assert sampled[0].min() >= 0 and sampled[0].max() < vocab
-    del unfused, fused, model
+    del unfused
     return {"counts": {run[1]: results[run][2] for run in runs
                        if run[0] == "f32"},
-            "steps": steps}
+            "steps": steps, "int8_fused": fused, "w4": model, "wte": wte,
+            "rope": rope}
+
+
+def vit_serving_phase(card: str, qmodel) -> dict:
+    """Phase 16(a): the optimized, packed int8 ViT-Base of phase 3 in bf16
+    at B=96 under map_batches and serve_stream(depth=2), over VIT_STEPS
+    seeded batches, under "unpack" and "kernel": each output equal to the
+    batch's own __call__ bit for bit; images/s of map_batches, serve_stream
+    and a plain __call__ loop (one sync per batch); launches per forward.
+    Returns the "kernel" map_batches launches per forward."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import config
+    from numpy_quant_tpu_torch.serving import map_batches, serve_stream
+    rng = np.random.default_rng(16)
+    image = tuple(qmodel.inputs[0].shape_hint[1:])
+    xs = rng.normal(size=(VIT_STEPS, B_SERVE) + image).astype(
+        np.float32) * 0.5
+    images = VIT_STEPS * B_SERVE
+    per_forward = {}
+    with config.low_precision_floats():
+        for mode in ("unpack", "kernel"):
+            with packed_execution(mode):
+                want = np.stack([qmodel([x])[0] for x in xs])
+                mapped, counts = counted(
+                    lambda: map_batches(qmodel, [xs])[0])
+                streamed = np.stack([o[0] for o in serve_stream(
+                    qmodel, ([x] for x in xs), depth=2)])
+                seconds = {"map_batches": [], "serve_stream": [],
+                           "call_loop": []}
+                runs = {
+                    "map_batches": lambda: map_batches(qmodel, [xs]),
+                    "serve_stream": lambda: list(serve_stream(
+                        qmodel, ([x] for x in xs), depth=2)),
+                    "call_loop": lambda: [qmodel([x]) for x in xs]}
+                for turn in ("map_batches", "serve_stream", "call_loop",
+                             "call_loop", "serve_stream", "map_batches"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[turn]()
+                    torch.cuda.synchronize()
+                    seconds[turn].append(time.perf_counter() - t0)
+            per = {k: v / VIT_STEPS for k, v in counts.items()}
+            per_forward[mode] = per
+            map_equal = bool(np.array_equal(mapped, want))
+            stream_equal = bool(np.array_equal(streamed, want))
+            say("serve-vit", mode=mode, batch=B_SERVE, steps=VIT_STEPS,
+                map_batches_equals_call=map_equal,
+                serve_stream_equals_call=stream_equal,
+                **{f"images_per_s_{k}": images / statistics.median(v)
+                   for k, v in seconds.items()},
+                **{f"ms_runs_{k}": ",".join(f"{t * 1e3:.1f}" for t in v)
+                   for k, v in seconds.items()},
+                attention_launches_per_forward=per["fused_attention_hs"],
+                splitk_qmatmul_launches_per_forward=per["splitk_qmatmul"],
+                quantize_launches_per_forward=per["quantize"],
+                dequantize_launches_per_forward=per["dequantize"],
+                card=card.replace(" ", "_"))
+            assert map_equal and stream_equal, mode
+            assert np.isfinite(want).all() and want.shape == (
+                VIT_STEPS, B_SERVE, 1000)
+            assert per["fused_attention_hs"] == SERVE_LAUNCHES[
+                "fused_attention_hs_per_vit_forward"], per
+            assert per["splitk_qmatmul"] == (SERVE_LAUNCHES[
+                "splitk_qmatmul_per_vit_forward_kernel"]
+                if mode == "kernel" else 0), per
+    return per_forward["kernel"]
+
+
+def serve_workload(vocab: int):
+    """Phase 16(b)'s 24 requests from seed 16: SERVE_PER_GROUP prompts of
+    each length in SERVE_PLENS, budgets uniform in SERVE_BUDGETS, submitted
+    interleaved (request 3i + g is group g's i-th). Returns the request
+    tuples and, per group, (prompts [8, plen], budgets [8])."""
+    import numpy as np
+    rng = np.random.default_rng(16)
+    groups = [(rng.integers(0, vocab, size=(SERVE_PER_GROUP, plen))
+               .astype(np.int32),
+               rng.integers(SERVE_BUDGETS[0], SERVE_BUDGETS[1] + 1,
+                            size=SERVE_PER_GROUP))
+              for plen in SERVE_PLENS]
+    reqs = [(groups[g][0][i], int(groups[g][1][i]))
+            for i in range(SERVE_PER_GROUP) for g in range(len(groups))]
+    return reqs, groups
+
+
+def schedule_steps(lengths: list, slots: int, k: int) -> int:
+    """The steps a dense engine with ``slots`` slots and steps_per_sync=k
+    takes to serve requests that need ``lengths`` steps each (prompt +
+    budget - 1: teacher forced, no EOS), each admitted into the lowest free
+    slot at the start of a chunk: the schedule the engine must keep,
+    computed without it."""
+    queue, left, steps = list(lengths), [0] * slots, 0
+    while queue or any(left):
+        for s in range(slots):
+            if not left[s] and queue:
+                left[s] = queue.pop(0)
+        left = [max(0, n - k) for n in left]
+        steps += k
+    return steps
+
+
+def host_syncs(fn):
+    """Run ``fn()`` noting the synchronizing CUDA calls it makes (torch's
+    sync debug mode warns at each); returns its result and a Counter of
+    the (file, line) that made them."""
+    import collections
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        (os.path.relpath(w.filename), w.lineno) for w in seen
+        if "synchroniz" in str(w.message))
+
+
+def engine_run(make, reqs):
+    """One drain of ``reqs`` by a fresh engine ``make()`` from a
+    synchronize to a synchronize, counting launches and host syncs.
+    Returns (results, engine, wall seconds, launch counts, syncs)."""
+    import torch
+    engine = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (out, counts), syncs = host_syncs(lambda: counted(
+        lambda: engine.run(reqs)))
+    torch.cuda.synchronize()
+    return out, engine, time.perf_counter() - t0, counts, \
+        sum(syncs.values())
+
+
+def sync_sources(make, reqs, steps: int = 3) -> float:
+    """Prints, per source line, the host syncs of ``steps`` steady engine
+    steps (a fresh engine ``make()`` on ``reqs``, past their admission and
+    before any retires); returns the syncs per step."""
+    import torch
+    engine = make()
+    for req in reqs:
+        engine.submit(*req)
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    _, where = host_syncs(lambda: [engine.step() for _ in range(steps)])
+    for (path, line), n in where.most_common():
+        say("serve-sync", per_step=n / steps, at=f"{path}:{line}")
+    return sum(where.values()) / steps
+
+
+def generated(out: dict, reqs) -> int:
+    return sum(len(out[i]) - len(r[0]) for i, r in enumerate(reqs))
+
+
+def engine_step_profile(make, reqs, wall_step: float) -> dict:
+    """Device busy time of one profiled engine step (the third of a fresh
+    engine on ``reqs``), against ``wall_step``, the unprofiled wall
+    seconds per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    engine = make()
+    for req in reqs:
+        engine.submit(*req)
+    for _ in range(2):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    assert busy > 0, "the profiler saw no device time"
+    aten = sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("aten::"))
+    return dict(busy_ms_per_step=busy, aten_calls_per_step=aten,
+                idle_share=max(0.0, 1 - busy / (wall_step * 1e3)))
+
+
+def engine_phase(card: str, step, w4, wte, rope) -> dict:
+    """Phase 16(b): the continuous-batching engine on the int8 fused
+    TinyLlama step of phase 15 (B=8, cache 2048) over the 24-request
+    workload, and on its W4 g=128 float step. Returns the launch counts
+    per step of E1 and E5."""
+    import numpy as np
+    from numpy_quant_tpu_torch.utils import ContinuousBatcher, generate_kv
+    reqs, groups = serve_workload(wte.shape[0])
+    n_slots = step.inputs[0].shape_hint[0]
+    lengths = [len(p) + n - 1 for p, n in reqs]
+
+    def make(model=step, cache="int8", **kw):
+        return lambda: ContinuousBatcher(model, wte, None, rope=rope,
+                                         kv_cache_dtype=cache, **kw)
+
+    # the oracle: generate_kv on the same step model over each group, to
+    # the group's largest budget, truncated per request (greedy tokens are
+    # prefix-consistent)
+    oracle = {}
+    for g, (prompts, budgets) in enumerate(groups):
+        ids = generate_kv(step, prompts, wte, None, int(budgets.max()),
+                          rope=rope, kv_cache_dtype="int8")
+        for i in range(SERVE_PER_GROUP):
+            oracle[3 * i + g] = ids[i, :prompts.shape[1] + budgets[i]]
+    results, rates, walls = {}, {}, {}
+    for label, kw in (("E1", {}), ("E2", dict(paged_kv=SERVE_PAGED)),
+                      ("E3", dict(steps_per_sync=SERVE_K))):
+        out, engine, wall, counts, syncs = engine_run(make(**kw), reqs)
+        results[label] = out, engine.stats, counts
+        st = engine.stats
+        calls = st["steps"] // kw.get("steps_per_sync", 1)
+        equal = sum(np.array_equal(out[i], oracle[i]) for i in oracle)
+        rates[label] = generated(out, reqs) / wall
+        walls[label] = wall / st["steps"]
+        say("serve-engine", run=label, requests=len(reqs), slots=n_slots,
+            cache="int8", **{k: v for k, v in kw.items()},
+            tokens_equal_oracle=f"{equal}/{len(reqs)}",
+            steps=st["steps"], step_calls=calls,
+            slot_steps=st["slot_steps"], preemptions=st["preemptions"],
+            generated_tokens=generated(out, reqs),
+            tokens_per_s=rates[label], ms_per_step=wall / st["steps"] * 1e3,
+            host_syncs_per_step_call=syncs / calls,
+            quantize_launches_per_step=counts["quantize"] / st["steps"],
+            dequantize_launches_per_step=counts["dequantize"] / st["steps"],
+            seconds=wall, card=card.replace(" ", "_"))
+        assert equal == len(reqs), (label, equal)
+        assert others(counts) == 0, (label, counts)
+    e1, e2, e3 = (results[k][1] for k in ("E1", "E2", "E3"))
+    want1 = schedule_steps(lengths, n_slots, 1)
+    want3 = schedule_steps(lengths, n_slots, SERVE_K)
+    say("serve-engine-schedule", steps_k1=e1["steps"], steps_k4=e3["steps"],
+        scheduled_k1=want1, scheduled_k4=want3,
+        k4_over_k1_steps=e3["steps"] - e1["steps"],
+        paged_preemptions=e2["preemptions"],
+        paged_pool_rows=(SERVE_PAGED[1] - 1) * SERVE_PAGED[0],
+        dense_cache_rows=n_slots * step.inputs[4].shape_hint[2])
+    assert e1["steps"] == want1 and e3["steps"] == want3, (e1, e3)
+    assert e2["preemptions"] >= 1, e2
+    assert e1["slot_steps"] == e3["slot_steps"] == sum(lengths)
+    prof = engine_step_profile(make(), reqs[:n_slots], walls["E1"])
+    prof["steady_host_syncs_per_step"] = sync_sources(make(),
+                                                      reqs[:n_slots])
+    say("serve-engine-profile", run="E1", **prof, card=card.replace(" ", "_"))
+    # E4: every 4th request sampled, the rest greedy
+    sampled = [r + ((None, SERVE_TEMP) if i % 4 == 0 else ())
+               for i, r in enumerate(reqs)]
+    out4, _, _, _, _ = engine_run(make(seed=16), sampled)
+    greedy_equal = all(np.array_equal(out4[i], results["E1"][0][i])
+                       for i in range(len(reqs)) if i % 4)
+    g1 = [sampled[3 * i + 1] for i in range(SERVE_PER_GROUP)]
+    runs = [engine_run(make(seed=16, steps_per_sync=k), g1)[0]
+            for k in (1, 1, SERVE_K)]
+    same = [all(np.array_equal(a[i], b[i]) for i in a)
+            for a, b in ((runs[0], runs[1]), (runs[0], runs[2]))]
+    moved = sum(not np.array_equal(out4[i], results["E1"][0][i])
+                for i in range(0, len(reqs), 4))
+    say("serve-engine-sampled", run="E4", temperature=SERVE_TEMP,
+        sampled_requests=len(range(0, len(reqs), 4)),
+        sampled_differ_from_greedy=moved,
+        greedy_requests_equal_E1=greedy_equal,
+        group1_seeded_twice_equal=same[0], group1_k4_equals_k1=same[1])
+    assert greedy_equal and all(same), (greedy_equal, same)
+    # E5: the W4 g=128 float step under "kernel", float cache, group 1
+    prompts, budgets = groups[1]
+    g1_reqs = [(prompts[i], int(budgets[i])) for i in range(SERVE_PER_GROUP)]
+    with packed_execution("kernel"):
+        want = generate_kv(w4, prompts, wte, None, int(budgets.max()),
+                           rope=rope)
+        out5, eng5, wall5, counts5, _ = engine_run(make(w4, None), g1_reqs)
+    st5 = eng5.stats
+    equal5 = sum(np.array_equal(out5[i], want[i, :prompts.shape[1]
+                                                  + budgets[i]])
+                 for i in range(SERVE_PER_GROUP))
+    per_step5 = counts5["splitk_wo_matmul"] / st5["steps"]
+    say("serve-engine", run="E5", model="w4_g128_kernel", cache="float",
+        requests=SERVE_PER_GROUP, tokens_equal_generate_kv=
+        f"{equal5}/{SERVE_PER_GROUP}", steps=st5["steps"],
+        splitk_wo_launches_per_step=per_step5,
+        tokens_per_s=generated(out5, g1_reqs) / wall5,
+        ms_per_step=wall5 / st5["steps"] * 1e3, card=card.replace(" ", "_"))
+    assert equal5 == SERVE_PER_GROUP, equal5
+    assert per_step5 == SERVE_LAUNCHES[
+        "splitk_wo_matmul_per_w4_engine_step"], per_step5
+    assert others(counts5) == counts5["splitk_wo_matmul"], counts5
+    st1, c1 = results["E1"][1], results["E1"][2]
+    return {"tokens_per_s": rates, "profile": prof,
+            "per_step": {"E1": {k: v / st1["steps"] for k, v in c1.items()},
+                         "E5": {k: v / st5["steps"]
+                                for k, v in counts5.items()}}}
+
+
+def admission_phase(card: str, step, prefill, wte, rope) -> dict:
+    """Phase 16(c): prefill admission with the int8 llama_prefill (P=512)
+    of phase 15 into the int8 fused step's engine (int8 cache): 8 requests
+    from seed 17. Every request is admitted by prefill (22 fused_attention
+    launches each); its first token is the argmax of the prefill logits at
+    row plen-1; its slot's int8 cache rows [0, plen) equal the plain
+    quantize (quantize_reference) of the prefill presents. The tokens after admission are reported against a
+    teacher-forced engine on the two shortest prompts, not held equal (the
+    prefill's float work differs from the step's). Returns the launch
+    counts per admission."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch.kernels import elementwise as E
+    from numpy_quant_tpu_torch.utils import ContinuousBatcher
+    rng = np.random.default_rng(17)
+    n = SERVE_PER_GROUP
+    plens = rng.integers(ADMIT_PLENS[0], ADMIT_PLENS[1] + 1, size=n)
+    budgets = rng.integers(ADMIT_BUDGETS[0], ADMIT_BUDGETS[1] + 1, size=n)
+    reqs = [(rng.integers(0, wte.shape[0], size=int(p)).astype(np.int32),
+             int(b)) for p, b in zip(plens, budgets)]
+
+    def make(prefill_model):
+        return lambda: ContinuousBatcher(step, wte, None, rope=rope,
+                                         kv_cache_dtype="int8",
+                                         prefill_model=prefill_model)
+
+    out, engine, wall, counts, syncs = engine_run(make(prefill), reqs)
+    st = engine.stats
+    layers = (len(step.inputs) - 4) // 2
+    # each cache's params, for the plain quantize of the presents
+    qps = [step.quant_params[v.name] for v in step.inputs[4:]]
+    # the slots took the requests in order (8 requests, 8 slots, none
+    # finished at admission); the prefill again, per request
+    first_ok = rows_ok = 0
+    for slot, (prompt, _) in enumerate(reqs):
+        p = len(prompt)
+        emb = torch.zeros((1, prefill.inputs[0].shape_hint[1], wte.shape[1]),
+                          device=step.device)
+        emb[0, :p] = torch.from_numpy(wte[prompt])
+        outs = prefill([emb], as_numpy=False)
+        first_ok += int(torch.argmax(outs[0][0, p - 1])) == int(out[slot][p])
+        rows_ok += all(torch.equal(cache[slot, :, :p], E.quantize_reference(
+            present, step.bit_width, qp.scale, qp.zero_point,
+            torch.int8)[0, :, :p])
+                       for cache, present, qp in zip(
+                           engine._caches, outs[1:], qps))
+        del outs
+    short = sorted(range(n), key=lambda i: len(reqs[i][0]))[:2]
+    forced, _, forced_wall, _, _ = engine_run(make(None),
+                                              [reqs[i] for i in short])
+    parted = []
+    for j, i in enumerate(short):
+        a, b = out[i], forced[j]
+        diff = np.flatnonzero(a != b)
+        parted.append(f"req{i}:plen{len(reqs[i][0])}:"
+                      + (f"part@{int(diff[0])}" if diff.size else "equal"))
+    say("serve-prefill", requests=n, prefill=prefill.inputs[0].shape_hint[1],
+        plens=",".join(str(int(p)) for p in plens),
+        prefills=st["prefills"], steps=st["steps"],
+        fused_attention_launches_per_admission=counts["fused_attention"]
+        / max(st["prefills"], 1),
+        first_token_is_prefill_argmax=f"{first_ok}/{n}",
+        cache_rows_equal_quantized_presents=f"{rows_ok}/{n}",
+        teacher_forced_agreement=";".join(parted),
+        generated_tokens=generated(out, reqs),
+        tokens_per_s=generated(out, reqs) / wall,
+        prompt_and_generated_tokens_per_s=(generated(out, reqs)
+                                           + int(plens.sum())) / wall,
+        host_syncs_per_step_call=syncs / max(st["steps"], 1),
+        seconds=wall, card=card.replace(" ", "_"))
+    assert st["prefills"] == n, st
+    assert counts["fused_attention"] == n * SERVE_LAUNCHES[
+        "fused_attention_per_prefill_admission"] == n * layers, counts
+    assert others(counts) == counts["fused_attention"], counts
+    assert first_ok == n and rows_ok == n, (first_ok, rows_ok)
+    return {"tokens_per_s": generated(out, reqs) / wall,
+            "per_admission": {k: v / n for k, v in counts.items()}}
+
+
+def generators_phase(card: str, weights) -> dict:
+    """Phase 16(d): generate, beam_search and generate_speculative on an
+    int8, optimize()d llama_causal_lm at full width with L=GEN_LEN and
+    batch BEAM_W, calibrated on one seeded batch; generate_speculative
+    with the 2-layer draft (which rarely matches) and with the target as
+    its own draft (every proposal accepted). Returns the launch counts per
+    forward."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    llama_causal_lm)
+    from numpy_quant_tpu_torch.utils import (beam_search, generate,
+                                             generate_speculative)
+    from numpy_quant_tpu_torch.utils.generate import _log_softmax
+    cfg = TINYLLAMA_1_1B
+    t0 = time.perf_counter()
+    proto = llama_causal_lm(weights, cfg, batch_size=BEAM_W, seq_len=GEN_LEN)
+    wte = proto._wte
+    model = Model.from_onnx(proto)
+    del proto
+    rng = np.random.default_rng(18)
+    vocab = cfg["vocab_size"]
+    calib = wte[rng.integers(0, vocab, size=(BEAM_W, GEN_LEN))]
+    target = model.quantize(bit_width=8,
+                            stats=model.calibration_stats([calib]))
+    del model
+    report = target.optimize()
+    draft_proto = llama_causal_lm(weights, dict(cfg, num_hidden_layers=
+                                                DRAFT_LAYERS),
+                                  batch_size=BEAM_W, seq_len=GEN_LEN)
+    draft = Model.from_onnx(draft_proto)
+    del draft_proto
+    setup = time.perf_counter() - t0
+
+    def logits_of(ids):
+        x = torch.from_numpy(np.ascontiguousarray(wte[ids]))
+        return target([x.to(target.device)], as_numpy=False)[0]
+
+    prompt = rng.integers(0, vocab, size=(GEN_B, GEN_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    ids, counts = counted(lambda: generate(target, prompt, wte, GEN_NEW))
+    gen_s = time.perf_counter() - t0
+    pad = np.zeros((GEN_B, GEN_LEN), np.int64)
+    pad[:, :ids.shape[1]] = ids
+    picks = logits_of(pad).argmax(-1).cpu().numpy()
+    gen_ok = bool(np.array_equal(
+        ids[:, GEN_PROMPT:], picks[:, GEN_PROMPT - 1:ids.shape[1] - 1]))
+    beam_prompt = prompt[:1]
+    t0 = time.perf_counter()
+    beams, scores = beam_search(target, beam_prompt, wte, BEAM_NEW, BEAM_W)
+    beam_s = time.perf_counter() - t0
+    pad = np.zeros((BEAM_W, GEN_LEN), np.int64)
+    pad[:, :beams.shape[2]] = beams[0]
+    logp = _log_softmax(logits_of(pad).to(torch.float32)).cpu().numpy()
+    pos = np.arange(GEN_PROMPT, GEN_PROMPT + BEAM_NEW)
+    summed = logp[:, pos - 1][np.arange(BEAM_W)[:, None], np.arange(
+        BEAM_NEW)[None, :], beams[0][:, pos]].sum(axis=1)
+    rel = float(np.abs(summed - scores[0]).max() / np.abs(scores[0]).max())
+    ordered = bool((np.diff(scores[0]) <= 0).all())
+    t0 = time.perf_counter()
+    spec, rounds = generate_speculative(target, draft, prompt, wte, wte,
+                                        GEN_NEW, k=SPEC_K)
+    spec_s = time.perf_counter() - t0
+    spec_ok = bool(np.array_equal(spec, ids))
+    # the target as its own draft accepts all k proposals every round:
+    # rows advance k + 1 tokens per verify forward
+    t0 = time.perf_counter()
+    perfect, perfect_rounds = generate_speculative(
+        target, target, prompt, wte, wte, GEN_NEW, k=SPEC_K)
+    perfect_s = time.perf_counter() - t0
+    perfect_ok = bool(np.array_equal(perfect, ids))
+    want_rounds = -(-GEN_NEW // (SPEC_K + 1))
+    say("serve-generators", length=GEN_LEN, batch=GEN_B, prompt=GEN_PROMPT,
+        new_tokens=GEN_NEW, fuse_attention=report["fuse_attention"],
+        setup_seconds=setup,
+        generate_equals_final_forward_argmax=gen_ok,
+        generate_fused_attention_launches_per_forward=
+        counts["fused_attention"] / GEN_NEW,
+        generate_seconds=gen_s, beam_width=BEAM_W, beam_new=BEAM_NEW,
+        beam_scores=",".join(f"{s:.4f}" for s in scores[0]),
+        beam_scores_sorted=ordered, beam_score_max_rel_err=rel,
+        beam_seconds=beam_s, draft_layers=DRAFT_LAYERS, spec_k=SPEC_K,
+        speculative_equals_generate=spec_ok, target_forwards=rounds,
+        speculative_seconds=spec_s,
+        perfect_draft_equals_generate=perfect_ok,
+        perfect_draft_target_forwards=perfect_rounds,
+        perfect_draft_seconds=perfect_s, card=card.replace(" ", "_"))
+    assert report["fuse_attention"] == cfg["num_hidden_layers"], report
+    assert counts["fused_attention"] == GEN_NEW * SERVE_LAUNCHES[
+        "fused_attention_per_generate_forward"], counts
+    assert gen_ok and ordered and spec_ok, (gen_ok, ordered, spec_ok)
+    assert perfect_ok and perfect_rounds == want_rounds, (perfect_ok,
+                                                          perfect_rounds)
+    assert rel <= BEAM_TOL, rel
+    return {k: v / GEN_NEW for k, v in counts.items()}
 
 
 def main() -> int:
@@ -3194,6 +3721,11 @@ def main() -> int:
     mlp_sweep_phase()
     w8a16_phase(card, model, stats, x8, fused)
 
+    # -- phase 16(a): ViT-Base under map_batches and serve_stream -------
+    t16 = time.perf_counter()
+    vit_serving = vit_serving_phase(card, qmodel)
+    t16 = time.perf_counter() - t16
+
     # -- phase 15: TinyLlama-1.1B decode and prefill ------------------
     t15 = time.perf_counter()
     dec_wo = time_wo(name, LLAMA_WO_SHAPES, "tinyllama")
@@ -3201,10 +3733,27 @@ def main() -> int:
     dec_plain = plain_decode_shape(name)
     del model, qmodel, qmodels
     decode = llama_decode_phase(card, llama_weights)
-    prefill_counts = int8_prefill_phase(card, llama_weights)
-    del llama_weights
+    prefill_counts, prefill_model = int8_prefill_phase(card, llama_weights)
     say("llama-decode-phase", seconds=time.perf_counter() - t15)
+
+    # -- phase 16(b-d): serving TinyLlama-1.1B ------------------------
+    t0 = time.perf_counter()
+    step, w4 = decode.pop("int8_fused"), decode.pop("w4")
+    wte, rope = decode.pop("wte"), decode.pop("rope")
+    engine = engine_phase(card, step, w4, wte, rope)
+    admission = admission_phase(card, step, prefill_model, wte, rope)
+    del step, w4, prefill_model
+    gen_counts = generators_phase(card, llama_weights)
+    del llama_weights
+    say("serve-phase", seconds=t16 + time.perf_counter() - t0,
+        vit_seconds=t16, engine_tokens_per_s=",".join(
+            f"{k}:{v:.1f}" for k, v in engine["tokens_per_s"].items()),
+        admission_tokens_per_s=admission["tokens_per_s"],
+        engine_step_idle_share=engine["profile"]["idle_share"],
+        card=card.replace(" ", "_"))
     say("done", seconds=time.perf_counter() - t_start)
+    e1, e5 = engine["per_step"]["E1"], engine["per_step"]["E5"]
+    admit = admission["per_admission"]
 
     def score_bias(kname: str) -> dict:
         return {"launches_per_t5_forward": t5_counts[kname],
@@ -3220,7 +3769,9 @@ def main() -> int:
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None, "score_bias": score_bias("fused_attention_hs"),
-        "instantiations_launched": forms["fused_attention_hs"]}]
+        "instantiations_launched": forms["fused_attention_hs"],
+        "serving": {"per_vit_forward_map_batches":
+                    vit_serving["fused_attention_hs"]}}]
     for kname, line in (("splitk_qmatmul", 246), ("packed_qmatmul", 533)):
         t = qtiming[kname]
         rows.append({
@@ -3232,6 +3783,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "launches_by_form_checked": qforms[kname],
+            "serving": {"per_vit_forward_map_batches_kernel":
+                        vit_serving[kname]},
             "shapes": {shape: dict(row, launches_per_forward=QMM_PER_FORWARD[
                 shape]) for shape, row in t["shapes"].items()}})
     wo32, wo16 = wo_timing["f32"], wo_timing["bf16"]
@@ -3248,7 +3801,9 @@ def main() -> int:
         "tinyllama_decode": {
             "launches_per_step": decode["counts"]["w4_kernel"][
                 "splitk_wo_matmul"] / decode["steps"]["w4_kernel"],
-            "shapes": dec_wo}})
+            "shapes": dec_wo},
+        "serving": {"per_w4_engine_step": e5["splitk_wo_matmul"],
+                    "per_int8_engine_step": e1["splitk_wo_matmul"]}})
     rows.append({
         "name": "fused_attention_hs_blockq", "route": "cuda",
         "source": "numpy_quant_tpu_torch/csrc/attention_hs_blockq.cu",
@@ -3258,7 +3813,11 @@ def main() -> int:
         "plain_ms": bq_timing["plain_ms"], "bound_ms": bq_timing["bound_ms"],
         "bound_by": bq_timing["bound_by"], "library_ms": None,
         "score_bias": score_bias("fused_attention_hs_blockq"),
-        "instantiations_launched": forms["fused_attention_hs_blockq"]})
+        "instantiations_launched": forms["fused_attention_hs_blockq"],
+        "serving": {"per_vit_forward_map_batches":
+                    vit_serving["fused_attention_hs_blockq"],
+                    "per_prefill_admission":
+                    admit["fused_attention_hs_blockq"]}})
     rows.append({
         "name": "fused_attention", "route": "cuda",
         "source": "numpy_quant_tpu_torch/csrc/attention_plain.cu",
@@ -3270,7 +3829,10 @@ def main() -> int:
         "bound_by": plain_timing["bound_by"], "library_ms": None,
         "tinyllama_prefill": {
             "launches_per_prefill": prefill_counts["fused_attention"],
-            "shape": f"BH32xN{PREFILL_N}xD64", "by_out": dec_plain}})
+            "shape": f"BH32xN{PREFILL_N}xD64", "by_out": dec_plain},
+        "serving": {"per_prefill_admission": admit["fused_attention"],
+                    "per_generate_forward": gen_counts["fused_attention"],
+                    "per_int8_engine_step": e1["fused_attention"]}})
     for kname, line in (("quantize", 39), ("dequantize", 64)):
         t = ew_timing[kname]
         rows.append({
@@ -3291,7 +3853,12 @@ def main() -> int:
                     mode: c[kname] / decode["steps"][mode]
                     for mode, c in decode["counts"].items()},
                 "launches_per_int8_prefill": prefill_counts[kname],
-                "shapes": dec_ew[kname]}})
+                "shapes": dec_ew[kname]},
+            "serving": {"per_vit_forward_map_batches_kernel":
+                        vit_serving[kname],
+                        "per_int8_engine_step": e1[kname],
+                        "per_prefill_admission": admit[kname],
+                        "per_generate_forward": gen_counts[kname]}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

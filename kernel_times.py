@@ -30,7 +30,10 @@ this is run from:
   bf16, cold L2), quantize/dequantize at the int8 cache write
   [8, 4, 1, 64] and DecodeAttention's cache probabilities [8, 32, 1, 2048]
   (a strided slice, f32 -> int8 and back), fused_attention at the int8
-  prefill's BH = 32, N = 512 (causal, int8 out).
+  prefill's BH = 32, N = 512 (causal, int8 out);
+- the serving paths' one new call shape: quantize of a prefill
+  admission's presents [1, 4, 512, 64] into the int8 cache (the launches
+  per engine step, admission and forward are chip_smoke.py's phase 16).
 
 Each is the median of 20 CUDA-event timed calls (chip_smoke.py's helpers),
 the calls shorter than their Python wrapper behind a device sleep. Prints
@@ -127,6 +130,20 @@ def llama_decode_times(C, A, Q, E) -> dict:
     return res
 
 
+def serving_times(C, E) -> dict:
+    """The serving paths' one new call shape: quantize of a prefill
+    admission's presents [1, 4, 512, 64] (f32 -> int8) into the slot's
+    cache rows."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(16)
+    present = torch.randn(1, 4, C.PREFILL_N, 64, device="cuda", generator=g)
+    res = {"quantize_prefill_cache_write_ms": C.cuda_ms(
+        lambda: E.quantize(present, 8, C.EW_SCALE, C.EW_ZP, torch.int8),
+        lead=True)}
+    torch.cuda.synchronize()
+    return res
+
+
 def main() -> int:
     import torch
     import chip_smoke as C
@@ -192,6 +209,7 @@ def main() -> int:
         lambda: E.dequantize(acc, C.EW_SCALE, zrow, torch.bfloat16),
         lead=True)
     res.update(llama_decode_times(C, A, Q, E))
+    res.update(serving_times(C, E))
     print("[compare]", json.dumps(res), flush=True)
     return 0
 

@@ -1,7 +1,8 @@
 """Graph IR and ONNX importer (port of ``numpy_quant_tpu/graph.py``):
 doubly-linked Constant/Variable/Node objects in ONNX graph order. Float
-initializers become FTensors on the model's device; integer initializers
-become host ITensors (the shape domain)."""
+initializers become FTensors on the model's device, and a float Constant
+node's value is placed there too (its ``placed`` attr); integer
+initializers become host ITensors (the shape domain)."""
 from __future__ import annotations
 
 from typing import Any, List, Union
@@ -114,10 +115,17 @@ def import_onnx(onnx_model: onnx_lib.ModelProto, device: torch.device):
         in_values = [value_dict[n] if n else None for n in onnx_node.input]
         while in_values and in_values[-1] is None:
             in_values.pop()
+        attrs = {a.name: attribute_to_python(a) for a in onnx_node.attribute}
+        value = attrs.get("value")
+        if onnx_node.op_type == "Constant" and isinstance(value, np.ndarray) \
+                and value.dtype == np.float32:
+            # placed on the device once, as the float initializers are; the
+            # passes read the host value
+            attrs["placed"] = torch.from_numpy(np.array(value)).to(device)
         node = Node(
             name=name,
             op=onnx_node.op_type,
-            attrs={a.name: attribute_to_python(a) for a in onnx_node.attribute},
+            attrs=attrs,
             inputs=in_values,
             outputs=[],
         )

@@ -139,8 +139,7 @@ class Model:
         last_uses = {} if record else self._last_uses()
         for i, node in enumerate(self.nodes):
             ins = self._node_inputs(node, data)
-            outs = onnx_operator_implementation(node.op, ins, node.attrs,
-                                                device=self.device)
+            outs = onnx_operator_implementation(node.op, ins, node.attrs)
             outs = self._post_node(node, outs)
             for o, tensor in zip(node.outputs, outs):
                 data[o.name] = tensor
@@ -420,6 +419,28 @@ class Model:
                       qinputs, qoutputs, bit_width, qparams_per_value,
                       quantized_ops=quantized_ops, device=self.device,
                       container=container)
+
+    def map_batches(self, inputs: List[np.ndarray], as_numpy: bool = True):
+        """Throughput inference over a leading STEPS axis: every step
+        enqueued on the device, one host sync at the end. See
+        serving.py."""
+        from .serving import map_batches
+        return map_batches(self, inputs, as_numpy=as_numpy)
+
+    def serve_stream(self, batches, depth: int = 2, as_numpy: bool = True):
+        """Pipelined online request-stream inference: a generator keeping
+        up to ``depth`` forwards in flight. See serving.py."""
+        from .serving import serve_stream
+        return serve_stream(self, batches, depth=depth, as_numpy=as_numpy)
+
+    def serve_ring(self, batches, probe: bool = True):
+        """JAX's persistent serving loop (one program pulling batches
+        through host callbacks) is not carried over: use map_batches or
+        serve_stream."""
+        raise NotImplementedError(
+            "serve_ring (a persistent device loop over host callbacks) is "
+            "not carried over to the PyTorch port; use map_batches or "
+            "serve_stream")
 
     def fuse_decode_attention(self) -> int:
         """Fuse KV-cache decode-step attention chains ([B, 1, H] query,

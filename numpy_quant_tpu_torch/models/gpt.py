@@ -1,7 +1,7 @@
 """GPT-2 causal decoder ONNX graphs, built from numpy weights.
 
-Port of ``numpy_quant_tpu/models/gpt.py::gpt_causal_lm`` and
-``::gpt_decode_step``: the same nodes, value names, attributes, inputs and
+Port of ``numpy_quant_tpu/models/gpt.py::gpt_causal_lm``,
+``::gpt_decode_step`` and ``::gpt_prefill``: the same nodes, value names, attributes, inputs and
 outputs, emitted from a state dict in HuggingFace's ``GPT2LMHeadModel``
 key names (``transformer.h.{i}.attn.c_attn.weight``, ...) instead of a
 live ``transformers`` module:
@@ -87,11 +87,15 @@ def _merge_heads(e: _ViTEmitter, ctx: str, b_dim: str, key: str, name: str,
 
 
 def _causal_attention(e: _ViTEmitter, x: str, key: str, seq_len: int,
-                      name: str, nh: int, hd: int) -> str:
+                      name: str, nh: int, hd: int,
+                      presents: list = None) -> str:
     """GPT2Attention over the whole sequence: scaled scores + the additive
-    causal mask constant -> softmax -> context -> c_proj."""
+    causal mask constant -> softmax -> context -> c_proj. When
+    ``presents`` is given, the per-head K/V values are appended to it."""
     g = e.g
     qh, kh, vh, b_dim = _qkv_heads(e, x, key, name, nh, hd)
+    if presents is not None:
+        presents.append((kh, vh))
     kt = g.node("Transpose", [kh], out=f"{name}/k_T", perm=[0, 1, 3, 2])
     scores = g.node("MatMul", [qh, kt], out=f"{name}/scores")
     scal = g.const(np.array(np.float32(1.0 / np.sqrt(hd)), dtype=np.float32),
@@ -126,30 +130,63 @@ def _finish(g: GraphBuilder, weights: dict) -> O.ModelProto:
     return model
 
 
-def gpt_causal_lm(weights: dict, config: dict, batch_size: int = 2,
-                  seq_len: int = 16) -> O.ModelProto:
-    """GPT2LMHeadModel over float ``inputs_embeds`` [batch, seq, hidden]
-    -> ``logits`` [batch, seq, vocab]; position embeddings add inside the
-    graph, token embedding happens outside."""
-    cfg = _cfg(config)
+def _causal_body(e: _ViTEmitter, weights: dict, cfg: dict, x: str,
+                 seq_len: int, presents: list = None) -> None:
+    """Position add, the blocks and the LM head over ``x`` [B, seq, H]."""
+    g = e.g
     nh = int(cfg["n_head"])
     hd = int(cfg["n_embd"]) // nh
-    g = GraphBuilder("gpt_causal_lm")
-    e = _ViTEmitter(g, weights, cfg["layer_norm_epsilon"])
-    x = g.input("inputs_embeds", [batch_size, seq_len, int(cfg["n_embd"])])
     wpe = g.init("wpe.slice", _f32(weights["transformer.wpe.weight"])[:seq_len])
     h = g.node("Add", [x, wpe], out="/pos_add")
     for i in range(int(cfg["n_layer"])):
         key, name = f"transformer.h.{i}", f"h.{i}"
         ln1 = e.layernorm(h, f"{key}.ln_1", f"{name}.ln_1")
         att = _causal_attention(e, ln1, f"{key}.attn", seq_len,
-                                f"{name}.attn", nh, hd)
+                                f"{name}.attn", nh, hd, presents)
         x1 = g.node("Add", [att, h], out=f"{name}/residual1")
         ln2 = e.layernorm(x1, f"{key}.ln_2", f"{name}.ln_2")
         h = g.node("Add", [_mlp(e, ln2, key, name), x1],
                    out=f"{name}/residual2")
     _lm_head(e, h)
+
+
+def gpt_causal_lm(weights: dict, config: dict, batch_size: int = 2,
+                  seq_len: int = 16) -> O.ModelProto:
+    """GPT2LMHeadModel over float ``inputs_embeds`` [batch, seq, hidden]
+    -> ``logits`` [batch, seq, vocab]; position embeddings add inside the
+    graph, token embedding happens outside."""
+    cfg = _cfg(config)
+    g = GraphBuilder("gpt_causal_lm")
+    e = _ViTEmitter(g, weights, cfg["layer_norm_epsilon"])
+    x = g.input("inputs_embeds", [batch_size, seq_len, int(cfg["n_embd"])])
+    _causal_body(e, weights, cfg, x, seq_len)
     g.output("logits", [batch_size, seq_len, int(cfg["vocab_size"])])
+    return _finish(g, weights)
+
+
+def gpt_prefill(weights: dict, config: dict,
+                prefill_len: int = 8) -> O.ModelProto:
+    """The prefill form of :func:`gpt_causal_lm`: one request's prompt in
+    one call, exposing every layer's K/V heads: ``inputs_embeds``
+    [1, P, H] -> ``logits`` [1, P, V] plus ``present_k.i``/``present_v.i``
+    [1, heads, P, head] per layer, what :func:`gpt_decode_step`'s cache
+    inputs take (utils/serving.py admits a request with it). A shorter
+    prompt pads on the right: the causal mask keeps the padding out of the
+    live rows."""
+    cfg = _cfg(config)
+    nh = int(cfg["n_head"])
+    hd = int(cfg["n_embd"]) // nh
+    g = GraphBuilder("gpt_prefill")
+    e = _ViTEmitter(g, weights, cfg["layer_norm_epsilon"])
+    x = g.input("inputs_embeds", [1, prefill_len, int(cfg["n_embd"])])
+    presents = []
+    _causal_body(e, weights, cfg, x, prefill_len, presents)
+    g.output("logits", [1, prefill_len, int(cfg["vocab_size"])])
+    for i, (kh, vh) in enumerate(presents):
+        g.node("Identity", [kh], out=f"present_k.{i}", name=f"present_k_id.{i}")
+        g.node("Identity", [vh], out=f"present_v.{i}", name=f"present_v_id.{i}")
+        g.output(f"present_k.{i}", [1, nh, prefill_len, hd])
+        g.output(f"present_v.{i}", [1, nh, prefill_len, hd])
     return _finish(g, weights)
 
 

@@ -464,25 +464,24 @@ def _split(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     return outs
 
 
-def _constant(attrs: dict, device) -> list[Tensor]:
+def _constant(attrs: dict) -> list[Tensor]:
     value = attrs["value"]
     if value.dtype == np.float32:
-        return [FTensor(torch.from_numpy(np.array(value)).to(device))]
+        return [FTensor(attrs["placed"])]
     if value.dtype in (np.int64, np.int32):
         return [ITensor(value)]
     raise ValueError(f"Constant value dtype {value.dtype} not supported.")
 
 
 def onnx_operator_implementation(op: str, inputs: list[Tensor],
-                                 attrs: dict[str, object],
-                                 device=None) -> list[Tensor]:
-    """Run one op; ``device`` places the tensors a Constant node makes."""
+                                 attrs: dict[str, object]) -> list[Tensor]:
+    """Run one op."""
     if op == "Add":
         return [inputs[0] + inputs[1]]
     if op == "Concat":
         return [concat(list(inputs), axis=attrs["axis"])]
     if op == "Constant":
-        return _constant(attrs, device)
+        return _constant(attrs)
     if op == "Conv":
         return _conv(inputs, attrs)
     if op == "Div":

@@ -1,13 +1,15 @@
-"""Autoregressive decode through the KV-cache step graph.
+"""Autoregressive decode through the KV-cache step graph and over the
+full-sequence causal graph.
 
 Port of ``numpy_quant_tpu/utils/generate.py::generate_kv``,
-``decode_calibration`` and ``_next_token`` over
-``models/gpt.py::gpt_decode_step`` and ``models/llama.py::
-llama_decode_step``. The JAX package compiles the whole loop into one XLA
-program; here it is an eager Python loop over positions t. The caches are
-device tensors [B, heads, L, head] (float32, or int8 under
-``kv_cache_dtype="int8"``) written in place at slot t, the ids stay on the
-device, and only the finished ids come back to the host.
+``decode_calibration``, ``_next_token``, ``generate``, ``beam_search`` and
+``generate_speculative`` over ``models/gpt.py`` and ``models/llama.py``.
+The JAX package compiles each loop into one XLA program; here each is an
+eager Python loop. ``generate_kv``'s caches are device tensors
+[B, heads, L, head] (float32, or int8 under ``kv_cache_dtype="int8"``)
+written in place at slot t; the full-sequence loops run the graph at its
+fixed length every step. The ids stay on the device, and only the finished
+ids come back to the host.
 
 Sampling draws its randomness from an explicit ``torch.Generator``:
 ``jax.random.categorical(key, logits)`` is ``argmax(logits + gumbel)``, so
@@ -317,3 +319,235 @@ def decode_calibration(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
         for cache, present in zip(caches, res[1:]):
             cache[:, :, t:t + 1, :] = present
     return out
+
+
+def _graph_length(model, index: int = 1):
+    """Dim ``index`` of the first input's shape hint, or None."""
+    hint = model.inputs[0].shape_hint
+    return None if hint is None else int(hint[index])
+
+
+@torch.inference_mode()
+def generate(model, prompt_ids: np.ndarray, wte: np.ndarray,
+             max_new_tokens: int, temperature: float = None,
+             top_k: int = None, top_p: float = None, key=None,
+             min_p: float = None, repetition_penalty: float = None,
+             generator: torch.Generator = None) -> np.ndarray:
+    """Generate ``max_new_tokens`` continuations of ``prompt_ids`` [B, T0]
+    with ``model`` (any Model/QModel over an ``inputs_embeds`` causal graph:
+    models/gpt.py::gpt_causal_lm, models/llama.py::llama_causal_lm) and the
+    token-embedding table ``wte`` [V, H]. Every step runs the graph at its
+    fixed length L over the embeddings so far (the causal mask keeps the
+    zero tail out of the live positions) and picks from the logits at the
+    last filled position.
+
+    Greedy argmax by default; ``temperature``/``top_k``/``top_p``/``min_p``
+    switch to filtered sampling with Gumbel noise from ``generator`` (a
+    torch.Generator; one seeded 0 on the model's device when None).
+    ``repetition_penalty`` (HF CTRL semantics) composes with greedy
+    decoding too. Returns [B, T0 + max_new_tokens] int32 ids. A JAX PRNG
+    ``key`` raises ``NotImplementedError``."""
+    _refuse_unported(key, None, None)
+    prompt_ids = np.asarray(prompt_ids)
+    batch, t0 = prompt_ids.shape
+    length = _graph_length(model)
+    if length is not None and t0 + max_new_tokens > length:
+        raise ValueError(
+            f"prompt {t0} + {max_new_tokens} new tokens exceeds the "
+            f"graph's fixed length {length}")
+    length = length if length is not None else t0 + max_new_tokens
+    dev = model.device
+    wte_d = _placed_table(model, "wte", wte)
+    sampling = not (temperature is None and top_k is None and top_p is None
+                    and min_p is None)
+    if sampling and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
+    embeds = torch.zeros((batch, length, wte_d.shape[1]),
+                         dtype=torch.float32, device=dev)
+    embeds[:, :t0] = wte_d[prompt]
+    ids = torch.zeros((batch, length), dtype=torch.int64, device=dev)
+    ids[:, :t0] = prompt
+    presence = None
+    if repetition_penalty is not None:
+        presence = torch.zeros((batch, wte_d.shape[0]), dtype=torch.float32,
+                               device=dev)
+        presence.scatter_(1, prompt, 1.0)
+    for i in range(max_new_tokens):
+        t = t0 - 1 + i  # the position whose logits predict token t+1
+        row = model([embeds], as_numpy=False)[0][:, t, :]
+        nxt = _next_token(row, temperature, top_k, top_p, generator, min_p,
+                          presence, repetition_penalty)
+        embeds[:, t + 1] = wte_d[nxt]
+        ids[:, t + 1] = nxt
+        if presence is not None:
+            presence.scatter_(1, nxt[:, None], 1.0)
+    return ids[:, :t0 + max_new_tokens].cpu().numpy().astype(np.int32)
+
+
+def _log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.log_softmax's composition: (x - max) - log(sum(exp(x - max)))."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+@torch.inference_mode()
+def beam_search(model, prompt_ids: np.ndarray, wte: np.ndarray,
+                max_new_tokens: int, num_beams: int, eos_id: int = None):
+    """Beam-search decode over a full-sequence causal graph (the
+    :func:`generate` graph form) built with batch ``B * num_beams``: every
+    step forwards all hypotheses as one batch, expands the candidates to
+    [B, W * V] summed token log-probabilities and keeps the W best, ordered
+    as ``lax.top_k`` orders them (descending by IEEE total order, equal
+    scores lower index first).
+
+    With ``eos_id`` set, a beam that emits EOS freezes: its score stops
+    accumulating and its only continuation is EOS itself. Returns
+    ``(ids, scores)``: ids [B, num_beams, T0 + max_new_tokens] int32 and
+    scores [B, num_beams] float32, both best first."""
+    prompt_ids = np.asarray(prompt_ids)
+    batch, t0 = prompt_ids.shape
+    w = int(num_beams)
+    hint = model.inputs[0].shape_hint
+    if hint is not None and int(hint[0]) != batch * w:
+        raise ValueError(
+            f"beam search over {batch} prompts x {w} beams needs a "
+            f"graph with batch {batch * w}, got {int(hint[0])}")
+    length = int(hint[1]) if hint is not None else t0 + max_new_tokens
+    if t0 + max_new_tokens > length:
+        raise ValueError(
+            f"prompt {t0} + {max_new_tokens} new tokens exceeds the "
+            f"graph's fixed length {length}")
+    dev = model.device
+    wte_d = _placed_table(model, "wte", wte)
+    vocab, hidden = wte_d.shape
+    neg = torch.full((), _NEG, dtype=torch.float32, device=dev)
+    prompt = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
+    embeds = torch.zeros((batch, w, length, hidden), dtype=torch.float32,
+                         device=dev)
+    embeds[:, :, :t0] = wte_d[prompt][:, None]
+    ids = torch.zeros((batch, w, length), dtype=torch.int64, device=dev)
+    ids[:, :, :t0] = prompt[:, None, :]
+    # only beam 0 is live at step 0, else the W beams would all pick the
+    # same top token
+    scores = torch.full((batch, w), _NEG, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    done = torch.zeros((batch, w), dtype=torch.bool, device=dev)
+    b_idx = torch.arange(batch, device=dev)[:, None]
+    for i in range(max_new_tokens):
+        t = t0 - 1 + i
+        logits = model([embeds.reshape(batch * w, length, hidden)],
+                       as_numpy=False)[0]
+        logp = _log_softmax(logits[:, t, :].reshape(batch, w, vocab)
+                            .to(torch.float32))
+        cand = scores[:, :, None] + logp                  # [B, W, V]
+        if eos_id is not None:
+            # finished beams: score frozen, sole continuation is EOS
+            frozen = neg.expand(batch, w, vocab).clone()
+            frozen[:, :, eos_id] = scores
+            cand = torch.where(done[:, :, None], frozen, cand)
+        flat_scores = cand.reshape(batch, w * vocab)
+        flat = _sort_descending(flat_scores)[:, :w]
+        scores = torch.gather(flat_scores, 1, flat)
+        beam_idx = flat // vocab                          # source beam
+        tok = flat % vocab                                # next token
+        ids = ids[b_idx, beam_idx]                        # reorder beams
+        ids[:, :, t + 1] = tok
+        embeds = embeds[b_idx, beam_idx]
+        embeds[:, :, t + 1] = wte_d[tok]
+        if eos_id is not None:
+            done = done[b_idx, beam_idx] | (tok == eos_id)
+    return (ids[:, :, :t0 + max_new_tokens].cpu().numpy().astype(np.int32),
+            scores.cpu().numpy())
+
+
+def _write_col(buf: torch.Tensor, col: torch.Tensor,
+               val: torch.Tensor) -> torch.Tensor:
+    """buf[b, col[b]] = val[b] for each row b; a column past the buffer
+    writes nothing."""
+    pos = torch.arange(buf.shape[1], device=buf.device)[None, :]
+    hit = pos == col[:, None]
+    if buf.ndim == 3:
+        return torch.where(hit[:, :, None], val[:, None, :], buf)
+    return torch.where(hit, val[:, None], buf)
+
+
+def _read_col(arr: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """arr[b, col[b]], the column clamped into the array."""
+    c = col.clamp(0, arr.shape[1] - 1)
+    return arr[torch.arange(arr.shape[0], device=arr.device), c]
+
+
+@torch.inference_mode()
+def generate_speculative(target_model, draft_model, prompt_ids: np.ndarray,
+                         wte_target: np.ndarray, wte_draft: np.ndarray,
+                         max_new_tokens: int, k: int = 4):
+    """Greedy speculative decoding: ``draft_model`` proposes ``k`` tokens
+    per round by greedy steps, ``target_model`` verifies them in one
+    forward, and each row accepts its longest matching prefix plus the
+    target's own token after it, so a round costs one target forward and
+    advances a row 1 to k+1 tokens. The output equals target-only greedy
+    decoding (argmax keeps the first maximum on both sides).
+
+    Both models are full-sequence causal graphs (the :func:`generate` form)
+    over one vocabulary and batch, each embedding with its own table. Rows
+    advance independently. Graph lengths must cover ``T0 + max_new_tokens
+    + k - 1``. Returns ``(ids [B, T0 + max_new_tokens] int32,
+    target_forwards)``: the verify rounds run (plain greedy takes
+    ``max_new_tokens`` forwards)."""
+    prompt_ids = np.asarray(prompt_ids)
+    batch, t0 = prompt_ids.shape
+    total = t0 + max_new_tokens
+    for m, which in ((target_model, "target"), (draft_model, "draft")):
+        lm = _graph_length(m)
+        if lm is not None and lm < total + k - 1:
+            raise ValueError(
+                f"{which} graph length {lm} < T0 + max_new_tokens + k - 1 "
+                f"= {total + k - 1}")
+    lt, ld = _graph_length(target_model), _graph_length(draft_model)
+    dev = target_model.device
+    wte_t = _placed_table(target_model, "wte", wte_target)
+    wte_d = _placed_table(draft_model, "wte", wte_draft)
+    prompt = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
+    ids = torch.zeros((batch, total), dtype=torch.int64, device=dev)
+    ids[:, :t0] = prompt
+    emb_t = torch.zeros((batch, lt, wte_t.shape[1]), dtype=torch.float32,
+                        device=dev)
+    emb_t[:, :t0] = wte_t[prompt]
+    emb_d = torch.zeros((batch, ld, wte_d.shape[1]), dtype=torch.float32,
+                        device=dev)
+    emb_d[:, :t0] = wte_d[prompt]
+    t = torch.full((batch,), t0, dtype=torch.int64, device=dev)
+    rounds = 0
+    while int(t.min()) < total:
+        # draft k greedy proposals (k cheap forwards)
+        d_toks = []
+        for i in range(k):
+            logits = draft_model([emb_d], as_numpy=False)[0]
+            tok = torch.argmax(_read_col(logits, t + i - 1), dim=-1)
+            d_toks.append(tok)
+            emb_d = _write_col(emb_d, t + i, wte_d[tok])
+            emb_t = _write_col(emb_t, t + i, wte_t[tok])
+        d_toks = torch.stack(d_toks, dim=1)
+        # one target forward verifies all k proposals
+        logits = target_model([emb_t], as_numpy=False)[0]
+        y = torch.stack([torch.argmax(_read_col(logits, t + i - 1), dim=-1)
+                         for i in range(k + 1)], dim=1)
+        # longest matching prefix: n in [0, k]
+        n = torch.cumprod((d_toks == y[:, :k]).to(torch.int64),
+                          dim=1).sum(dim=1)
+        for i in range(k):
+            live = (i < n) & (t + i < total)
+            ids = torch.where(live[:, None],
+                              _write_col(ids, t + i, d_toks[:, i]), ids)
+        corr = torch.gather(y, 1, n[:, None])[:, 0]
+        at = t + n
+        live = at < total
+        ids = torch.where(live[:, None], _write_col(ids, at, corr), ids)
+        emb_t = torch.where(live[:, None, None],
+                            _write_col(emb_t, at, wte_t[corr]), emb_t)
+        emb_d = torch.where(live[:, None, None],
+                            _write_col(emb_d, at, wte_d[corr]), emb_d)
+        t = torch.clamp(t + n + 1, max=total)
+        rounds += 1
+    return ids.cpu().numpy().astype(np.int32), rounds

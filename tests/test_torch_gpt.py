@@ -4,8 +4,9 @@ positions), in TPU-mode numerics (x64 off). JAX builds its graphs from a
 ``transformers.GPT2LMHeadModel`` loaded with ``random_gpt2_weights``; the
 port builds its own from the same numpy weights.
 
-Tolerances: float logits (the causal LM and one decode step) within
-1e-5 * max|logit| of JAX's (f32 products summed in another order).
+Tolerances: float logits (the causal LM, one decode step and the prefill
+form, whose present K/V too) within 1e-5 * max|value| of JAX's (f32
+products summed in another order).
 Greedy ``generate_kv`` tokens (prompt 4, 6 new) equal JAX's: float, then
 W4 g=8 under packed_execution "unpack" and "kernel", with JAX's
 weight-only state installed by ``load_jax_params``. The port's "kernel"
@@ -31,13 +32,13 @@ from numpy_quant_tpu_torch import Model, config as TC
 from numpy_quant_tpu_torch.convert import load_jax_params
 from numpy_quant_tpu_torch.kernels import qmatmul as TQ
 from numpy_quant_tpu_torch.models import gpt as TG
-from numpy_quant_tpu_torch.utils import generate as TGEN
 
-# the module: the package's ``generate`` name is the function
+# the modules: each package's ``generate`` name is the function
+TGEN = importlib.import_module("numpy_quant_tpu_torch.utils.generate")
 JGEN = importlib.import_module("numpy_quant_tpu.utils.generate")
 
 CFG = dict(vocab_size=96, n_positions=16, n_embd=64, n_layer=2, n_head=4)
-B, MAX_LEN, SEQ = 2, 16, 12
+B, MAX_LEN, SEQ, PREFILL = 2, 16, 12, 8
 PROMPT, NEW = 4, 6
 WO_PER_STEP = 4 * CFG["n_layer"] + 1  # c_attn, c_proj, c_fc, c_proj; head
 
@@ -68,8 +69,11 @@ def gpt():
     with jax.enable_x64(False):
         j_step = JG.gpt_decode_step(module=hf, batch_size=B, max_len=MAX_LEN)
         j_lm = JG.gpt_causal_lm(module=hf, batch_size=B, seq_len=SEQ)
+        j_prefill = JG.gpt_prefill(prefill_len=PREFILL, module=hf)
     return dict(
         weights=weights, hf=hf, j_step=j_step, j_lm=j_lm,
+        j_prefill=j_prefill,
+        t_prefill=TG.gpt_prefill(weights, CFG, prefill_len=PREFILL),
         t_step=TG.gpt_decode_step(weights, CFG, batch_size=B,
                                   max_len=MAX_LEN),
         t_lm=TG.gpt_causal_lm(weights, CFG, batch_size=B, seq_len=SEQ),
@@ -84,7 +88,7 @@ def _graph_signature(proto):
             sorted(i.name for i in g.initializer))
 
 
-@pytest.mark.parametrize("form", ["step", "lm"])
+@pytest.mark.parametrize("form", ["step", "lm", "prefill"])
 def test_graphs_match_jax_node_for_node(gpt, form):
     """The same nodes, value names, inputs, outputs and initializers."""
     jp, tp = gpt[f"j_{form}"], gpt[f"t_{form}"]
@@ -112,6 +116,28 @@ def test_causal_lm_logits_match_jax_and_hf(gpt):
     with torch.no_grad():
         hf = gpt["hf"](inputs_embeds=torch.from_numpy(x)).logits.numpy()
     np.testing.assert_allclose(got, hf, rtol=0, atol=tol)
+
+
+def test_prefill_logits_and_presents_match_jax(gpt):
+    """gpt_prefill over a prompt padded to P: logits and every layer's
+    present K/V [1, heads, P, head] within 1e-5 * max|value| of JAX's, and
+    the live rows equal to the causal LM's."""
+    x = np.random.default_rng(2).normal(
+        size=(1, PREFILL, CFG["n_embd"])).astype(np.float32) * 0.1
+    want = [np.asarray(o) for o in nq.Model.from_onnx(gpt["j_prefill"])([x])]
+    got = Model.from_onnx(gpt["t_prefill"], device="cpu")([x])
+    nh, hd = CFG["n_head"], CFG["n_embd"] // CFG["n_head"]
+    assert len(got) == 1 + 2 * CFG["n_layer"]
+    assert got[0].shape == (1, PREFILL, CFG["vocab_size"])
+    assert all(g.shape == (1, nh, PREFILL, hd) for g in got[1:])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+    lm = TG.gpt_causal_lm(gpt["weights"], CFG, batch_size=1,
+                          seq_len=PREFILL)
+    np.testing.assert_allclose(
+        got[0], Model.from_onnx(lm, device="cpu")([x])[0], rtol=0,
+        atol=1e-5 * np.abs(got[0]).max())
 
 
 def _step_inputs(seed, t=5):

@@ -226,6 +226,8 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.passes\n"
             "import numpy_quant_tpu_torch.passes.decode_attention\n"
             "import numpy_quant_tpu_torch.utils.generate\n"
+            "import numpy_quant_tpu_torch.utils.serving\n"
+            "import numpy_quant_tpu_torch.serving\n"
             "import numpy_quant_tpu_torch.utils.serialization\n"
             "import numpy_quant_tpu_torch.profile_vit\n"
             "import numpy_quant_tpu_torch.profile_gpt\n"

@@ -26,8 +26,9 @@ import numpy_quant_tpu as nq
 from numpy_quant_tpu.models import gpt as JG
 from numpy_quant_tpu_torch import Model
 from numpy_quant_tpu_torch.models import gpt as TG
-from numpy_quant_tpu_torch.utils import generate as TGEN
 
+# the modules: each package's ``generate`` name is the function
+TGEN = importlib.import_module("numpy_quant_tpu_torch.utils.generate")
 JGEN = importlib.import_module("numpy_quant_tpu.utils.generate")
 
 B, V = 6, 40

@@ -218,7 +218,7 @@ def test_small_vit_wide_matches_jax_x64(vit, mode):
                 else graph_inputs.get(v.name) or _port_value(jdata[v.name])
         ins = tq._node_inputs(node, data)
         outs = tq._post_node(node, onnx_operator_implementation(
-            node.op, ins, node.attrs, device=tq.device))
+            node.op, ins, node.attrs))
         for o, t in zip(node.outputs, outs):
             if not isinstance(t, QTensor):
                 continue
