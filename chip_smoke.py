@@ -2,9 +2,11 @@
 """Drive the PyTorch port's int8 ViT-Base, weight-only GPT-2 decode, int8
 GPT-2 full-context scoring, int8 TinyLlama-1.1B scoring, int8 T5-small
 encoder-decoder scoring, W8A16 ViT-Base, 1-16-bit MLP, TinyLlama-1.1B
-decode and prefill paths, and the serving paths (map_batches/serve_stream
+decode and prefill paths, the serving paths (map_batches/serve_stream
 over ViT-Base, the continuous-batching engine, prefill admission and the
-full-sequence generators over TinyLlama-1.1B) on one NVIDIA GPU.
+full-sequence generators over TinyLlama-1.1B) and ONNX interop (the
+conformance vectors; QDQ/QOperator export and save/load of ViT-Base) on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -199,6 +201,22 @@ Phases, one line each (any failure raises and the script exits non-zero):
      tokens' summed log-softmax within BEAM_TOL, speculative equal to
      generate, and with the target as its own draft equal to it in
      ceil(32 / 5) = 7 target forwards.
+ 17. ONNX interop, run right after 16(a) on phase 3's models: (a) the 13
+     conformance vectors (conformance/: QDQ, QOperator, dynamic
+     quantization, LSTM/GRU and float graphs) imported and run on the card
+     in f32 with TF32 off, each output within its vector's atol; (b) the
+     int8 ViT-Base (quantize(8, quantize_conv=True)), and phase 3's
+     optimize()d, pack_weights()ed one under "kernel", exported with
+     export_qdq and export_qoperator, re-imported with Model.from_onnx and
+     run at f32 B=8 against the source forward by the JAX package's rules
+     (mean |dlogit| < 0.02 QDQ, < 0.05 QOperator, equal labels; every
+     quantized MatMul of the int8 model but each layer's probs @ v a
+     QLinearMatMul); (c) save_qmodel -> load_qmodel of the int8 model
+     and of W4A8 per-channel packed under "kernel": the loaded forward equal
+     to the saved one bit for bit at f32 B=8 and bf16 B=96; (d) images/s
+     at bf16 B=96 of the re-imported QDQ and QOperator models and the
+     native optimized model under both packed executions (two runs each,
+     in turns), with device busy ms and aten calls of one profiled forward.
 Phase 3 also times the bf16 forward with the plain chains swapped in and
 profiles one forward. The last three lines are the kernels JSON line, the
 card's name and power limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
@@ -325,6 +343,10 @@ ADMIT_PLENS, ADMIT_BUDGETS = (64, 480), (8, 24)  # 16c's 8 requests
 GEN_LEN, GEN_B, GEN_PROMPT, GEN_NEW = 64, 2, 16, 32  # 16d's generate
 BEAM_W, BEAM_NEW, SPEC_K, DRAFT_LAYERS = 4, 16, 4, 2
 BEAM_TOL = 1e-4  # beam score against the summed log-softmax, relative
+# phase 17: the JAX package's round-trip rules (mean |dlogit| against the
+# source QModel; tests/test_utils.py, tests/test_qoperator.py)
+EXPORT_RULES = {"qdq": 0.02, "qoperator": 0.05}
+INTEROP_REPS = 10  # forwards per images/s run in 17(d)
 # launches phase 16 requires of each kernel on the serving paths
 SERVE_LAUNCHES = {
     "fused_attention_hs_per_vit_forward": 12,
@@ -3482,6 +3504,195 @@ def generators_phase(card: str, weights) -> dict:
     return {k: v / GEN_NEW for k, v in counts.items()}
 
 
+def conformance_phase(card: str) -> dict:
+    """Phase 17(a): the 13 conformance vectors (conformance/manifest.json:
+    QDQ, QOperator, dynamic quantization, LSTM/GRU, float graphs) imported
+    and run on the card in f32 with TF32 off; each output within its
+    vector's atol of the committed expected array. Returns the worst
+    error by vector."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch import onnx as O
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    vectors = os.path.join(REPO, "conformance")
+    with open(os.path.join(vectors, "manifest.json")) as f:
+        manifest = json.load(f)
+    worst, misses = {}, []
+    for entry in manifest:
+        arrays = np.load(os.path.join(vectors, entry["arrays"]))
+        model = Model.from_onnx(O.load(os.path.join(vectors, entry["model"])))
+        assert model.device.type == "cuda"
+        got, counts = counted(lambda: model(
+            [arrays[n] for n in entry["inputs"]]))
+        errs = []
+        for name, g in zip(entry["outputs"], got):
+            want = arrays[f"expected::{name}"]
+            assert g.shape == want.shape and np.isfinite(g).all(), name
+            errs.append(float(np.abs(g.astype(np.float64) - want).max()))
+        worst[entry["name"]] = max(errs)
+        ok = len(errs) == len(entry["outputs"]) \
+            and worst[entry["name"]] <= entry["atol"]
+        say("interop-vector", name=entry["name"], atol=entry["atol"],
+            max_abs_err=worst[entry["name"]], within_atol=ok,
+            ops=",".join(sorted({n.op for n in model.nodes})),
+            dequantize_launches=counts["dequantize"])
+        if not ok:
+            misses.append(entry["name"])
+    say("interop-vectors", replayed=f"{len(manifest) - len(misses)}/"
+        f"{len(manifest)}", misses=",".join(misses) or "none",
+        card=card.replace(" ", "_"))
+    assert len(manifest) == 13 and not misses, misses
+    return worst
+
+
+def forward_cost(forward) -> dict:
+    """Device busy ms and aten calls of one profiled forward (after one
+    unprofiled)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forward()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    assert busy > 0, "the profiler saw no device time"
+    aten = sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("aten::"))
+    return dict(device_busy_ms=busy, aten_calls=aten)
+
+
+def interop_phase(card: str, proto, model, stats, x8, x, optimized) -> dict:
+    """Phase 17(b-d) on phase 3's ViT-Base (``proto``, its float ``model``,
+    ``stats``; ``optimized``: phase 3's optimize()d, pack_weights()ed int8
+    QModel). (b) export_qdq and export_qoperator of quantize(8,
+    quantize_conv=True), and of the optimized packed model (its source
+    forward under "kernel": fused_attention_hs and splitk_qmatmul),
+    re-imported with Model.from_onnx on the card and run at f32 B=8: mean
+    |dlogit| against the source forward within EXPORT_RULES, equal labels;
+    of the int8 model every quantized MatMul but each layer's probs @ v a
+    QLinearMatMul and the patch Conv a QLinearConv; (c) save_qmodel -> load_qmodel of the
+    int8 model and of W4A8 per-channel packed under "kernel": the loaded
+    forward equal to the saved one bit for bit at f32 B=8 and bf16 B=96;
+    (d) images/s at bf16 B=96 of the re-imported QDQ and QOperator models
+    and of the native optimized QModel under "unpack" and "kernel" (runs
+    in turns, twice each), with device busy ms and aten calls of one
+    profiled forward of each. Files go to a temporary directory only.
+    Returns the launches per forward of each re-imported model."""
+    import tempfile
+
+    import numpy as np
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models.vit import VIT_BASE, WEIGHT_CONFIGS
+    from numpy_quant_tpu_torch.utils import (export_qdq, export_qoperator,
+                                             load_qmodel, save_qmodel)
+    layers = VIT_BASE["num_hidden_layers"]
+    n_matmul = sum(n.op_type == "MatMul" for n in proto.graph.node)
+    q8 = model.quantize(bit_width=8, stats=stats, quantize_conv=True)
+    sources = {"int8": (q8, "unpack"), "int8_optimized_packed":
+               (optimized, "kernel")}
+    reimported, launches = {}, {}
+    for label, (src, mode) in sources.items():
+        ref, ref_counts = packed_forward(src, x8, mode)
+        if label != "int8":
+            assert ref_counts["fused_attention_hs"] == layers, ref_counts
+            assert ref_counts["splitk_qmatmul"] == PACKED_PER_FORWARD, \
+                ref_counts
+        for fmt, export in (("qdq", export_qdq),
+                            ("qoperator", export_qoperator)):
+            t0 = time.perf_counter()
+            exported = export(src, proto)
+            ops = [n.op_type for n in exported.graph.node]
+            loaded = Model.from_onnx(exported)
+            seconds = time.perf_counter() - t0
+            got, counts = counted(lambda: loaded([x8])[0])
+            mean = float(np.abs(got - ref).mean())
+            labels = int((got.argmax(1) == ref.argmax(1)).sum())
+            say("interop-export", source=label, source_execution=mode,
+                format=fmt, batch=B_F32, mean_abs_dlogit=mean,
+                rule=EXPORT_RULES[fmt], labels_equal=f"{labels}/{B_F32}",
+                max_abs_dlogit=float(np.abs(got - ref).max()),
+                max_abs_logit=float(np.abs(ref).max()),
+                qlinear_matmul=ops.count("QLinearMatMul"),
+                qlinear_conv=ops.count("QLinearConv"),
+                quantize_linear=ops.count("QuantizeLinear"),
+                dequantize_linear=ops.count("DequantizeLinear"),
+                export_import_seconds=seconds,
+                source_attention_launches=ref_counts["fused_attention_hs"],
+                source_splitk_qmatmul_launches=ref_counts["splitk_qmatmul"],
+                **{f"{k}_launches": v for k, v in counts.items() if v})
+            assert np.isfinite(got).all() and got.shape == ref.shape
+            assert mean < EXPORT_RULES[fmt], (label, fmt, mean)
+            assert labels == B_F32, (label, fmt, labels)
+            assert others(counts) == 0 and counts["dequantize"] > 0, counts
+            if fmt == "qoperator" and label == "int8":
+                assert ops.count("QLinearMatMul") == n_matmul - layers, ops
+                assert ops.count("QLinearConv") == 1, ops
+            elif fmt == "qoperator":
+                # JAX's rule after optimize(): the narrowed last layer's
+                # values carry no params of their source names, so its
+                # MatMuls keep the float form
+                assert ops.count("QLinearMatMul") > 0, ops
+            reimported.setdefault(fmt, loaded)
+            launches[f"{label}_{fmt}"] = counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        w4 = model.quantize(stats=stats, quantize_conv=True,
+                            **WEIGHT_CONFIGS["w4a8"])
+        assert w4.pack_weights() == PACKED_PER_FORWARD
+        for label, qm, mode in (("int8", q8, "unpack"),
+                                ("w4a8_packed", w4, "kernel")):
+            path = os.path.join(tmp, f"{label}.onnx")
+            t0 = time.perf_counter()
+            save_qmodel(qm, path, proto)
+            saved = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = load_qmodel(path)
+            loaded_s = time.perf_counter() - t0
+            assert back.device.type == "cuda"
+            for dtype, xin in (("f32", x8), ("bf16", x)):
+                with (config.low_precision_floats() if dtype == "bf16"
+                      else contextlib.nullcontext()):
+                    want, cw = packed_forward(qm, xin, mode)
+                    got, cg = packed_forward(back, xin, mode)
+                equal = bool(np.array_equal(got, want))
+                say("interop-save-load", model=label, execution=mode,
+                    dtype=dtype, batch=xin.shape[0], loaded_equals_saved=equal,
+                    file_mb=os.path.getsize(path) / 1e6,
+                    save_seconds=saved, load_seconds=loaded_s,
+                    splitk_qmatmul_launches=cg["splitk_qmatmul"],
+                    dequantize_launches=cg["dequantize"])
+                assert equal and np.isfinite(got).all(), (label, dtype)
+                assert cg == cw, (cg, cw)
+                if mode == "kernel":
+                    assert cg["splitk_qmatmul"] == PACKED_PER_FORWARD, cg
+        del w4
+
+    forms = {"qdq": (reimported["qdq"], "unpack"),
+             "qoperator": (reimported["qoperator"], "unpack"),
+             "native_unpack": (optimized, "unpack"),
+             "native_kernel": (optimized, "kernel")}
+    runs = {k: [] for k in forms}
+    with config.low_precision_floats():
+        for turn in list(forms) + list(forms)[::-1]:
+            qm, mode = forms[turn]
+            runs[turn].append(images_per_s(qm, x, mode, reps=INTEROP_REPS))
+        for form, (qm, mode) in forms.items():
+            with packed_execution(mode):
+                cost = forward_cost(lambda: qm([x], as_numpy=False))
+            say("interop-serve", form=form, dtype="bf16", batch=B_SERVE,
+                images_per_s=statistics.median(runs[form]),
+                images_per_s_runs=",".join(f"{v:.1f}" for v in runs[form]),
+                **cost, card=card.replace(" ", "_"))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3509,7 +3720,8 @@ def main() -> int:
     # -- phase 2: the main path in f32 --------------------------------
     t0 = time.perf_counter()
     weights = random_vit_weights(VIT_BASE, seed=0)
-    model = Model.from_onnx(vit_image_classifier(weights, VIT_BASE))
+    vit_proto = vit_image_classifier(weights, VIT_BASE)
+    model = Model.from_onnx(vit_proto)
     rng = np.random.default_rng(0)
     calib = rng.normal(size=(2, 3, 224, 224)).astype(np.float32) * 0.5
     stats = model.calibration_stats([calib])
@@ -3726,12 +3938,20 @@ def main() -> int:
     vit_serving = vit_serving_phase(card, qmodel)
     t16 = time.perf_counter() - t16
 
+    # -- phase 17: ONNX interop (run here, on phase 3's models) -------
+    t17 = time.perf_counter()
+    vectors = conformance_phase(card)
+    interop = interop_phase(card, vit_proto, model, stats, x8, x,
+                            qmodels["int8"])
+    say("interop-phase", seconds=time.perf_counter() - t17,
+        card=card.replace(" ", "_"))
+
     # -- phase 15: TinyLlama-1.1B decode and prefill ------------------
     t15 = time.perf_counter()
     dec_wo = time_wo(name, LLAMA_WO_SHAPES, "tinyllama")
     dec_ew = ew_path_check(name)
     dec_plain = plain_decode_shape(name)
-    del model, qmodel, qmodels
+    del model, qmodel, qmodels, vit_proto
     decode = llama_decode_phase(card, llama_weights)
     prefill_counts, prefill_model = int8_prefill_phase(card, llama_weights)
     say("llama-decode-phase", seconds=time.perf_counter() - t15)
@@ -3858,7 +4078,11 @@ def main() -> int:
                         vit_serving[kname],
                         "per_int8_engine_step": e1[kname],
                         "per_prefill_admission": admit[kname],
-                        "per_generate_forward": gen_counts[kname]}})
+                        "per_generate_forward": gen_counts[kname]},
+            "interop": {f"per_reimported_{k}_forward": c[kname]
+                        for k, c in interop.items()}})
+    say("interop-summary", vectors=",".join(
+        f"{k}:{v:.3g}" for k, v in vectors.items()))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

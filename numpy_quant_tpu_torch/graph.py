@@ -2,7 +2,9 @@
 doubly-linked Constant/Variable/Node objects in ONNX graph order. Float
 initializers become FTensors on the model's device, and a float Constant
 node's value is placed there too (its ``placed`` attr); integer
-initializers become host ITensors (the shape domain)."""
+initializers become host ITensors (the shape domain), narrow ones (int8,
+uint8, int16, uint16: QDQ payloads) keeping their dtype and a device
+copy."""
 from __future__ import annotations
 
 from typing import Any, List, Union
@@ -68,26 +70,58 @@ def attribute_to_python(attr) -> Any:
     return value
 
 
-def wrap_array(arr: np.ndarray, device: torch.device) -> Tensor:
-    """Classify a host array into the tensor layer."""
+# ops whose integer inputs are quantized payloads read on the device
+QUANT_INT_CONSUMERS = ("DequantizeLinear", "QLinearMatMul", "QLinearConv",
+                       "MatMulInteger")
+_NARROW = (np.int8, np.uint8, np.int16, np.uint16)
+
+
+def wrap_array(arr: np.ndarray, device: torch.device,
+               place: bool = False) -> Tensor:
+    """Classify a host array into the tensor layer. Narrow integer payloads
+    (QDQ-format weights and zero points) widen to the host int64 domain and
+    keep their dtype as ``orig_dtype``; they, and the integer arrays a
+    quantized op consumes (``place``, e.g. int32 biases), are also placed
+    on the device once (int8 stays int8, the rest int32). Small float
+    arrays (at most 64 values, or 1-D) keep a host copy, ``host``, for the
+    ops that read scales on the host."""
     arr = np.asarray(arr)
     if arr.dtype == np.float32:
-        return FTensor(torch.from_numpy(np.array(arr)).to(device))
-    if arr.dtype in (np.int64, np.int32, np.bool_):
-        return ITensor(arr.astype(np.int64))
+        t = FTensor(torch.from_numpy(np.array(arr)).to(device))
+        if arr.size <= 64 or arr.ndim == 1:
+            t.host = arr
+        return t
+    narrow = arr.dtype in _NARROW
+    if narrow or arr.dtype in (np.int64, np.int32, np.bool_):
+        placed = None
+        if narrow or place:
+            placed = torch.from_numpy(arr.astype(
+                np.int8 if arr.dtype == np.int8 else np.int32)).to(device)
+        return ITensor(arr.astype(np.int64),
+                       orig_dtype=arr.dtype if narrow else None,
+                       placed=placed)
     raise ValueError(f"Array dtype {arr.dtype} not supported")
 
 
-def import_onnx(onnx_model: onnx_lib.ModelProto, device: torch.device):
+def import_onnx(onnx_model: onnx_lib.ModelProto, device: torch.device,
+                constant=None):
     """Build (nodes, values, inputs, outputs) from a ModelProto. A graph
-    input that is also an initializer stays a Constant."""
+    input that is also an initializer stays a Constant. ``constant(name,
+    array)``: the tensor of an initializer, or None to classify it with
+    ``wrap_array`` (utils/serialization.py rebuilds quantized payloads)."""
     graph = onnx_model.graph
     value_dict: dict[str, Value] = {}
     initializer_names = set()
+    quant_ins = {name for n in graph.node if n.op_type in QUANT_INT_CONSUMERS
+                 for name in n.input}
     for onnx_tensor in graph.initializer:
         arr = onnx_lib.to_array(onnx_tensor)
-        value_dict[onnx_tensor.name] = Constant(
-            onnx_tensor.name, outputs=[], data=wrap_array(arr, device))
+        data = None if constant is None else constant(onnx_tensor.name, arr)
+        if data is None:
+            data = wrap_array(arr, device,
+                              place=onnx_tensor.name in quant_ins)
+        value_dict[onnx_tensor.name] = Constant(onnx_tensor.name, outputs=[],
+                                                data=data)
         initializer_names.add(onnx_tensor.name)
 
     inputs: List[Variable] = []

@@ -21,6 +21,7 @@ from . import config
 from . import onnx as onnx_lib
 from .graph import (Constant, Node, Value, Variable, import_onnx,
                     only_rhs_of)
+from .ops.interop import executing_on
 from .ops.registry import onnx_operator_implementation
 from .passes.toolkit import PASSTHROUGH_OPS
 from .quantization import (container_dtype, per_channel_scales,
@@ -88,8 +89,14 @@ class Model:
 
     def _wrap_constant(self, value: Constant) -> Tensor:
         if isinstance(value.data, FTensor):
-            # re-wrapped per forward: casts to the current float dtype
-            return FTensor(value.data.data)
+            # re-wrapped per forward: casts to the current float dtype; the
+            # host copy of a small constant rides along (scales read on
+            # the host: ops/interop.py)
+            t = FTensor(value.data.data)
+            host = getattr(value.data, "host", None)
+            if host is not None:
+                t.host = host
+            return t
         return value.data
 
     # ------------------------------------------------------------------
@@ -137,19 +144,20 @@ class Model:
             for name, tensor in data.items():
                 visit(name, tensor)
         last_uses = {} if record else self._last_uses()
-        for i, node in enumerate(self.nodes):
-            ins = self._node_inputs(node, data)
-            outs = onnx_operator_implementation(node.op, ins, node.attrs)
-            outs = self._post_node(node, outs)
-            for o, tensor in zip(node.outputs, outs):
-                data[o.name] = tensor
-                if record:
-                    o.data = tensor
-                if visit is not None:
-                    visit(o.name, tensor)
-            ins = outs = None
-            for name in last_uses.get(i, ()):
-                data.pop(name, None)
+        with executing_on(self.device):
+            for i, node in enumerate(self.nodes):
+                ins = self._node_inputs(node, data)
+                outs = onnx_operator_implementation(node.op, ins, node.attrs)
+                outs = self._post_node(node, outs)
+                for o, tensor in zip(node.outputs, outs):
+                    data[o.name] = tensor
+                    if record:
+                        o.data = tensor
+                    if visit is not None:
+                        visit(o.name, tensor)
+                ins = outs = None
+                for name in last_uses.get(i, ()):
+                    data.pop(name, None)
         if record:
             for variable in self.inputs:
                 variable.data = input_tensors.get(variable.name, variable.data)

@@ -2,7 +2,10 @@
 ``numpy_quant_tpu/ops/registry.py``), limited to the ops of the ViT
 classifier, the GPT causal-LM and decode graphs, the LLaMA causal-LM,
 decode and prefill graphs and the T5 encoder-decoder graphs, the four
-fused ops and weight-only MatMul/Gemm. Any other op raises ``NotImplementedError`` with its name."""
+fused ops, weight-only MatMul/Gemm, the interop ops of ``interop.py``
+(QDQ, QOperator, dynamic quantization, Cast, ConstantOfShape) and LSTM/GRU
+(``recurrent.py``). Any other op raises ``NotImplementedError`` with its
+name."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,6 +24,8 @@ from ..tensor import (
     qconv2d,
     where,
 )
+from .interop import OPS as INTEROP_OPS
+from .recurrent import recurrent
 
 
 def _resolve_reshape_shape(x_shape, shape: np.ndarray, allowzero: int) -> tuple:
@@ -171,6 +176,39 @@ def _promoted(a: torch.Tensor, b: torch.Tensor):
     return a.to(dt), b.to(dt)
 
 
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """round_f32(a * b + c) of float32 tensors, one rounding: the float64
+    product is exact, the float64 sum is rounded to odd (a sticky last
+    bit), and the odd-rounded sum rounds to float32 as the exact one
+    would."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    bp = s - c
+    err = (c - (s - bp)) + (p - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward),
+                       s).float()
+
+
+def _context_dot(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs [..., 1, L] @ values [..., L, D]. On the CPU a float32 product
+    sums in XLA's CPU order for this dot, one fused multiply-add per key
+    from key 0 on, so the plain path equals JAX's context bit for bit
+    (another order moves an ulp, and the int8 quantize after the op can
+    round it across a step); elsewhere torch.matmul."""
+    p, v = _promoted(p, v)
+    if p.device.type != "cpu" or p.dtype != torch.float32:
+        return torch.matmul(p, v)
+    out = torch.zeros(torch.broadcast_shapes(p.shape[:-2], v.shape[:-2])
+                      + (p.shape[-2], v.shape[-1]), dtype=torch.float32)
+    for k in range(p.shape[-1]):
+        out = _fma_f32(p[..., :, k:k + 1], v[..., k:k + 1, :], out)
+    return out
+
+
 def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     """Fused decode-step attention (passes/decode_attention.py): scores
     over [cache | current], the scale/mask/bias epilogue, softmax and the
@@ -181,7 +219,8 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     the cache probabilities, dequantize of int8 inputs; an accumulator
     arriving at another width requantizes first, as the unfused executor
     narrows it. The three dots are float products (torch.matmul; JAX's
-    jnp.einsum outside any kernel). The fake-quant values are float32, so
+    jnp.einsum outside any kernel); on the CPU the context product sums in
+    XLA's order (``_context_dot``). The fake-quant values are float32, so
     a quantized model's dots run in float32 in the bf16 serving mode too
     (TF32 off); a float model's run in the data plane's dtype."""
     q, kc, kh, vc, vh = inputs[:5]
@@ -222,7 +261,7 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
         p_past = dequantize(quantize(p_past, bw, sp, zp,
                                      container=torch.int8), sp, zp)
     vcf = as_float(vc, "vc_qp")         # [B, H, L, D]
-    ctx = torch.matmul(*_promoted(p_past, vcf))
+    ctx = _context_dot(p_past, vcf)
     vhf = vh.dequantize().data if isinstance(vh, QTensor) else vh.data
     ctx = ctx + torch.mul(*_promoted(p_self, vhf))
     return [FTensor(ctx)]
@@ -558,4 +597,8 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return _fused_attention_hs(inputs, attrs)
     if op == "FusedGelu":
         return _fused_gelu(inputs, attrs)
+    if op in INTEROP_OPS:
+        return INTEROP_OPS[op](inputs, attrs)
+    if op in ("LSTM", "GRU"):
+        return recurrent(op, inputs, attrs)
     raise NotImplementedError(f"ONNX op {op!r} is not ported")

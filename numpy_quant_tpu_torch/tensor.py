@@ -59,10 +59,17 @@ def _permute(data: torch.Tensor, axes) -> torch.Tensor:
 
 
 class ITensor:
-    """Integer/shape-domain tensor, host-resident."""
+    """Integer/shape-domain tensor, host-resident. ``orig_dtype``: the
+    narrow numpy dtype of an imported int8/uint8/int16/uint16 payload
+    (QDQ weights and zero points), whose storage range QuantizeLinear and
+    the QLinear ops read; ``placed``: the same values on the model's
+    device, placed once at import for the ops that consume them there
+    (graph.import_onnx)."""
 
-    def __init__(self, data):
+    def __init__(self, data, orig_dtype=None, placed=None):
         self._data = np.asarray(data, dtype=np.int64)
+        self.orig_dtype = orig_dtype
+        self.placed = placed
 
     @property
     def data(self) -> np.ndarray:
@@ -77,7 +84,14 @@ class ITensor:
         return self._data.size
 
     def copy(self) -> "ITensor":
-        return ITensor(self._data.copy())
+        return ITensor(self._data.copy(), self.orig_dtype, self.placed)
+
+    def on(self, device) -> torch.Tensor:
+        """The values as an int32 device tensor (int8 where the placed
+        copy is int8): the placed copy, else moved from the host."""
+        if self.placed is not None:
+            return self.placed
+        return torch.from_numpy(self._data.astype(np.int32)).to(device)
 
     def expand_dims(self, axis: "ITensor") -> "ITensor":
         return ITensor(np.expand_dims(self._data, axis=tuple(axis.data)))
@@ -244,12 +258,16 @@ class QTensor:
     constant, fed to the q_matmul correction."""
 
     def __init__(self, data: torch.Tensor, bit_width: int, scale,
-                 zero_point: Optional[Any] = None, colsum=None):
+                 zero_point: Optional[Any] = None, colsum=None,
+                 orig_dtype=None):
         self._data = data
         self.bit_width = int(bit_width)
         self.scale = scale
         self.zero_point = zero_point
         self.colsum = colsum
+        # storage dtype of a QuantizeLinear / QLinear* output (uint8
+        # storage counts one more signed-range bit: ops/interop.py)
+        self.orig_dtype = orig_dtype
 
     @property
     def data(self) -> torch.Tensor:
