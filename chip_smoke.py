@@ -217,6 +217,27 @@ Phases, one line each (any failure raises and the script exits non-zero):
      at bf16 B=96 of the re-imported QDQ and QOperator models and the
      native optimized model under both packed executions (two runs each,
      in turns), with device busy ms and aten calls of one profiled forward.
+ 18. captured forwards (Model.__call__ replays one CUDA graph per input
+     signature; config.eager_forward walks the graph node by node), run
+     inside the phases that hold the models: (a) ViT-Base int8 f32 B=8 and
+     bf16 B=96 under "unpack" and "kernel", (b) W4A8 and W3A8 bf16 B=96
+     under "kernel" (after phase 5), (c) T5-small f32 and bf16 (phase 13),
+     (d) the TinyLlama int8 prefill P=512 (15e), (e) the TinyLlama decode
+     step through generate_kv, int8 fused with the int8 cache and W4
+     "kernel" (15), (f) the dense engine E1 (16b), (g) the GPT-2 W4 decode
+     step (7). Each: the captured outputs equal the eager ones bit for bit
+     (tokens and engine outputs equal), launches equal eager's (the first
+     call's too: a capture's warm-up walk and the capture count nothing,
+     a replay what it launches), every hand kernel in a torch.profiler
+     trace of one replay as often as eager launches it, 0 host syncs
+     inside a steady replay (decode: inside any step call of a steady
+     run), decodes read the dense KV caches in place (bytes copied per
+     step below the bytes read in place, no recapture), the capture's
+     seconds and memory pool, eager and captured throughput in turns,
+     busy ms, the idle share and host µs per call.
+Phases 1-17 run captured forwards from here on, except where a forward
+is swapped or hooked (plain_chain, boundary_cost, phase 3's kernel and
+plain-chain turns, record=True): those walk eagerly.
 Phase 3 also times the bf16 forward with the plain chains swapped in and
 profiles one forward. The last three lines are the kernels JSON line, the
 card's name and power limit, and the result line. Imports nothing of JAX or numpy_quant_tpu.
@@ -1014,6 +1035,7 @@ def decode_phase(card: str) -> dict:
     from numpy_quant_tpu_torch import Model
     from numpy_quant_tpu_torch.models.gpt import (GPT2_SMALL, gpt_decode_step,
                                                   random_gpt2_weights)
+    from numpy_quant_tpu_torch.utils import generate_kv
     t0 = time.perf_counter()
     proto = gpt_decode_step(random_gpt2_weights(GPT2_SMALL, seed=0),
                             GPT2_SMALL, batch_size=GPT_B, max_len=GPT_MAX_LEN)
@@ -1076,6 +1098,14 @@ def decode_phase(card: str) -> dict:
         say("gpt2-bf16-vs-f32-kernel", packed_execution=mode,
             tokens_equal=f"{int((ids_b[:, gen] == ids_k[:, gen]).sum())}/"
                          f"{ids_k[:, gen].size}")
+    # phase 18 (g): the W4 decode step captured, through generate_kv
+    with packed_execution("kernel"):
+        captured_decode(
+            "gpt2_w4_decode", card, model,
+            lambda m: (generate_kv(m, prompt, proto._wte, proto._wpe,
+                                   GPT_NEW), steps),
+            np.array_equal, lambda ids: GPT_B * GPT_NEW, dtype="f32",
+            packed_execution="kernel", batch=GPT_B)
     return counts
 
 
@@ -2125,6 +2155,13 @@ def t5_phase(card: str) -> tuple[dict, dict]:
     say("t5-profile", **bf16_profile(forward))
     cost = boundary_cost(forward)
     say("t5-boundaries", **cost)
+    # phase 18 (c): the scoring forward captured
+    for dtype in ("f32", "bf16"):
+        with config.low_precision_floats() if dtype == "bf16" \
+                else contextlib.nullcontext():
+            captured_forward("t5_int8", card, qmodel, x, T5_B * T5_TGT,
+                             "target_tokens", dtype=dtype, batch=T5_B,
+                             src=T5_SRC, tgt=T5_TGT)
     return counts, cost
 
 
@@ -2132,12 +2169,15 @@ def t5_phase(card: str) -> tuple[dict, dict]:
 def plain_chain():
     """Swap the torch chains (the kernels' plain versions) in for the
     elementwise kernels at every quantize boundary: the module functions
-    quantization.quantize/dequantize call."""
+    quantization.quantize/dequantize call. The forwards inside walk
+    eagerly (a captured graph would replay the kernels)."""
+    from numpy_quant_tpu_torch import config
     from numpy_quant_tpu_torch.kernels import elementwise as E
     saved = E.quantize, E.dequantize
     E.quantize, E.dequantize = E.quantize_reference, E.dequantize_reference
     try:
-        yield
+        with config.eager_forward():
+            yield
     finally:
         E.quantize, E.dequantize = saved
 
@@ -2445,7 +2485,8 @@ def boundary_cost(forward) -> dict:
     """The host's share of the quantize boundaries in one f32 forward:
     aten calls (the profiler's count of every aten op, nested ones
     included) and wall ms with the kernels, then with the plain chains,
-    the two in turns (3 forwards each)."""
+    the two in turns (3 forwards each); both eager walks (the host cost of
+    the walk's boundaries)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2465,15 +2506,17 @@ def boundary_cost(forward) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    res = {"aten_calls_kernel": aten_calls()}
-    with plain_chain():
-        res["aten_calls_plain"] = aten_calls()
-    runs = {"kernel": [], "plain": []}
-    for rep in range(3):
-        for mode in (("kernel", "plain") if rep % 2 == 0
-                     else ("plain", "kernel")):
-            with plain_chain() if mode == "plain" else contextlib.nullcontext():
-                runs[mode].append(wall_ms())
+    with eager():
+        res = {"aten_calls_kernel": aten_calls()}
+        with plain_chain():
+            res["aten_calls_plain"] = aten_calls()
+        runs = {"kernel": [], "plain": []}
+        for rep in range(3):
+            for mode in (("kernel", "plain") if rep % 2 == 0
+                         else ("plain", "kernel")):
+                with plain_chain() if mode == "plain" \
+                        else contextlib.nullcontext():
+                    runs[mode].append(wall_ms())
     res.update({f"ms_{m}": statistics.median(r) for m, r in runs.items()})
     res.update({f"ms_runs_{m}": ",".join(f"{v:.2f}" for v in r)
                 for m, r in runs.items()})
@@ -2809,6 +2852,9 @@ def int8_prefill_phase(card: str, weights):
             tokens_per_s=n / wall, ms_per_prefill=wall * 1e3,
             ms_runs=",".join(f"{r * 1e3:.2f}" for r in runs),
             card=card.replace(" ", "_"))
+    # phase 18 (d): the prefill captured
+    captured_forward("llama_prefill_int8", card, qmodel, [x], n, "tokens",
+                     reps=5, dtype="f32", prefill=n, batch=1)
     return counts, qmodel
 
 
@@ -3028,6 +3074,17 @@ def llama_decode_phase(card: str, weights) -> dict:
         top_k_1_equals_greedy=bool(np.array_equal(top1, greedy)))
     assert np.array_equal(*sampled) and np.array_equal(top1, greedy)
     assert sampled[0].min() >= 0 and sampled[0].max() < vocab
+    # phase 18 (e): the decode step captured, through generate_kv
+    for mode in ("int8_fused_int8_cache", "w4_kernel"):
+        qm, cache, execution = modes[mode]
+        with decode_mode("f32", execution):
+            captured_decode(
+                "llama_decode", card, qm,
+                lambda m: (generate_kv(m, prompt, wte, None, DEC_NEW,
+                                       rope=rope, kv_cache_dtype=cache),
+                           steps[mode]),
+                np.array_equal, lambda ids: DEC_B * DEC_NEW, mode=mode,
+                dtype="f32", batch=DEC_B, cache_len=DEC_LEN)
     del unfused
     return {"counts": {run[1]: results[run][2] for run in runs
                        if run[0] == "f32"},
@@ -3275,6 +3332,19 @@ def engine_phase(card: str, step, w4, wte, rope) -> dict:
     assert e1["steps"] == want1 and e3["steps"] == want3, (e1, e3)
     assert e2["preemptions"] >= 1, e2
     assert e1["slot_steps"] == e3["slot_steps"] == sum(lengths)
+
+    # phase 18 (f): the dense engine's step captured (E1)
+    def drain(m):
+        eng = ContinuousBatcher(m, wte, None, rope=rope,
+                                kv_cache_dtype="int8")
+        return eng.run(reqs), eng.stats["steps"]
+
+    captured_decode(
+        "engine_E1", card, step, drain,
+        lambda a, b: a.keys() == b.keys()
+        and all(np.array_equal(a[i], b[i]) for i in a),
+        lambda out: generated(out, reqs), engine="E1", requests=len(reqs),
+        slots=n_slots, cache="int8")
     prof = engine_step_profile(make(), reqs[:n_slots], walls["E1"])
     prof["steady_host_syncs_per_step"] = sync_sources(make(),
                                                       reqs[:n_slots])
@@ -3693,6 +3763,338 @@ def interop_phase(card: str, proto, model, stats, x8, x, optimized) -> dict:
     return launches
 
 
+# -- phase 18: captured forwards ------------------------------------------
+
+# each hand kernel's name in a device trace, and the wrappers counting it
+TRACE_KERNELS = (("attention_hs_kernel", ("fused_attention_hs",)),
+                 ("blockq_kernel", ("fused_attention_hs_blockq",)),
+                 ("plain_kernel", ("fused_attention",)),
+                 ("qmatmul_kernel", ("splitk_qmatmul", "packed_qmatmul")),
+                 ("wo_kernel", ("splitk_wo_matmul",)),
+                 ("qdq_kernel", ("quantize", "dequantize")))
+CAPTURE_REPS = 10  # timed forwards per turn of a single-forward path
+
+
+def eager():
+    from numpy_quant_tpu_torch import config
+    return config.eager_forward()
+
+
+def device_rows(fn):
+    """(result, [(kernel, device ms, count)]) of one profiled ``fn()``,
+    50 ms of host time and a one-element fill (synchronized) on either
+    side. Late in this script the tracer left out up to 4 of a replay's
+    kernels, three traces in a row, where a fresh process saw them all;
+    the margins keep fn's events clear of the window's edges, in case
+    the device clock, mapped onto the host's, had drifted (a guess). The
+    pads are two fill kernels (a few µs in the rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    pad = torch.empty(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        pad.fill_(0.0)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        pad.fill_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return out, [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def hand_kernels(named_counts, mangled: bool = False) -> dict:
+    """{hand kernel: count} of (kernel name, count) pairs: the demangled
+    names of a trace, or the mangled symbols of a graph's nodes (where an
+    identifier carries its length, as in ``10qdq_kernelI...``)."""
+    import re
+    out = {}
+    for name, _ in TRACE_KERNELS:
+        pat = rf"{len(name)}{name}(?![a-z0-9_])" if mangled \
+            else rf"\b{name}\b"
+        out[name] = sum(c for k, c in named_counts if re.search(pat, k))
+    return out
+
+
+def eager_kernels(counts: dict) -> dict:
+    """{hand kernel: launches} of the eager launch counters."""
+    return {name: sum(counts[w] for w in wrappers)
+            for name, wrappers in TRACE_KERNELS}
+
+
+def graph_check(model, counts: dict) -> tuple[str, bool]:
+    """The model's one captured graph, read node by node
+    (utils/profiling.py::graph_kernels), against the eager launch counters
+    of the same call: ("kernel:nodes=eager;...", all equal)."""
+    from numpy_quant_tpu_torch.utils.profiling import graph_kernels
+    (_, nodes), = graph_kernels(model)
+    seen = hand_kernels(nodes.items(), mangled=True)
+    want = eager_kernels(counts)
+    table = ";".join(f"{k}:{seen[k]}={want[k]}" for k in want
+                     if seen[k] or want[k])
+    return table, seen == want
+
+
+def replay_trace(fn, counts: dict, tries: int = 3):
+    """Profile ``fn()`` (one replay) until its trace shows every hand
+    kernel as often as ``counts`` (the eager launch counters of the same
+    call), at most ``tries`` times. Late in this script the tracer left
+    out 4 of a T5 replay's 249 quantize kernels in three traces in a row,
+    while the graph itself held all 249 (graph_check): a trace shows which
+    kernels ran, the graph how many. Returns (rows of the last trace,
+    "kernel:seen=eager;...", every count equal, every hand kernel of the
+    call seen at most as often as launched and at least once, the table
+    of every try)."""
+    history = []
+    want = eager_kernels(counts)
+    for _ in range(tries):
+        _, rows = device_rows(fn)
+        seen = hand_kernels([(k, c) for k, _, c in rows])
+        table = ";".join(f"{k}:{seen[k]}={want[k]}" for k in want
+                         if seen[k] or want[k])
+        history.append(table)
+        if seen == want:
+            break
+    present = all((seen[k] > 0) == (want[k] > 0) and seen[k] <= want[k]
+                  for k in want)
+    return rows, table, seen == want, present, history
+
+
+def pool_mb(model):
+    """MB of the device segments in the model's graph memory pool, or
+    None where torch's snapshot does not name a segment's pool."""
+    import torch
+    pool = getattr(model, "_graph_pool", None)
+    if pool is None:
+        return 0.0
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool)) / 1e6
+
+
+def capture_seconds(model) -> float:
+    return sum(e.seconds for e in model._graphs.values())
+
+
+def outputs_equal(a, b) -> bool:
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def captured_forward(path: str, card: str, model, inputs: list,
+                     units: int, unit: str, reps: int = CAPTURE_REPS,
+                     **labels) -> dict:
+    """Phase 18 on a single-forward path: ``model(inputs)`` eager
+    (config.eager_forward) and captured. The first captured call
+    captures; a steady one must equal the eager outputs bit for bit,
+    launch what eager launches, and sync the host 0 times; the captured
+    graph must hold each hand kernel as often as eager launches it, and a
+    trace of one replay must show each (replay_trace).
+    Prints eager and captured ``unit``s/s (``units`` per forward) in
+    turns (eager, captured, eager, captured), the copy into the graph's
+    input buffers, the capture's seconds and pool, busy ms, the idle
+    share and host µs per captured call."""
+    import torch
+    model.invalidate_graphs()
+
+    def call():
+        return model(inputs, as_numpy=False)
+
+    with eager():
+        ref, counts_eager = counted(call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (_, counts_first), first_syncs = host_syncs(lambda: counted(call))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (out, counts_steady), steady_syncs = host_syncs(lambda: counted(call))
+    equal = outputs_equal(out, ref)
+    graph_table, graph_equal = graph_check(model, counts_eager)
+    rows, table, trace_equal, present, traces = replay_trace(call,
+                                                              counts_eager)
+    busy = sum(ms for _, ms, _ in rows)
+    walls = {"eager": [], "captured": []}
+    host = []
+    for mode in ("eager", "captured", "eager", "captured"):
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                h0 = time.perf_counter()
+                call()
+                if mode == "captured":
+                    host.append(time.perf_counter() - h0)
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) / reps)
+    eager_s = statistics.median(walls["eager"])
+    captured_s = statistics.median(walls["captured"])
+    copied = sum(t.numel() * t.element_size() for t in inputs
+                 if isinstance(t, torch.Tensor))
+    res = dict(path=path, **labels,
+               captured_equals_eager_bitwise=equal,
+               kernels_in_graph_eq_eager=graph_table,
+               kernels_in_replay_trace_eq_eager=table,
+               trace_equals_eager=trace_equal,
+               trace_tries=len(traces), traces="|".join(traces),
+               launches_equal_eager=counts_steady == counts_eager,
+               first_call_launches_equal_eager=counts_first == counts_eager,
+               first_call_syncs=sum(first_syncs.values()),
+               steady_replay_syncs=sum(steady_syncs.values()),
+               copied_bytes_per_call=copied, capture_s=capture_seconds(model),
+               first_call_s=first_s, pool_mb=pool_mb(model),
+               **{f"eager_{unit}_per_s": units / eager_s,
+                  f"captured_{unit}_per_s": units / captured_s},
+               eager_ms=eager_s * 1e3, captured_ms=captured_s * 1e3,
+               ms_runs_eager=",".join(f"{w * 1e3:.2f}" for w in walls["eager"]),
+               ms_runs_captured=",".join(f"{w * 1e3:.2f}"
+                                         for w in walls["captured"]),
+               speedup=eager_s / captured_s, busy_ms=busy,
+               idle_share=max(0.0, 1 - busy / (captured_s * 1e3)),
+               host_us_per_call=statistics.median(host) * 1e6,
+               card=card.replace(" ", "_"))
+    say("captured", **{k: v for k, v in res.items() if k != "path"},
+        at=path)
+    assert equal, f"{path}: captured outputs differ from eager"
+    assert graph_equal and present, (path, graph_table, traces)
+    assert counts_steady == counts_eager, (path, counts_steady, counts_eager)
+    assert counts_first == counts_eager, (path, counts_first, counts_eager)
+    assert res["steady_replay_syncs"] == 0, (path, steady_syncs)
+    CAPTURED.append(res)
+    return res
+
+
+class StepProbe:
+    """A step model as a decode loop or the engine calls it: per call, the
+    host seconds, the host syncs, the bytes copied into the captured
+    graph's input buffers and those read in place, the captured graphs
+    after it; the last call's arguments (one more replay of them is
+    profiled)."""
+
+    def __init__(self, model):
+        self.__dict__.update(_model=model, log=[], last=None)
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def __call__(self, inputs, **kw):
+        import torch
+        inplace = set(kw.get("inplace", ()))
+        sizes = [t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+                 else 0 for t in inputs]
+        t0 = time.perf_counter()
+        out, syncs = host_syncs(lambda: self._model(inputs, **kw))
+        self.log.append(dict(
+            host_s=time.perf_counter() - t0, syncs=sum(syncs.values()),
+            copied=sum(s for i, s in enumerate(sizes) if i not in inplace),
+            in_place=sum(s for i, s in enumerate(sizes) if i in inplace),
+            graphs=tuple(id(g) for g in self._model._graphs.values())))
+        self.__dict__["last"] = (list(inputs), dict(kw))
+        return out
+
+
+def captured_decode(path: str, card: str, model, run, equal, tokens,
+                    **labels) -> dict:
+    """Phase 18 on a decode path: ``run(step_model) -> (result, steps)``
+    (generate_kv or an engine drain) eager and captured, through a
+    StepProbe. The captured run's result must ``equal`` the eager one, its
+    launches the eager run's; a steady captured run (the graph captured
+    in the first) syncs the host 0 times inside any step call, copies no
+    KV cache and captures at most once, at its first step call (a new
+    engine's own caches); the graph holds each hand kernel as often as one
+    eager step call launches it, and a trace of one replay of the last
+    step shows each (replay_trace). ``tokens(result)``
+    counts the generated tokens. ms/step and tokens/s in turns (eager,
+    captured, eager, captured)."""
+    import torch
+    model.invalidate_graphs()
+    probe = StepProbe(model)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with eager():
+        ((ref, steps), counts_eager), wall_e = timed(
+            lambda: counted(lambda: run(probe)))
+    eager_calls = len(probe.log)
+    ((first, _), counts_first), first_s = timed(
+        lambda: counted(lambda: run(probe)))
+    del probe.log[:]
+    before = tuple(id(g) for g in model._graphs.values())
+    (steady, _), wall_c = timed(lambda: run(probe))
+    steady_log = list(probe.log)
+    # captures in the steady run: none for a decode loop over the model's
+    # kept caches; one, at its first step, for a new engine (its own caches)
+    seen = [before] + [e["graphs"] for e in steady_log]
+    captures = [i for i in range(1, len(seen)) if seen[i] != seen[i - 1]]
+    args, kw = probe.last
+    with eager():
+        _, counts_step = counted(lambda: model(args, **kw))
+    graph_table, graph_equal = graph_check(model, counts_step)
+    rows, table, trace_equal, present, traces = replay_trace(
+        lambda: model(args, **kw), counts_step)
+    busy = sum(ms for _, ms, _ in rows)
+    walls = {"eager": [wall_e], "captured": [wall_c]}
+    for mode in ("eager", "captured"):
+        with eager() if mode == "eager" else contextlib.nullcontext():
+            walls[mode].append(timed(lambda: run(probe))[1])
+    eager_s = statistics.median(walls["eager"])
+    captured_s = statistics.median(walls["captured"])
+    n_tok = tokens(ref)
+    res = dict(path=path, **labels, steps=steps,
+               captured_equals_eager=equal(first, ref) and equal(steady, ref),
+               kernels_in_graph_eq_eager=graph_table,
+               kernels_in_replay_trace_eq_eager=table,
+               trace_equals_eager=trace_equal,
+               trace_tries=len(traces), traces="|".join(traces),
+               launches_equal_eager=counts_first == counts_eager,
+               step_calls=eager_calls,
+               steady_run_captures_at_calls=",".join(
+                   str(i) for i in captures) or "none",
+               steady_syncs_max_per_call=max(
+                   e["syncs"] for i, e in enumerate(steady_log, 1)
+                   if i not in captures),
+               copied_bytes_per_call=statistics.median(
+                   e["copied"] for e in steady_log),
+               in_place_bytes_per_call=statistics.median(
+                   e["in_place"] for e in steady_log),
+               capture_s=capture_seconds(model), first_run_s=first_s,
+               pool_mb=pool_mb(model),
+               eager_ms_per_step=eager_s / steps * 1e3,
+               captured_ms_per_step=captured_s / steps * 1e3,
+               eager_tokens_per_s=n_tok / eager_s,
+               captured_tokens_per_s=n_tok / captured_s,
+               s_runs_eager=",".join(f"{w:.3f}" for w in walls["eager"]),
+               s_runs_captured=",".join(f"{w:.3f}" for w in walls["captured"]),
+               speedup=eager_s / captured_s, busy_ms_per_step=busy,
+               idle_share=max(0.0, 1 - busy / (captured_s / steps * 1e3)),
+               host_us_per_call=statistics.median(
+                   e["host_s"] for e in steady_log) * 1e6,
+               card=card.replace(" ", "_"))
+    say("captured", **{k: v for k, v in res.items() if k != "path"},
+        at=path)
+    assert res["captured_equals_eager"], f"{path}: captured != eager"
+    assert graph_equal and present, (path, graph_table, traces)
+    assert counts_first == counts_eager, (path, counts_first, counts_eager)
+    assert res["steady_syncs_max_per_call"] == 0, (path, steady_log)
+    assert captures in ([], [1]), (path, captures)
+    # the dense caches are the graph's own input buffers: never copied
+    assert 0 < res["copied_bytes_per_call"] < res["in_place_bytes_per_call"]
+    CAPTURED.append(res)
+    return res
+
+
+CAPTURED: list = []
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3782,11 +4184,11 @@ def main() -> int:
         launches = counts["fused_attention_hs"]
         assert logits.shape == (B_SERVE, 1000) and np.isfinite(logits).all()
         assert launches == 12, launches
-        # the boundary kernels against the plain chains, in turns
+        # the boundary kernels against the plain chains, in turns, both
+        # eager walks (a swap shows only there; phase 18 captures)
         ips_runs = {"kernel": [], "plain": []}
         for mode in ("kernel", "plain", "plain", "kernel"):
-            with plain_chain() if mode == "plain" \
-                    else contextlib.nullcontext():
+            with plain_chain() if mode == "plain" else eager():
                 ips_runs[mode].append(images_per_s(qmodel, x, "unpack"))
         ips = statistics.median(ips_runs["kernel"])
         # the bf16 boundary forms at the path's shapes: the forward with
@@ -3880,6 +4282,21 @@ def main() -> int:
             with packed_execution("kernel"):
                 say("packed-bf16-profile", mode=mode, **bf16_profile(
                     lambda: qm([x], as_numpy=False)[0]))
+
+    # -- phase 18 (a, b): the ViT-Base forwards captured ---------------
+    for mode in ("unpack", "kernel"):
+        with packed_execution(mode):
+            captured_forward("vit_int8", card, qmodel, [x8], B_F32, "images",
+                             dtype="f32", packed_execution=mode, batch=B_F32)
+            with config.low_precision_floats():
+                captured_forward("vit_int8", card, qmodel, [x], B_SERVE,
+                                 "images", dtype="bf16",
+                                 packed_execution=mode, batch=B_SERVE)
+    with packed_execution("kernel"), config.low_precision_floats():
+        for mode in ("w4a8", "w3a8"):
+            captured_forward(f"vit_{mode}", card, qmodels[mode], [x],
+                             B_SERVE, "images", dtype="bf16",
+                             packed_execution="kernel", batch=B_SERVE)
 
     # -- phase 6: the weight-only kernel against its plain version -----
     wo_worst = check_wo()

@@ -28,6 +28,11 @@ float_dtype = torch.float32
 #             tile and fuse the zero-point correction and dequantize.
 packed_execution = "unpack"
 
+# Model.__call__ on a CUDA model replays one captured CUDA graph per input
+# signature; under eager_forward it walks the graph node by node instead
+# (the counterpart of jax.disable_jit()).
+eager = False
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else
@@ -54,4 +59,20 @@ class low_precision_floats:
     def __exit__(self, *exc):
         global float_dtype
         float_dtype = self._prev
+        return False
+
+
+class eager_forward:
+    """Context manager: ``Model.__call__`` walks the graph eagerly on CUDA
+    too (no captured graph), without a host sync per node."""
+
+    def __enter__(self):
+        global eager
+        self._prev = eager
+        eager = True
+        return self
+
+    def __exit__(self, *exc):
+        global eager
+        eager = self._prev
         return False

@@ -1,7 +1,7 @@
 """Integer helpers below both the quantization math (``quantization.py``)
 and the kernels' plain versions (``kernels/``): the signed clip range of a
-bit width, host values as device tensors, and the exact int8 product.
-Imports nothing of the package."""
+bit width, host values as device tensors (each host array placed once),
+and the exact int8 product. Imports nothing of the package."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,20 +22,56 @@ def qrange(bit_width: int) -> tuple[float, float]:
 
 def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     """A host scalar/array (or tensor) as a tensor of ``dtype`` on
-    ``device`` -- the form a divisor must take to divide exactly."""
+    ``device`` -- the form a divisor must take to divide exactly. A
+    scalar is a fill; an array is :func:`place`'s copy."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     arr = np.asarray(x)
     if arr.ndim == 0:
         value = float(arr) if dtype.is_floating_point else int(arr)
         return torch.full((), value, dtype=dtype, device=device)
-    host = torch.from_numpy(np.ascontiguousarray(
-        arr.astype(np.float32 if dtype.is_floating_point else np.int64)))
-    if torch.device(device).type == "cuda":
+    return place(arr, device, dtype)
+
+
+# host arrays already on a device, by (device, dtype, shape, bytes)
+_placed: dict = {}
+# host arrays copied to a device so far (each distinct one once)
+placements = 0
+
+
+def place(arr, device, dtype) -> torch.Tensor:
+    """A host array (per-channel scale rows, zero points, Gather indices,
+    Where conditions) as a tensor of ``dtype`` on ``device``: copied once
+    per distinct content and kept, so a forward's later walks, and the
+    CUDA graph captured from one (model.py), read the same placed tensor
+    and copy nothing from the host. The values pass through float32 (a
+    float ``dtype``), bool or int64 on the host, as before placement.
+    Raises during a CUDA graph capture: a copy made then would replay
+    from a host buffer that is gone."""
+    global placements
+    host_dtype = np.float32 if dtype.is_floating_point \
+        else np.bool_ if dtype == torch.bool else np.int64
+    arr = np.ascontiguousarray(np.asarray(arr).astype(host_dtype, copy=False))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device, dtype, arr.shape, arr.tobytes())
+    t = _placed.get(key)
+    if t is not None:
+        return t
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"a host array {arr.shape} reached the device during a CUDA "
+            "graph capture; the warm-up walk before it places every one")
+    host = torch.from_numpy(arr.copy())
+    if device.type == "cuda":
         # a pageable copy would wait for the stream to drain; a pinned
-        # one is enqueued like a kernel (per-channel scale rows)
-        return host.pin_memory().to(device, non_blocking=True).to(dtype)
-    return host.to(device=device, dtype=dtype)
+        # one is enqueued like a kernel
+        host = host.pin_memory().to(device, non_blocking=True)
+    t = host.to(device=device, dtype=dtype)
+    _placed[key] = t
+    placements += 1
+    return t
 
 
 def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:

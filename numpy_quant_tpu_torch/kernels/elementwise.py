@@ -64,8 +64,12 @@ class _EWParams(ctypes.Structure):
 
 
 def _any_zero(scale) -> bool:
+    """Whether a host scale holds a zero. A tensor scale counts as one:
+    its values are not read back (a device read would sync the host), and
+    mapping a NaN to 0 changes no result there -- the card's conversion
+    to an integer already maps NaN to 0, as XLA's does."""
     if isinstance(scale, torch.Tensor):
-        return bool((scale == 0).any())
+        return True
     return bool(np.any(np.asarray(scale) == 0))
 
 
@@ -179,7 +183,8 @@ def _operands(x: torch.Tensor, scale, zero_point):
     by value (in f32, and in f64 for the int64 dequantize, which the chain
     multiplies by a float64 tensor of it) or as an f32 tensor, the zero
     point none, by value or as an int32/int64 tensor, each tensor's walk
-    in x's memory order. Sets ``nan_to_zero`` where a scale is 0."""
+    in x's memory order. Sets ``nan_to_zero`` where a scale may be 0
+    (``_any_zero``)."""
     dims = None
     if not x.is_contiguous():
         dims = _memory_order(x)
@@ -207,7 +212,7 @@ def _operands(x: torch.Tensor, scale, zero_point):
         if dims is None:
             dims = _memory_order(x)
         zvec = zero_point if isinstance(zero_point, torch.Tensor) \
-            else torch.from_numpy(np.asarray(zero_point, np.int64))
+            else as_tensor(zero_point, x.device, torch.int64)
         if zvec.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"zero-point tensors are int32 or int64, "
                             f"not {zvec.dtype}")

@@ -41,7 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..intops import int_matmul, qrange
+from ..intops import int_matmul, place, qrange
 from .build import load, sm_count
 from .pack import unpack_bitplanes, unpack_splitk
 
@@ -161,7 +161,7 @@ def _full(value, device) -> torch.Tensor:
 def _row(t, n: int, device, dtype) -> torch.Tensor:
     """A [1, N] operand (tensor or host array) as a contiguous tensor."""
     if not isinstance(t, torch.Tensor):
-        t = torch.from_numpy(np.ascontiguousarray(np.asarray(t)))
+        t = place(np.asarray(t), device, dtype)
     t = t.to(device=device, dtype=dtype).reshape(-1)
     if t.numel() != n:
         raise ValueError(f"expected {n} columns, got {t.numel()}")
@@ -444,7 +444,7 @@ def _wo_scale(scale, k: int, n: int, kr: int, bits: int, group_size,
         a = np.asarray(scale, np.float32)
         if a.size == 1:  # a host scalar stays on the host
             return float(a.reshape(())), None, k
-        s = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        s = place(a, device, torch.float32)
     if s.ndim < 2 or s.shape[0] == 1:
         if s.numel() != n:
             raise ValueError(f"expected {n} channel scales, got {s.numel()}")

@@ -1,10 +1,15 @@
 """Model / QModel: ONNX graph import, execution, calibration and PTQ
 (port of ``numpy_quant_tpu/model.py``).
 
-The forward is an eager walk over the graph's nodes on the model's
-device that frees each value after its last consumer (as XLA frees the
-buffers of JAX's one compiled program); JAX's one-jitted-program lowering
-has no counterpart here.
+The forward is a walk over the graph's nodes on the model's device that
+frees each value after its last consumer (as XLA frees the buffers of
+JAX's one compiled program). On CUDA, ``__call__`` runs it as JAX runs
+its one jitted program per input signature: the first call of a
+signature walks once (the warm-up), captures the walk into a
+``torch.cuda.CUDAGraph`` and replays it; later calls copy the inputs into
+the graph's own input buffers and replay (``graph_key`` names the
+signature). On the CPU, under ``record=``/``profile=`` and under
+``config.eager_forward`` the walk runs eagerly.
 ``QModel`` quantizes float inputs of the integer ops on the fly,
 dequantizes quantized inputs of every other op, requantizes Gemm/Conv
 outputs and dequantizes quantized graph outputs -- the reference
@@ -12,12 +17,15 @@ executor's boundary rules, unchanged.
 """
 from __future__ import annotations
 
+import weakref
+from time import perf_counter
 from typing import List
 
 import numpy as np
 import torch
 
 from . import config
+from . import kernels as _kernels
 from . import onnx as onnx_lib
 from .graph import (Constant, Node, Value, Variable, import_onnx,
                     only_rhs_of)
@@ -48,6 +56,72 @@ class QuantizationParams:
         return f"QuantizationParams(scale={self.scale}, zero_point={self.zero_point})"
 
 
+def _is_shape_input(array) -> bool:
+    """An int64 host array: a shape-domain input, static in a capture."""
+    return isinstance(array, np.ndarray) and array.dtype == np.int64
+
+
+def graph_key(inputs: list, device) -> tuple:
+    """The signature one captured forward serves (JAX's jit-cache key,
+    ``numpy_quant_tpu/model.py``): each float or tensor input's shape and
+    dtype, each int64 input's (shape, bytes) -- its values are baked into
+    the walk --, ``config.float_dtype``, ``config.packed_execution`` and
+    the device."""
+    slots = []
+    for i, a in enumerate(inputs):
+        if _is_shape_input(a):
+            slots.append((i, "int64", a.shape, a.tobytes()))
+        else:
+            dtype = str(a.dtype).removeprefix("torch.")
+            slots.append((i, dtype, tuple(a.shape)))
+    return (tuple(slots), config.float_dtype, config.packed_execution,
+            str(torch.device(device)))
+
+
+class _Captured:
+    """One captured forward: its graph, its input buffers by input
+    position (a bound input is the caller's own tensor), its output
+    tensors, the launches one replay makes, the data pointers and strides
+    of the bound inputs, and the capture's wall seconds."""
+
+    def __init__(self, graph, inputs: dict, outputs: list, launches: tuple,
+                 bound: tuple, seconds: float):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+        self.bound = bound
+        self.seconds = seconds
+
+
+def _bound(arrays: list, inplace: tuple) -> tuple:
+    return tuple((i, arrays[i].data_ptr(), tuple(arrays[i].stride()))
+                 for i in inplace)
+
+
+def _warm_up(fn, floats: list, device):
+    """Walk ``fn(floats)`` once on a side stream, which it returns: kernels
+    built, weights and host arrays placed, cuBLAS set up on the stream the
+    capture then uses."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        fn(floats)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    return stream
+
+
+def _capture_graph(fn, floats: list, stream, pool) -> tuple:
+    """(graph, outputs): ``fn(floats)`` captured on ``stream`` into a
+    CUDAGraph whose memory comes from ``pool``. The graph keeps its
+    cudaGraph_t beside the instantiated one, so its nodes can be read
+    (utils/profiling.py::graph_kernels)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        outputs = fn(floats)
+    return graph, outputs
+
+
 class Model:
     def __init__(self, nodes: list[Node], values: list[Value],
                  inputs: List[Variable], outputs: List[Value],
@@ -57,6 +131,10 @@ class Model:
         self.inputs = inputs
         self.outputs = outputs
         self.device = torch.device(device)
+        # captured forwards by graph_key, sharing one memory pool
+        self._graphs: dict = {}
+        self._graph_pool = None
+        self._failed = None  # (node, error) where a capture failed
 
     def __repr__(self):
         return (f"{type(self).__name__}(nodes={len(self.nodes)}, "
@@ -103,11 +181,20 @@ class Model:
     # Node walk
     # ------------------------------------------------------------------
 
-    def _node_inputs(self, node: Node, data: dict[str, Tensor]) -> list[Tensor]:
+    def _node_inputs(self, node: Node, data: dict[str, Tensor],
+                     timings=None) -> list[Tensor]:
         return [None if v is None else data[v.name] for v in node.inputs]
 
     def _post_node(self, node: Node, outputs: list[Tensor]) -> list[Tensor]:
         return outputs
+
+    def _profile_buckets(self) -> dict[str, float]:
+        return {op: 0.0 for op in {n.op for n in self.nodes}}
+
+    def _sync(self) -> None:
+        """Wait for the device (profile mode's per-node timing)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _last_uses(self) -> dict[int, list[str]]:
         """{node index: names of the values whose last consumer it is}:
@@ -128,13 +215,15 @@ class Model:
         return by_node
 
     def _forward(self, input_tensors: dict[str, Tensor],
-                 record: bool = False, visit=None) -> dict[str, Tensor]:
+                 record: bool = False, visit=None,
+                 timings=None) -> dict[str, Tensor]:
         """Walk the nodes; returns the live values by name. Each value is
         dropped after its last consumer (graph outputs are kept), as the
         JAX package's compiled program frees each buffer, unless
         ``record`` stores every value in ``value.data``. ``visit(name,
         tensor)`` sees every value once, as it is made (constants and
-        inputs first)."""
+        inputs first). ``timings`` ({op type: seconds}) adds each node's
+        wall time, the device synchronized around it (profile mode)."""
         data: dict[str, Tensor] = {}
         for value in self.values:
             if isinstance(value, Constant):
@@ -146,9 +235,22 @@ class Model:
         last_uses = {} if record else self._last_uses()
         with executing_on(self.device):
             for i, node in enumerate(self.nodes):
-                ins = self._node_inputs(node, data)
-                outs = onnx_operator_implementation(node.op, ins, node.attrs)
-                outs = self._post_node(node, outs)
+                try:
+                    ins = self._node_inputs(node, data, timings)
+                    if timings is not None:
+                        self._sync()
+                        start = perf_counter()
+                    outs = onnx_operator_implementation(node.op, ins,
+                                                        node.attrs)
+                    outs = self._post_node(node, outs)
+                    if timings is not None:
+                        self._sync()
+                        timings[node.op] += perf_counter() - start
+                except Exception as exc:
+                    if self.device.type == "cuda" \
+                            and torch.cuda.is_current_stream_capturing():
+                        self._failed = (node, exc)
+                    raise
                 for o, tensor in zip(node.outputs, outs):
                     data[o.name] = tensor
                     if record:
@@ -174,19 +276,143 @@ class Model:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def __call__(self, inputs: list, record: bool = False,
-                 as_numpy: bool = True):
-        """Run the model on numpy arrays or tensors. ``record=True``
-        also stores every value's tensor in ``value.data``.
-        ``as_numpy=False`` returns the outputs as device tensors."""
-        input_tensors = {v.name: self._wrap_input(a, v)
-                         for a, v in zip(inputs, self.inputs)}
-        data = self._forward(input_tensors, record=record)
-        outs = [self._finalize_output(data[o.name]) for o in self.outputs]
+    def __call__(self, inputs: list, profile: bool = False,
+                 record: bool = False, as_numpy: bool = True,
+                 inplace: tuple = ()):
+        """Run the model on numpy arrays or tensors.
+
+        On CUDA a call replays the captured graph of its input signature
+        (``graph_key``), capturing it on the signature's first call: one
+        eager walk on a side stream (kernels built, weights placed), the
+        capture, then the replay. A walk that cannot be captured raises,
+        naming the node. A replay copies the inputs into the graph's input
+        buffers and returns fresh output tensors. ``inplace``: positions
+        of CUDA tensor inputs the graph reads where they lie, e.g. KV
+        caches the caller writes between calls: the capture takes these
+        tensors as its own input buffers, so a call that passes them again
+        copies nothing; passing other tensors there captures anew, in the
+        old graph's place.
+
+        ``profile=True`` walks eagerly, the device synchronized around
+        each node, and returns (outputs, {op type: seconds}) as the JAX
+        package does; ``record=True`` walks eagerly and also stores every
+        value's tensor in ``value.data``; under ``config.eager_forward``,
+        and on the CPU, every call walks eagerly. ``as_numpy=False``
+        returns the outputs as device tensors."""
+        if profile or record or config.eager \
+                or self.device.type != "cuda":
+            input_tensors = {v.name: self._wrap_input(a, v)
+                             for a, v in zip(inputs, self.inputs)}
+            timings = self._profile_buckets() if profile else None
+            data = self._forward(input_tensors, record=record,
+                                 timings=timings)
+            outs = [self._finalize_output(data[o.name])
+                    for o in self.outputs]
+        else:
+            outs = self._replay(list(inputs), tuple(inplace))
         if as_numpy:
-            return [o.cpu().numpy() if isinstance(o, torch.Tensor)
+            outs = [o.cpu().numpy() if isinstance(o, torch.Tensor)
                     else np.asarray(o) for o in outs]
+        if profile:
+            return outs, timings
         return outs
+
+    # ------------------------------------------------------------------
+    # Captured forwards (CUDA graphs)
+    # ------------------------------------------------------------------
+
+    def _bound_fn(self, ints: dict):
+        """The walk as ``fn(float_inputs) -> outputs`` with the int64
+        inputs ``ints`` ({position: ITensor}) bound; holds the model
+        weakly, so a cached graph does not keep it alive."""
+        model = weakref.proxy(self)
+
+        def fn(float_inputs: list) -> list:
+            fa = iter(float_inputs)
+            input_tensors = {
+                v.name: ints[i] if i in ints
+                else model._wrap_input(next(fa), v)
+                for i, v in enumerate(model.inputs)}
+            data = model._forward(input_tensors)
+            return [model._finalize_output(data[o.name])
+                    for o in model.outputs]
+
+        return fn
+
+    def lowered_fn(self):
+        """The model as a pure function ``fn(float_inputs: list) -> list``
+        of output tensors (the walk a capture records; float inputs only,
+        int64 shape inputs are bound through ``__call__``)."""
+        return self._bound_fn({})
+
+    def _replay(self, arrays: list, inplace: tuple) -> list:
+        key = graph_key(arrays, self.device)
+        entry = self._graphs.get(key)
+        if entry is None or entry.bound != _bound(arrays, inplace):
+            # a replaced graph goes first: its pool blocks serve the new one
+            self._graphs.pop(key, None)
+            entry = self._capture(arrays, inplace)
+            self._graphs[key] = entry
+        else:
+            for i, buf in entry.inputs.items():
+                a = arrays[i]
+                if a is not buf and i not in inplace:
+                    buf.copy_(a if isinstance(a, torch.Tensor)
+                              else torch.from_numpy(np.asarray(a)))
+        entry.graph.replay()
+        _kernels.add_launch_counts(entry.launches)
+        return [o.clone() if isinstance(o, torch.Tensor) else np.array(o)
+                for o in entry.outputs]
+
+    def _capture(self, arrays: list, inplace: tuple) -> _Captured:
+        """Capture the walk over ``arrays``' signature. The warm-up walk
+        and the capture leave the launch counters as they were; the
+        returned entry's ``launches`` are what each replay adds."""
+        start = perf_counter()
+        ints, static = {}, {}
+        for i, a in enumerate(arrays):
+            if _is_shape_input(a):
+                ints[i] = ITensor(a.copy())
+            elif i in inplace:
+                if not (isinstance(a, torch.Tensor)
+                        and a.device.type == self.device.type):
+                    raise ValueError(f"input {i} is read in place: it must "
+                                     f"be a tensor on {self.device}")
+                static[i] = a
+            else:
+                t = self._device_tensor(a)
+                static[i] = torch.empty(t.shape, dtype=t.dtype,
+                                        device=self.device).copy_(t)
+        fn = self._bound_fn(ints)
+        floats = [static[i] for i in sorted(static)]
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = _kernels.launch_counts()
+        try:
+            stream = _warm_up(fn, floats, self.device)
+            warm = _kernels.launch_counts()
+            self._failed = None
+            try:
+                graph, outputs = _capture_graph(fn, floats, stream,
+                                                self._graph_pool)
+            except Exception as exc:
+                if self._failed is None:
+                    raise RuntimeError(
+                        f"the forward cannot be captured: {exc}") from exc
+                node, first = self._failed
+                raise RuntimeError(
+                    f"the forward cannot be captured at node {node.name!r} "
+                    f"({node.op}): {first}") from exc
+            launches = _kernels.launch_delta(_kernels.launch_counts(), warm)
+        finally:
+            _kernels.set_launch_counts(before)
+        return _Captured(graph, static, outputs, launches,
+                         _bound(arrays, inplace), perf_counter() - start)
+
+    def invalidate_graphs(self) -> None:
+        """Drop every captured forward: a weight, the graph or its
+        quantization changed, and a replay would read what is gone."""
+        self._graphs.clear()
 
     def _infer_shapes(self):
         """Static shapes of every graph value, from one forward over
@@ -514,6 +740,7 @@ class Model:
                 value.data = QTensor(qt.data.to(self.device), bit_width,
                                      qt.scale, None)
             converted += 1
+        self.invalidate_graphs()
         return converted
 
 
@@ -565,7 +792,28 @@ class QModel(Model):
         return params
 
     def invalidate_params(self) -> None:
+        """Drop the placed payloads (a payload changed) and with them every
+        captured forward."""
         self._dp_cache = None
+        self.invalidate_graphs()
+
+    def _profile_buckets(self) -> dict[str, float]:
+        buckets = super()._profile_buckets()
+        buckets["TinyqQuant"] = 0.0
+        buckets["TinyqDequant"] = 0.0
+        return buckets
+
+    def _timed(self, timings, bucket: str, fn):
+        """``fn()``; under profile mode its wall time, the device
+        synchronized around it, goes to ``timings[bucket]``."""
+        if timings is None:
+            return fn()
+        self._sync()
+        start = perf_counter()
+        out = fn()
+        self._sync()
+        timings[bucket] += perf_counter() - start
+        return out
 
     def _weight_colsum(self, value: Constant):
         """Column sums of a 2-D quantized weight consumed only as MatMul
@@ -601,7 +849,8 @@ class QModel(Model):
             return QTensor(t, self.bit_width, qp.scale, qp.zero_point)
         raise ValueError(f"Array dtype {t.dtype} not supported")
 
-    def _node_inputs(self, node: Node, data: dict[str, Tensor]) -> list[Tensor]:
+    def _node_inputs(self, node: Node, data: dict[str, Tensor],
+                     timings=None) -> list[Tensor]:
         ins = []
         if node.op == "DecodeAttention":
             # raw tensors: the op replays the unfused chain's quantize and
@@ -617,8 +866,10 @@ class QModel(Model):
                 t = data[v.name]
                 if isinstance(t, FTensor):
                     qp = self.quant_params[v.name]
-                    t = quantize_tensor(t, self.bit_width, qp.scale,
-                                        qp.zero_point, self.container)
+                    t = self._timed(timings, "TinyqQuant",
+                                    lambda t=t, qp=qp: quantize_tensor(
+                                        t, self.bit_width, qp.scale,
+                                        qp.zero_point, self.container))
                 elif (isinstance(t, QTensor)
                       and t.bit_width != self.bit_width
                       and (idx < 2 or (idx == 2 and node.op in (
@@ -643,7 +894,7 @@ class QModel(Model):
                     continue
                 t = data[v.name]
                 if isinstance(t, QTensor):
-                    t = t.dequantize()
+                    t = self._timed(timings, "TinyqDequant", t.dequantize)
                 ins.append(t)
         return ins
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..intops import as_tensor, int_matmul, qrange
+from ..intops import as_tensor, int_matmul, place, qrange
 from ..quantization import dequantize
 from ..tensor import FTensor, ITensor, QTensor, qconv2d
 
@@ -295,8 +295,7 @@ def _to_float(x) -> FTensor:
     if isinstance(x, FTensor):
         return x.copy()
     if isinstance(x, ITensor):
-        return FTensor(torch.from_numpy(x.data.astype(np.float32))
-                       .to(_EXEC_DEVICE))
+        return FTensor(place(x.data, _EXEC_DEVICE, torch.float32))
     return FTensor(x.data.to(torch.float32))
 
 

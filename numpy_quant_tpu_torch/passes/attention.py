@@ -21,6 +21,7 @@ from ..tensor import FTensor, QTensor
 from .toolkit import (
     consumers as _consumers,
     dequant_const_array,
+    drops_graphs,
     host_array,
     perm_is,
     producer_map,
@@ -28,6 +29,7 @@ from .toolkit import (
 )
 
 
+@drops_graphs
 def fuse_attention(model) -> int:
     """Fuse attention chains into FusedAttentionHS nodes (the kernel
     consumes the raw [B, N, H*D] projection outputs and splits/merges

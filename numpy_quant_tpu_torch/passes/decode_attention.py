@@ -37,7 +37,8 @@ import torch
 
 from ..graph import Constant, Node
 from ..tensor import ITensor
-from .toolkit import consumers as _consumers, producer_map, scalar_const
+from .toolkit import (consumers as _consumers, drops_graphs, producer_map,
+                      scalar_const)
 
 _PER_CHANNEL = object()  # qp_attr's mark for non-scalar qparams
 
@@ -105,6 +106,7 @@ def _epilogue(sm, producer):
     return None, None, None, None
 
 
+@drops_graphs
 def fuse_decode_attention(model) -> int:
     """Fuse decode-step attention chains into DecodeAttention nodes. Works
     on float models and QModels; returns the number fused. Softmaxes it

@@ -7,9 +7,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..graph import Constant, Node
-from .toolkit import consumers as _consumers, producer_map, scalar_const
+from .toolkit import (consumers as _consumers, drops_graphs, producer_map,
+                      scalar_const)
 
 
+@drops_graphs
 def fuse_gelu(model) -> int:
     """Fuse the exporter's exact-GELU chain
     Div(x, sqrt2) -> Erf -> Add(1) -> Mul(x, .) -> Mul(., 0.5)

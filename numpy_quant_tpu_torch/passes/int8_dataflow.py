@@ -6,9 +6,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from .toolkit import PASSTHROUGH_OPS
+from .toolkit import PASSTHROUGH_OPS, drops_graphs
 
 
+@drops_graphs
 def int8_dataflow(model) -> int:
     """Plan EARLY quantization: a value whose consumers all quantize it
     anyway -- quantized ops directly, or value-preserving shape ops

@@ -5,9 +5,10 @@ ViT CLS-token classifier tail, reference models/vit.py:40-66)."""
 from __future__ import annotations
 
 from ..graph import Constant, Node, Variable
-from .toolkit import consumers as _consumers
+from .toolkit import consumers as _consumers, drops_graphs
 
 
+@drops_graphs
 def narrow_gather(model) -> int:
     """Dead-token elimination: hoist a scalar token-axis Gather (e.g.
     the ViT CLS-token pick before the classifier head, reference

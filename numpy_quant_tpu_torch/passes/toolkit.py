@@ -6,6 +6,8 @@ operate on the port's own IR (``graph.py``).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 import torch
@@ -19,6 +21,19 @@ from ..tensor import FTensor, QTensor
 # upstream and downstream make early quantization a pure layout change.
 PASSTHROUGH_OPS = ("Reshape", "Transpose", "Identity", "Squeeze",
                    "Unsqueeze", "Flatten", "Gather")
+
+
+def drops_graphs(graph_pass):
+    """A pass that rewrites the model: its captured forwards
+    (``Model.invalidate_graphs``) go after it, as JAX's passes clear its
+    jit cache."""
+    @functools.wraps(graph_pass)
+    def run(model, *args, **kwargs):
+        try:
+            return graph_pass(model, *args, **kwargs)
+        finally:
+            model.invalidate_graphs()
+    return run
 
 
 def host_array(x) -> np.ndarray:

@@ -3,9 +3,11 @@
 
 * :func:`map_batches` -- throughput over a fixed dataset: every step
   enqueued on the device with no host sync between them, one sync at the
-  end (the eager counterpart of JAX's ``lax.scan`` over forwards).
+  end (the counterpart of JAX's ``lax.scan`` over forwards: on CUDA each
+  step is one replay of the captured forward, model.py).
 * :func:`serve_stream` -- online pipelined stream: up to ``depth`` forwards
-  in flight, results yielded in order.
+  in flight, results yielded in order. A replay returns fresh output
+  tensors, so the forwards in flight never share an output buffer.
 
 JAX's ``serve_ring`` (one persistent program pulling batches through host
 callbacks inside a ``while_loop``) has no counterpart here:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import config
+from .intops import as_tensor, place
 from .ops.conv import conv2d_nchw, extract_patches_exact
 from .ops.erf import erf as _erf
 from .quantization import (
@@ -37,7 +38,7 @@ def _take(data: torch.Tensor, indices, axis: int) -> torch.Tensor:
     removes the axis."""
     idx = np.asarray(indices, dtype=np.int64)
     idx = np.where(idx < 0, idx + data.shape[axis], idx)
-    flat = torch.as_tensor(idx.reshape(-1), device=data.device)
+    flat = place(idx.reshape(-1), data.device, torch.int64)
     out = torch.index_select(data, axis, flat)
     return out.reshape(tuple(data.shape[:axis]) + idx.shape
                        + tuple(data.shape[axis + 1:]))
@@ -91,7 +92,7 @@ class ITensor:
         copy is int8): the placed copy, else moved from the host."""
         if self.placed is not None:
             return self.placed
-        return torch.from_numpy(self._data.astype(np.int32)).to(device)
+        return place(self._data, device, torch.int32)
 
     def expand_dims(self, axis: "ITensor") -> "ITensor":
         return ITensor(np.expand_dims(self._data, axis=tuple(axis.data)))
@@ -329,8 +330,7 @@ class QTensor:
     def relu(self) -> "QTensor":
         """max(q, zero point): the quantized zero, as JAX computes it."""
         zp = 0 if self.zero_point is None else self.zero_point
-        zp = torch.as_tensor(zp, dtype=self._data.dtype,
-                             device=self._data.device)
+        zp = as_tensor(zp, self._data.device, self._data.dtype)
         return QTensor(torch.maximum(self._data, zp), self.bit_width,
                        self.scale, self.zero_point)
 
@@ -403,8 +403,8 @@ class PackedQTensor:
             return None
         if self._scale_vec is None:
             s = np.asarray(self.scale, np.float32)
-            self._scale_vec = torch.from_numpy(
-                s.reshape(-1, self.n)).to(self.planes.device)
+            self._scale_vec = place(s.reshape(-1, self.n),
+                                    self.planes.device, torch.float32)
         return self._scale_vec
 
     def unpack(self) -> QTensor:
@@ -471,7 +471,7 @@ def where(condition: ITensor, a: Tensor, b: Tensor):
     if isinstance(a, ITensor):
         return ITensor(np.where(condition.data, a.data, b.data))
     if isinstance(a, FTensor):
-        cond = torch.as_tensor(condition.data != 0, device=a.data.device)
+        cond = place(condition.data != 0, a.data.device, torch.bool)
         return FTensor(torch.where(cond, a.data, b.data))
     raise ValueError(f"where of {type(a)} not supported")
 

@@ -1,6 +1,8 @@
 """Decode loops, the continuous-batching engine, calibration-stat merging,
 QModel save/load and the standard-format (QDQ, QOperator) exports over the
-port's models."""
+port's models; the profiling, per-value parity, quantization-error and
+summary tools."""
+from .analyzer import print_quantization_report, quantization_report
 from .generate import (beam_search, decode_calibration, generate,
                        generate_kv, generate_speculative)
 from .serialization import (export_qdq, export_qoperator,
@@ -9,12 +11,19 @@ from .serialization import (export_qdq, export_qoperator,
                             merge_calibration_stats, save_calibration_stats,
                             save_qmodel, save_qmodel_qdq,
                             save_qmodel_qoperator, save_weight_only)
+from .parity import compare_all_values, record_all_values
+from .profiling import (device_busy_seconds, device_trace,
+                        profile_results_plot, summarize_device_trace)
 from .serving import ContinuousBatcher
+from .summary import summarize
 
-__all__ = ["ContinuousBatcher", "beam_search", "decode_calibration",
+__all__ = ["ContinuousBatcher", "beam_search", "compare_all_values",
+           "decode_calibration", "device_busy_seconds", "device_trace",
            "export_qdq", "export_qoperator", "generate", "generate_kv",
            "generate_speculative", "import_onnx_quantized",
            "load_calibration_stats", "load_qmodel", "load_weight_only",
-           "merge_calibration_stats", "save_calibration_stats",
-           "save_qmodel", "save_qmodel_qdq", "save_qmodel_qoperator",
-           "save_weight_only"]
+           "merge_calibration_stats", "print_quantization_report",
+           "profile_results_plot", "quantization_report",
+           "record_all_values", "save_calibration_stats", "save_qmodel",
+           "save_qmodel_qdq", "save_qmodel_qoperator", "save_weight_only",
+           "summarize", "summarize_device_trace"]

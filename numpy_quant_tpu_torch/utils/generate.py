@@ -65,6 +65,26 @@ def _placed_table(model, name: str, arr) -> torch.Tensor | None:
     return dev
 
 
+def _kv_buffers(step_model, q_cache: list, shape: tuple,
+                cache_dtype) -> list:
+    """The decode's KV caches, kept on the model from one decode to the
+    next: the captured step graph reads them in place (``inplace=``), so
+    it is captured once, not once per decode. Each starts at its cache
+    input's quantize(0.0): the zero point for int8 caches, what the
+    executor's on-entry quantize makes of a float zero cache."""
+    cache = step_model.__dict__.setdefault("_kv_buffers", {})
+    key = (shape, cache_dtype, len(q_cache))
+    bufs = cache.get(key)
+    if bufs is None:
+        bufs = [torch.empty(shape, dtype=cache_dtype,
+                            device=step_model.device) for _ in q_cache]
+        cache[key] = bufs
+    zeros = torch.zeros(shape, dtype=torch.float32, device=step_model.device)
+    for buf, q in zip(bufs, q_cache):
+        buf.copy_(q(zeros))
+    return bufs
+
+
 def _refuse_unported(key, score_bias, memory) -> None:
     if key is not None:
         raise NotImplementedError(
@@ -253,10 +273,10 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
     total = t0 + max_new_tokens
     ids = torch.zeros((batch, total), dtype=torch.int64, device=dev)
     ids[:, :t0] = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
-    # int8 caches start at quantize(0.0), the zero point: what the
-    # executor's on-entry quantize makes of a float zero cache
-    caches = [q(torch.zeros((batch, nh, length, hd), dtype=torch.float32,
-                            device=dev)).to(cache_dtype) for q in q_cache]
+    caches = _kv_buffers(step_model, q_cache, (batch, nh, length, hd),
+                         cache_dtype)
+    # the captured step graph reads the caches where they lie
+    inplace = tuple(range(cache_start, cache_start + len(caches)))
     masks = torch.from_numpy(np.stack(
         [_step_mask(t, length) for t in range(max(total - 1, 1))])).to(dev)
     presence = None
@@ -270,7 +290,7 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
             x = x + wpe_d[t]
         extra = [] if rope_d is None else [r[:, :, t:t + 1, :] for r in rope_d]
         outs = step_model([x[:, None, :], masks[t]] + extra + caches,
-                          as_numpy=False)
+                          as_numpy=False, inplace=inplace)
         row = outs[0][:, 0, :]
         if step_logits is not None:
             step_logits.append(row)

@@ -177,6 +177,10 @@ class ContinuousBatcher:
         self._caches = [q(torch.zeros(shape, dtype=torch.float32,
                                       device=dev)).to(cache_dtype)
                         for q in self._q_cache]
+        # the captured step graph reads dense caches where they lie; paged
+        # views are gathered anew each step, so they are copied in
+        self._inplace = () if self._paged is not None else tuple(
+            range(cache_start, cache_start + len(self._caches)))
 
         self._prefill = prefill_model
         if prefill_model is not None:
@@ -252,7 +256,8 @@ class ContinuousBatcher:
             extra = [self._cos[rpos][:, None, None, :],
                      self._sin[rpos][:, None, None, :]]
         outs = self.model([x, mask[:, None, None, :]] + extra
-                          + self._views(), as_numpy=False)
+                          + self._views(), as_numpy=False,
+                          inplace=self._inplace)
         nxt = self._pick(outs[0][:, 0, :], step, sampling)
         if self._paged is not None:
             # each row's new K/V row into its current block (inactive

@@ -229,6 +229,10 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.utils.serving\n"
             "import numpy_quant_tpu_torch.serving\n"
             "import numpy_quant_tpu_torch.utils.serialization\n"
+            "import numpy_quant_tpu_torch.utils.profiling\n"
+            "import numpy_quant_tpu_torch.utils.parity\n"
+            "import numpy_quant_tpu_torch.utils.analyzer\n"
+            "import numpy_quant_tpu_torch.utils.summary\n"
             "import numpy_quant_tpu_torch.profile_vit\n"
             "import numpy_quant_tpu_torch.profile_gpt\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
