@@ -4,9 +4,11 @@ GPT-2 full-context scoring, int8 TinyLlama-1.1B scoring, int8 T5-small
 encoder-decoder scoring, W8A16 ViT-Base, 1-16-bit MLP, TinyLlama-1.1B
 decode and prefill paths, the serving paths (map_batches/serve_stream
 over ViT-Base, the continuous-batching engine, prefill admission and the
-full-sequence generators over TinyLlama-1.1B) and ONNX interop (the
-conformance vectors; QDQ/QOperator export and save/load of ViT-Base) on
-one NVIDIA GPU.
+full-sequence generators over TinyLlama-1.1B), ONNX interop (the
+conformance vectors; QDQ/QOperator export and save/load of ViT-Base) and
+the PTQ accuracy passes (GPTQ, AdaRound, bias correction, SmoothQuant,
+AWQ, rotation, equalization, clipped calibration, mixed precision,
+dynamic quantization) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -235,6 +237,35 @@ Phases, one line each (any failure raises and the script exits non-zero):
      step below the bytes read in place, no recapture), the capture's
      seconds and memory pool, eager and captured throughput in turns,
      busy ms, the idle share and host µs per call.
+ 19. the PTQ accuracy passes (run after 16(d), on the TinyLlama weights
+     of phase 11): splitk_wo_matmul against its plain version and timed
+     at ViT-Base's three layer shapes with M = 8 * 197 and 96 * 197 (W4
+     g=128, f32 and bf16, cold L2, beside its bound and torch.matmul on
+     the dequantized weight); (a) the trained ViT-Base-width fixture (2
+     layers; 32 calibration images, 256 held out): float, int8 min/max,
+     percentile 99.99, MSE and KL, SmoothQuant + int8, W4A8 per channel
+     plain / GPTQ / AdaRound / GPTQ + bias correction, W3A8 per tensor
+     plain / rotate_vo, the sensitivity plan (half the parameters at 4
+     bits), W4 g=128 weight-only plain / AWQ, dynamic int8 per row: each
+     row's held-out accuracy, labels equal to float, max |dlogit| and pass
+     seconds; every exact rewrite within REPARAM_TOL of the float logits;
+     after optimize() + pack_weights() the f32 "kernel" logits equal to
+     "unpack" bit for bit (weight-only rows: the margin rule), a captured
+     bf16 B=96 "kernel" forward's images/s and launches, equal to
+     "unpack"; (b) the main path: 12-layer ViT-Base (seed 0) W4A8 per
+     channel, GPTQ on all 73 2-D weights timed on the card, then the
+     packed captured bf16 B=96 "kernel" forward, counted (72
+     splitk_qmatmul, 12 fused_attention_hs, quantize and dequantize
+     launched), images/s beside plain W4A8's in turns, mean |dlogit|
+     against float for both (reported); (c) the TinyLlama-1.1B int8
+     prefill (P=512) after smooth_outliers(0.5): the float logits within
+     REPARAM_TOL, 22 fused_attention launches, fused f32 equal to unfused
+     bit for bit; (d) the modular-sum accuracy ladder at B=256
+     (accuracy_ladder.py) held to the JAX package's capstone rules
+     (MODSUM_RULES); (e) T5-small (B=2, 512 + 128) after equalize() on its
+     12 ReLU feed-forward pairs: the float logits within REPARAM_TOL, then
+     int8 optimize()d scoring with 6 blockwise and 12 monolithic head-split
+     launches.
 Phases 1-17 run captured forwards from here on, except where a forward
 is swapped or hooked (plain_chain, boundary_cost, phase 3's kernel and
 plain-chain turns, record=True): those walk eagerly.
@@ -886,8 +917,9 @@ def check_wo() -> float:
     return worst
 
 
-def time_wo(name: str, shapes=DECODE_SHAPES, path: str = "gpt2") -> dict:
-    """The decode shapes (K, N) at M = 8, W4 g=128, f32 and bf16, each
+def time_wo(name: str, shapes=DECODE_SHAPES, path: str = "gpt2",
+            m: int = GPT_B) -> dict:
+    """The decode shapes (K, N) at M = ``m`` (8), W4 g=128, f32 and bf16, each
     first held against the plain version: kernel, plain version, bound and
     the library call (torch.matmul on the weight dequantized beforehand,
     in x's type: 8x (f32) or 4x (bf16) the payload's bytes), every call
@@ -902,10 +934,10 @@ def time_wo(name: str, shapes=DECODE_SHAPES, path: str = "gpt2") -> dict:
     res = {}
     for tname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for k, n in shapes:
-            x, payload, scale = wo_operands(4, GPT_B, k, n, k // WO_GROUP,
+            x, payload, scale = wo_operands(4, m, k, n, k // WO_GROUP,
                                             seed=k + n, dtype=dtype)
             err, top = wo_compare(x, payload, scale, 4,
-                                  f"{path} decode {k}->{n}")
+                                  f"{path} M{m} {k}->{n}")
             w = Q.unpack_splitk(payload, 4, k).float()
             w_deq = (w * torch.repeat_interleave(scale, WO_GROUP, dim=0)) \
                 .to(dtype)
@@ -918,18 +950,18 @@ def time_wo(name: str, shapes=DECODE_SHAPES, path: str = "gpt2") -> dict:
             del w_deq
             size = x.element_size()
             nbytes = (payload.numel() + 4 * scale.numel() + size * x.numel()
-                      + size * GPT_B * n)
-            ops = 2 * GPT_B * k * n
+                      + size * m * n)
+            ops = 2 * m * k * n
             t_bytes = nbytes / rates["bytes"] * 1e3
             t_ops = ops / rates[tname] * 1e3
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        max_abs_err=err, max_err_over_max_y=err / top)
-            plan = Q.wo_plan(GPT_B, n, payload.shape[0], 4, sms)
+            plan = Q.wo_plan(m, n, payload.shape[0], 4, sms)
             say("kernel-time", kernel="splitk_wo_matmul", path=path, bits=4,
                 scale=f"g{WO_GROUP}", dtype=tname,
-                shape=f"M{GPT_B}xK{k}xN{n}", cluster=plan["cluster"],
+                shape=f"M{m}xK{k}xN{n}", cluster=plan["cluster"],
                 blocks=plan["blocks"], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, library="matmul_on_dequantized_weight",
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
@@ -4095,6 +4127,428 @@ def captured_decode(path: str, card: str, model, run, equal, tokens,
 CAPTURED: list = []
 
 
+# -- phase 19: the PTQ accuracy passes ---------------------------------------
+PTQ_CALIB, PTQ_EVAL, PTQ_EVAL_B = 32, 256, 32  # 19a images: calib, held out
+PTQ_PCT = 99.99  # 19a's percentile row
+PTQ_IPS_REPS = 10  # timed bf16 B=96 replays per 19a row
+PTQ_GPTQ_CALIB = 8  # random images GPTQ reads on 12-layer ViT-Base (19b)
+PTQ_WO_M = (B_F32 * N_TOK, B_SERVE * N_TOK)  # splitk_wo_matmul's ViT rows
+REPARAM_TOL = 1e-3  # float logits after an exact rewrite, of max|logits|
+# the JAX package's capstone rules (tests/long_running/
+# test_modsum_capstone.py) over the accuracy ladder's rows
+MODSUM_RULES = (
+    ("float >= 0.999", lambda r: r["float"] >= 0.999),
+    ("w4-perchan-plain >= 0.995", lambda r: r["w4-perchan-plain"] >= 0.995),
+    ("w4a8-perchan-plain >= 0.995",
+     lambda r: r["w4a8-perchan-plain"] >= 0.995),
+    ("w2a8 plain <= 0.96", lambda r: r["w2a8-perchan-plain"] <= 0.96),
+    ("w2a8 gptq >= 0.995", lambda r: r["w2a8-perchan-gptq"] >= 0.995),
+    ("w2a8 adaround >= plain + 0.02",
+     lambda r: r["w2a8-perchan-adaround"] >= r["w2a8-perchan-plain"] + 0.02),
+    ("w3 per-tensor plain <= 0.9", lambda r: r["w3-pertensor-plain"] <= 0.9),
+    ("|w3 per-tensor awq - plain| <= 0.1",
+     lambda r: abs(r["w3-pertensor-awq"] - r["w3-pertensor-plain"]) <= 0.1))
+
+
+def synced_seconds(fn):
+    """(fn(), wall seconds with the device synchronized after it)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def exact_rewrite(label: str, model, batches: list, ref) -> float:
+    """The float logits of ``model`` (eager, over each input list of
+    ``batches``) after an exact reparameterization against ``ref`` before
+    it: max |diff| / max|ref|, which must stay within REPARAM_TOL."""
+    import numpy as np
+    with eager():
+        got = np.concatenate([model(b)[0] for b in batches])
+    rel = float(np.abs(got - ref).max()) / float(np.abs(ref).max())
+    say("ptq-reparam", rewrite=label, max_diff_over_max_logit=rel,
+        tolerance=REPARAM_TOL)
+    assert rel <= REPARAM_TOL, (label, rel)
+    return rel
+
+
+def margin_parted(got, want) -> tuple[int, int, float]:
+    """(rows whose labels part, rows of them whose top-2 margin exceeds
+    twice the measured max |logit diff| -- the decode margin rule: a row
+    may part only where the two top logits lie within the difference --,
+    that max |diff|)."""
+    import numpy as np
+    diff = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    parted = got.argmax(1) != want.argmax(1)
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * diff
+    return int(parted.sum()), int((parted & clear).sum()), diff
+
+
+def ptq_fixture_phase(card: str) -> dict:
+    """Phase 19a: the trained ViT-Base-width fixture (2 layers) through
+    every accuracy pass. Each row: held-out accuracy on PTQ_EVAL images,
+    label agreement and max |logit diff| against float, the pass's
+    seconds; then optimize() + pack_weights() (weight-only rows:
+    quantize_weights(4, group_size=128, pack=True)), the f32 held-out
+    logits under "kernel" equal to "unpack" (bit for bit; weight-only rows
+    under the margin rule), and a captured bf16 B=96 "kernel" forward:
+    images/s, its launches, equal to "unpack" bit for bit (weight-only:
+    labels under the margin rule). Returns {row: launches per bf16
+    forward}."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models import fixtures as F
+    from numpy_quant_tpu_torch.models.vit import WEIGHT_CONFIGS
+    from numpy_quant_tpu_torch.utils.calibration import (kl_calibrated_stats,
+                                                         mse_clipped_stats)
+    from numpy_quant_tpu_torch.utils.sensitivity import plan_mixed_precision
+    t_phase = time.perf_counter()
+    size = F.BASE_IMAGE_SIZE
+    layers = F.BASE_FIXTURE_CONFIG["num_hidden_layers"]
+    proto = F.trained_vit_base_onnx()
+    calib = torch.from_numpy(F.make_batch(np.random.default_rng(7),
+                                          PTQ_CALIB, size)[0]).cuda()
+    x_eval, y_eval = F.make_batch(np.random.default_rng(1), PTQ_EVAL, size)
+    xs = [torch.from_numpy(x_eval[i:i + PTQ_EVAL_B]).cuda()
+          for i in range(0, PTQ_EVAL, PTQ_EVAL_B)]
+    x96 = torch.from_numpy(x_eval[:B_SERVE]).cuda()
+
+    def fresh():
+        return Model.from_onnx(proto)
+
+    def logits(model, mode="unpack"):
+        with eager(), packed_execution(mode):
+            return np.concatenate([model([x])[0] for x in xs])
+
+    fm = fresh()
+    ref = logits(fm)
+    flabels = ref.argmax(1)
+    stats, stats_s = synced_seconds(lambda: fm.calibration_stats([calib]))
+    q8 = dict(bit_width=8, quantize_conv=True)
+    w4a8 = dict(WEIGHT_CONFIGS["w4a8"], quantize_conv=True)
+    w3a8 = dict(WEIGHT_CONFIGS["w3a8"], quantize_conv=True)
+
+    def quantized(kw, passes=()):
+        q = fm.quantize(stats=stats, **kw)
+        for p in passes:
+            if p == "bias":
+                q.correct_biases(fm, [calib])
+            else:
+                getattr(q, p)(fm, [calib])
+        return q
+
+    def smooth():
+        m = fresh()
+        m.smooth_outliers([calib], alpha=0.5)
+        exact_rewrite("smooth_outliers", m, [[x] for x in xs], ref)
+        return m.quantize([calib], **q8)
+
+    def rotated():
+        m = fresh()
+        m.rotate_vo(seed=0)
+        exact_rewrite("rotate_vo", m, [[x] for x in xs], ref)
+        return m.quantize([calib], **w3a8)
+
+    def mixed():
+        plan = plan_mixed_precision(fm, [calib], low_frac=0.5, bit_width=8,
+                                    low_bits=4, stats=stats,
+                                    quantize_conv=True)
+        say("ptq-plan", low_weights=len(plan), names="|".join(sorted(plan)))
+        return fm.quantize(stats=stats, weight_bit_width=plan, **q8)
+
+    def weight_only(awq: bool):
+        m = fresh()
+        if awq:
+            alphas = m.awq_scale_weights([calib], bit_width=4,
+                                         group_size=WO_GROUP)
+            say("ptq-awq", alphas=",".join(f"{a:g}" for a in alphas.values()))
+            exact_rewrite("awq_scale_weights", m, [[x] for x in xs], ref)
+        m.quantize_weights(bit_width=4, group_size=WO_GROUP, pack=True)
+        return m
+
+    rows = {
+        "float": ("float", lambda: fm),
+        "int8": ("static", lambda: quantized(q8)),
+        "int8_p99.99": ("static", lambda: fm.quantize(
+            stats=fm.calibration_stats([calib], percentile=PTQ_PCT), **q8)),
+        "int8_mse": ("static", lambda: fm.quantize(
+            stats=mse_clipped_stats(fm, [calib]), **q8)),
+        "int8_kl": ("static", lambda: fm.quantize(
+            stats=kl_calibrated_stats(fm, [calib]), **q8)),
+        "int8_smoothquant": ("static", smooth),
+        "w4a8": ("static", lambda: quantized(w4a8)),
+        "w4a8_gptq": ("static", lambda: quantized(w4a8, ("gptq",))),
+        "w4a8_adaround": ("static", lambda: quantized(w4a8, ("adaround",))),
+        "w4a8_gptq_bias": ("static", lambda: quantized(w4a8,
+                                                       ("gptq", "bias"))),
+        "w3a8": ("static", lambda: quantized(w3a8)),
+        "w3a8_rotate_vo": ("static", rotated),
+        "mixed_w4_w8": ("static", mixed),
+        "wo_w4_g128": ("weight_only", lambda: weight_only(False)),
+        "wo_w4_g128_awq": ("weight_only", lambda: weight_only(True)),
+        "dynamic_int8_row": ("dynamic",
+                             lambda: fm.quantize_dynamic(8, granularity="row")),
+    }
+    launches = {}
+    for row, (kind, build) in rows.items():
+        model, seconds = synced_seconds(build)
+        if kind == "static":
+            report = model.optimize()
+            assert not report["fusion_failures"], report
+            assert report["fuse_attention"] == layers, report
+            assert model.pack_weights() == 6 * layers
+        kernel = logits(model, "kernel")
+        unpack = logits(model, "unpack") if kind != "float" else kernel
+        if kind == "weight_only":
+            parted, clear, kdiff = margin_parted(kernel, unpack)
+            equal = clear == 0
+        else:
+            parted, clear, kdiff = 0, 0, float(np.abs(kernel - unpack).max())
+            equal = bool(np.array_equal(kernel, unpack))
+        fields = dict(
+            row=row, accuracy=float((kernel.argmax(1) == y_eval).mean()),
+            labels_equal_float=f"{int((kernel.argmax(1) == flabels).sum())}"
+                               f"/{PTQ_EVAL}",
+            max_abs_dlogit=float(np.abs(kernel - ref).max()),
+            mean_abs_dlogit=float(np.abs(kernel - ref).mean()),
+            pass_s=seconds + (stats_s if row in ("int8", "w4a8", "w3a8")
+                              else 0.0),
+            f32_kernel_equals_unpack=equal, f32_kernel_unpack_max_diff=kdiff,
+            labels_parted=parted)
+        if kind != "float":
+            with config.low_precision_floats(), packed_execution("kernel"):
+                out_k, counts = counted(lambda: model([x96])[0])
+                ips = images_per_s(model, x96, "kernel", reps=PTQ_IPS_REPS)
+            with config.low_precision_floats(), packed_execution("unpack"):
+                out_u = model([x96])[0]
+            if kind == "weight_only":
+                b_parted, b_clear, _ = margin_parted(out_k, out_u)
+                bf16_equal = b_clear == 0
+            else:
+                b_parted, bf16_equal = 0, same_bits(out_k, out_u)
+            launches[row] = counts
+            fields.update(images_per_s_bf16_b96_kernel=ips,
+                          bf16_kernel_equals_unpack=bf16_equal,
+                          bf16_labels_parted=b_parted,
+                          **{f"launches_{k}": v for k, v in counts.items()
+                             if v})
+            assert bf16_equal, f"{row}: bf16 kernel != unpack"
+            assert np.isfinite(out_k).all()
+            kname = {"static": "packed_qmatmul" if row.startswith("w3a8")
+                     else "splitk_qmatmul",
+                     "weight_only": "splitk_wo_matmul"}.get(kind)
+            if kname is not None:
+                assert counts[kname] >= 6 * layers, (row, counts)
+            if kind == "static":
+                assert counts["fused_attention_hs"] == layers, (row, counts)
+        say("ptq-row", **fields, card=card.replace(" ", "_"))
+        assert equal, f"{row}: f32 kernel != unpack"
+        if model is not fm:
+            del model
+        torch.cuda.empty_cache()
+    say("ptq-fixture-phase", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def ptq_vit_base_phase(card: str) -> dict:
+    """Phase 19b, the passes' main path: 12-layer ViT-Base (random weights,
+    seed 0), W4A8 per channel; GPTQ on every 2-D weight, timed on the
+    card; then optimize() + pack_weights() (72) and the captured bf16 B=96
+    "kernel" forward, counted (the counts set to 0 just before), images/s
+    beside plain W4A8's (in turns), mean |dlogit| against float for both
+    (f32, B=96; reported). Returns the GPTQ forward's launch counts."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models.vit import (VIT_BASE, WEIGHT_CONFIGS,
+                                                  random_vit_weights,
+                                                  vit_image_classifier)
+    t_phase = time.perf_counter()
+    fm = Model.from_onnx(vit_image_classifier(
+        random_vit_weights(VIT_BASE, seed=0), VIT_BASE))
+    rng = np.random.default_rng(19)
+    calib = torch.from_numpy(rng.normal(size=(PTQ_GPTQ_CALIB, 3, 224, 224))
+                             .astype(np.float32) * 0.5).cuda()
+    x = torch.from_numpy(rng.normal(size=(B_SERVE, 3, 224, 224))
+                         .astype(np.float32) * 0.5).cuda()
+    with eager():
+        ref = fm([x])[0]
+    stats = fm.calibration_stats([calib])
+    kw = dict(WEIGHT_CONFIGS["w4a8"], quantize_conv=True)
+    plain = fm.quantize(stats=stats, **kw)
+    gptq = fm.quantize(stats=stats, **kw)
+    tuned, gptq_s = synced_seconds(lambda: gptq.gptq(fm, [calib]))
+    del fm
+    res = {}
+    for label, q in (("plain", plain), ("gptq", gptq)):
+        q.optimize()
+        assert q.pack_weights() == PACKED_PER_FORWARD
+        with eager(), packed_execution("kernel"):
+            y = q([x])[0]
+        res[label] = float(np.abs(y - ref).mean())
+    ips = {"plain": [], "gptq": []}
+    with config.low_precision_floats():
+        with packed_execution("kernel"):
+            for label, q in (("plain", plain), ("gptq", gptq)):
+                q([x])
+            out, counts = counted(lambda: gptq([x])[0])
+        for label in ("plain", "gptq", "gptq", "plain"):
+            q = plain if label == "plain" else gptq
+            ips[label].append(images_per_s(q, x, "kernel",
+                                           reps=PTQ_IPS_REPS))
+    say("ptq-vit-base", layers=VIT_BASE["num_hidden_layers"],
+        gptq_weights=tuned, gptq_s=gptq_s, calib_images=PTQ_GPTQ_CALIB,
+        images_per_s_bf16_b96_gptq=statistics.median(ips["gptq"]),
+        images_per_s_bf16_b96_plain=statistics.median(ips["plain"]),
+        runs_gptq=",".join(f"{v:.1f}" for v in ips["gptq"]),
+        runs_plain=",".join(f"{v:.1f}" for v in ips["plain"]),
+        mean_abs_dlogit_f32_gptq=res["gptq"],
+        mean_abs_dlogit_f32_plain=res["plain"],
+        **{f"launches_{k}": v for k, v in counts.items()},
+        seconds=time.perf_counter() - t_phase, card=card.replace(" ", "_"))
+    assert tuned == PACKED_PER_FORWARD + 1, tuned  # and the classifier Gemm
+    assert np.isfinite(out).all()
+    assert counts["splitk_qmatmul"] == PACKED_PER_FORWARD, counts
+    assert counts["fused_attention_hs"] == 12, counts
+    for kname in ("quantize", "dequantize"):
+        assert counts[kname] > 0, counts
+    return counts
+
+
+def ptq_llama_phase(card: str, weights) -> dict:
+    """Phase 19c: TinyLlama-1.1B int8 prefill (P = PREFILL_N, B=1, full
+    width and depth): smooth_outliers(alpha=0.5) leaves the float logits
+    within REPARAM_TOL; then calibration, quantize(8), optimize() (22
+    plain fusions) and the fused f32 forward, counted: 22 fused_attention
+    launches, equal to the unfused forward bit for bit wherever torch sums
+    the rows in the kernel's order (probed). Returns the counts."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.kernels import attention as A
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    llama_prefill)
+    t_phase = time.perf_counter()
+    cfg, n = TINYLLAMA_1_1B, PREFILL_N
+    layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
+    proto = llama_prefill(weights, cfg, n)
+    wte = proto._wte
+    model = Model.from_onnx(proto)
+    del proto
+    rng = np.random.default_rng(191)
+    calib = wte[rng.integers(0, vocab, size=(2, n))]
+    x = torch.from_numpy(wte[rng.integers(0, vocab, size=(1, n))]).cuda()
+    with eager():
+        before = model([x])[0]
+    groups, smooth_s = synced_seconds(
+        lambda: model.smooth_outliers([calib], alpha=0.5))
+    rel = exact_rewrite("smooth_outliers_tinyllama", model, [[x]], before)
+    qmodel = model.quantize(bit_width=8,
+                            stats=model.calibration_stats([calib]))
+    del model
+
+    def forward():
+        return qmodel([x], as_numpy=False)
+
+    unfused = forward()
+    report = qmodel.optimize()
+    fused, counts = counted(forward)
+    equal = all(torch.equal(a, b) for a, b in zip(fused, unfused))
+    in_order = exact_in_order(cfg["num_attention_heads"] * A.plain_tile(n), n)
+    say("ptq-llama", prefill=n, smoothed_groups=groups, smooth_s=smooth_s,
+        float_max_diff_over_max_logit=rel,
+        fuse_attention=report["fuse_attention"],
+        fused_attention_launches=counts["fused_attention"],
+        fused_equals_unfused_bitwise=equal, in_torch_order=in_order,
+        seconds=time.perf_counter() - t_phase, card=card.replace(" ", "_"))
+    assert groups == 2 * layers + 1, groups
+    assert report["fuse_attention"] == layers, report
+    assert counts["fused_attention"] == layers, counts
+    assert all(bool(t.isfinite().all()) for t in fused)
+    assert not in_order or equal, "smoothed prefill: fused != unfused"
+    return counts
+
+
+def ptq_modsum_phase(card: str) -> dict:
+    """Phase 19d: the modular-sum accuracy ladder (accuracy_ladder.py) at
+    B=256 on the card, held to the JAX package's capstone rules."""
+    from numpy_quant_tpu_torch.accuracy_ladder import ladder
+    t_phase = time.perf_counter()
+    rows = ladder(emit=lambda line: say("ptq-modsum", row=line.replace(
+        " ", "")))
+    held = {rule: bool(check(rows)) for rule, check in MODSUM_RULES}
+    say("ptq-modsum-rules", **{k.replace(" ", "_"): v
+                               for k, v in held.items()},
+        seconds=time.perf_counter() - t_phase, card=card.replace(" ", "_"))
+    assert all(held.values()), held
+    return rows
+
+
+def ptq_t5_phase(card: str) -> dict:
+    """Phase 19e: T5-small at full width and depth, B=2, 512 + 128:
+    equalize() on the 12 ReLU feed-forward pairs leaves the float logits
+    within REPARAM_TOL; then quantize(8) and optimize(): the scoring
+    forward launches both head-split kernels (6 blockwise encoder, 12
+    monolithic decoder). Returns the counts."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models.t5 import (T5_SMALL, random_t5_weights,
+                                                 t5_conditional_generation)
+    t_phase = time.perf_counter()
+    cfg, vocab = T5_SMALL, T5_SMALL["vocab_size"]
+    proto = t5_conditional_generation(random_t5_weights(cfg, seed=0), cfg,
+                                      batch_size=2, src_len=T5_SRC,
+                                      tgt_len=T5_TGT)
+    wte = proto._wte
+    model = Model.from_onnx(proto)
+    del proto
+    rng = np.random.default_rng(195)
+    calib = [wte[rng.integers(0, vocab, size=(2, k))]
+             for k in (T5_SRC, T5_TGT)]
+    x = [torch.from_numpy(wte[rng.integers(0, vocab, size=(2, k))]).cuda()
+         for k in (T5_SRC, T5_TGT)]
+    with eager():
+        before = model(x)[0]
+    pairs, eq_s = synced_seconds(model.equalize)
+    rel = exact_rewrite("equalize_t5", model, [x], before)
+    qmodel = model.quantize(bit_width=8, stats=model.calibration_stats(calib))
+    report = qmodel.optimize()
+    out, counts = counted(lambda: qmodel(x)[0])
+    layers = cfg["num_layers"]
+    say("ptq-t5", pairs=pairs, equalize_s=eq_s,
+        float_max_diff_over_max_logit=rel, tolerance=REPARAM_TOL,
+        fuse_attention=report["fuse_attention"],
+        blockq_launches=counts["fused_attention_hs_blockq"],
+        hs_launches=counts["fused_attention_hs"],
+        seconds=time.perf_counter() - t_phase, card=card.replace(" ", "_"))
+    assert pairs == 2 * layers, pairs
+    assert np.isfinite(out).all()
+    assert counts["fused_attention_hs_blockq"] == layers, counts
+    assert counts["fused_attention_hs"] == 2 * layers, counts
+    return counts
+
+
+def ptq_phase(card: str, name: str, llama_weights) -> dict:
+    """Phase 19: 19a-e in turn, with splitk_wo_matmul held against its
+    plain version and timed at the ViT rows M = 8 * 197 and 96 * 197.
+    Returns each path's launch counts and the kernel times."""
+    t0 = time.perf_counter()
+    wo = {m: time_wo(name, QMM_SHAPES, "vit_base", m=m) for m in PTQ_WO_M}
+    res = dict(wo=wo, fixture=ptq_fixture_phase(card))
+    res["vit_base"] = ptq_vit_base_phase(card)
+    res["llama"] = ptq_llama_phase(card, llama_weights)
+    res["modsum"] = ptq_modsum_phase(card)
+    res["t5"] = ptq_t5_phase(card)
+    say("ptq-phase", seconds=time.perf_counter() - t0,
+        card=card.replace(" ", "_"))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4381,13 +4835,16 @@ def main() -> int:
     admission = admission_phase(card, step, prefill_model, wte, rope)
     del step, w4, prefill_model
     gen_counts = generators_phase(card, llama_weights)
-    del llama_weights
     say("serve-phase", seconds=t16 + time.perf_counter() - t0,
         vit_seconds=t16, engine_tokens_per_s=",".join(
             f"{k}:{v:.1f}" for k, v in engine["tokens_per_s"].items()),
         admission_tokens_per_s=admission["tokens_per_s"],
         engine_step_idle_share=engine["profile"]["idle_share"],
         card=card.replace(" ", "_"))
+
+    # -- phase 19: the PTQ accuracy passes ----------------------------
+    ptq = ptq_phase(card, name, llama_weights)
+    del llama_weights
     say("done", seconds=time.perf_counter() - t_start)
     e1, e5 = engine["per_step"]["E1"], engine["per_step"]["E5"]
     admit = admission["per_admission"]
@@ -4498,6 +4955,19 @@ def main() -> int:
                         "per_generate_forward": gen_counts[kname]},
             "interop": {f"per_reimported_{k}_forward": c[kname]
                         for k, c in interop.items()}})
+    # phase 19's paths: launches per forward (zeros left out), and
+    # splitk_wo_matmul at ViT-Base's rows
+    for row in rows:
+        kname = row["name"]
+        paths = {"per_vit_base_gptq_forward": ptq["vit_base"][kname],
+                 "per_smoothed_tinyllama_prefill": ptq["llama"][kname],
+                 "per_equalized_t5_forward": ptq["t5"][kname],
+                 "per_fixture_bf16_forward": {
+                     r: c[kname] for r, c in ptq["fixture"].items()
+                     if c[kname]}}
+        row["ptq"] = {k: v for k, v in paths.items() if v}
+    wo_row = next(r for r in rows if r["name"] == "splitk_wo_matmul")
+    wo_row["ptq"]["vit_rows"] = {f"M{m}": t for m, t in ptq["wo"].items()}
     say("interop-summary", vectors=",".join(
         f"{k}:{v:.3g}" for k, v in vectors.items()))
     print(json.dumps({"kernels": rows}))

@@ -33,7 +33,8 @@ from .ops.interop import executing_on
 from .ops.registry import onnx_operator_implementation
 from .passes.toolkit import PASSTHROUGH_OPS
 from .quantization import (container_dtype, per_channel_scales,
-                           quant_parameters, quantize, weight_only_scales)
+                           percentile_range, quant_parameters, quantize,
+                           weight_only_scales)
 from .tensor import (
     FTensor,
     ITensor,
@@ -414,6 +415,11 @@ class Model:
         quantization changed, and a replay would read what is gone."""
         self._graphs.clear()
 
+    def invalidate_params(self) -> None:
+        """A constant changed: drop what was built from the old values (on
+        a float model, the captured forwards)."""
+        self.invalidate_graphs()
+
     def _infer_shapes(self):
         """Static shapes of every graph value, from one forward over
         zeros shaped by the inputs' ValueInfo hints (symbolic dims
@@ -442,36 +448,83 @@ class Model:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def calibration_stats(self, inputs: list) -> dict:
-        """Global min/max per value name (constants included), from one
-        eager forward. Each value folds to its (min, max) as it is made, so
-        the walk frees it after its last use; the device extremes cross to
-        the host once, at the end."""
-        input_tensors = {v.name: self._wrap_input(a, v)
-                         for a, v in zip(inputs, self.inputs)}
-        stats, device = {}, {}
+    def calibration_stats(self, inputs: list, mode: str = "auto",
+                          percentile: float = None) -> dict:
+        """Global min/max per value name (constants included). Each value
+        folds to its (min, max) as it is made, so the walk frees it after
+        its last use; the device extremes cross to the host once, at the
+        end.
 
-        def visit(name, tensor):
-            if isinstance(tensor, ITensor):
-                stats[name] = (np.float32(tensor.data.min()),
-                               np.float32(tensor.data.max()))
-            else:
+        ``mode``: "jit" captures the walk with every reduction into one
+        CUDA graph and replays it (the counterpart of JAX's one jitted
+        program; on the CPU the walk runs eagerly); "eager" walks node by
+        node; "auto" takes "jit" below 150 nodes, else "eager", as the JAX
+        package does. All three give the same stats bit for bit.
+
+        ``percentile``: clip ACTIVATION ranges to the [100 - p, p]
+        percentiles (e.g. 99.99), JAX's ``jnp.quantile`` with linear
+        interpolation at float32 quantiles (:func:`percentile_range`).
+        Constants keep their exact min/max."""
+        if mode == "auto":
+            mode = "jit" if len(self.nodes) < 150 else "eager"
+        if mode not in ("jit", "eager"):
+            raise ValueError(f"mode {mode!r} not in (auto, jit, eager)")
+        const_names = {v.name for v in self.values if isinstance(v, Constant)}
+        if percentile is not None and not 50.0 < percentile <= 100.0:
+            raise ValueError(f"percentile {percentile} not in (50, 100]")
+        host: dict = {}
+        names: list = []  # the device-reduced values, in the walk's order
+        order: list = []  # every value, in the walk's order
+
+        def fold(floats: list) -> torch.Tensor:
+            host.clear()
+            names.clear()
+            order.clear()
+            rows = []
+            fa = iter(floats)
+            input_tensors = {
+                v.name: ITensor(a) if _is_shape_input(a)
+                else self._wrap_input(next(fa), v)
+                for a, v in zip(inputs, self.inputs)}
+
+            def visit(name, tensor):
+                order.append(name)
+                if isinstance(tensor, ITensor):
+                    host[name] = (np.float32(tensor.data.min()),
+                                  np.float32(tensor.data.max()))
+                    return
                 d = tensor.data.to(torch.float32)
-                stats[name] = None  # filled below, in the walk's order
-                device[name] = torch.stack([d.min(), d.max()])
+                if percentile is not None and name not in const_names:
+                    rows.append(percentile_range(d, percentile))
+                else:
+                    rows.append(torch.stack([d.min(), d.max()]))
+                names.append(name)
 
-        self._forward(input_tensors, visit=visit)
-        if device:
-            extremes = torch.stack(list(device.values())).cpu().numpy()
-            for name, (mn, mx) in zip(device, extremes):
-                stats[name] = (np.float32(mn), np.float32(mx))
-        return stats
+            self._forward(input_tensors, visit=visit)
+            return torch.stack(rows) if rows else torch.zeros((0, 2))
+
+        floats = [a for a in inputs if not _is_shape_input(a)]
+        if mode == "jit" and self.device.type == "cuda":
+            floats = [self._device_tensor(a) for a in floats]
+            stream = _warm_up(fold, floats, self.device)
+            graph, extremes = _capture_graph(
+                fold, floats, stream, torch.cuda.graph_pool_handle())
+            graph.replay()
+            extremes = extremes.cpu().numpy()
+            del graph
+        else:
+            extremes = fold(floats).cpu().numpy()
+        device = {name: (np.float32(mn), np.float32(mx))
+                  for name, (mn, mx) in zip(names, extremes)}
+        return {name: host[name] if name in host else device[name]
+                for name in order}
 
     @torch.inference_mode()
     def quantize(self, calibration_inputs: list = None, bit_width: int = 8,
                  stats: dict = None, quantize_conv: bool = False,
                  per_channel_weights: bool = False,
-                 weight_bit_width=None) -> "QModel":
+                 weight_bit_width=None, calibration_mode: str = "auto",
+                 percentile: float = None) -> "QModel":
         """Post-training quantization with the reference's per-node
         strategy: asymmetric graph inputs and MatMul/Gemm/Conv/Add
         outputs, symmetric per-tensor constants, Gemm/Conv/Add biases at
@@ -488,6 +541,8 @@ class Model:
         (W4A8 and the like; pack_weights() then stores exactly that many
         bits); a dict ``{weight name: bits}`` sets per-weight widths,
         unlisted weights keep ``bit_width``.
+        ``calibration_mode``, ``percentile``: how ``calibration_inputs``
+        calibrate (``calibration_stats``' ``mode`` and ``percentile``).
 
         Widths run from 1 to 16 bits. Up to 8 bits the QModel computes in
         the JAX package's TPU-mode numerics (int32 containers); if any
@@ -503,7 +558,9 @@ class Model:
                              f"{min(widths)}..{max(widths)}")
         container = container_dtype(max(widths))
         if stats is None:
-            stats = self.calibration_stats(calibration_inputs)
+            stats = self.calibration_stats(calibration_inputs,
+                                           mode=calibration_mode,
+                                           percentile=percentile)
         node_dict = {node.name: node for node in self.nodes}
         value_dict = {value.name: value for value in self.values}
 
@@ -654,6 +711,53 @@ class Model:
                       quantized_ops=quantized_ops, device=self.device,
                       container=container)
 
+    # ------------------------------------------------------------------
+    # PTQ accuracy passes on the float model (run before quantize)
+    # ------------------------------------------------------------------
+
+    def smooth_outliers(self, inputs: list, alpha: float = 0.5) -> int:
+        """SmoothQuant-style activation-outlier migration: an exact
+        reparameterization dividing each norm's output by per-channel
+        factors (folded into gamma/beta) that the consuming MatMul/Gemm
+        weights multiply back. Returns the number of smoothed groups. See
+        smoothquant.py."""
+        from .smoothquant import smooth_outliers
+        return smooth_outliers(self, inputs, alpha=alpha)
+
+    def rotate_vo(self, seed: int = 0) -> int:
+        """QuaRot-style orthogonal rotation of every attention's V/O
+        projection pair (exact, data-free). Returns the number of
+        attentions rotated. See rotate.py."""
+        from .rotate import rotate_vo
+        return rotate_vo(self, seed=seed)
+
+    def awq_scale_weights(self, inputs: list, bit_width: int = 4,
+                          group_size: int = None, n_grid: int = 20,
+                          **kw) -> dict:
+        """AWQ-style activation-aware weight scaling: the smooth_outliers
+        reparameterization with the exponent grid-searched per group on
+        the weight-only reconstruction error. Give the bit width and
+        grouping of the quantize_weights call that follows. Returns {norm
+        node name: best alpha}. See awq.py."""
+        from .awq import awq_scale_weights
+        return awq_scale_weights(self, inputs, bit_width=bit_width,
+                                 group_size=group_size, n_grid=n_grid, **kw)
+
+    def equalize(self, iterations: int = 2) -> int:
+        """Cross-layer equalization over ReLU/MaxPool-linked constant-
+        weight pairs (exact, data-free). Returns the pairs equalized per
+        sweep. See equalize.py."""
+        from .equalize import equalize
+        return equalize(self, iterations=iterations)
+
+    def quantize_dynamic(self, bit_width: int = 8, **kw):
+        """Dynamic quantization: integer matmuls whose activation scales
+        come from each batch, no calibration data. See
+        dynamic.quantize_dynamic for the options (granularity,
+        weight_bit_width, per_channel_weights)."""
+        from .dynamic import quantize_dynamic
+        return quantize_dynamic(self, bit_width=bit_width, **kw)
+
     def map_batches(self, inputs: List[np.ndarray], as_numpy: bool = True):
         """Throughput inference over a leading STEPS axis: every step
         enqueued on the device, one host sync at the end. See
@@ -796,6 +900,37 @@ class QModel(Model):
         captured forward."""
         self._dp_cache = None
         self.invalidate_graphs()
+
+    # ------------------------------------------------------------------
+    # PTQ accuracy passes on the quantized payloads (before pack_weights)
+    # ------------------------------------------------------------------
+
+    def correct_biases(self, float_model: Model, inputs: list,
+                       passes: int = 1) -> int:
+        """Empirical bias correction: subtract each quantized layer's mean
+        output error over the calibration batch from its bias. Returns
+        the number of corrected biases. See bias_correction.py."""
+        from .bias_correction import correct_biases_qmodel
+        return correct_biases_qmodel(self, float_model, inputs,
+                                     passes=passes)
+
+    def adaround(self, float_model: Model, inputs: list, **kw) -> int:
+        """AdaRound: learn each weight element's rounding direction by
+        minimizing its layer's output reconstruction error on calibration
+        data. Mutates the MatMul/Gemm payloads; call before
+        pack_weights(). Returns the number of tuned weights. See
+        adaround.py."""
+        from .adaround import adaround_qmodel
+        return adaround_qmodel(self, float_model, inputs, **kw)
+
+    def gptq(self, float_model: Model, inputs: list, **kw) -> int:
+        """GPTQ: requantize weights row by row along the contraction axis,
+        absorbing each row's error into the rest through the inverse
+        Hessian of the layer reconstruction loss. Mutates the MatMul/Gemm
+        payloads; call before pack_weights(). Returns the number of
+        requantized weights. See gptq.py."""
+        from .gptq import gptq_qmodel
+        return gptq_qmodel(self, float_model, inputs, **kw)
 
     def _profile_buckets(self) -> dict[str, float]:
         buckets = super()._profile_buckets()

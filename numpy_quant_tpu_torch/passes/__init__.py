@@ -7,8 +7,8 @@ from .gelu import fuse_gelu
 from .int8_dataflow import int8_dataflow
 from .narrow import narrow_gather
 from .toolkit import PASSTHROUGH_OPS
-from .weights import pack_weights
+from .weights import pack_weights, shift_q_bias
 
 __all__ = ["PASSTHROUGH_OPS", "fuse_attention", "fuse_decode_attention",
            "fuse_gelu",
-           "int8_dataflow", "narrow_gather", "pack_weights"]
+           "int8_dataflow", "narrow_gather", "pack_weights", "shift_q_bias"]

@@ -90,6 +90,36 @@ def weight_only_scales(arr: np.ndarray, bit_width: int, ch_axis: int,
     return np.float32(2.0 * absmax / (max_q - min_q)), None
 
 
+def percentile_range(x: torch.Tensor, percentile: float) -> torch.Tensor:
+    """[lo, hi] on ``x``'s device: the (100 - p)th and pth percentiles of
+    its elements as the JAX package's ``jnp.quantile`` computes them --
+    linear interpolation between the sorted neighbours of the position
+    ``q * (n - 1)``, with q, n, the position and both weights in float32,
+    the sum of the two weighted neighbours as one fused multiply-add --
+    from one sort (``torch.quantile`` refuses inputs above 2^24
+    elements)."""
+    flat = torch.sort(x.reshape(-1).to(torch.float32)).values
+    n = np.float32(flat.numel())
+    last = np.float32(n - np.float32(1.0))
+    out = []
+    for q in (np.float32(1.0 - percentile / 100.0),
+              np.float32(percentile / 100.0)):
+        pos = np.float32(q * last)
+        low, high = np.floor(pos), np.ceil(pos)
+        w_high = np.float32(pos - low)
+        w_low = np.float32(np.float32(1.0) - w_high)
+        # clamped as JAX clamps: in float32, then its gather's own clamp
+        ends = [min(int(np.clip(i, np.float32(0.0), last)), flat.numel() - 1)
+                for i in (low, high)]
+        # low * w_low + high * w_high as XLA contracts it: one fused
+        # multiply-add over the rounded first product (float64 holds the
+        # exact product; one rounding to float32)
+        first = (flat[ends[0]] * float(w_low)).to(torch.float64)
+        out.append((flat[ends[1]].to(torch.float64) * float(w_high)
+                    + first).to(torch.float32))
+    return torch.stack(out)
+
+
 def container_dtype(bit_width: int) -> torch.dtype:
     """The integer container of ``bit_width``-bit values: int32 (TPU-mode
     numerics) up to 8 bits, int64 (x64 mode) above."""

@@ -1,6 +1,7 @@
 """Per-value parity harness (port of ``numpy_quant_tpu/utils/parity.py``):
-every intermediate value of one recorded forward as a host array, and a
-per-value comparison of two such records."""
+every intermediate value of one recorded forward as a host array, a
+per-value comparison of two such records, and the named-values record
+the PTQ passes read (:func:`record_values`)."""
 from __future__ import annotations
 
 import numpy as np
@@ -30,6 +31,37 @@ def record_all_values(model, inputs: list) -> dict[str, np.ndarray]:
         arr = data.dequantize().data if hasattr(data, "dequantize") \
             else data.data
         out[value.name] = _host(arr)
+    return out
+
+
+def record_values(model, inputs: list, names, keep=None) -> dict:
+    """{name: kept tensor} for the values named in ``names``, from one
+    eager walk of ``model`` over ``inputs``: each value dequantized to a
+    float32 tensor on the model's device as it is made and passed through
+    ``keep(name, tensor)`` (default: kept whole). Unlike
+    :func:`record_all_values` nothing else is held or copied to the host;
+    the walk frees every other value after its last use. Runs under
+    ``torch.no_grad`` (not inference mode), so what it keeps can enter an
+    autograd graph."""
+    from ..tensor import FTensor, QTensor
+
+    names = set(names)
+    out = {}
+
+    def visit(name, tensor):
+        if name not in names:
+            return
+        if isinstance(tensor, QTensor):
+            tensor = tensor.dequantize()
+        if not isinstance(tensor, FTensor):
+            return
+        d = tensor.data.to(torch.float32)
+        out[name] = d if keep is None else keep(name, d)
+
+    with torch.no_grad():
+        input_tensors = {v.name: model._wrap_input(a, v)
+                         for a, v in zip(inputs, model.inputs)}
+        model._forward(input_tensors, visit=visit)
     return out
 
 

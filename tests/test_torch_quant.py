@@ -235,6 +235,19 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.utils.summary\n"
             "import numpy_quant_tpu_torch.profile_vit\n"
             "import numpy_quant_tpu_torch.profile_gpt\n"
+            "import numpy_quant_tpu_torch.models.fixtures\n"
+            "import numpy_quant_tpu_torch.models.modsum_fixture\n"
+            "import numpy_quant_tpu_torch.utils.calibration\n"
+            "import numpy_quant_tpu_torch.utils.sensitivity\n"
+            "import numpy_quant_tpu_torch.smoothquant\n"
+            "import numpy_quant_tpu_torch.awq\n"
+            "import numpy_quant_tpu_torch.rotate\n"
+            "import numpy_quant_tpu_torch.equalize\n"
+            "import numpy_quant_tpu_torch.gptq\n"
+            "import numpy_quant_tpu_torch.adaround\n"
+            "import numpy_quant_tpu_torch.bias_correction\n"
+            "import numpy_quant_tpu_torch.dynamic\n"
+            "import numpy_quant_tpu_torch.accuracy_ladder\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numpy_quant_tpu' or "
             "m.startswith('numpy_quant_tpu.')]\n"
