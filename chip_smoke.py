@@ -8,7 +8,9 @@ full-sequence generators over TinyLlama-1.1B), ONNX interop (the
 conformance vectors; QDQ/QOperator export and save/load of ViT-Base) and
 the PTQ accuracy passes (GPTQ, AdaRound, bias correction, SmoothQuant,
 AWQ, rotation, equalization, clipped calibration, mixed precision,
-dynamic quantization) on one NVIDIA GPU.
+dynamic quantization) and the CNN/GNN zoo (ResNet-18 and MobileNet-V1
+widths, Cora-size GCNs, a CNN, a U-Net and an LSTM classifier) on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -266,6 +268,22 @@ Phases, one line each (any failure raises and the script exits non-zero):
      12 ReLU feed-forward pairs: the float logits within REPARAM_TOL, then
      int8 optimize()d scoring with 6 blockwise and 12 monolithic head-split
      launches.
+ 20. the CNN and GNN zoo (after 19), B=32, random weights (seed 0):
+     resnet_classifier at ResNet-18's widths (224 px, 1000 classes):
+     fold_batchnorm() within FOLD_TOL of the unfolded logits; then with
+     mobilenet_classifier at MobileNet-V1's widths, gcn_dense and
+     gcn_scatter at Cora's sizes (pack_weights(), both packed_execution
+     settings), cnn_classifier, unet_segmenter and lstm_classifier: the
+     float forward within ZOO_FLOAT_TOL of the model's torch oracle on
+     the card, quantize(8) -> optimize(), every quantize/dequantize and
+     packed-matmul launch of one eager forward against its plain version
+     (0 mismatches), each depthwise int8 Conv's accumulator against an
+     int64 version, the captured f32 forward against eager (phase 18's
+     checks), "kernel" == "unpack" bit for bit on the GCNs, the launches
+     of one counted replay (quantize, dequantize and, under "kernel",
+     splitk_qmatmul non-zero), int8 labels against float, the captured
+     bf16 forward's images/s (nodes/s) with one profiled replay's busy ms
+     and top kernels, peak device memory and seconds.
 Phases 1-17 run captured forwards from here on, except where a forward
 is swapped or hooked (plain_chain, boundary_cost, phase 3's kernel and
 plain-chain turns, record=True): those walk eagerly.
@@ -4549,6 +4567,346 @@ def ptq_phase(card: str, name: str, llama_weights) -> dict:
     return res
 
 
+# -- phase 20: the CNN and GNN zoo -------------------------------------------
+
+ZOO_B, ZOO_IMAGE = 32, 224
+# ResNet-18's stage widths (He et al. 2016, Table 1; one basic block per
+# stage as the graph draws it) and MobileNet-V1's channel progression
+# (Howard et al. 2017, Table 1), both with ImageNet's 1000 classes
+RESNET18_WIDTHS = (64, 128, 256, 512)
+MOBILENET_V1_WIDTHS = (64, 128, 256, 512, 1024)
+# Cora (Kipf & Welling 2017): nodes, directed edges, bag-of-words
+# features (binary, ~1.27% set), hidden units, classes
+CORA = dict(n_nodes=2708, n_edges=10556, in_feat=1433, hidden=16,
+            n_classes=7)
+CORA_FEATURE_DENSITY = 0.0127
+# the small models at their default widths, at ZOO_B (LSTM: ZOO_SEQ steps)
+ZOO_SEQ = 32
+ZOO_FLOAT_TOL = 1e-4  # float forward against the torch oracle, x max|logit|
+FOLD_TOL = 1e-5       # folded against unfolded ResNet, x max|logit|
+ZOO_REPS = 3          # timed forwards per turn in phase 20's captured checks
+ZOO_KERNELS = ("quantize", "dequantize", "splitk_qmatmul")
+
+
+@contextlib.contextmanager
+def shadowed(state: dict):
+    """Every quantize, dequantize and packed-matmul launch of the forwards
+    inside also runs the kernel's plain version on the same operands;
+    ``state[kernel]`` gathers [calls, mismatching outputs, max |diff|].
+    The forwards walk eagerly (a replay runs no Python)."""
+    import torch
+    from numpy_quant_tpu_torch import config
+    from numpy_quant_tpu_torch.kernels import elementwise as E
+    from numpy_quant_tpu_torch.kernels import qmatmul as Q
+
+    def shadow(mod, name):
+        fn, ref = getattr(mod, name), getattr(mod, name + "_reference")
+
+        def run(*a, **kw):
+            # the wrapper counts its launch on its module-level name
+            setattr(mod, name, fn)
+            try:
+                got = fn(*a, **kw)
+            finally:
+                setattr(mod, name, run)
+            if not (isinstance(got, torch.Tensor) and got.is_cuda):
+                return got
+            want = ref(*a, **kw)
+            row = state.setdefault(name, [0, 0, 0.0])
+            row[0] += 1
+            if not same_bits(got, want):
+                row[1] += int((got != want).sum())
+            row[2] = max(row[2], float((got.double() - want.double())
+                                       .abs().max()))
+            return got
+        return run
+
+    saved = [(m, n, getattr(m, n)) for m, n in
+             ((E, "quantize"), (E, "dequantize"), (Q, "splitk_qmatmul"),
+              (Q, "packed_qmatmul"))]
+    for m, n, _ in saved:
+        setattr(m, n, shadow(m, n))
+    try:
+        with config.eager_forward():
+            yield state
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def depthwise_plain(xq, wq, zp: int, pads, strides, dils):
+    """A depthwise conv's zero-point-corrected accumulator in plain int64
+    ops: sum over the window of (x - zp) * w, x padded with zp."""
+    import torch
+    import torch.nn.functional as F
+    ph0, pw0, ph1, pw1 = pads
+    x = F.pad(xq.to(torch.int64), (pw0, pw1, ph0, ph1), value=zp) - zp
+    w = wq.to(torch.int64)
+    o, _, kh, kw = w.shape
+    sh, sw = strides
+    dh, dw = dils
+    oh = (x.shape[2] - dh * (kh - 1) - 1) // sh + 1
+    ow = (x.shape[3] - dw * (kw - 1) - 1) // sw + 1
+    acc = torch.zeros((x.shape[0], o, oh, ow), dtype=torch.int64,
+                      device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            tap = x[:, :, i * dh:i * dh + (oh - 1) * sh + 1:sh,
+                    j * dw:j * dw + (ow - 1) * sw + 1:sw]
+            acc += tap * w[:, 0, i, j].reshape(1, o, 1, 1)
+    return acc
+
+
+def grouped_conv_check(qmodel, x) -> list:
+    """Each grouped int8 Conv of ``qmodel`` on its operands of one recorded
+    forward: the accumulator of tensor.qconv2d (one batched float64
+    product) against depthwise_plain's int64 version, bit for bit.
+    Returns (node, groups, outputs) per Conv."""
+    import torch
+    from numpy_quant_tpu_torch.graph import Constant
+    from numpy_quant_tpu_torch.tensor import qconv2d
+    with eager():
+        qmodel([x], record=True)
+    data = {v.name: qmodel._wrap_constant(v) if isinstance(v, Constant)
+            else v.data for v in qmodel.values}
+    rows = []
+    for node in qmodel.nodes:
+        group = int(node.attrs.get("group", 1))
+        if node.op != "Conv" or group == 1:
+            continue
+        xq, wq = qmodel._node_inputs(node, data)[:2]
+        pads = tuple(node.attrs.get("pads", (0, 0, 0, 0)))
+        strides = tuple(node.attrs.get("strides", (1, 1)))
+        dils = tuple(node.attrs.get("dilations", (1, 1)))
+        assert wq.data.shape[1] == 1, "the zoo's grouped convs are depthwise"
+        acc = qconv2d(xq, wq, None, pads, strides, dils, group)
+        got = acc.data.to(torch.int64)
+        if acc.zero_point is not None:
+            got = got - acc.zero_point.to(torch.int64)
+        zp = 0 if xq.zero_point is None else int(xq.zero_point)
+        want = depthwise_plain(xq.data, wq.data, zp, pads, strides, dils)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        rows.append((node.name, group, got.numel()))
+        say("zoo-grouped-conv", node=node.name, groups=group,
+            k=int(wq.data.shape[2] * wq.data.shape[3]),
+            shape="x".join(str(d) for d in got.shape),
+            accumulator_equals_int64_plain=equal)
+        assert equal, f"{node.name}: grouped conv accumulator differs"
+    for v in qmodel.values:
+        if not isinstance(v, Constant):
+            v.data = None
+    return rows
+
+
+def zoo_bf16(model, inputs, units: int) -> dict:
+    """The captured bf16 forward: units/s over ZOO_REPS*3 replays, and one
+    profiled replay (busy ms, top kernels). Late in this script the tracer
+    can leave a replay's records out (replay_trace), so up to three
+    replays are profiled, until one trace holds as many device kernels as
+    the captured graph has kernel nodes; the fullest trace is reported
+    beside that count, and busy ms is None where no trace saw device
+    time."""
+    import torch
+    from numpy_quant_tpu_torch import config
+    from numpy_quant_tpu_torch.utils.profiling import graph_kernels
+    model.invalidate_graphs()
+    with config.low_precision_floats():
+        model(inputs, as_numpy=False)
+        model(inputs, as_numpy=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ZOO_REPS * 3):
+            model(inputs, as_numpy=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (ZOO_REPS * 3) * 1e3
+    (_, nodes), = graph_kernels(model)
+    graph_nodes = sum(nodes.values())
+    prof, tries = None, 0
+    while tries < 3 and (prof is None
+                         or prof["device_kernels"] < graph_nodes):
+        tries += 1
+        try:
+            p = bf16_profile(lambda: model(inputs, as_numpy=False)[0])
+        except AssertionError:  # the trace held no device time
+            continue
+        if prof is None or p["device_kernels"] > prof["device_kernels"]:
+            prof = p
+    busy = None if prof is None else prof["device_busy_ms"]
+    return dict(bf16_captured_ms=ms, bf16_units_per_s=units / ms * 1e3,
+                busy_ms=busy, idle_share=None if busy is None
+                else max(0.0, 1 - busy / ms),
+                trace_kernels=None if prof is None else prof["device_kernels"],
+                graph_kernel_nodes=graph_nodes, profile_tries=tries,
+                top5=None if prof is None else prof["top5"])
+
+
+def zoo_model(card: str, label: str, fmodel, inputs: list, oracle,
+              units: int, unit: str, quantize_kw: dict, modes=("unpack",),
+              pack: bool = False, grouped: bool = False) -> dict:
+    """One zoo model: the float forward against ``oracle`` (the model's
+    torch forward on the card), then quantize(8) -> optimize()
+    [-> pack_weights()]: every quantize/dequantize/packed-matmul launch
+    against its plain version (shadowed), each grouped Conv's accumulator
+    against int64, per ``packed_execution`` mode the captured int8 forward
+    against the eager one (phase 18's captured_forward) with the launches
+    of one counted replay, "kernel" against "unpack" bit for bit, labels
+    against float, and the captured bf16 forward's units/s and profile.
+    Returns the launches per forward by mode."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    flt = fmodel(inputs)[0]
+    want = oracle()
+    scale = float(np.abs(want).max())
+    fdiff = float(np.abs(flt - want).max())
+    stats = fmodel.calibration_stats(inputs)
+    qmodel = fmodel.quantize(bit_width=8, stats=stats, **quantize_kw)
+    report = qmodel.optimize()
+    packed = qmodel.pack_weights() if pack else 0
+    shadow = {}
+    with shadowed(shadow):
+        for mode in modes:
+            with packed_execution(mode):
+                qmodel(inputs)
+    if grouped:
+        grouped_conv_check(qmodel, inputs[0])
+    outs, launches = {}, {}
+    for mode in modes:
+        with packed_execution(mode):
+            captured_forward(f"zoo_{label}", card, qmodel, inputs, units,
+                             unit, reps=ZOO_REPS, dtype="f32",
+                             packed_execution=mode)
+            outs[mode], counts = counted(lambda: qmodel(inputs)[0])
+            launches[mode] = {k: counts[k] for k in ZOO_KERNELS}
+    out = outs[modes[-1]]
+    kernel_eq_unpack = None
+    if len(modes) > 1:
+        kernel_eq_unpack = same_bits(outs["kernel"], outs["unpack"])
+    with packed_execution(modes[-1]):
+        bf16 = zoo_bf16(qmodel, inputs, units)
+    cls = 1 if out.ndim == 4 else -1  # the segmenter's classes: axis 1
+    agree = float((out.argmax(cls) == flt.argmax(cls)).mean())
+    say("zoo", model=label, float_max_abs_diff_oracle=fdiff,
+        max_abs_logit=scale, float_tol=ZOO_FLOAT_TOL * scale,
+        nodes=len(qmodel.nodes), optimize=",".join(
+            f"{k}:{v}" for k, v in report.items() if k != "fusion_failures"),
+        packed=packed, kernel_equals_unpack=kernel_eq_unpack,
+        label_agreement_float=agree,
+        mean_abs_dlogit=float(np.abs(out - flt).mean()),
+        **{f"shadow_{k}": f"{v[0]}calls:{v[1]}mismatches:{v[2]:.3g}"
+           for k, v in shadow.items()},
+        **{f"launches_{m}": ",".join(f"{k}:{v}" for k, v in c.items())
+           for m, c in launches.items()},
+        **{f"{k}": v for k, v in bf16.items()},
+        **{f"bf16_{unit}_per_s": bf16["bf16_units_per_s"]},
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        seconds=time.perf_counter() - t0, card=card.replace(" ", "_"))
+    assert np.isfinite(out).all() and np.isfinite(flt).all()
+    assert fdiff <= ZOO_FLOAT_TOL * scale, (label, fdiff, scale)
+    assert all(v[1] == 0 for v in shadow.values()), (label, shadow)
+    assert shadow.get("quantize") and shadow.get("dequantize"), shadow
+    for mode, c in launches.items():
+        assert c["quantize"] > 0 and c["dequantize"] > 0, (label, c)
+        if mode == "kernel":
+            assert c["splitk_qmatmul"] > 0, (label, c)
+    if kernel_eq_unpack is not None:
+        assert kernel_eq_unpack, f"{label}: kernel and unpack differ"
+    return launches
+
+
+def zoo_phase(card: str) -> dict:
+    """Phase 20: the CNN and GNN zoo at full width. Returns each model's
+    launches per forward."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models import cnn, gnn
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20)
+    res = {}
+    x = rng.standard_normal((ZOO_B, 3, ZOO_IMAGE, ZOO_IMAGE)) \
+        .astype(np.float32)
+    xd = torch.from_numpy(x).cuda()
+
+    # ResNet-18 widths: fold_batchnorm -> quantize(8, quantize_conv)
+    proto = cnn.resnet_classifier(batch=ZOO_B, image_size=ZOO_IMAGE,
+                                  widths=RESNET18_WIDTHS, n_classes=1000)
+    model = Model.from_onnx(proto)
+    unfolded = model([xd])[0]
+    folded_n = model.fold_batchnorm()
+    folded = model([xd])[0]
+    fold_diff = float(np.abs(folded - unfolded).max())
+    fold_scale = float(np.abs(unfolded).max())
+    say("zoo-fold", model="resnet18", folded=folded_n,
+        max_abs_diff=fold_diff, max_abs_logit=fold_scale,
+        tol=FOLD_TOL * fold_scale)
+    assert folded_n == 1 + 2 * len(RESNET18_WIDTHS) + 3, folded_n
+    assert fold_diff <= FOLD_TOL * fold_scale, (fold_diff, fold_scale)
+    res["resnet18"] = zoo_model(
+        card, "resnet18", model, [xd],
+        lambda: proto._torch_forward(x, device="cuda"), ZOO_B, "images",
+        dict(quantize_conv=True))
+    del model, proto
+
+    proto = cnn.mobilenet_classifier(batch=ZOO_B, image_size=ZOO_IMAGE,
+                                     widths=MOBILENET_V1_WIDTHS,
+                                     n_classes=1000)
+    res["mobilenet_v1"] = zoo_model(
+        card, "mobilenet_v1", Model.from_onnx(proto), [xd],
+        lambda: proto._torch_forward(x, device="cuda"), ZOO_B, "images",
+        dict(quantize_conv=True), grouped=True)
+    del proto
+
+    # Cora-size GCNs, packed, under both packed_execution settings
+    feats = (rng.random((CORA["n_nodes"], CORA["in_feat"]))
+             < CORA_FEATURE_DENSITY).astype(np.float32)
+    fd = torch.from_numpy(feats).cuda()
+    proto = gnn.gcn_dense(**CORA, seed=0)
+    w = {k: torch.from_numpy(v).cuda() for k, v in proto._weights.items()}
+
+    def dense_oracle():
+        h1 = torch.relu((w["a_hat"] @ fd) @ w["w1"] + w["b1"])
+        return ((w["a_hat"] @ h1) @ w["w2"] + w["b2"]).cpu().numpy()
+
+    res["gcn_dense"] = zoo_model(
+        card, "gcn_dense", Model.from_onnx(proto), [fd], dense_oracle,
+        CORA["n_nodes"], "nodes", {}, modes=("unpack", "kernel"), pack=True)
+    proto = gnn.gcn_scatter(CORA["n_nodes"], CORA["n_edges"],
+                            CORA["in_feat"], CORA["n_classes"], seed=0)
+    ws = proto._weights
+    src = ws["src"]
+
+    def scatter_oracle():
+        s, d = (torch.from_numpy(ws[k]).cuda() for k in ("src", "dst"))
+        agg = torch.zeros_like(fd).index_add_(0, d, fd[s]) + fd
+        return (agg @ torch.from_numpy(ws["w"]).cuda()
+                + torch.from_numpy(ws["b"]).cuda()).cpu().numpy()
+
+    res["gcn_scatter"] = zoo_model(
+        card, "gcn_scatter", Model.from_onnx(proto), [fd, src],
+        scatter_oracle, CORA["n_nodes"], "nodes", {},
+        modes=("unpack", "kernel"), pack=True)
+    del proto
+
+    # the small models at their default widths
+    for label, proto, inp in (
+            ("cnn", cnn.cnn_classifier(batch=ZOO_B), (ZOO_B, 3, 32, 32)),
+            ("unet", cnn.unet_segmenter(batch=ZOO_B), (ZOO_B, 3, 32, 32)),
+            ("lstm", cnn.lstm_classifier(seq=ZOO_SEQ, batch=ZOO_B),
+             (ZOO_SEQ, ZOO_B, 8))):
+        xs = rng.standard_normal(inp).astype(np.float32)
+        res[label] = zoo_model(
+            card, label, Model.from_onnx(proto), [torch.from_numpy(xs).cuda()],
+            lambda p=proto, v=xs: p._torch_forward(v, device="cuda"),
+            ZOO_B, "sequences" if label == "lstm" else "images",
+            dict(quantize_conv=label != "lstm"))
+    say("zoo-phase", seconds=time.perf_counter() - t_phase,
+        card=card.replace(" ", "_"))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4845,6 +5203,9 @@ def main() -> int:
     # -- phase 19: the PTQ accuracy passes ----------------------------
     ptq = ptq_phase(card, name, llama_weights)
     del llama_weights
+
+    # -- phase 20: the CNN and GNN zoo ---------------------------------
+    zoo = zoo_phase(card)
     say("done", seconds=time.perf_counter() - t_start)
     e1, e5 = engine["per_step"]["E1"], engine["per_step"]["E5"]
     admit = admission["per_admission"]
@@ -4966,6 +5327,13 @@ def main() -> int:
                      r: c[kname] for r, c in ptq["fixture"].items()
                      if c[kname]}}
         row["ptq"] = {k: v for k, v in paths.items() if v}
+        # phase 20: launches per forward of each zoo model (zeros left
+        # out), by packed_execution mode
+        row["zoo"] = {f"per_{model}_forward_{mode}": c[kname]
+                      for model, by_mode in zoo.items()
+                      for mode, c in by_mode.items() if c.get(kname)}
+        if not row["zoo"]:
+            del row["zoo"]
     wo_row = next(r for r in rows if r["name"] == "splitk_wo_matmul")
     wo_row["ptq"]["vit_rows"] = {f"M{m}": t for m, t in ptq["wo"].items()}
     say("interop-summary", vectors=",".join(

@@ -17,7 +17,18 @@ from .quantization import (
     quantize,
     requantize,
 )
-from .tensor import FTensor, ITensor, QTensor, Tensor, quantize_tensor
+from .tensor import (
+    FTensor,
+    ITensor,
+    QTensor,
+    Tensor,
+    concat,
+    fconv2d,
+    quantize_tensor,
+    quantize_tensor_min_max,
+    tensor_min_max,
+    where,
+)
 
 __version__ = "0.1.0"
 
@@ -27,5 +38,6 @@ __all__ = [
     "Constant", "Variable", "Node", "Value",
     "FTensor", "ITensor", "QTensor", "Tensor",
     "quant_parameters", "quantize", "dequantize", "q_matmul", "requantize",
-    "int_matmul", "quantize_tensor",
+    "int_matmul", "quantize_tensor", "quantize_tensor_min_max",
+    "tensor_min_max", "concat", "where", "fconv2d",
 ]

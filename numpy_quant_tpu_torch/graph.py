@@ -109,7 +109,15 @@ def import_onnx(onnx_model: onnx_lib.ModelProto, device: torch.device,
     input that is also an initializer stays a Constant. ``constant(name,
     array)``: the tensor of an initializer, or None to classify it with
     ``wrap_array`` (utils/serialization.py rebuilds quantized payloads)."""
-    graph = onnx_model.graph
+    return import_graph(onnx_model.graph, device, constant)
+
+
+def import_graph(graph: onnx_lib.GraphProto, device: torch.device,
+                 constant=None):
+    """The body of :func:`import_onnx`, also used for the If/Loop body
+    graphs (attributes), which ``Model`` runs against the enclosing
+    values; a name the body does not define becomes a Variable that reads
+    the enclosing scope."""
     value_dict: dict[str, Value] = {}
     initializer_names = set()
     quant_ins = {name for n in graph.node if n.op_type in QUANT_INT_CONSUMERS

@@ -27,8 +27,8 @@ import torch
 from . import config
 from . import kernels as _kernels
 from . import onnx as onnx_lib
-from .graph import (Constant, Node, Value, Variable, import_onnx,
-                    only_rhs_of)
+from .graph import (Constant, Node, Value, Variable, import_graph,
+                    import_onnx, only_rhs_of)
 from .ops.interop import executing_on
 from .ops.registry import onnx_operator_implementation
 from .passes.toolkit import PASSTHROUGH_OPS
@@ -36,6 +36,7 @@ from .quantization import (container_dtype, per_channel_scales,
                            percentile_range, quant_parameters, quantize,
                            weight_only_scales)
 from .tensor import (
+    DITensor,
     FTensor,
     ITensor,
     PackedQTensor,
@@ -55,6 +56,45 @@ class QuantizationParams:
 
     def __repr__(self):
         return f"QuantizationParams(scale={self.scale}, zero_point={self.zero_point})"
+
+
+class _ScopeChain:
+    """Name lookup over nested control-flow scopes: the inner body's values
+    first, then the enclosing ones."""
+
+    def __init__(self, inner, outer):
+        self._inner, self._outer = inner, outer
+
+    def __getitem__(self, name):
+        try:
+            return self._inner[name]
+        except KeyError:
+            return self._outer[name]
+
+
+def _captures(graph) -> set:
+    """The names a body graph (and the bodies nested in it) reads from its
+    enclosing scope."""
+    defined = {t.name for t in graph.initializer} \
+        | {v.name for v in graph.input} \
+        | {o for n in graph.node for o in n.output}
+    used = set()
+    for n in graph.node:
+        used.update(i for i in n.input if i)
+        for a in n.attribute:
+            bodies = ([a.g] if a.g is not None else []) + list(a.graphs or ())
+            for g in bodies:
+                used |= _captures(g)
+    return used - defined
+
+
+def _node_captures(node) -> set:
+    """Enclosing-scope names an If/Loop node's bodies read."""
+    out = set()
+    for v in node.attrs.values():
+        if isinstance(v, onnx_lib.GraphProto):
+            out |= _captures(v)
+    return out
 
 
 def _is_shape_input(array) -> bool:
@@ -136,6 +176,7 @@ class Model:
         self._graphs: dict = {}
         self._graph_pool = None
         self._failed = None  # (node, error) where a capture failed
+        self._subgraphs: dict = {}  # If/Loop bodies, imported once
 
     def __repr__(self):
         return (f"{type(self).__name__}(nodes={len(self.nodes)}, "
@@ -207,6 +248,10 @@ class Model:
             for v in node.inputs:
                 if v is not None:
                     last[v.name] = i
+            if node.op in ("If", "Loop"):
+                # the bodies read enclosing values by name
+                for name in _node_captures(node):
+                    last[name] = i
             for o in node.outputs:
                 last.setdefault(o.name, i)
         by_node: dict[int, list[str]] = {}
@@ -241,8 +286,7 @@ class Model:
                     if timings is not None:
                         self._sync()
                         start = perf_counter()
-                    outs = onnx_operator_implementation(node.op, ins,
-                                                        node.attrs)
+                    outs = self._run_node(node, ins, data)
                     outs = self._post_node(node, outs)
                     if timings is not None:
                         self._sync()
@@ -271,6 +315,117 @@ class Model:
         if isinstance(data, torch.Tensor) and data.dtype == torch.bfloat16:
             return data.to(torch.float32)
         return data
+
+    # ------------------------------------------------------------------
+    # Control flow (ONNX If / Loop)
+    # ------------------------------------------------------------------
+    # Folded while the walk runs, JAX's trace-time design: the If
+    # condition and the Loop trip count and condition must be host
+    # ITensors (shape math), so the branch taken and the iterations run
+    # are fixed by the host walk -- the captured forward replays that
+    # walk. A device-resident condition raises; nothing is read back from
+    # the device. Bodies run through the same registry; enclosing QTensors
+    # dequantize at the boundary (body compute is float).
+
+    def _run_node(self, node: Node, ins: list, env) -> list:
+        if node.op in ("If", "Loop"):
+            return self._exec_subgraph_op(node, ins, env)
+        return onnx_operator_implementation(node.op, ins, node.attrs)
+
+    def _body(self, gproto):
+        """A body graph, imported once (its constants placed outside any
+        capture)."""
+        key = id(gproto)
+        if key not in self._subgraphs:
+            # the proto is kept beside its import: its id stays unique
+            self._subgraphs[key] = (gproto, import_graph(gproto, self.device))
+        return self._subgraphs[key][1]
+
+    def _run_subgraph(self, gproto, outer, input_tensors: list) -> list:
+        nodes, values, g_inputs, g_outputs = self._body(gproto)
+        data: dict[str, Tensor] = {}
+        for value in values:
+            if isinstance(value, Constant):
+                data[value.name] = Model._wrap_constant(self, value)
+        for var, t in zip(g_inputs, input_tensors):
+            data[var.name] = t
+
+        def get(name):
+            if name in data:
+                return data[name]
+            t = outer[name]  # enclosing-scope capture by name
+            if isinstance(t, QTensor):
+                t = t.dequantize()
+            data[name] = t
+            return t
+
+        for node in nodes:
+            ins = [None if v is None else get(v.name) for v in node.inputs]
+            outs = self._run_node(node, ins, _ScopeChain(data, outer))
+            for o, t in zip(node.outputs, outs):
+                data[o.name] = t
+        return [get(v.name) for v in g_outputs]
+
+    def _exec_subgraph_op(self, node: Node, ins: list, env) -> list:
+        if node.op == "If":
+            cond = ins[0]
+            if not isinstance(cond, ITensor):
+                raise ValueError(
+                    "If condition must be host-resident (shape-domain) so "
+                    "the branch folds on the host; a data-dependent "
+                    "condition cannot select a branch of one captured "
+                    "forward")
+            taken = bool(np.asarray(cond.data).reshape(()))
+            branch = node.attrs["then_branch" if taken else "else_branch"]
+            return self._run_subgraph(branch, env, [])
+
+        # Loop(M, cond, v_1..v_N) -> (v_1..v_N, scan_1..scan_K); body:
+        # (iter, cond_in, v...) -> (cond_out, v..., scan...)
+        body = node.attrs["body"]
+        m = ins[0] if len(ins) > 0 else None
+        cond = ins[1] if len(ins) > 1 else None
+        carried = list(ins[2:])
+        n_carried = len(carried)
+        n_scan = len(node.outputs) - n_carried
+        for t, what in ((m, "trip count"), (cond, "initial condition")):
+            if t is not None and not isinstance(t, ITensor):
+                raise ValueError(
+                    f"Loop {what} must be host-resident so the loop "
+                    "unrolls on the host (static shapes)")
+        cap = 10_000
+        max_iters = cap if m is None else int(np.asarray(m.data).reshape(()))
+        cond_val = True if cond is None \
+            else bool(np.asarray(cond.data).reshape(()))
+        scans = [[] for _ in range(n_scan)]
+        it = 0
+        while cond_val and it < max_iters:
+            outs = self._run_subgraph(
+                body, env,
+                [ITensor(np.array(it, np.int64)),
+                 ITensor(np.array(int(cond_val), np.int64))] + carried)
+            cond_out = outs[0]
+            carried = list(outs[1:1 + n_carried])
+            for buf, t in zip(scans, outs[1 + n_carried:]):
+                buf.append(t)
+            if not isinstance(cond_out, ITensor):
+                raise ValueError(
+                    "data-dependent Loop termination is not supported: the "
+                    "body's cond output must stay host-resident so the "
+                    "unrolled walk has a static iteration count")
+            cond_val = bool(np.asarray(cond_out.data).reshape(()))
+            it += 1
+        if m is None and cond_val and it >= cap:
+            raise ValueError(f"Loop exceeded {cap} host iterations")
+        if n_scan and it == 0:
+            raise ValueError("Loop with scan outputs ran zero iterations; "
+                             "the scan shape is undefined")
+        stacked = []
+        for buf in scans:
+            if all(isinstance(t, ITensor) for t in buf):
+                stacked.append(ITensor(np.stack([t.data for t in buf], 0)))
+            else:
+                stacked.append(FTensor(torch.stack([t.data for t in buf], 0)))
+        return carried + stacked
 
     # ------------------------------------------------------------------
     # Execution
@@ -602,10 +757,19 @@ class Model:
             qparams_per_value[value.name] = qparams_for(
                 value.name, isinstance(value, Variable))
 
+        def is_shape_domain_const(value) -> bool:
+            """A float constant read only as a secondary input of
+            Resize/Pad (scales, roi, pad value) is graph structure, not
+            data: it stays float."""
+            return bool(value.outputs) and all(
+                n.op in ("Resize", "Pad") and value is not n.inputs[0]
+                for n in value.outputs)
+
         # constants: symmetric, per-tensor or (2-D weights) per-channel
         for value in self.values:
             if isinstance(value, Constant):
-                if isinstance(value.data, ITensor):
+                if isinstance(value.data, ITensor) \
+                        or is_shape_domain_const(value):
                     qvalues_dict[value.name] = Constant(value.name, [],
                                                         value.data.copy())
                     continue
@@ -749,6 +913,14 @@ class Model:
         sweep. See equalize.py."""
         from .equalize import equalize
         return equalize(self, iterations=iterations)
+
+    def fold_batchnorm(self) -> int:
+        """Fold inference-mode BatchNormalization nodes into the preceding
+        constant-weight Conv/Gemm (W' = W*k, b' = b*k + shift, k =
+        gamma/sqrt(var+eps)): an exact float reparameterization, run
+        before ``quantize``. Returns the number folded. See bnfold.py."""
+        from .bnfold import fold_batchnorm
+        return fold_batchnorm(self)
 
     def quantize_dynamic(self, bit_width: int = 8, **kw):
         """Dynamic quantization: integer matmuls whose activation scales
@@ -1080,6 +1252,8 @@ class QModel(Model):
             data = tensor.data
             return data.to(torch.float32) if data.dtype == torch.bfloat16 \
                 else data
+        if isinstance(tensor, DITensor):
+            return tensor.data
         raise ValueError(f"Unsupported output tensor {type(tensor)}")
 
     def fuse_attention(self) -> int:

@@ -51,3 +51,18 @@ def extract_patches_exact(x, ksize, pads, strides, pad_value,
                             j0:j0 + (ow - 1) * sw + 1:sw, :])
     p = torch.stack(slices, dim=3)
     return p.reshape(b, oh, ow, kh * kw * c)
+
+
+def conv1d_ncl(x, w, b, pads, strides, dilations=(1,), group=1):
+    """x: [B, C, L]; w: [O, C/group, K]; b: [O] or None. pads: ONNX order
+    (P0, P1); strides: (S,). The one-spatial-dim variant of
+    :func:`conv2d_nchw`."""
+    p0, p1 = (int(p) for p in pads)
+    if p0 != p1:
+        x = F.pad(x, (p0, p1))
+        p0 = 0
+    y = F.conv1d(x, w, None, stride=int(strides[0]), padding=p0,
+                 dilation=int(dilations[0]), groups=int(group))
+    if b is not None:
+        y = y + b.reshape(1, -1, 1)
+    return y

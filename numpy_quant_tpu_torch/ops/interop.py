@@ -35,12 +35,17 @@ import torch
 from .. import config
 from ..intops import as_tensor, int_matmul, place, qrange
 from ..quantization import dequantize
-from ..tensor import FTensor, ITensor, QTensor, qconv2d
+from ..tensor import DITensor, FTensor, ITensor, QTensor, qconv2d
 
 # the device of the model whose graph is being walked (Model._forward):
 # ops whose inputs are all host values (ConstantOfShape, a Cast of a shape
 # tensor) make their float outputs there
 _EXEC_DEVICE = torch.device("cpu")
+
+
+def exec_device() -> torch.device:
+    """The device of the graph being walked (``executing_on``)."""
+    return _EXEC_DEVICE
 
 
 @contextlib.contextmanager
@@ -304,7 +309,7 @@ def cast(inputs, attrs) -> list:
     if to == 1:  # FLOAT
         return [_to_float(x)]
     if to in (6, 7):  # INT32 / INT64
-        if isinstance(x, ITensor):
+        if isinstance(x, (ITensor, DITensor)):
             return [x.copy()]
         raise ValueError("Cast of device float data to int is not "
                          "supported (shape domain only)")
@@ -315,7 +320,8 @@ def cast_like(inputs, attrs) -> list:
     x, like = inputs[0], inputs[1]
     if isinstance(like, FTensor):
         return [_to_float(x)]
-    if isinstance(like, ITensor) and isinstance(x, ITensor):
+    if isinstance(like, (ITensor, DITensor)) \
+            and isinstance(x, (ITensor, DITensor)):
         return [x.copy()]
     raise ValueError("CastLike of device float data to int is not "
                      "supported (shape domain only)")

@@ -1,24 +1,28 @@
 """ONNX operator implementations over the tensor layer (port of
-``numpy_quant_tpu/ops/registry.py``), limited to the ops of the ViT
-classifier, the GPT causal-LM and decode graphs, the LLaMA causal-LM,
-decode and prefill graphs and the T5 encoder-decoder graphs, the four
-fused ops, weight-only MatMul/Gemm, the interop ops of ``interop.py``
-(QDQ, QOperator, dynamic quantization, Cast, ConstantOfShape) and LSTM/GRU
-(``recurrent.py``). Any other op raises ``NotImplementedError`` with its
-name."""
+``numpy_quant_tpu/ops/registry.py``): the core ops here, the four fused
+ops, weight-only MatMul/Gemm, the interop ops of ``interop.py`` (QDQ,
+QOperator, dynamic quantization, Cast, ConstantOfShape), LSTM/GRU
+(``recurrent.py``) and the standard op set of ``standard.py`` --
+every op name the JAX package dispatches but ``MatMulSplit`` (the
+internal op of its matmul-merge pass). If/Loop run in ``Model``
+(their bodies are graphs). Any other op raises ``NotImplementedError``
+with its name."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .. import config
+from ..intops import place
 from ..quantization import as_tensor, dequantize, quantize
 from ..tensor import (
+    DITensor,
     FTensor,
     ITensor,
     PackedQTensor,
     QTensor,
     Tensor,
+    _take,
     concat,
     fconv2d,
     qconv2d,
@@ -26,6 +30,7 @@ from ..tensor import (
 )
 from .interop import OPS as INTEROP_OPS
 from .recurrent import recurrent
+from .standard import OPS as STANDARD_OPS, conv1d_op
 
 
 def _resolve_reshape_shape(x_shape, shape: np.ndarray, allowzero: int) -> tuple:
@@ -456,8 +461,10 @@ def _gemm(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
 def _conv(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     x, w = inputs[0], inputs[1]
     b = inputs[2] if len(inputs) > 2 else None
+    if x.data.ndim == 3:
+        return conv1d_op(inputs, attrs)
     if x.data.ndim != 4:
-        raise NotImplementedError("only 2-D Conv is ported")
+        raise NotImplementedError("Conv runs at 1 or 2 spatial dims")
     group = int(attrs.get("group", 1))
     pads = tuple(attrs.get("pads", (0, 0, 0, 0)))
     strides = tuple(attrs.get("strides", (1, 1)))
@@ -512,9 +519,28 @@ def _constant(attrs: dict) -> list[Tensor]:
     raise ValueError(f"Constant value dtype {value.dtype} not supported.")
 
 
+# operand positions that set a static shape or axis: host values only
+_HOST_OPERANDS = {
+    "Reshape": (1,), "Expand": (1,), "Slice": (1, 2, 3, 4),
+    "Unsqueeze": (1,), "Squeeze": (1,), "Split": (1,), "Tile": (1,),
+    "Pad": (1, 3), "CumSum": (1,), "OneHot": (1,), "Trilu": (1,),
+    "ConstantOfShape": (0,), "ReduceMean": (1,), "ReduceSum": (1,),
+    "ReduceMax": (1,), "ReduceMin": (1,), "ReduceProd": (1,),
+    "ReduceL1": (1,), "ReduceL2": (1,), "ReduceSumSquare": (1,),
+    "ReduceLogSum": (1,), "ReduceLogSumExp": (1,), "Resize": (3,),
+}
+
+
 def onnx_operator_implementation(op: str, inputs: list[Tensor],
                                  attrs: dict[str, object]) -> list[Tensor]:
-    """Run one op."""
+    """Run one op. A device integer (DITensor) where the op needs a host
+    value (a target shape, axes, repeats) raises: reading it would stall
+    the device and break a captured forward."""
+    for i in _HOST_OPERANDS.get(op, ()):
+        if i < len(inputs) and isinstance(inputs[i], DITensor):
+            raise ValueError(
+                f"{op} input {i} must be host-resident (shape domain): a "
+                "device-computed value cannot set a static shape")
     if op == "Add":
         return [inputs[0] + inputs[1]]
     if op == "Concat":
@@ -532,7 +558,13 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
     if op == "Expand":
         return [inputs[0].expand(inputs[1])]
     if op == "Gather":
-        return [inputs[0].take(inputs[1], axis=int(attrs.get("axis", 0)))]
+        x, idx = inputs[0], inputs[1]
+        axis = int(attrs.get("axis", 0))
+        if isinstance(x, ITensor) and isinstance(idx, DITensor):
+            # a host table gathered by device indices stays on the device
+            table = place(x.data, idx.data.device, torch.int32)
+            return [DITensor(_take(table, idx.data, axis))]
+        return [x.take(idx, axis=axis)]
     if op == "Gemm":
         return _gemm(inputs, attrs)
     if op == "Identity":
@@ -599,6 +631,8 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return _fused_gelu(inputs, attrs)
     if op in INTEROP_OPS:
         return INTEROP_OPS[op](inputs, attrs)
+    if op in STANDARD_OPS:
+        return STANDARD_OPS[op](inputs, attrs)
     if op in ("LSTM", "GRU"):
         return recurrent(op, inputs, attrs)
     raise NotImplementedError(f"ONNX op {op!r} is not ported")

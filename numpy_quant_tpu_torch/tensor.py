@@ -5,6 +5,9 @@ Port of ``numpy_quant_tpu/tensor.py``:
 * ``ITensor`` holds a host numpy int64 array -- the shape domain. Shape
   computations (Shape -> Gather -> Unsqueeze -> Concat -> Reshape) run on
   the host and never touch the device.
+* ``DITensor`` holds a device int32 tensor: data-dependent integers
+  (ArgMax/TopK indices, comparison masks) whose values the host never
+  reads, so a captured forward stays free of host syncs.
 * ``FTensor`` wraps a float tensor on the model's device (float32, or
   bfloat16 under ``config.low_precision_floats``).
 * ``QTensor`` wraps an integer tensor (int32 container, or int8 storage
@@ -28,19 +31,28 @@ from .ops.erf import erf as _erf
 from .quantization import (
     dequantize as _dequantize,
     q_matmul,
+    quant_parameters,
     quantize as _quantize,
     requantize as _requantize,
 )
 
 
 def _take(data: torch.Tensor, indices, axis: int) -> torch.Tensor:
-    """ONNX Gather of a device tensor by host indices; a rank-0 index
-    removes the axis."""
-    idx = np.asarray(indices, dtype=np.int64)
-    idx = np.where(idx < 0, idx + data.shape[axis], idx)
-    flat = place(idx.reshape(-1), data.device, torch.int64)
+    """ONNX Gather of a device tensor by host indices (a numpy array) or
+    device indices (a tensor, DITensor data); a rank-0 index removes the
+    axis. Negative indices count from the end, as ``jnp.take``'s do."""
+    axis = axis % data.ndim
+    if isinstance(indices, torch.Tensor):
+        idx = indices.to(device=data.device, dtype=torch.int64)
+        idx = torch.where(idx < 0, idx + data.shape[axis], idx)
+        flat, idx_shape = idx.reshape(-1), tuple(idx.shape)
+    else:
+        idx = np.asarray(indices, dtype=np.int64)
+        idx = np.where(idx < 0, idx + data.shape[axis], idx)
+        flat = place(idx.reshape(-1), data.device, torch.int64)
+        idx_shape = idx.shape
     out = torch.index_select(data, axis, flat)
-    return out.reshape(tuple(data.shape[:axis]) + idx.shape
+    return out.reshape(tuple(data.shape[:axis]) + idx_shape
                        + tuple(data.shape[axis + 1:]))
 
 
@@ -97,8 +109,23 @@ class ITensor:
     def expand_dims(self, axis: "ITensor") -> "ITensor":
         return ITensor(np.expand_dims(self._data, axis=tuple(axis.data)))
 
+    def __neg__(self) -> "ITensor":
+        return ITensor(-self._data)
+
     def __eq__(self, other: "ITensor"):
         return ITensor(np.array(self._data == other.data, np.int64))
+
+    def __add__(self, other: "ITensor") -> "ITensor":
+        return ITensor(self._data + other.data)
+
+    def __mul__(self, other: "ITensor") -> "ITensor":
+        return ITensor(self._data * other.data)
+
+    def reshape(self, shape: "ITensor") -> "ITensor":
+        return ITensor(self._data.reshape(tuple(shape.data)))
+
+    def transpose(self, axes=None) -> "ITensor":
+        return ITensor(self._data.transpose(axes))
 
     def take(self, indices: "ITensor", axis: int):
         return ITensor(self._data.take(indices.data, axis))
@@ -108,6 +135,55 @@ class ITensor:
 
     def __repr__(self):
         return f"ITensor({self._data!r})"
+
+
+class DITensor:
+    """Device integer tensor (int32): data-dependent integers -- ArgMax and
+    TopK indices, comparison and logical masks -- whose values are not
+    known until the forward runs, the third domain beside the host
+    ITensor and the device FTensor (JAX ``tensor.py``'s DITensor). Nothing
+    reads them on the host: an op that needs host values (a Reshape
+    target, an If condition) raises on one."""
+
+    def __init__(self, data):
+        if not isinstance(data, torch.Tensor) or data.is_floating_point() \
+                or data.dtype == torch.bool or data.is_complex():
+            raise ValueError(f"DITensor needs integer data, got "
+                             f"{getattr(data, 'dtype', type(data))}")
+        self._data = data.to(torch.int32)
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self._data
+
+    @property
+    def shape(self) -> ITensor:
+        return ITensor(np.array(self._data.shape, dtype=np.int64))
+
+    @property
+    def size(self) -> int:
+        return self._data.numel()
+
+    def copy(self) -> "DITensor":
+        return DITensor(self._data)
+
+    def reshape(self, shape: ITensor) -> "DITensor":
+        return DITensor(self._data.reshape(tuple(int(d) for d in shape.data)))
+
+    def transpose(self, *axes) -> "DITensor":
+        return DITensor(_permute(self._data, axes))
+
+    def expand_dims(self, axis: ITensor) -> "DITensor":
+        return DITensor(_expand_dims(self._data, axis.data.reshape(-1)))
+
+    def __getitem__(self, ind) -> "DITensor":
+        return DITensor(self._data[ind])
+
+    def take(self, indices, axis: int) -> "DITensor":
+        return DITensor(_take(self._data, indices.data, axis))
+
+    def __repr__(self):
+        return f"DITensor(shape={tuple(self._data.shape)})"
 
 
 def _as_float(x) -> torch.Tensor:
@@ -137,12 +213,18 @@ class FTensor:
         return FTensor(_permute(self._data, ()))
 
     def copy(self) -> "FTensor":
-        return FTensor(self._data)
+        """The same tensor; a small constant's host copy rides along."""
+        t = FTensor(self._data)
+        host = getattr(self, "host", None)
+        if host is not None:
+            t.host = host
+        return t
 
     def reshape(self, shape: ITensor) -> "FTensor":
         return FTensor(self._data.reshape(tuple(int(d) for d in shape.data)))
 
-    def take(self, indices: ITensor, axis: int) -> "FTensor":
+    def take(self, indices, axis: int) -> "FTensor":
+        """Gather by host (ITensor) or device (DITensor) indices."""
         return FTensor(_take(self._data, indices.data, axis))
 
     def transpose(self, *axes) -> "FTensor":
@@ -179,6 +261,9 @@ class FTensor:
             return FTensor(self._data + torch.full(
                 (), other, dtype=self._data.dtype, device=self._data.device))
         raise ValueError(f"Value of type {type(other)} cannot be added")
+
+    def __radd__(self, other) -> "FTensor":
+        return self.__add__(other)
 
     def expand_dims(self, axis: ITensor) -> "FTensor":
         return FTensor(_expand_dims(self._data, axis.data.reshape(-1)))
@@ -310,6 +395,20 @@ class QTensor:
                            self.scale, self.zero_point)
         raise ValueError(f"Cannot add QTensor with {other.__class__}")
 
+    def __getitem__(self, ind) -> "QTensor":
+        zp = self.zero_point
+        if _is_tensor_zp(zp):
+            zp = zp[ind]
+        return QTensor(self._data[ind], self.bit_width, self.scale, zp)
+
+    def expand_dims(self, axis: ITensor) -> "QTensor":
+        axes = axis.data.reshape(-1)
+        zp = self.zero_point
+        if _is_tensor_zp(zp):
+            zp = _expand_dims(zp, axes)
+        return QTensor(_expand_dims(self._data, axes), self.bit_width,
+                       self.scale, zp)
+
     def take(self, indices: ITensor, axis: int) -> "QTensor":
         """ONNX Gather in the quantized domain: same integers, same
         params (per-tensor scales only)."""
@@ -326,6 +425,13 @@ class QTensor:
         # straight to the float data plane's dtype (bf16 in serving mode)
         return FTensor(_dequantize(self._data, self.scale, self.zero_point,
                                    dtype=config.float_dtype))
+
+    def sigmoid(self) -> "QTensor":
+        """Dequantize, float sigmoid, quantize with the same params."""
+        act = self.dequantize().sigmoid()
+        return QTensor(_quantize(act.data, self.bit_width, self.scale,
+                                 self.zero_point, self._data.dtype),
+                       self.bit_width, self.scale, self.zero_point)
 
     def relu(self) -> "QTensor":
         """max(q, zero point): the quantized zero, as JAX computes it."""
@@ -443,7 +549,7 @@ def pack_qtensor(qt: QTensor) -> PackedQTensor:
                          qt.bit_width, qt.scale, layout=layout)
 
 
-Tensor = Union[ITensor, FTensor, QTensor, PackedQTensor]
+Tensor = Union[ITensor, DITensor, FTensor, QTensor, PackedQTensor]
 
 
 def quantize_tensor(tensor: FTensor, bit_width: int, scale, zero_point,
@@ -452,6 +558,27 @@ def quantize_tensor(tensor: FTensor, bit_width: int, scale, zero_point,
     default by bit width when None)."""
     qdata = _quantize(tensor.data, bit_width, scale, zero_point, container)
     return QTensor(qdata, bit_width, scale=scale, zero_point=zero_point)
+
+
+def tensor_min_max(tensor: Tensor):
+    """Global (min, max) as float32 host scalars, clamped to include 0."""
+    data = tensor.data
+    zero = np.float32(0.0)
+    if isinstance(data, np.ndarray):
+        return (np.minimum(data.min(), zero).astype(np.float32),
+                np.maximum(data.max(), zero).astype(np.float32))
+    d = data.to(torch.float32)
+    return (np.minimum(np.float32(d.min().item()), zero),
+            np.maximum(np.float32(d.max().item()), zero))
+
+
+def quantize_tensor_min_max(tensor: Tensor, bit_width: int,
+                            asymmetric: bool) -> QTensor:
+    """Quantize with params from the tensor's own clamped min/max."""
+    min_val, max_val = tensor_min_max(tensor)
+    scale, zero_point = quant_parameters(min_val, max_val, bit_width,
+                                         asymmetric)
+    return quantize_tensor(tensor, bit_width, scale, zero_point)
 
 
 def concat(x_list: list, axis: int):
@@ -489,14 +616,18 @@ def qconv2d(x: QTensor, w: QTensor, b: Optional[QTensor], pads, strides,
     up to 8 bits, the exact int64 product above).
 
     x: NCHW QTensor (asymmetric activations pad with their zero point);
-    w: [O, C, KH, KW] symmetric QTensor; b: optional 4x-bit-width bias at
-    scale sx*sw. Returns a 4x-bit-width accumulator QTensor. Grouped
-    convs are not ported."""
-    if int(group) != 1:
-        raise NotImplementedError("grouped integer Conv is not ported")
+    w: [O, C/group, KH, KW] symmetric QTensor; b: optional 4x-bit-width
+    bias at scale sx*sw. Returns a 4x-bit-width accumulator QTensor. A
+    grouped conv runs as ONE batched integer product over the group axis,
+    [G, M, KH*KW*C/G] x [G, KH*KW*C/G, O/G] (``int_matmul``'s exact
+    float64 batched product; JAX ``tensor.py::qconv2d``), its per-channel
+    scales and zero-point correction following the group split."""
     bit_width = max(x.bit_width, w.bit_width)
-    o, c, kh, kw = w.data.shape
-    assert x.data.shape[1] == c, (x.data.shape, w.data.shape)
+    o, cg, kh, kw = w.data.shape
+    g = int(group)
+    c = cg * g
+    assert x.data.shape[1] == c, (x.data.shape, w.data.shape, g)
+    assert o % g == 0, (o, g)
     zp_x = x.zero_point
     pad_value = 0 if zp_x is None else int(zp_x)
 
@@ -504,14 +635,40 @@ def qconv2d(x: QTensor, w: QTensor, b: Optional[QTensor], pads, strides,
     patches = extract_patches_exact(xd, (kh, kw), pads, strides, pad_value,
                                     dilations)
     bsz, oh, ow, kkc = patches.shape
-    w2d = w.data.permute(2, 3, 1, 0).reshape(kh * kw * c, o)
-    acc, scale, zp = q_matmul(patches.reshape(bsz * oh * ow, kkc),
-                              x.scale, x.zero_point,
-                              w2d, w.scale, w.zero_point,
-                              bit_width=bit_width)
-    acc = acc.reshape(bsz, oh, ow, o).permute(0, 3, 1, 2)  # NCHW
+    if g == 1:
+        w2d = w.data.permute(2, 3, 1, 0).reshape(kh * kw * c, o)
+        acc, scale, zp = q_matmul(patches.reshape(bsz * oh * ow, kkc),
+                                  x.scale, x.zero_point,
+                                  w2d, w.scale, w.zero_point,
+                                  bit_width=bit_width)
+        acc = acc.reshape(bsz, oh, ow, o)
+    else:
+        # patches are (KH, KW, C)-ordered: split C per group
+        m = bsz * oh * ow
+        pg = patches.reshape(m, kh * kw, g, cg).permute(2, 0, 1, 3) \
+            .reshape(g, m, kh * kw * cg)
+        # w [O, C/G, KH, KW] -> [G, KH*KW*C/G, O/G]
+        wg = w.data.reshape(g, o // g, cg, kh, kw).permute(0, 3, 4, 2, 1) \
+            .reshape(g, kh * kw * cg, o // g)
+        w_scale = np.asarray(w.scale, np.float32)
+        if w_scale.ndim > 0:  # per-channel scales follow the group split
+            w_scale = w_scale.reshape(g, 1, o // g)
+        acc, scale, zp = q_matmul(pg, x.scale, x.zero_point,
+                                  wg, w_scale, w.zero_point,
+                                  bit_width=bit_width)
+        # [G, M, O/G] -> [B, OH, OW, O]
+        acc = acc.permute(1, 0, 2).reshape(bsz, oh, ow, o)
+        if zp is not None:
+            zp = torch.broadcast_to(zp, (g, m, o // g)).permute(1, 0, 2) \
+                .reshape(bsz, oh, ow, o)
+        if np.asarray(scale, np.float32).ndim > 0:
+            # (G, 1, O/G) group-major IS the natural O order
+            scale = np.asarray(scale, np.float32).reshape(o)
+    acc = acc.permute(0, 3, 1, 2)  # NCHW
     if zp is not None:
-        if zp.shape[-2] == 1:
+        if zp.ndim == 4:  # grouped: already [B, OH, OW, O]
+            zp = zp.permute(0, 3, 1, 2)
+        elif zp.shape[-2] == 1:
             # w-colsum * zp_x correction: [1, O] -> NCHW broadcast shape
             zp = zp.reshape(1, o, 1, 1)
         else:

@@ -136,16 +136,26 @@ def test_gptq_levels_match_jax(vit, mode):
     assert moved > 0
 
 
+def _jax_gptq(vit, b: int):
+    """(calib, stats, JAX float model, JAX W4A8 QModel after GPTQ) at
+    calibration batch ``b``, cached per module."""
+    key = ("jax_gptq", b)
+    if key not in vit["cache"]:
+        calib, _ = TF.make_batch(np.random.default_rng(7), b)
+        jf = nq.Model.from_onnx(JF.trained_vit_onnx(batch_size=b))
+        stats = jf.calibration_stats([calib])
+        jq = jf.quantize(stats=stats, **MODES["w4a8"])
+        assert jq.gptq(nq.Model.from_onnx(JF.trained_vit_onnx(batch_size=b)),
+                       [calib]) == 25
+        vit["cache"][key] = (calib, stats, jf, jq)
+    return vit["cache"][key]
+
+
 @pytest.mark.parametrize("b", [4, 8])
-def test_gptq_solver_matches_jax_on_jax_activations(b, monkeypatch):
+def test_gptq_solver_matches_jax_on_jax_activations(vit, b, monkeypatch):
     """The solver itself: fed JAX's recorded activations (subsampled as
     JAX subsamples), every level of all 25 weights equals JAX's."""
-    calib, _ = TF.make_batch(np.random.default_rng(7), b)
-    jf = nq.Model.from_onnx(JF.trained_vit_onnx(batch_size=b))
-    stats = jf.calibration_stats([calib])
-    jq = jf.quantize(stats=stats, **MODES["w4a8"])
-    assert jq.gptq(nq.Model.from_onnx(JF.trained_vit_onnx(batch_size=b)),
-                   [calib]) == 25
+    calib, stats, jf, jq = _jax_gptq(vit, b)
     jacts = record_all_values(jf, [calib])
 
     def jax_rows(float_model, inputs, targets, max_rows):
@@ -166,6 +176,29 @@ def test_gptq_solver_matches_jax_on_jax_activations(b, monkeypatch):
     assert len(pairs) == 25
     for name, (j, t) in pairs.items():
         np.testing.assert_array_equal(t, j, name)
+
+
+def test_gptq_b4_on_port_activations_as_measured(vit):
+    """The one unpinned case of the port's float rounding (ROADMAP queue 3
+    item 3): GPTQ at B=4 on the port's own activations. fc2's Hessian
+    (260 rows for K=256, condition ~5e8) turns the ~1e-6 by which the
+    port's float forward rounds XLA's matmuls apart into a few levels
+    apart from JAX's; the count is held to what was measured (43 of
+    525,312, up to 2 apart) and must stay above 0, so a change either way
+    shows."""
+    calib, stats, _, jq = _jax_gptq(vit, 4)
+    tq = Model.from_onnx(TF.trained_vit_onnx(batch_size=4),
+                         device="cpu").quantize(stats=stats, **MODES["w4a8"])
+    assert tq.gptq(Model.from_onnx(TF.trained_vit_onnx(batch_size=4),
+                                   device="cpu"), [calib]) == 25
+    pairs = _weights(jq, tq)
+    total = sum(j.size for j, _ in pairs.values())
+    differ = sum(int((j != t).sum()) for j, t in pairs.values())
+    worst = max(int(np.abs(j - t).max()) for j, t in pairs.values())
+    print(f"GPTQ w4a8 B=4 on the port's activations: {differ} of {total} "
+          f"levels differ from JAX's (max {worst})")
+    assert total == 525_312
+    assert 0 < differ <= 43 and worst <= 2
 
 
 def _recon_mse(vit, tq) -> dict:

@@ -248,6 +248,10 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.bias_correction\n"
             "import numpy_quant_tpu_torch.dynamic\n"
             "import numpy_quant_tpu_torch.accuracy_ladder\n"
+            "import numpy_quant_tpu_torch.ops.standard\n"
+            "import numpy_quant_tpu_torch.bnfold\n"
+            "import numpy_quant_tpu_torch.models.cnn\n"
+            "import numpy_quant_tpu_torch.models.gnn\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numpy_quant_tpu' or "
             "m.startswith('numpy_quant_tpu.')]\n"
