@@ -284,6 +284,36 @@ Phases, one line each (any failure raises and the script exits non-zero):
      splitk_qmatmul non-zero), int8 labels against float, the captured
      bf16 forward's images/s (nodes/s) with one profiled replay's busy ms
      and top kernels, peak device memory and seconds.
+ 21. encoder-decoder generation at full width (after 20), B=8, random
+     weights (seed 0): (a) T5-small's KV-cache decode step (cache 128,
+     source 512, the score-bias and memory forms of generate_kv; prompt 4 +
+     28 new): float, int8 (decode_calibration stats, optimize(): 6
+     DecodeAttention and 6 cross FusedAttentionHS at q = 1 against 512
+     keys), int8 with the int8 cache (tokens equal to the float carry's),
+     W4 g=128 under "kernel" (splitk_wo_matmul at M = 8 and 4096), each a
+     phase 18 captured decode; the 12 cross K/V products per step timed
+     alone (their share of the step); the engine (score_bias=,
+     has_memory=True, int8 cache) over 16 requests on 8 slots, each
+     request's tokens equal to generate_kv's for it alone; (b) BART-base
+     int8 at source 1024, target 128: 18 fusions, no failure, the f32
+     fused forward equal to the unfused one bit for bit, 12 blockwise and
+     6 monolithic launches, captured f32 and bf16 forwards, pack_weights()
+     "kernel" == "unpack" bit for bit; generate_seq2seq (64 new) float and
+     int8; bart_decode_step under generate_kv(memory=) against the full
+     form (tokens equal, or parted only within phase 7's margin rule);
+     (c) Whisper-tiny from features [8, 80, 3000]: generate_seq2seq (64
+     new), the decode step against the full form, the int8 encoder (Conv1d
+     into the blockwise kernel at N = 1500; packed "kernel" == "unpack"),
+     decoder (cross 128 x 1500) and step (cross 1 x 1500), int8 agreement
+     with float; (d) the copy-task fixture through JAX's capstone rows
+     (float >= 0.97; W8 weight-only equal to float; W4 g=32 + AWQ under
+     "kernel"; int8 PTQ; int8 + GPTQ; the int8 KV cache equal to the float
+     carry; the paged engine 2x oversubscribed with prefill admission),
+     each within 0.02 of float. Every quantize/dequantize, head-split and
+     packed-matmul launch of one eager run per path against its plain
+     version (0 mismatches; head-split: 0 flipped blocks where the exact
+     form sums in torch's order), hs_plan's choice at every head-split
+     shape.
 Phases 1-17 run captured forwards from here on, except where a forward
 is swapped or hooked (plain_chain, boundary_cost, phase 3's kernel and
 plain-chain turns, record=True): those walk eagerly.
@@ -4589,18 +4619,21 @@ ZOO_KERNELS = ("quantize", "dequantize", "splitk_qmatmul")
 
 
 @contextlib.contextmanager
-def shadowed(state: dict):
+def shadowed(state: dict, extra: tuple = (), note=None):
     """Every quantize, dequantize and packed-matmul launch of the forwards
     inside also runs the kernel's plain version on the same operands;
-    ``state[kernel]`` gathers [calls, mismatching outputs, max |diff|].
-    The forwards walk eagerly (a replay runs no Python)."""
+    ``state[kernel]`` gathers [calls, mismatching outputs, max |diff|,
+    max |plain output|]. ``extra``: more (module, wrapper name, plain
+    version) to shadow; ``note(name, args, kwargs, got, want)``, if given,
+    sees each shadowed launch. The forwards walk eagerly (a replay runs no
+    Python)."""
     import torch
     from numpy_quant_tpu_torch import config
     from numpy_quant_tpu_torch.kernels import elementwise as E
     from numpy_quant_tpu_torch.kernels import qmatmul as Q
 
-    def shadow(mod, name):
-        fn, ref = getattr(mod, name), getattr(mod, name + "_reference")
+    def shadow(mod, name, ref):
+        fn = getattr(mod, name)
 
         def run(*a, **kw):
             # the wrapper counts its launch on its module-level name
@@ -4612,25 +4645,29 @@ def shadowed(state: dict):
             if not (isinstance(got, torch.Tensor) and got.is_cuda):
                 return got
             want = ref(*a, **kw)
-            row = state.setdefault(name, [0, 0, 0.0])
+            row = state.setdefault(name, [0, 0, 0.0, 0.0])
             row[0] += 1
             if not same_bits(got, want):
                 row[1] += int((got != want).sum())
             row[2] = max(row[2], float((got.double() - want.double())
                                        .abs().max()))
+            row[3] = max(row[3], float(want.double().abs().max()))
+            if note is not None:
+                note(name, a, kw, got, want)
             return got
         return run
 
-    saved = [(m, n, getattr(m, n)) for m, n in
+    saved = [(m, n, getattr(m, n), getattr(m, n + "_reference")) for m, n in
              ((E, "quantize"), (E, "dequantize"), (Q, "splitk_qmatmul"),
               (Q, "packed_qmatmul"))]
-    for m, n, _ in saved:
-        setattr(m, n, shadow(m, n))
+    saved += [(m, n, getattr(m, n), ref) for m, n, ref in extra]
+    for m, n, _, ref in saved:
+        setattr(m, n, shadow(m, n, ref))
     try:
         with config.eager_forward():
             yield state
     finally:
-        for m, n, f in saved:
+        for m, n, f, _ in saved:
             setattr(m, n, f)
 
 
@@ -4903,6 +4940,696 @@ def zoo_phase(card: str) -> dict:
             ZOO_B, "sequences" if label == "lstm" else "images",
             dict(quantize_conv=label != "lstm"))
     say("zoo-phase", seconds=time.perf_counter() - t_phase,
+        card=card.replace(" ", "_"))
+    return res
+
+
+# -- phase 21: encoder-decoder generation ------------------------------------
+ED_B = 8                 # batch (slots) of every phase 21 path
+T5_LEN, T5_SRC = 128, 512  # T5-small decode: cache slots, source tokens
+T5_PROMPT, T5_NEW = 4, 28  # teacher-forced ids (start first), new tokens
+ED_REQS = 16             # engine requests over ED_B slots
+ED_BUDGETS = (8, 40)     # their new tokens, uniform, inclusive
+BART_SRC, BART_TGT = 1024, 128
+ED_NEW = 64              # new tokens of each seq2seq generation
+WHISPER_TGT = 128
+FIXTURE_FLOOR, FIXTURE_DROP = 0.97, 0.02  # JAX's capstone rules
+ED_REPS = 3              # timed forwards per turn of a captured forward
+ED_ATTN = ("fused_attention_hs", "fused_attention_hs_blockq")
+ED_KERNELS = ("quantize", "dequantize", "fused_attention_hs",
+              "fused_attention_hs_blockq", "splitk_qmatmul",
+              "splitk_wo_matmul")
+
+
+def ed_note(shapes: dict):
+    """A shadowed() note recording each head-split launch's shape: (kernel,
+    nq, N, heads, head dim, softmax form, bias) -> [calls, flipped (row,
+    head) blocks, (row, head) blocks, hs_plan's choice, exact_in_order]."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+
+    def note(name, a, kw, got, want):
+        if not name.startswith("fused_attention_hs"):
+            return
+        xq, xk = a[0], a[1]
+        heads = kw["num_heads"]
+        d = xq.shape[2] // heads
+        form = A.softmax_form(kw.get("fast", False), kw.get("score_max"))
+        key = ("blockq" if "blockq" in name else "mono", xq.shape[1],
+               xk.shape[1], heads, d, form, kw.get("score_bias") is not None)
+        b, nq, hd = got.shape
+        diff = (got.double() - want.double()).abs()
+        per_block = diff.reshape(b, nq, heads, -1).amax(dim=-1)
+        row = shapes.setdefault(key, [0, 0, 0, None, None])
+        row[0] += 1
+        row[1] += int((per_block > 0).sum())
+        row[2] += per_block.numel()
+        if "blockq" not in name:
+            plan = A.hs_plan(nq, xk.shape[1], d, b * heads,
+                             A.sm_count(xq.device.index or 0),
+                             exact=form == "exact")
+            row[3] = f"warps{plan['warps']}:passes{plan['passes']}:" \
+                f"kv_both{int(plan['kv_both'])}"
+        else:
+            row[3] = f"blockq{A.BLOCK_Q}:tiles{-(-nq // A.BLOCK_Q)}"
+        if form == "exact":
+            row[4] = exact_in_order(b * heads * nq, xk.shape[1])
+    return note
+
+
+def ed_shadow_check(label: str, run, card: str) -> dict:
+    """One eager ``run()`` with every quantize/dequantize, head-split and
+    packed-matmul launch held against its plain version: 0 mismatching
+    outputs for the exact kernels where the exact attention forms sum in
+    torch's order (else at most 1% of (row, head) blocks, each within one
+    output step), splitk_wo_matmul within WO_TOL. Prints hs_plan's choice at
+    each head-split shape. Returns {kernel: [calls, mismatches, ...]}."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    from numpy_quant_tpu_torch.kernels import qmatmul as Q
+    state, shapes = {}, {}
+    extra = ((A, "fused_attention_hs_monolithic",
+              A.fused_attention_hs_reference),
+             (A, "fused_attention_hs_blockq",
+              A.fused_attention_hs_blockq_reference),
+             (Q, "splitk_wo_matmul", Q.splitk_wo_matmul_reference))
+    with shadowed(state, extra=extra, note=ed_note(shapes)):
+        run()
+    for key, (calls, flips, blocks, plan, ordered) in shapes.items():
+        kind, nq, n, heads, d, form, bias = key
+        say("ed-attention", path=label, kernel=kind, nq=nq, n=n, heads=heads,
+            head_dim=d, softmax=form, score_bias=bias, calls=calls,
+            plan=plan, exact_in_order=ordered,
+            flipped_blocks=f"{flips}/{blocks}", card=card.replace(" ", "_"))
+        if form == "exact" and ordered:
+            assert flips == 0, (label, key, flips)
+        else:
+            assert flips <= 0.01 * blocks, (label, key, flips, blocks)
+    say("ed-shadow", path=label, **{
+        f"shadow_{k}": f"{v[0]}calls:{v[1]}mismatches:{v[2]:.3g}max_diff"
+        for k, v in state.items()})
+    for name, (calls, bad, diff, scale) in state.items():
+        if name == "splitk_wo_matmul":
+            assert diff <= WO_TOL["f32"] * max(scale, 1e-30), (label, diff)
+        elif not name.startswith("fused_attention_hs"):  # held per shape
+            assert bad == 0, (label, name, bad, diff)
+    return state
+
+
+def ed_launches(fn, steps: int = 1) -> dict:
+    """Launches of the phase's kernels per step (or forward) of one
+    ``fn()``, which runs ``steps`` of them."""
+    _, c = counted(fn)
+    return {k: c[k] / steps for k in ED_KERNELS}
+
+
+def ed_generate_seconds(enc, dec, src, wte, start: int) -> tuple:
+    """(ids, {"eager": s, "captured": s}) of generate_seq2seq over ED_NEW
+    tokens: one run walking eagerly, then the median of two captured runs
+    after a first that captures; the captured ids equal the eager ones."""
+    import numpy as np
+    from numpy_quant_tpu_torch.utils import generate_seq2seq
+
+    def run():
+        return generate_seq2seq(enc, dec, src, wte, ED_NEW,
+                                decoder_start_id=start)
+    with eager():
+        ref, eager_s = synced_seconds(run)
+    run()
+    ids, s1 = synced_seconds(run)
+    _, s2 = synced_seconds(run)
+    assert np.array_equal(ids, ref), "generate_seq2seq: captured != eager"
+    return ids, {"eager": eager_s, "captured": statistics.median((s1, s2))}
+
+
+def ed_rates(float_s: dict, int8_s: dict) -> dict:
+    """Tokens/s and ms per token step of two ed_generate_seconds runs."""
+    return {f"{kind}_{mode}_{unit}": (ED_B * ED_NEW / sec if unit ==
+                                      "tokens_per_s" else sec / ED_NEW * 1e3)
+            for kind, runs in (("float", float_s), ("int8", int8_s))
+            for mode, sec in runs.items()
+            for unit in ("tokens_per_s", "ms_per_step")}
+
+
+def ed_packed(label: str, qmodel, inputs: list, card: str) -> dict:
+    """pack_weights() on an optimize()d QModel, then one forward under
+    "kernel" (its launches shadowed by their plain versions) against the
+    "unpack" forward, bit for bit. Returns the "kernel" launches."""
+    n = qmodel.pack_weights()
+    with packed_execution("kernel"):
+        ed_shadow_check(f"{label}_kernel", lambda: qmodel(inputs), card)
+        kern, counts = counted(lambda: qmodel(inputs)[0])
+    unpacked = qmodel(inputs)[0]
+    equal = same_bits(kern, unpacked)
+    say("ed-packed", path=label, packed=n,
+        splitk_qmatmul_launches=counts["splitk_qmatmul"],
+        kernel_equals_unpack_bitwise=equal, card=card.replace(" ", "_"))
+    assert equal and counts["splitk_qmatmul"] == n > 0, (label, counts, n)
+    return {k: counts[k] for k in ED_KERNELS}
+
+
+def step_margin_rule(label: str, ids_step, rows_step, ids_full,
+                     logits_full) -> dict:
+    """The decode-step form's greedy ids against the full form's on one
+    model: equal, or each row parts only where the full form's top-2 margin
+    at that position lies within the largest |logit difference| of the
+    positions both forms saw alike (phase 7's rule). ``rows_step``: the
+    step logits per step; ``logits_full``: the full graph's [B, T, V] logits
+    over the full form's ids. Returns the comparison."""
+    import numpy as np
+    n = min(ids_step.shape[1], ids_full.shape[1])
+    same = np.cumprod(ids_step[:, :n] == ids_full[:, :n], axis=1).astype(bool)
+    diff = 0.0
+    for t in range(n - 1):
+        live = same[:, t]
+        if live.any():
+            d = (rows_step[t] - logits_full[:, t].to(rows_step[t].dtype)) \
+                .abs().amax(dim=1).cpu().numpy()
+            diff = max(diff, float(d[live].max()))
+    parted = []
+    for b in range(ids_step.shape[0]):
+        if same[b, n - 1]:
+            continue
+        p = int(np.argmin(same[b]))
+        top2 = logits_full[b, p - 1].float().topk(2).values
+        parted.append((b, p, float(top2[0] - top2[1])))
+    say("ed-step-vs-full", path=label, tokens_equal=not parted,
+        max_logit_diff=diff, parted=";".join(
+            f"row{b}@{p}:margin{m:.3g}" for b, p, m in parted) or "none")
+    assert all(m <= diff for _, _, m in parted), (label, parted, diff)
+    return dict(parted=parted, diff=diff)
+
+
+def t5_decode_ed(card: str) -> dict:
+    """Phase 21(a): T5-small's KV-cache decode step at full width."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models import t5 as T5M
+    from numpy_quant_tpu_torch.utils import (ContinuousBatcher,
+                                             decode_calibration, generate_kv,
+                                             merge_calibration_stats)
+    t0 = time.perf_counter()
+    cfg = T5M.T5_SMALL
+    w = T5M.random_t5_weights(cfg, seed=0)
+    vocab = cfg["vocab_size"]
+    rng = np.random.default_rng(21)
+    enc_p = T5M.t5_encoder(w, cfg, batch_size=ED_B, seq_len=T5_SRC)
+    enc = Model.from_onnx(enc_p)
+    wte = enc_p._wte
+    mems = [enc([torch.from_numpy(wte[rng.integers(0, vocab, (ED_B, T5_SRC))])
+                 .cuda()], as_numpy=False)[0] for _ in range(2)]
+    memory = mems[0]
+    proto = T5M.t5_decode_step(w, cfg, batch_size=ED_B, max_len=T5_LEN,
+                               src_len=T5_SRC)
+    bias = proto._decode_bias
+    step = Model.from_onnx(proto)
+    start = 0  # T5's decoder start is the pad token
+    prompt = np.concatenate([np.full((ED_B, 1), start), rng.integers(
+        0, vocab, (ED_B, T5_PROMPT - 1))], axis=1).astype(np.int32)
+    steps = T5_PROMPT + T5_NEW - 1
+    res = {"setup_s": time.perf_counter() - t0}
+
+    def gen(model, **kw):
+        return generate_kv(model, prompt, wte, None, T5_NEW, score_bias=bias,
+                           memory=memory, **kw)
+
+    def toks(ids):
+        return ids.shape[0] * T5_NEW
+
+    eq = np.array_equal
+    res["float"] = captured_decode("t5_decode_float", card, step,
+                                   lambda m: (gen(m), steps), eq, toks,
+                                   dtype="f32", batch=ED_B, cache=T5_LEN,
+                                   source=T5_SRC)
+    ids_f = gen(step)
+    batches = decode_calibration(step, prompt, wte, None, score_bias=bias,
+                                 memory=memory)
+    stats = merge_calibration_stats(*[step.calibration_stats(b)
+                                      for b in batches])
+    qstep = step.quantize(stats=stats, bit_width=8)
+    report = qstep.optimize()
+    say("ed-optimize", path="t5_decode_int8", **report)
+    assert report["fuse_decode_attention"] == cfg["num_decoder_layers"]
+    assert report["fuse_attention"] == cfg["num_decoder_layers"]
+    assert report["fusion_failures"] == [], report
+    ed_shadow_check("t5_decode_int8", lambda: generate_kv(
+        qstep, prompt, wte, None, 2, score_bias=bias, memory=memory,
+        kv_cache_dtype="int8"), card)
+    res["int8"] = captured_decode("t5_decode_int8", card, qstep,
+                                  lambda m: (gen(m), steps), eq, toks,
+                                  dtype="f32", cache_dtype="float")
+    res["int8_cache"] = captured_decode(
+        "t5_decode_int8", card, qstep,
+        lambda m: (gen(m, kv_cache_dtype="int8"), steps), eq, toks,
+        dtype="f32", cache_dtype="int8")
+    ids_q, ids_q8 = gen(qstep), gen(qstep, kv_cache_dtype="int8")
+    assert eq(ids_q8, ids_q), "T5 int8 cache tokens differ from float carry"
+    res["launches_int8"] = ed_launches(
+        lambda: gen(qstep, kv_cache_dtype="int8"), steps)
+    # W4 g=128 weight-only under "kernel": splitk_wo_matmul at M = 8 and,
+    # for the cross K/V projections, M = 8 * 512
+    wstep = Model.from_onnx(proto)
+    n_w4 = wstep.quantize_weights(bit_width=4, group_size=128)
+    with packed_execution("kernel"):
+        ed_shadow_check("t5_decode_w4", lambda: generate_kv(
+            wstep, prompt, wte, None, 2, score_bias=bias, memory=memory),
+            card)
+        res["w4"] = captured_decode("t5_decode_w4", card, wstep,
+                                    lambda m: (gen(m), steps), eq, toks,
+                                    dtype="f32", packed_execution="kernel")
+        res["launches_w4"] = ed_launches(lambda: gen(wstep), steps)
+        ids_w4 = gen(wstep)
+    assert res["launches_w4"]["splitk_wo_matmul"] == n_w4, res["launches_w4"]
+    say("ed-t5-tokens", w4_weights=n_w4,
+        int8_agreement_float=float((ids_q == ids_f)[:, T5_PROMPT:].mean()),
+        w4_agreement_float=float((ids_w4 == ids_f)[:, T5_PROMPT:].mean()),
+        int8_cache_equals_float_carry=True)
+    # the cross K/V projections the captured step recomputes: 12 products
+    # [8 * 512, 512] x [512, 512] per token, timed alone
+    from numpy_quant_tpu_torch import intops
+    m2 = memory.reshape(-1, cfg["d_model"])
+    wkv = torch.from_numpy(w["decoder.block.0.layer.1.EncDecAttention.k."
+                             "weight"].T.copy()).cuda()
+    f_ms = cuda_ms(lambda: torch.matmul(m2, wkv), lead=True)
+    x8 = torch.randint(-128, 128, m2.shape, dtype=torch.int8,
+                       device=m2.device)
+    w8 = torch.randint(-128, 128, wkv.shape, dtype=torch.int8,
+                       device=m2.device)
+    i_ms = cuda_ms(lambda: intops.int_matmul(x8, w8), lead=True)
+    n_kv = 2 * cfg["num_decoder_layers"]
+    res["cross_kv"] = dict(
+        float_ms=n_kv * f_ms, int8_ms=n_kv * i_ms,
+        float_share=n_kv * f_ms / res["float"]["captured_ms_per_step"],
+        int8_share=n_kv * i_ms / res["int8_cache"]["captured_ms_per_step"])
+    say("ed-cross-kv", products_per_step=n_kv,
+        shape="x".join(str(v) for v in (*m2.shape, wkv.shape[1])),
+        **{k: v for k, v in res["cross_kv"].items()},
+        card=card.replace(" ", "_"))
+
+    # the engine: score-bias rows and per-slot memory rows, int8 cache
+    reqs = []
+    for i in range(ED_REQS):
+        plen = int(rng.integers(1, 9))
+        new = int(rng.integers(ED_BUDGETS[0], ED_BUDGETS[1] + 1))
+        p = np.concatenate([[start], rng.integers(0, vocab, plen - 1)])
+        reqs.append((p.astype(np.int32), new, mems[i // ED_B][i % ED_B]))
+
+    def engine(m):
+        eng = ContinuousBatcher(m, wte, None, score_bias=bias,
+                                has_memory=True, kv_cache_dtype="int8")
+        out = eng.run(reqs)
+        return out, eng.stats["steps"]
+
+    res["engine"] = captured_decode(
+        "t5_engine", card, qstep, engine,
+        lambda a, b: a.keys() == b.keys() and all(
+            eq(a[k], b[k]) for k in a),
+        lambda out: generated(out, reqs), dtype="f32", cache_dtype="int8",
+        slots=ED_B, requests=ED_REQS)
+    got, _ = engine(qstep)
+    for rid, (p, new, mem) in enumerate(reqs):
+        solo = generate_kv(qstep, np.repeat(p[None], ED_B, 0), wte, None,
+                           new, score_bias=bias, kv_cache_dtype="int8",
+                           memory=mem[None].expand(ED_B, -1, -1))[0]
+        assert eq(got[rid], solo), f"T5 engine request {rid} != generate_kv"
+    say("ed-t5-engine", requests=ED_REQS, slots=ED_B,
+        tokens_equal_generate_kv_alone=True,
+        seconds=time.perf_counter() - t0)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def bart_ed(card: str) -> dict:
+    """Phase 21(b): BART-base at full width."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models import seq2seq as BM
+    from numpy_quant_tpu_torch.utils import generate_kv
+    t0 = time.perf_counter()
+    cfg = BM.BART_BASE
+    w = BM.random_bart_weights(cfg, seed=0)
+    vocab, d = cfg["vocab_size"], cfg["d_model"]
+    rng = np.random.default_rng(22)
+    proto = BM.bart_seq2seq(w, cfg, batch_size=ED_B, src_len=BART_SRC,
+                            tgt_len=BART_TGT)
+    wte = proto._wte
+    model = Model.from_onnx(proto)
+    calib = [torch.from_numpy(wte[rng.integers(0, vocab, (2, n))]).cuda()
+             for n in (BART_SRC, BART_TGT)]
+    x = [torch.from_numpy(wte[rng.integers(0, vocab, (ED_B, n))]).cuda()
+         for n in (BART_SRC, BART_TGT)]
+    qm = model.quantize(bit_width=8, stats=model.calibration_stats(calib))
+    with eager():
+        unfused = qm(x)[0]
+    report = qm.optimize()
+    say("ed-optimize", path="bart_base", **report)
+    n_att = 3 * cfg["decoder_layers"]
+    assert report["fuse_attention"] == n_att, report
+    assert report["fusion_failures"] == [], report
+    ed_shadow_check("bart_base_int8", lambda: qm(x), card)
+    heads = cfg["encoder_attention_heads"]
+    for nq, n in ((BART_SRC, BART_SRC), (BART_TGT, BART_TGT),
+                  (BART_TGT, BART_SRC)):
+        assert exact_in_order(ED_B * heads * nq, n), (nq, n)
+    fused, counts = counted(lambda: qm(x)[0])
+    launches = {k: counts[k] for k in ED_KERNELS}
+    equal = same_bits(fused, unfused)
+    say("ed-bart", batch=ED_B, source=BART_SRC, target=BART_TGT,
+        fused_equals_unfused_bitwise=equal, **{
+            f"launches_{k}": v for k, v in launches.items()})
+    assert equal, "BART-base fused f32 forward != unfused"
+    assert launches["fused_attention_hs_blockq"] == 2 * cfg["encoder_layers"]
+    assert launches["fused_attention_hs"] == cfg["decoder_layers"]
+    res = {"launches": launches}
+    res["f32"] = captured_forward("bart_base_int8", card, qm, x,
+                                  ED_B * BART_TGT, "tokens", reps=ED_REPS,
+                                  dtype="f32")
+    with config.low_precision_floats():
+        b16, c16 = counted(lambda: qm(x)[0])
+        res["bf16"] = captured_forward("bart_base_int8", card, qm, x,
+                                       ED_B * BART_TGT, "tokens",
+                                       reps=ED_REPS, dtype="bf16")
+    agree = float((b16.argmax(-1) == fused.argmax(-1)).mean())
+    say("ed-bart-bf16", label_agreement_f32=agree, launches_blockq=c16[
+        "fused_attention_hs_blockq"], launches_mono=c16["fused_attention_hs"])
+    assert np.isfinite(b16).all()
+    res["packed"] = ed_packed("bart_base_int8", qm, x, card)
+    launches["splitk_qmatmul"] = res["packed"]["splitk_qmatmul"]
+    del qm, model, unfused, fused
+
+    # generate_seq2seq over the encoder and decoder graphs, float and int8
+    src = rng.integers(0, vocab, (ED_B, BART_SRC)).astype(np.int32)
+    start = cfg["decoder_start_token_id"]
+    enc = Model.from_onnx(BM.bart_encoder(w, cfg, ED_B, BART_SRC))
+    dec = Model.from_onnx(BM.bart_decoder(w, cfg, ED_B, BART_SRC, BART_TGT))
+    ids_f, gen_s = ed_generate_seconds(enc, dec, src, wte, start)
+    memory = enc([torch.from_numpy(wte[src]).cuda()], as_numpy=False)[0]
+    emb = torch.from_numpy(wte[ids_f.astype(np.int64)]).cuda()
+    emb = torch.nn.functional.pad(emb, (0, 0, 0, BART_TGT - emb.shape[1]))
+    logits_full = dec([emb, memory], as_numpy=False)[0]
+    qenc = enc.quantize(bit_width=8, stats=enc.calibration_stats(
+        [calib[0]]))
+    qdec = dec.quantize(bit_width=8, stats=dec.calibration_stats(
+        [emb[:2], memory[:2]]))
+    for qq in (qenc, qdec):
+        assert qq.optimize()["fusion_failures"] == []
+    ids_q, qgen_s = ed_generate_seconds(qenc, qdec, src, wte, start)
+    res["launches_int8_encoder"] = ed_launches(lambda: qenc(
+        [torch.from_numpy(wte[src]).cuda()]))
+    res["launches_int8_decoder"] = ed_launches(lambda: qdec([emb, memory]))
+    say("ed-bart-generate", new_tokens=ED_NEW, **ed_rates(gen_s, qgen_s),
+        int8_agreement_float=float((ids_q == ids_f)[:, 1:].mean()),
+        captured_equals_eager=True, card=card.replace(" ", "_"))
+
+    # the decode step through generate_kv(memory=) against the full form
+    sp = BM.bart_decode_step(w, cfg, ED_B, BART_TGT, BART_SRC)
+    step = Model.from_onnx(sp)
+    rows = []
+    prompt = np.full((ED_B, 1), start, np.int32)
+    ids_s = generate_kv(step, prompt, sp._wte, sp._dec_pos, ED_NEW,
+                        memory=memory, step_logits=rows)
+    res["step_vs_full"] = step_margin_rule("bart_base", ids_s, rows, ids_f,
+                                           logits_full)
+    res["step"] = captured_decode(
+        "bart_decode_float", card, step,
+        lambda m: (generate_kv(m, prompt, sp._wte, sp._dec_pos, ED_NEW,
+                               memory=memory), ED_NEW),
+        np.array_equal, lambda ids: ED_B * ED_NEW, dtype="f32")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def whisper_ed(card: str) -> dict:
+    """Phase 21(c): Whisper-tiny at full width."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models import whisper as WM
+    from numpy_quant_tpu_torch.utils import (decode_calibration, generate_kv,
+                                             merge_calibration_stats)
+    t0 = time.perf_counter()
+    cfg = WM.WHISPER_TINY
+    w = WM.random_whisper_weights(cfg, seed=0)
+    rng = np.random.default_rng(23)
+    feats = torch.from_numpy(rng.normal(size=(
+        ED_B, cfg["num_mel_bins"], 2 * cfg["max_source_positions"]))
+        .astype(np.float32) * 0.5).cuda()
+    enc = Model.from_onnx(WM.whisper_encoder(w, cfg, ED_B))
+    dp = WM.whisper_decoder(w, cfg, ED_B, WHISPER_TGT)
+    dec = Model.from_onnx(dp)
+    wte, start = dp._wte, cfg["decoder_start_token_id"]
+    memory = enc([feats], as_numpy=False)[0]
+    ids_f, gen_s = ed_generate_seconds(enc, dec, feats, wte, start)
+    emb = torch.from_numpy(wte[ids_f.astype(np.int64)]).cuda()
+    emb = torch.nn.functional.pad(emb, (0, 0, 0, WHISPER_TGT - emb.shape[1]))
+    logits_full = dec([emb, memory], as_numpy=False)[0]
+    sp = WM.whisper_decode_step(w, cfg, ED_B, WHISPER_TGT)
+    step = Model.from_onnx(sp)
+    rows = []
+    prompt = np.full((ED_B, 1), start, np.int32)
+    ids_s = generate_kv(step, prompt, sp._wte, sp._wpe, ED_NEW,
+                        memory=memory, step_logits=rows)
+    res = {"step_vs_full": step_margin_rule("whisper_tiny", ids_s, rows,
+                                            ids_f, logits_full)}
+    # int8: the encoder (Conv1d front end into the blockwise kernel at
+    # N = 1500), the decoder (cross-attention 128 x 1500) and the step
+    # (cross-attention 1 x 1500)
+    qenc = enc.quantize(bit_width=8, stats=enc.calibration_stats(
+        [feats[:2]]))
+    qdec = dec.quantize(bit_width=8, stats=dec.calibration_stats(
+        [emb[:2], memory[:2]]))
+    for label, qq in (("encoder", qenc), ("decoder", qdec)):
+        rep = qq.optimize()
+        say("ed-optimize", path=f"whisper_{label}", **rep)
+        assert rep["fusion_failures"] == [], rep
+    ed_shadow_check("whisper_encoder_int8", lambda: qenc([feats]), card)
+    ed_shadow_check("whisper_decoder_int8", lambda: qdec([emb, memory]),
+                    card)
+    res["launches_encoder"] = ed_launches(lambda: qenc([feats]))
+    res["launches_decoder"] = ed_launches(lambda: qdec([emb, memory]))
+    assert res["launches_encoder"]["fused_attention_hs_blockq"] == \
+        cfg["encoder_layers"], res["launches_encoder"]
+    res["encoder"] = captured_forward("whisper_encoder_int8", card, qenc,
+                                      [feats], ED_B, "utterances",
+                                      reps=ED_REPS, dtype="f32")
+    res["packed"] = ed_packed("whisper_encoder_int8", qenc, [feats], card)
+    res["launches_encoder"]["splitk_qmatmul"] = \
+        res["packed"]["splitk_qmatmul"]
+    ids_q, qgen_s = ed_generate_seconds(qenc, qdec, feats, wte, start)
+    batches = decode_calibration(step, np.concatenate(
+        [prompt, ids_f[:, 1:4]], axis=1), sp._wte, sp._wpe, memory=memory)
+    qstep = step.quantize(bit_width=8, stats=merge_calibration_stats(
+        *[step.calibration_stats(b) for b in batches]))
+    rep = qstep.optimize()
+    say("ed-optimize", path="whisper_decode_step", **rep)
+    assert rep["fusion_failures"] == [], rep
+    ed_shadow_check("whisper_step_int8", lambda: generate_kv(
+        qstep, prompt, sp._wte, sp._wpe, 2, memory=memory,
+        kv_cache_dtype="int8"), card)
+    res["launches_step"] = ed_launches(lambda: generate_kv(
+        qstep, prompt, sp._wte, sp._wpe, 1, memory=memory,
+        kv_cache_dtype="int8"))
+    res["step"] = captured_decode(
+        "whisper_decode_int8", card, qstep,
+        lambda m: (generate_kv(m, prompt, sp._wte, sp._wpe, ED_NEW,
+                               memory=memory, kv_cache_dtype="int8"),
+                   ED_NEW),
+        np.array_equal, lambda ids: ED_B * ED_NEW, dtype="f32",
+        cache_dtype="int8")
+    ids_qs = generate_kv(qstep, prompt, sp._wte, sp._wpe, ED_NEW,
+                         memory=memory, kv_cache_dtype="int8")
+    say("ed-whisper", features="x".join(str(s) for s in feats.shape),
+        new_tokens=ED_NEW, **ed_rates(gen_s, qgen_s),
+        int8_agreement_float=float((ids_q == ids_f)[:, 1:].mean()),
+        int8_step_agreement_float=float((ids_qs == ids_f)[:, 1:].mean()),
+        card=card.replace(" ", "_"))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def fixture_ed(card: str) -> dict:
+    """Phase 21(d): the copy-task fixture through JAX's capstone rows."""
+    import numpy as np
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models import text_fixture as TF
+    from numpy_quant_tpu_torch.utils import (ContinuousBatcher,
+                                             decode_calibration, generate,
+                                             generate_kv,
+                                             merge_calibration_stats)
+    t0 = time.perf_counter()
+    prompts, expected = TF.make_prompts(np.random.default_rng(11), ED_B)
+    prompts = prompts.astype(np.int32)
+    full = TF.trained_gpt_onnx(batch_size=ED_B)
+    wte = full._wte
+    calib = wte[TF.make_copy_batch(np.random.default_rng(3), ED_B)]
+    rows, launches = {}, {}
+
+    def acc_of(seq):
+        return TF.copy_accuracy(seq[:, TF.COPY_LEN + 1:], expected)
+
+    def gen(m):
+        return generate(m, prompts, wte, TF.COPY_LEN)
+
+    fm = Model.from_onnx(full)
+    f_seq = gen(fm)
+    f_acc = rows["float"] = acc_of(f_seq)
+    assert f_acc >= FIXTURE_FLOOR, f_acc
+
+    m8 = Model.from_onnx(full)
+    assert m8.quantize_weights(bit_width=8) > 0
+    seq = gen(m8)
+    rows["w8_weight_only"] = acc_of(seq)
+    assert np.array_equal(seq, f_seq), "W8 weight-only tokens != float"
+    m4 = Model.from_onnx(full)
+    m4.awq_scale_weights([calib], bit_width=4, group_size=32)
+    assert m4.quantize_weights(bit_width=4, group_size=32) > 0
+    with packed_execution("kernel"):
+        ed_shadow_check("fixture_w4_awq", lambda: gen(m4), card)
+        rows["w4_g32_awq"] = acc_of(gen(m4))
+        launches["w4_g32_awq"] = ed_launches(
+            lambda: generate(m4, prompts, wte, 1))
+    q = fm.quantize([calib], bit_width=8)
+    q.optimize()
+    ed_shadow_check("fixture_int8", lambda: gen(q), card)
+    rows["int8_ptq"] = acc_of(gen(q))
+    launches["int8_ptq"] = ed_launches(lambda: generate(q, prompts, wte, 1))
+    q2 = fm.quantize([calib], bit_width=8)
+    assert q2.gptq(fm, [calib]) > 0
+    rows["int8_gptq"] = acc_of(gen(q2))
+
+    sp = TF.trained_gpt_decode_onnx(batch_size=ED_B)
+    step = Model.from_onnx(sp)
+    s_seq = generate_kv(step, prompts, wte, sp._wpe, TF.COPY_LEN)
+    stats = merge_calibration_stats(*[step.calibration_stats(b) for b in
+                                      decode_calibration(step, prompts, wte,
+                                                         sp._wpe)])
+    qs = step.quantize(stats=stats, bit_width=8)
+    seq_f = generate_kv(qs, prompts, wte, sp._wpe, TF.COPY_LEN)
+    seq_8 = generate_kv(qs, prompts, wte, sp._wpe, TF.COPY_LEN,
+                        kv_cache_dtype="int8")
+    assert np.array_equal(seq_8, seq_f), "fixture int8 cache != float carry"
+    rows["int8_kv_cache"] = acc_of(seq_8)
+    launches["int8_kv_cache"] = ed_launches(
+        lambda: generate_kv(qs, prompts, wte, sp._wpe, TF.COPY_LEN,
+                            kv_cache_dtype="int8"),
+        prompts.shape[1] + TF.COPY_LEN - 1)
+    res = {"step": captured_decode(
+        "fixture_int8_cache", card, qs,
+        lambda m: (generate_kv(m, prompts, wte, sp._wpe, TF.COPY_LEN,
+                               kv_cache_dtype="int8"),
+                   prompts.shape[1] + TF.COPY_LEN - 1),
+        np.array_equal, lambda ids: ED_B * TF.COPY_LEN, dtype="f32",
+        cache_dtype="int8")}
+
+    pre = Model.from_onnx(TF.trained_gpt_prefill_onnx(TF.COPY_LEN + 1))
+    cb = ContinuousBatcher(step, wte, sp._wpe, prefill_model=pre,
+                           paged_kv=(4, 2 * ED_B * 6 + 1))
+    out = cb.run([(prompts[i], TF.COPY_LEN) for i in range(ED_B)] * 2)
+    accs = []
+    for rid in sorted(out):
+        assert np.array_equal(out[rid][:s_seq.shape[1]], s_seq[rid % ED_B]), \
+            f"fixture engine request {rid} != lockstep float decode"
+        accs.append(TF.copy_accuracy(out[rid][None, TF.COPY_LEN + 1:],
+                                     expected[rid % ED_B]))
+    rows["paged_engine_2x"] = float(np.mean(accs))
+    say("ed-fixture", float_acc_floor=FIXTURE_FLOOR,
+        max_acc_drop=FIXTURE_DROP, engine_preemptions=cb.stats[
+            "preemptions"], **{f"acc_{k}": v for k, v in rows.items()},
+        seconds=time.perf_counter() - t0, card=card.replace(" ", "_"))
+    for k, v in rows.items():
+        assert v >= f_acc - FIXTURE_DROP, (k, v, f_acc)
+    res.update(rows=rows, launches=launches,
+               seconds=time.perf_counter() - t0)
+    return res
+
+
+def ed_paths(ed: dict) -> dict:
+    """{path: launches per step or forward} of phase 21's results."""
+    return {"per_t5_int8_step": ed["t5"]["launches_int8"],
+            "per_t5_w4_step_kernel": ed["t5"]["launches_w4"],
+            "per_bart_base_forward": ed["bart"]["launches"],
+            "per_bart_base_encoder_forward": ed["bart"][
+                "launches_int8_encoder"],
+            "per_bart_base_decoder_forward": ed["bart"][
+                "launches_int8_decoder"],
+            "per_whisper_encoder_forward": ed["whisper"]["launches_encoder"],
+            "per_whisper_decoder_forward": ed["whisper"]["launches_decoder"],
+            "per_whisper_int8_step": ed["whisper"]["launches_step"],
+            "per_fixture_int8_step": ed["fixture"]["launches"][
+                "int8_kv_cache"],
+            "per_fixture_int8_forward": ed["fixture"]["launches"][
+                "int8_ptq"],
+            "per_fixture_w4_awq_forward_kernel": ed["fixture"]["launches"][
+                "w4_g32_awq"]}
+
+
+ED_ATTN_SHAPES = (  # (label, batch, q rows, keys, heads): phase 21's paths
+    ("t5_step_cross", ED_B, 1, T5_SRC, 8),
+    ("bart_encoder_self", ED_B, BART_SRC, BART_SRC, 12),
+    ("bart_cross", ED_B, BART_TGT, BART_SRC, 12),
+    ("whisper_encoder_self", ED_B, 1500, 1500, 6),
+    ("whisper_cross", ED_B, WHISPER_TGT, 1500, 6),
+    ("whisper_step_cross", ED_B, 1, 1500, 6))
+
+
+def time_encdec_attention(name: str) -> dict:
+    """The head-split kernels at phase 21's shapes (D=64, no bias, scaling
+    1 as the pre-scaled and unscaled paths dispatch them, int8 out), exact
+    and fast forms: held against the plain version (no flipped block on
+    the exact form where it sums in torch's order), then the median of 20
+    CUDA-event calls behind a device sleep beside the plain version and the
+    bound (q, k and v read once, the int8 output written once; both
+    products' int8 operations). Returns {label: {form: numbers}}."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    rates = peaks(name)
+    res: dict = {}
+    for label, b, nq, n, heads in ED_ATTN_SHAPES:
+        q, k, v = attention_inputs(b, nq, seed=nq + n, n=n, heads=heads)
+        blockq = A.blockwise(n, None, nq=nq)
+        kname = "fused_attention_hs_blockq" if blockq else "fused_attention_hs"
+        plain = A.fused_attention_hs_blockq_reference if blockq \
+            else A.fused_attention_hs_reference
+        nbytes = 2 * q.numel() + k.numel() + v.numel()
+        ops = 2 * 2 * b * heads * nq * n * HEAD_DIM
+        t_bytes, t_ops = nbytes / rates["bytes"] * 1e3, ops / rates["int8"] * 1e3
+        for mode in ("exact", "fast"):
+            kw = attention_kw(heads, mode, "none", OUT_REQUANT, QP)
+            kw["scaling"] = 1.0
+            flips, blocks, _ = attention_diff(
+                A.fused_attention_hs(q, k, v, **kw), plain(q, k, v, **kw),
+                heads, OUT_REQUANT, QP, f"{label} {mode}")
+            if mode == "exact":
+                rows = b * heads * (min(nq, A.BLOCK_Q) if blockq else nq)
+                assert exact_in_order(rows, n) and flips == 0, (label, flips)
+            ms = cuda_ms(lambda: A.fused_attention_hs(q, k, v, **kw),
+                         lead=True)
+            plain_ms = cuda_ms(lambda: plain(q, k, v, **kw), lead=True)
+            row = dict(kernel=kname, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       flipped_blocks=flips)
+            res.setdefault(label, {})[mode] = row
+            say("kernel-time", kernel=kname, form=mode, path=label,
+                shape=f"B{b}xNq{nq}xN{n}xH{heads}xD{HEAD_DIM}", out="int8",
+                ms=ms, plain_ms=plain_ms, bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], bytes=nbytes, ops=ops,
+                flipped_blocks=f"{flips}/{blocks}", library="none",
+                card=name.replace(" ", "_"))
+    return res
+
+
+def encdec_phase(card: str) -> dict:
+    """Phase 21: encoder-decoder generation at full width (T5-small's
+    decode step and engine, BART-base, Whisper-tiny, the copy fixture).
+    Returns the launches per step or forward by path."""
+    import torch
+    t_phase = time.perf_counter()
+    res = {"t5": t5_decode_ed(card), "bart": bart_ed(card),
+           "whisper": whisper_ed(card), "fixture": fixture_ed(card),
+           "attention": time_encdec_attention(torch.cuda.get_device_name(0))}
+    say("ed-phase", seconds=time.perf_counter() - t_phase,
+        **{f"{k}_s": v["seconds"] for k, v in res.items()
+           if "seconds" in v},
         card=card.replace(" ", "_"))
     return res
 
@@ -5206,6 +5933,9 @@ def main() -> int:
 
     # -- phase 20: the CNN and GNN zoo ---------------------------------
     zoo = zoo_phase(card)
+
+    # -- phase 21: encoder-decoder generation ---------------------------
+    ed = encdec_phase(card)
     say("done", seconds=time.perf_counter() - t_start)
     e1, e5 = engine["per_step"]["E1"], engine["per_step"]["E5"]
     admit = admission["per_admission"]
@@ -5334,6 +6064,15 @@ def main() -> int:
                       for mode, c in by_mode.items() if c.get(kname)}
         if not row["zoo"]:
             del row["zoo"]
+        # phase 21: launches per step or forward of each path (zeros left
+        # out)
+        if kname in ED_KERNELS:
+            row["encdec"] = {k: v[kname] for k, v in ed_paths(ed).items()
+                             if v.get(kname)}
+        shapes = {label: forms for label, forms in ed["attention"].items()
+                  if forms["exact"]["kernel"] == kname}
+        if shapes:
+            row["encdec_shapes"] = shapes
     wo_row = next(r for r in rows if r["name"] == "splitk_wo_matmul")
     wo_row["ptq"]["vit_rows"] = {f"M{m}": t for m, t in ptq["wo"].items()}
     say("interop-summary", vectors=",".join(

@@ -17,8 +17,9 @@ dict in HuggingFace's ``LlamaForCausalLM`` key names
 * LM head         -> MatMul with lm_head^T (not tied)
 
 An optional ``sliding_window`` config key bands the causal mask
-(Mistral-style attention), as ``mistral_causal_lm`` does in the JAX
-package. The graph takes float ``inputs_embeds`` [batch, seq, hidden]; the
+(Mistral-style attention); ``mistral_causal_lm`` and
+``mistral_default_config`` are the JAX package's named entry points over
+it. The graph takes float ``inputs_embeds`` [batch, seq, hidden]; the
 token embedding is a host gather from ``_wte``, which rides on the
 returned proto.
 
@@ -244,6 +245,37 @@ def llama_causal_lm(weights: dict, config: dict, batch_size: int = 2,
     _lm_head(g, weights, h, cfg)
     g.output("logits", [batch_size, seq_len, int(cfg["vocab_size"])])
     return _finish(g, weights, cfg)
+
+
+def mistral_default_config(seq_len: int = 16,
+                           sliding_window: int = 6) -> dict:
+    """The tiny Mistral config of the JAX package's tests: the LLaMA block
+    (2 layers, hidden 32, 4 heads, 2 KV heads, vocabulary 96) with
+    sliding-window attention, at HF ``MistralConfig``'s defaults
+    otherwise."""
+    return {"vocab_size": 96, "hidden_size": 32, "intermediate_size": 48,
+            "num_hidden_layers": 2, "num_attention_heads": 4,
+            "num_key_value_heads": 2, "sliding_window": sliding_window,
+            "max_position_embeddings": seq_len, "rms_norm_eps": 1e-6,
+            "rope_theta": 10000.0, "initializer_range": 0.02,
+            "tie_word_embeddings": False}
+
+
+def mistral_causal_lm(weights: dict, config: dict | None = None,
+                      batch_size: int = 2,
+                      seq_len: int = 16) -> O.ModelProto:
+    """A Mistral-style causal LM: the LLaMA block structure (RMSNorm, RoPE,
+    SwiGLU, grouped-query attention) with sliding-window attention, the
+    banded causal mask constant that ``optimize()`` folds into the fused
+    kernels' ``causal_window``. ``weights`` are a ``MistralForCausalLM``
+    state dict (LLaMA's key names; ``random_llama_weights`` draws one);
+    ``config`` defaults to :func:`mistral_default_config` at ``seq_len``."""
+    if config is None:
+        config = mistral_default_config(seq_len)
+    if not config.get("sliding_window"):
+        raise ValueError("a Mistral config sets sliding_window")
+    return llama_causal_lm(weights, config, batch_size=batch_size,
+                           seq_len=seq_len)
 
 
 def _lm_head(g: GraphBuilder, weights: dict, h: str, cfg: dict) -> None:

@@ -25,8 +25,13 @@ live ``transformers`` module:
 
 The graphs take float ``inputs_embeds`` [B, S, d_model] (and
 ``decoder_inputs_embeds`` [B, T, d_model]); the token embedding is a host
-gather from ``_wte``, which rides on the returned proto. The KV-cache
-decode form is not ported.
+gather from ``_wte``, which rides on the returned proto.
+
+``t5_decode_step`` is the KV-cache decode form of the decoder (one token
+per call against fixed-length caches, the relative bias entering per step
+as the ``score_bias`` input, cross-attention over an ``encoder_memory``
+input), node for node with its JAX namesake; its ``[L, H, L+1]`` bias table
+rides on the proto as ``_decode_bias``.
 """
 from __future__ import annotations
 
@@ -211,6 +216,20 @@ def t5_encoder(weights: dict, config: dict, batch_size: int = 2,
     return model
 
 
+def _t5_lm_head(g: GraphBuilder, w: dict, cfg: dict, h: str) -> None:
+    """The LM head into ``logits``: MatMul with lm_head^T, after
+    Mul(d_model ** -0.5) when the embeddings are tied (HF rescales tied
+    logits)."""
+    if cfg["tie_word_embeddings"]:
+        sc = g.const(np.array(np.float32(int(cfg["d_model"]) ** -0.5),
+                              dtype=np.float32), "logit_scale")
+        h = g.node("Mul", [h, sc], out="logits_scaled")
+    head = w["shared.weight"] if cfg["tie_word_embeddings"] \
+        else w["lm_head.weight"]
+    g.init("lm_head.weight_t", np.ascontiguousarray(_f32(head).T))
+    g.node("MatMul", [h, "lm_head.weight_t"], out="logits", name="lm_head")
+
+
 def t5_conditional_generation(weights: dict, config: dict,
                               batch_size: int = 2, src_len: int = 12,
                               tgt_len: int = 8) -> O.ModelProto:
@@ -253,18 +272,173 @@ def t5_conditional_generation(weights: dict, config: dict,
     hd = _rms_norm(g, hd, w["decoder.final_layer_norm.weight"], eps,
                    "decoder.final_norm")
 
-    if cfg["tie_word_embeddings"]:
-        # HF rescales tied logits by d_model ** -0.5
-        sc = g.const(np.array(np.float32(d_model ** -0.5), dtype=np.float32),
-                     "logit_scale")
-        hd = g.node("Mul", [hd, sc], out="logits_scaled")
-    head = w["shared.weight"] if cfg["tie_word_embeddings"] \
-        else w["lm_head.weight"]
-    g.init("lm_head.weight_t", np.ascontiguousarray(_f32(head).T))
-    g.node("MatMul", [hd, "lm_head.weight_t"], out="logits", name="lm_head")
+    _t5_lm_head(g, w, cfg, hd)
     g.output("logits", [batch_size, tgt_len, int(cfg["vocab_size"])])
     model = g.model()
     model._wte = _f32(w["shared.weight"])  # [vocab, d_model]
+    return model
+
+
+def decode_bias_table(weights: dict, config: dict,
+                      max_len: int) -> np.ndarray:
+    """The per-step relative-bias rows of the KV-cache layout,
+    ``[max_len, H, max_len + 1]`` float32: row t is the decoder's
+    (unidirectional) bias at query position t over key positions
+    0..max_len-1, plus a self column (relative distance 0). Future slots
+    (j > t) carry the non-causal values; the decode mask adds -1e9 to them
+    before the bias, so they never reach Softmax unmasked."""
+    full = relative_position_bias(
+        weights["decoder.block.0.layer.0.SelfAttention."
+                "relative_attention_bias.weight"], config, max_len, max_len,
+        bidirectional=False)[0]                          # [H, L, L]
+    n_heads = full.shape[0]
+    table = np.empty((max_len, n_heads, max_len + 1), np.float32)
+    for t in range(max_len):
+        table[t, :, :max_len] = full[:, t, :]
+        table[t, :, max_len] = full[:, t, t]             # the self column
+    return table
+
+
+def _t5_decode_self_attention(g: GraphBuilder, w: dict, x: str, cfg: dict,
+                              key: str, layer: int, max_len: int,
+                              name: str) -> tuple[str, str, str]:
+    """One-token T5 self-attention against a fixed-length cache: unscaled
+    bias-free projections, scores over [cache | current], the additive
+    ``attn_mask`` input, then the per-step ``score_bias`` input, Softmax,
+    and the probabilities split back into a cache product plus a self
+    term. Returns (o output, k_step, v_step)."""
+    n_heads, d_kv = int(cfg["num_heads"]), int(cfg["d_kv"])
+    q = _matmul_w(g, x, w[f"{key}.q.weight"], f"{name}.q")
+    k = _matmul_w(g, x, w[f"{key}.k.weight"], f"{name}.k")
+    v = _matmul_w(g, x, w[f"{key}.v.weight"], f"{name}.v")
+
+    def split_heads(t: str, which: str) -> str:
+        shape = g.const(np.array([0, 1, n_heads, d_kv], dtype=np.int64),
+                        "t5dheadshape")
+        r = g.node("Reshape", [t, shape], out=f"{name}/{which}_Reshape")
+        return g.node("Transpose", [r], out=f"{name}/{which}_Transpose",
+                      perm=[0, 2, 1, 3])
+
+    qh, kh, vh = split_heads(q, "q"), split_heads(k, "k"), split_heads(v, "v")
+    kt_cache = g.node("Transpose", [f"past_k.{layer}"],
+                      out=f"{name}/cache_k_T", perm=[0, 1, 3, 2])
+    s_past = g.node("MatMul", [qh, kt_cache], out=f"{name}/scores_past")
+    kt_step = g.node("Transpose", [kh], out=f"{name}/k_T", perm=[0, 1, 3, 2])
+    s_self = g.node("MatMul", [qh, kt_step], out=f"{name}/scores_self")
+    s = g.node("Concat", [s_past, s_self], out=f"{name}/scores", axis=-1)
+    masked = g.node("Add", [s, "attn_mask"], out=f"{name}/masked")
+    biased = g.node("Add", [masked, "score_bias"], out=f"{name}/biased")
+    probs = g.node("Softmax", [biased], out=f"{name}/probs", axis=-1)
+    z = g.const(np.array([0], dtype=np.int64), "zero")
+    ll = g.const(np.array([max_len], dtype=np.int64), "maxlen")
+    lp1 = g.const(np.array([max_len + 1], dtype=np.int64), "maxlenp1")
+    ax = g.const(np.array([-1], dtype=np.int64), "lastaxis")
+    p_past = g.node("Slice", [probs, z, ll, ax], out=f"{name}/p_past")
+    p_self = g.node("Slice", [probs, ll, lp1, ax], out=f"{name}/p_self")
+    ctx = g.node("MatMul", [p_past, f"past_v.{layer}"],
+                 out=f"{name}/ctx_past")
+    self_ctx = g.node("Mul", [p_self, vh], out=f"{name}/ctx_self")
+    ctx = g.node("Add", [ctx, self_ctx], out=f"{name}/context")
+    ctx = g.node("Transpose", [ctx], out=f"{name}/context_T",
+                 perm=[0, 2, 1, 3])
+    merge = g.const(np.array([0, 1, n_heads * d_kv], dtype=np.int64),
+                    "t5dmergeshape")
+    merged = g.node("Reshape", [ctx, merge], out=f"{name}/merged")
+    return _matmul_w(g, merged, w[f"{key}.o.weight"], f"{name}.o"), kh, vh
+
+
+def _t5_decode_cross_attention(g: GraphBuilder, w: dict, x: str, cfg: dict,
+                               key: str, memory: str, src_len: int,
+                               name: str) -> str:
+    """One-token unscaled bias-free cross-attention over the whole encoder
+    memory; K and V are projected from the memory inside the step."""
+    n_heads, d_kv = int(cfg["num_heads"]), int(cfg["d_kv"])
+    q = _matmul_w(g, x, w[f"{key}.q.weight"], f"{name}.q")
+    k = _matmul_w(g, memory, w[f"{key}.k.weight"], f"{name}.k")
+    v = _matmul_w(g, memory, w[f"{key}.v.weight"], f"{name}.v")
+
+    def split_heads(t: str, seq: int, which: str) -> str:
+        shape = g.const(np.array([0, seq, n_heads, d_kv], dtype=np.int64),
+                        f"t5xheadshape{seq}")
+        r = g.node("Reshape", [t, shape], out=f"{name}/{which}_Reshape")
+        return g.node("Transpose", [r], out=f"{name}/{which}_Transpose",
+                      perm=[0, 2, 1, 3])
+
+    qh = split_heads(q, 1, "q")
+    kh = split_heads(k, src_len, "k")
+    vh = split_heads(v, src_len, "v")
+    kt = g.node("Transpose", [kh], out=f"{name}/k_T", perm=[0, 1, 3, 2])
+    scores = g.node("MatMul", [qh, kt], out=f"{name}/scores")
+    probs = g.node("Softmax", [scores], out=f"{name}/probs", axis=-1)
+    ctx = g.node("MatMul", [probs, vh], out=f"{name}/context")
+    ctx = g.node("Transpose", [ctx], out=f"{name}/context_T",
+                 perm=[0, 2, 1, 3])
+    merge = g.const(np.array([0, 1, n_heads * d_kv], dtype=np.int64),
+                    "t5dmergeshape")
+    merged = g.node("Reshape", [ctx, merge], out=f"{name}/merged")
+    return _matmul_w(g, merged, w[f"{key}.o.weight"], f"{name}.o")
+
+
+def t5_decode_step(weights: dict, config: dict, batch_size: int = 2,
+                   max_len: int = 8, src_len: int = 12) -> O.ModelProto:
+    """The KV-cache decode form of the T5 decoder, one token per call.
+
+    Inputs, in order: ``x_step`` [B, 1, d] (the token embedding; T5 has no
+    positions, so ``generate_kv`` takes ``wpe=None``), ``attn_mask``
+    [1, 1, 1, L+1] additive, ``score_bias`` [1, H, 1, L+1] (row t of the
+    ``_decode_bias`` table on the proto, fed by ``generate_kv(...,
+    score_bias=proto._decode_bias)``; every layer adds it, as HF shares
+    block 0's bias), ``encoder_memory`` [B, S, d], then ``past_k.i``/
+    ``past_v.i`` [B, H, L, d_kv] per layer. Outputs: ``logits`` [B, 1, V],
+    then ``present_k.i``/``present_v.i`` [B, H, 1, d_kv] per layer."""
+    cfg = _cfg(config)
+    w = weights
+    eps = float(cfg["layer_norm_epsilon"])
+    d_model = int(cfg["d_model"])
+    n_heads, d_kv = int(cfg["num_heads"]), int(cfg["d_kv"])
+    g = GraphBuilder("t5_decode_step")
+    h = g.input("x_step", [batch_size, 1, d_model])
+    g.input("attn_mask", [1, 1, 1, max_len + 1])
+    g.input("score_bias", [1, n_heads, 1, max_len + 1])
+    memory = g.input("encoder_memory", [batch_size, src_len, d_model])
+    n_layer = int(cfg["num_decoder_layers"])
+    for i in range(n_layer):
+        g.input(f"past_k.{i}", [batch_size, n_heads, max_len, d_kv])
+        g.input(f"past_v.{i}", [batch_size, n_heads, max_len, d_kv])
+    presents = []
+    for i in range(n_layer):
+        key, name = f"decoder.block.{i}", f"decoder.block.{i}"
+        ln = _rms_norm(g, h, w[f"{key}.layer.0.layer_norm.weight"], eps,
+                       f"{name}.ln0")
+        att, kh, vh = _t5_decode_self_attention(
+            g, w, ln, cfg, f"{key}.layer.0.SelfAttention", i, max_len,
+            f"{name}.self")
+        presents.append((kh, vh))
+        h = g.node("Add", [h, att], out=f"{name}/residual0")
+        ln = _rms_norm(g, h, w[f"{key}.layer.1.layer_norm.weight"], eps,
+                       f"{name}.ln1")
+        att = _t5_decode_cross_attention(
+            g, w, ln, cfg, f"{key}.layer.1.EncDecAttention", memory, src_len,
+            f"{name}.cross")
+        h = g.node("Add", [h, att], out=f"{name}/residual1")
+        ln = _rms_norm(g, h, w[f"{key}.layer.2.layer_norm.weight"], eps,
+                       f"{name}.ln2")
+        ff = _t5_ff(g, w, ln, cfg, f"{key}.layer.2", f"{name}.ff")
+        h = g.node("Add", [h, ff], out=f"{name}/residual2")
+    h = _rms_norm(g, h, w["decoder.final_layer_norm.weight"], eps,
+                  "decoder.final_norm")
+    _t5_lm_head(g, w, cfg, h)
+    g.output("logits", [batch_size, 1, int(cfg["vocab_size"])])
+    for i, (kh, vh) in enumerate(presents):
+        g.node("Identity", [kh], out=f"present_k.{i}",
+               name=f"present_k_id.{i}")
+        g.node("Identity", [vh], out=f"present_v.{i}",
+               name=f"present_v_id.{i}")
+        g.output(f"present_k.{i}", [batch_size, n_heads, 1, d_kv])
+        g.output(f"present_v.{i}", [batch_size, n_heads, 1, d_kv])
+    model = g.model()
+    model._wte = _f32(w["shared.weight"])  # [vocab, d_model]
+    model._decode_bias = decode_bias_table(w, cfg, max_len)
     return model
 
 

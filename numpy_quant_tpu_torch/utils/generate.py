@@ -1,9 +1,11 @@
-"""Autoregressive decode through the KV-cache step graph and over the
-full-sequence causal graph.
+"""Autoregressive decode through the KV-cache step graph, over the
+full-sequence causal graph and over an encoder-decoder pair.
 
 Port of ``numpy_quant_tpu/utils/generate.py::generate_kv``,
-``decode_calibration``, ``_next_token``, ``generate``, ``beam_search`` and
-``generate_speculative`` over ``models/gpt.py`` and ``models/llama.py``.
+``decode_calibration``, ``_next_token``, ``generate``, ``beam_search``,
+``generate_speculative`` and ``generate_seq2seq`` over ``models/gpt.py``,
+``models/llama.py``, ``models/t5.py``, ``models/seq2seq.py`` and
+``models/whisper.py``.
 The JAX package compiles each loop into one XLA program; here each is an
 eager Python loop. ``generate_kv``'s caches are device tensors
 [B, heads, L, head] (float32, or int8 under ``kv_cache_dtype="int8"``)
@@ -22,11 +24,6 @@ import numpy as np
 import torch
 
 from ..quantization import quantize
-
-_LATER = {
-    "score_bias": "the T5 score-bias decode form is a later slice",
-    "memory": "the seq2seq (Whisper) decode form is a later slice",
-}
 
 _NEG = -1e30  # the filters' masked logit, as in the JAX package
 
@@ -85,18 +82,56 @@ def _kv_buffers(step_model, q_cache: list, shape: tuple,
     return bufs
 
 
-def _refuse_unported(key, score_bias, memory) -> None:
+def _refuse_key(key) -> None:
     if key is not None:
         raise NotImplementedError(
             "jax.random keys are not taken: pass generator= (a seeded "
             "torch.Generator) for sampling")
-    for name, value in (("score_bias", score_bias), ("memory", memory)):
-        if value is not None:
-            raise NotImplementedError(_LATER[name])
 
 
-def _cache_start(rope) -> int:
-    return 2 if rope is None else 4
+def _cache_start(step_model, rope=None, score_bias=False,
+                 memory=False) -> int:
+    """Index of the first cache input of the step graph's layout: x_step,
+    attn_mask, then cos_step/sin_step (RoPE), score_bias (T5) and
+    encoder_memory (seq2seq) where given. Raises ValueError where the
+    graph's inputs are not that layout."""
+    layout = ((["cos_step", "sin_step"] if rope is not None else [])
+              + (["score_bias"] if score_bias else [])
+              + (["encoder_memory"] if memory else []))
+    start = 2 + len(layout)
+    names = [v.name for v in step_model.inputs]
+    if names[2:start] != layout or not names[start].startswith("past_"):
+        raise ValueError(f"the step graph's inputs {names[2:start + 1]} "
+                         f"after x_step and attn_mask are not the layout "
+                         f"{layout} + caches the arguments give")
+    return start
+
+
+def _memory_buffer(model, name: str, shape: tuple) -> torch.Tensor:
+    """A float32 device buffer kept on ``model`` for an input the captured
+    forward reads in place (an encoder memory, a decoder's embeddings): one
+    address from call to call, so the forward is captured once."""
+    cache = model.__dict__.setdefault("_input_buffers", {})
+    buf = cache.get((name, shape))
+    if buf is None:
+        buf = torch.zeros(shape, dtype=torch.float32, device=model.device)
+        cache[(name, shape)] = buf
+    return buf
+
+
+def _placed_memory(step_model, memory, cache_start: int) -> torch.Tensor:
+    """The step model's ``encoder_memory`` buffer holding ``memory``."""
+    hint = tuple(int(d) for d in step_model.inputs[cache_start - 1].shape_hint)
+    buf = _memory_buffer(step_model, "encoder_memory", hint)
+    buf.copy_(_as_device(memory, step_model.device).reshape(hint))
+    return buf
+
+
+def _as_device(arr, device) -> torch.Tensor:
+    """A float32 tensor on ``device`` of a numpy array or tensor."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(device)
 
 
 def _divide(x: torch.Tensor, divisor) -> torch.Tensor:
@@ -246,12 +281,19 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
     rows feed the graph's ``cos_step``/``sin_step`` inputs, and ``wpe``
     may be None.
 
-    ``score_bias=`` and ``memory=`` (the T5 and Whisper step forms) raise
-    ``NotImplementedError``, and so does a JAX PRNG ``key``."""
-    _refuse_unported(key, score_bias, memory)
+    ``score_bias=`` ([L, H, L+1], a T5 step model's ``_decode_bias``) feeds
+    row t of the table, placed on the device once, as the graph's
+    ``score_bias`` input [1, H, 1, L+1] at step t. ``memory=`` ([B, S, d],
+    an encoder output) feeds the graph's ``encoder_memory`` input, copied
+    once per call into a buffer the captured step reads in place (the
+    seq2seq step forms: models/t5.py, models/seq2seq.py,
+    models/whisper.py). A JAX PRNG ``key`` raises
+    ``NotImplementedError``."""
+    _refuse_key(key)
     prompt_ids = np.asarray(prompt_ids)
     batch, t0 = prompt_ids.shape
-    cache_start = _cache_start(rope)
+    cache_start = _cache_start(step_model, rope, score_bias is not None,
+                               memory is not None)
     n_layer, b, nh, length, hd = _kv_layout(step_model, cache_start)
     if b != batch:
         raise ValueError(f"graph batch {b} != prompt batch {batch}")
@@ -266,6 +308,9 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
     rope_d = None if rope is None else (
         _placed_table(step_model, "rope_cos", rope[0]),
         _placed_table(step_model, "rope_sin", rope[1]))
+    bias_d = _placed_table(step_model, "score_bias", score_bias)
+    memory_in = [] if memory is None else [
+        _placed_memory(step_model, memory, cache_start)]
     sampling = not (temperature is None and top_k is None and top_p is None
                     and min_p is None)
     if sampling and generator is None:
@@ -275,8 +320,9 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
     ids[:, :t0] = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
     caches = _kv_buffers(step_model, q_cache, (batch, nh, length, hd),
                          cache_dtype)
-    # the captured step graph reads the caches where they lie
-    inplace = tuple(range(cache_start, cache_start + len(caches)))
+    # the captured step graph reads the caches and the memory where they lie
+    inplace = tuple(range(cache_start - len(memory_in),
+                          cache_start + len(caches)))
     masks = torch.from_numpy(np.stack(
         [_step_mask(t, length) for t in range(max(total - 1, 1))])).to(dev)
     presence = None
@@ -289,7 +335,10 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
         if wpe_d is not None:
             x = x + wpe_d[t]
         extra = [] if rope_d is None else [r[:, :, t:t + 1, :] for r in rope_d]
-        outs = step_model([x[:, None, :], masks[t]] + extra + caches,
+        if bias_d is not None:
+            extra.append(bias_d[t][None, :, None, :])
+        outs = step_model([x[:, None, :], masks[t]] + extra + memory_in
+                          + caches,
                           as_numpy=False, inplace=inplace)
         row = outs[0][:, 0, :]
         if step_logits is not None:
@@ -308,19 +357,25 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
 
 @torch.inference_mode()
 def decode_calibration(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
-                       wpe: np.ndarray, rope=None) -> list:
+                       wpe: np.ndarray, rope=None,
+                       score_bias: np.ndarray = None,
+                       memory: np.ndarray = None) -> list:
     """Replay ``prompt_ids`` (teacher-forced) through the float decode step
     and return one input list per step, as device tensors: per-step
     calibration batches for quantizing the step graph. Compose with
     ``Model.calibration_stats`` and ``utils.merge_calibration_stats``,
-    then ``quantize(stats=...)``. ``wpe`` and ``rope`` as in
-    :func:`generate_kv`."""
+    then ``quantize(stats=...)``. ``wpe``, ``rope``, ``score_bias`` and
+    ``memory`` as in :func:`generate_kv`."""
     prompt_ids = np.asarray(prompt_ids)
     batch, t0 = prompt_ids.shape
-    n_layer, b, nh, length, hd = _kv_layout(step_model, _cache_start(rope))
+    cache_start = _cache_start(step_model, rope, score_bias is not None,
+                               memory is not None)
+    n_layer, b, nh, length, hd = _kv_layout(step_model, cache_start)
     dev = step_model.device
     wte_d = _placed_table(step_model, "wte", wte)
     wpe_d = _placed_table(step_model, "wpe", wpe)
+    bias_d = _placed_table(step_model, "score_bias", score_bias)
+    mem_d = None if memory is None else _as_device(memory, dev)
     ids = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
     caches = [torch.zeros((batch, nh, length, hd), dtype=torch.float32,
                           device=dev) for _ in range(2 * n_layer)]
@@ -333,6 +388,10 @@ def decode_calibration(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
         extra = [] if rope is None else [
             torch.from_numpy(np.ascontiguousarray(
                 r[:, :, t:t + 1, :], np.float32)).to(dev) for r in rope]
+        if bias_d is not None:
+            extra.append(bias_d[t][None, :, None, :].clone())
+        if mem_d is not None:
+            extra.append(mem_d)
         inputs = [x[:, None, :], mask] + extra + [c.clone() for c in caches]
         out.append(inputs)
         res = step_model(inputs, as_numpy=False)
@@ -367,7 +426,7 @@ def generate(model, prompt_ids: np.ndarray, wte: np.ndarray,
     ``repetition_penalty`` (HF CTRL semantics) composes with greedy
     decoding too. Returns [B, T0 + max_new_tokens] int32 ids. A JAX PRNG
     ``key`` raises ``NotImplementedError``."""
-    _refuse_unported(key, None, None)
+    _refuse_key(key)
     prompt_ids = np.asarray(prompt_ids)
     batch, t0 = prompt_ids.shape
     length = _graph_length(model)
@@ -571,3 +630,63 @@ def generate_speculative(target_model, draft_model, prompt_ids: np.ndarray,
         t = torch.clamp(t + n + 1, max=total)
         rounds += 1
     return ids.cpu().numpy().astype(np.int32), rounds
+
+
+@torch.inference_mode()
+def generate_seq2seq(enc_model, dec_model, src_ids: np.ndarray,
+                     wte: np.ndarray, max_new_tokens: int,
+                     decoder_start_id: int, temperature: float = None,
+                     top_k: int = None, top_p: float = None, key=None,
+                     generator: torch.Generator = None) -> np.ndarray:
+    """Encoder-decoder generation over the encoder and decoder graph forms
+    (models/seq2seq.py, models/whisper.py): the encoder runs once over
+    ``src_ids`` [B, S], then the decoder graph runs at its fixed target
+    length once per new token against that memory, picking from the logits
+    at the last filled position (its causal self-attention keeps the zero
+    tail out of the live positions). ``enc_model``/``dec_model`` are any
+    Model/QModel over the two graphs, quantized independently or not. Only
+    the token embedding (``wte`` [V, d]) happens outside the graphs.
+
+    A float ``src_ids`` feeds the encoder directly (Whisper's
+    ``input_features``); ``wte`` then embeds the decoder's tokens only.
+    Greedy argmax by default; ``temperature``/``top_k``/``top_p`` switch
+    to filtered sampling with Gumbel noise from ``generator`` (one seeded 0
+    on the model's device when None). The memory, the embeddings and the
+    ids stay on the device; only the finished ids come back. Returns
+    [B, 1 + max_new_tokens] int32 ids starting with ``decoder_start_id``.
+    A JAX PRNG ``key`` raises ``NotImplementedError``."""
+    _refuse_key(key)
+    src = src_ids if isinstance(src_ids, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(src_ids))
+    batch = int(src.shape[0])
+    length = _graph_length(dec_model)
+    if 1 + max_new_tokens > length:
+        raise ValueError(f"start token + {max_new_tokens} new tokens "
+                         f"exceeds the decoder graph's fixed length {length}")
+    dev = dec_model.device
+    wte_d = _placed_table(dec_model, "wte", wte)
+    if src.is_floating_point():
+        enc_in = _as_device(src, enc_model.device)
+    else:
+        enc_in = _placed_table(enc_model, "wte", wte)[
+            src.to(device=enc_model.device, dtype=torch.int64)]
+    memory = enc_model([enc_in], as_numpy=False)[0]
+    hint = tuple(int(d) for d in dec_model.inputs[1].shape_hint)
+    mem_d = _memory_buffer(dec_model, "encoder_memory", hint)
+    mem_d.copy_(memory.to(device=dev, dtype=torch.float32))
+    embeds = _memory_buffer(dec_model, "decoder_embeds",
+                            (batch, length, int(wte_d.shape[1])))
+    embeds.zero_()
+    sampling = not (temperature is None and top_k is None and top_p is None)
+    if sampling and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.zeros((batch, length), dtype=torch.int64, device=dev)
+    ids[:, 0] = int(decoder_start_id)
+    embeds[:, 0] = wte_d[int(decoder_start_id)]
+    for i in range(max_new_tokens):
+        # the decoder reads the embeddings and the memory where they lie
+        row = dec_model([embeds, mem_d], as_numpy=False, inplace=(0, 1))[0][:, i]
+        nxt = _next_token(row, temperature, top_k, top_p, generator)
+        embeds[:, i + 1] = wte_d[nxt]
+        ids[:, i + 1] = nxt
+    return ids[:, :1 + max_new_tokens].cpu().numpy().astype(np.int32)

@@ -2,17 +2,24 @@
 
 Port of ``numpy_quant_tpu/utils/serving.py::ContinuousBatcher`` over the
 port's KV-cache step graphs (``models/gpt.py::gpt_decode_step``,
-``models/llama.py::llama_decode_step``). ``utils.generate.generate_kv``
+``models/llama.py::llama_decode_step``, ``models/t5.py::t5_decode_step``,
+``models/seq2seq.py::bart_decode_step``,
+``models/whisper.py::whisper_decode_step``). ``utils.generate.generate_kv``
 runs one batch lockstep; this engine gives each of the step graph's B rows
 (slots) its own request, position, prompt length and budget, so a finished
 request's slot takes the next queued one at once.
 
 * One step graph for all B slots. Each step gathers per-row inputs on the
   device -- the token embedding, the additive mask ``[B, 1, 1, L+1]`` (cache
-  lanes below the row's position live) and, for RoPE graphs, the row's
-  ``cos``/``sin`` ``[B, 1, 1, D]`` -- and writes each row's present at the
-  row's own position. The step graphs declare batch-1 mask and RoPE inputs;
-  the executor broadcasts the per-row forms.
+  lanes below the row's position live), for RoPE graphs the row's
+  ``cos``/``sin`` ``[B, 1, 1, D]`` and for T5 the row's score-bias row
+  ``[B, H, 1, L+1]`` of the ``[L, H, L+1]`` table -- and writes each row's
+  present at the row's own position. The step graphs declare batch-1 mask,
+  RoPE and bias inputs; the executor broadcasts the per-row forms.
+* Seq2seq step graphs (``has_memory=True``) read one ``[B, S, d]`` encoder
+  memory buffer placed at construction; each admitted request's
+  ``memory_row`` [S, d] is copied into its slot's rows in place, between
+  steps, as the captured step reads the buffer where it lies.
 * Prompts are teacher forced one token per step, or admitted in one call
   of a prefill graph (``prefill_model=``: ``gpt_prefill``/``llama_prefill``)
   whose presents fill the slot's cache rows.
@@ -35,9 +42,8 @@ request's slot takes the next queued one at once.
   per chunk (plus ``pos`` where a slot finishes, and on paged engines
   before each chunk, to allocate blocks).
 
-The JAX engine's SSM (``state_carry``), seq2seq (``has_memory``) and T5
-(``score_bias``) layouts raise ``NotImplementedError``: their step graphs
-are not ported.
+The JAX engine's SSM layout (``state_carry``) raises
+``NotImplementedError``: its step graph is not ported.
 """
 from __future__ import annotations
 
@@ -46,14 +52,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .generate import (_cache_quantizer, _divide, _gumbel, _kv_layout,
-                       _placed_table)
+from .generate import (_as_device, _cache_quantizer, _cache_start, _divide,
+                       _gumbel, _kv_layout, _placed_table)
 
-_UNPORTED = {
-    "state_carry": "the Mamba (state_carry) step graph is not ported",
-    "has_memory": "the seq2seq (has_memory) step graphs are not ported",
-    "score_bias": "the T5 score-bias step graph is not ported",
-}
 _PREFILL_STREAM = 1_000_000  # noise stream offset of sampled prefill tokens
 
 
@@ -63,6 +64,7 @@ class _Request:
     prompt: np.ndarray          # [plen] int32
     max_new_tokens: int
     temperature: float = 0.0    # 0 = greedy
+    memory_row: np.ndarray = None  # [S, d] encoder rows (seq2seq)
 
 
 @dataclass
@@ -92,11 +94,14 @@ class ContinuousBatcher:
     """Online serving engine over a KV-cache decode-step model.
 
     ``step_model`` is a decode-step graph (gpt_decode_step,
-    llama_decode_step) built with ``batch_size`` slots and cache length
-    ``max_len``; ``wte``/``wpe``/``rope``/``kv_cache_dtype`` mirror
-    :func:`generate_kv`'s layout arguments. ``eos_id`` retires a slot early
-    when generated. ``prefill_model`` (gpt_prefill/llama_prefill, batch 1)
-    admits each request whose prompt fits its length in one call;
+    llama_decode_step, t5_decode_step, bart_decode_step,
+    whisper_decode_step) built with ``batch_size`` slots and cache length
+    ``max_len``; ``wte``/``wpe``/``rope``/``score_bias``/``kv_cache_dtype``
+    mirror :func:`generate_kv`'s layout arguments, and ``has_memory`` marks
+    a seq2seq step graph, whose requests each bring their ``memory_row``.
+    ``eos_id`` retires a slot early when generated. ``prefill_model``
+    (gpt_prefill/llama_prefill, batch 1; not with the score-bias or memory
+    layouts) admits each request whose prompt fits its length in one call;
     longer prompts are teacher forced. ``seed`` seeds the sampling noise;
     a JAX PRNG ``key`` is not taken.
 
@@ -118,16 +123,15 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 "jax.random keys are not taken: pass seed= (an int) for "
                 "the sampling noise")
-        for name, value in (("state_carry", state_carry),
-                            ("has_memory", has_memory),
-                            ("score_bias", score_bias is not None)):
-            if value:
-                raise NotImplementedError(_UNPORTED[name])
+        if state_carry:
+            raise NotImplementedError(
+                "the Mamba (state_carry) step graph is not ported")
         self.model = step_model
         self.eos_id = eos_id
         self.seed = int(seed)
         self._chunk = max(1, int(steps_per_sync))
-        cache_start = 2 if rope is None else 4
+        cache_start = _cache_start(step_model, rope, score_bias is not None,
+                                   has_memory)
         n_layer, b, nh, length, hd = _kv_layout(step_model, cache_start)
         self.n_slots, self.max_len = int(b), int(length)
         self._layout = (n_layer, int(nh), int(hd))
@@ -139,6 +143,12 @@ class ContinuousBatcher:
             self._sin = _placed_table(step_model, "rope_sin", rope[1])[0, 0]
         else:
             self._cos = self._sin = None
+        self._bias = _placed_table(step_model, "score_bias", score_bias)
+        self._memory = None
+        if has_memory:
+            hint = step_model.inputs[cache_start - 1].shape_hint
+            self._memory = torch.zeros(tuple(int(d) for d in hint),
+                                       dtype=torch.float32, device=dev)
         self._q_cache, cache_dtype = _cache_quantizer(
             step_model, kv_cache_dtype, cache_start)
 
@@ -177,13 +187,18 @@ class ContinuousBatcher:
         self._caches = [q(torch.zeros(shape, dtype=torch.float32,
                                       device=dev)).to(cache_dtype)
                         for q in self._q_cache]
-        # the captured step graph reads dense caches where they lie; paged
-        # views are gathered anew each step, so they are copied in
-        self._inplace = () if self._paged is not None else tuple(
-            range(cache_start, cache_start + len(self._caches)))
+        # the captured step graph reads the memory and dense caches where
+        # they lie; paged views are gathered anew each step, so they are
+        # copied in
+        self._inplace = (() if self._memory is None else (cache_start - 1,)) \
+            + (() if self._paged is not None else tuple(
+                range(cache_start, cache_start + len(self._caches))))
 
         self._prefill = prefill_model
         if prefill_model is not None:
+            if score_bias is not None or has_memory:
+                raise ValueError("prefill_model supports the plain and RoPE "
+                                 "decode layouts only")
             pb, plen_hint, _ = prefill_model.inputs[0].shape_hint
             if int(pb) != 1:
                 raise ValueError("prefill graphs admit one request at a "
@@ -255,6 +270,11 @@ class ContinuousBatcher:
             rpos = pos.clamp(max=self._cos.shape[0] - 1)
             extra = [self._cos[rpos][:, None, None, :],
                      self._sin[rpos][:, None, None, :]]
+        if self._bias is not None:
+            # [L, H, L+1] table -> the rows' [B, H, 1, L+1] bias
+            extra.append(self._bias[pos.clamp(max=L - 1)][:, :, None, :])
+        if self._memory is not None:
+            extra.append(self._memory)
         outs = self.model([x, mask[:, None, None, :]] + extra
                           + self._views(), as_numpy=False,
                           inplace=self._inplace)
@@ -325,7 +345,8 @@ class ContinuousBatcher:
         toks = self._ids[slot, :known].cpu().numpy().astype(np.int32)
         tmax = info.plen + info.max_new
         self._queue.insert(0, _Request(info.req_id, toks, tmax - known,
-                                       info.req.temperature))
+                                       info.req.temperature,
+                                       info.req.memory_row))
         self._release_blocks(slot)
         self._slots[slot] = None
         self._active[slot] = False
@@ -369,10 +390,11 @@ class ContinuousBatcher:
                memory_row: np.ndarray = None,
                temperature: float = None) -> int:
         """Enqueue a request; returns its id. ``prompt_ids`` is a 1-D
-        token array; ``temperature`` switches this request to sampling
-        (greedy when None or 0). ``memory_row`` (the seq2seq layouts'
-        encoder rows) must be None: those step graphs are not ported."""
-        if memory_row is not None:
+        token array; ``memory_row`` ([S, d]) is the request's encoder
+        output, given exactly when the step model takes encoder memory;
+        ``temperature`` switches this request to sampling (greedy when
+        None or 0)."""
+        if (memory_row is None) != (self._memory is None):
             raise ValueError("memory_row must be passed iff the step "
                              "model takes encoder memory")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -392,7 +414,7 @@ class ContinuousBatcher:
                     f"request needs {need} KV blocks but the pool has "
                     f"{n_blocks - 1} allocatable (block_size {blk})")
         req = _Request(self._next_id, prompt, int(max_new_tokens),
-                       float(temperature or 0.0))
+                       float(temperature or 0.0), memory_row)
         self._next_id += 1
         self._queue.append(req)
         return req.req_id
@@ -486,6 +508,10 @@ class ContinuousBatcher:
         self._tmax[slot] = plen + req.max_new_tokens
         self._active[slot] = True
         self._temp[slot] = req.temperature
+        if req.memory_row is not None:
+            # in place: the captured step holds the buffer's address
+            self._memory[slot].copy_(_as_device(req.memory_row, self.device)
+                                     .reshape(self._memory.shape[1:]))
         self._slots[slot] = _SlotInfo(req.req_id, plen, req.max_new_tokens,
                                       req)
         return True
@@ -542,8 +568,9 @@ class ContinuousBatcher:
 
     def run(self, requests) -> dict[int, np.ndarray]:
         """Drain a workload: submit every ``(prompt_ids, max_new_tokens)``
-        tuple (the positional arguments of :meth:`submit`), then step until
-        all requests finish. Returns {req_id: tokens}."""
+        or ``(prompt_ids, max_new_tokens, memory_row)`` tuple (the
+        positional arguments of :meth:`submit`), then step until all
+        requests finish. Returns {req_id: tokens}."""
         out: dict[int, np.ndarray] = {}
         for req in requests:
             self.submit(*req)

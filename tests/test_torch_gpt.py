@@ -272,10 +272,12 @@ def test_generate_kv_keeps_every_step_logits(gpt):
 @pytest.mark.parametrize("option,value", [
     ("score_bias", 1), ("memory", 1), ("key", 0)])
 def test_unported_options_raise(gpt, option, value):
-    """The T5 and Whisper step forms are later slices; a JAX PRNG key is
-    refused in favour of generator=."""
+    """The T5 and seq2seq step forms' arguments need a step graph with
+    their inputs (GPT-2's has none); a JAX PRNG key is refused in favour of
+    generator=."""
     tm = Model.from_onnx(gpt["t_step"], device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice|generator="):
+    error = NotImplementedError if option == "key" else ValueError
+    with pytest.raises(error, match="layout|generator="):
         TGEN.generate_kv(tm, gpt["prompt"], gpt["t_step"]._wte,
                          gpt["t_step"]._wpe, NEW, **{option: value})
 

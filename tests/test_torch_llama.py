@@ -359,3 +359,56 @@ def test_sliding_window_matches_jax(lm):
             if n.op == "FusedAttention"]
     assert twin == jwin == [WINDOW] * LAYERS
     np.testing.assert_array_equal(tq([x])[0], unfused)
+
+
+@pytest.fixture(scope="module")
+def mistral():
+    """JAX's mistral_causal_lm (seed 0) and the port's on the same module's
+    weights, with its torch module."""
+    with jax.enable_x64(False):
+        jproto = JL.mistral_causal_lm(batch_size=2, seq_len=16, seed=0)
+    hf = jproto._torch_module
+    w = {k: v.detach().numpy().copy() for k, v in hf.state_dict().items()}
+    return dict(jproto=jproto, hf=hf,
+                tproto=TL.mistral_causal_lm(w, batch_size=2, seq_len=16),
+                x=np.random.default_rng(9).normal(size=(2, 16, 32))
+                .astype(np.float32))
+
+
+def test_mistral_default_config_and_graph_match_jax(mistral):
+    """mistral_default_config carries JAX's MistralConfig fields; the graph
+    equals JAX's, and its float logits lie within 2e-5 of the live
+    MistralForCausalLM's (JAX's oracle) and 1e-5 * max|logit| of JAX's."""
+    hf_cfg = mistral["hf"].config
+    for key, val in TL.mistral_default_config().items():
+        assert getattr(hf_cfg, key) == val, key
+    assert _graph_signature(mistral["tproto"]) == \
+        _graph_signature(mistral["jproto"])
+    got = Model.from_onnx(mistral["tproto"], device="cpu")([mistral["x"]])[0]
+    with torch.no_grad():
+        want = mistral["hf"](inputs_embeds=torch.from_numpy(
+            mistral["x"])).logits.numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    with jax.enable_x64(False):
+        jout = np.asarray(nq.Model.from_onnx(mistral["jproto"])(
+            [mistral["x"]])[0])
+    np.testing.assert_allclose(got, jout, rtol=0,
+                               atol=1e-5 * np.abs(jout).max())
+    with pytest.raises(ValueError, match="sliding_window"):
+        TL.mistral_causal_lm({}, dict(TL.mistral_default_config(),
+                                      sliding_window=None))
+
+
+def test_mistral_window_fuses_bit_identical(mistral):
+    """The banded mask folds into the fused kernels' causal_window (6) in
+    both fused attentions, as JAX's; fused == unfused bit for bit."""
+    x = mistral["x"]
+    tm = Model.from_onnx(mistral["tproto"], device="cpu")
+    q = tm.quantize(bit_width=8, stats=tm.calibration_stats([x]))
+    base = q([x])[0]
+    rep = q.optimize()
+    assert rep["fuse_attention"] == 2 and rep["fusion_failures"] == []
+    fnodes = [n for n in q.nodes
+              if n.op in ("FusedAttention", "FusedAttentionHS")]
+    assert [n.attrs.get("causal_window") for n in fnodes] == [6, 6]
+    np.testing.assert_array_equal(q([x])[0], base)

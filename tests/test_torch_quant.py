@@ -252,6 +252,9 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.bnfold\n"
             "import numpy_quant_tpu_torch.models.cnn\n"
             "import numpy_quant_tpu_torch.models.gnn\n"
+            "import numpy_quant_tpu_torch.models.seq2seq\n"
+            "import numpy_quant_tpu_torch.models.whisper\n"
+            "import numpy_quant_tpu_torch.models.text_fixture\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numpy_quant_tpu' or "
             "m.startswith('numpy_quant_tpu.')]\n"

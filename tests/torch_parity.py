@@ -102,3 +102,60 @@ def assert_integers_equal(port_qmodel, want: dict) -> int:
                 want[v.name].astype(np.int64), err_msg=v.name)
             n += 1
     return n
+
+
+def graph_signature(proto):
+    """(nodes as (op, inputs, outputs), input names, output names, sorted
+    initializer names) of a ModelProto of either package."""
+    g = proto.graph
+    return ([(n.op_type, list(n.input), list(n.output)) for n in g.node],
+            [i.name for i in g.input], [o.name for o in g.output],
+            sorted(i.name for i in g.initializer))
+
+
+def assert_same_graph(tproto, jproto):
+    """The port's graph equals JAX's node for node, with equal
+    initializers."""
+    from numpy_quant_tpu import onnx as J_ONNX
+    assert graph_signature(tproto) == graph_signature(jproto)
+    jinit = {t.name: t for t in jproto.graph.initializer}
+    for t in tproto.graph.initializer:
+        np.testing.assert_array_equal(O.to_array(t),
+                                      J_ONNX.to_array(jinit[t.name]),
+                                      err_msg=t.name)
+
+
+def jax_state(jq) -> dict:
+    """A JAX QModel's quantized constants and quant params, in the layout
+    ``numpy_quant_tpu_torch.convert.load_jax_params`` installs."""
+    from numpy_quant_tpu.graph import Constant as JConstant
+    from numpy_quant_tpu.tensor import QTensor as JQ
+    consts = {}
+    for v in jq.values:
+        if isinstance(v, JConstant) and isinstance(v.data, JQ):
+            zp = v.data.zero_point
+            consts[v.name] = {"payload": np.asarray(v.data.data),
+                              "scale": np.asarray(v.data.scale, np.float32),
+                              "zero_point": None if zp is None else int(zp),
+                              "bit_width": v.data.bit_width}
+    qps = {name: (np.asarray(qp.scale, np.float32),
+                  None if qp.zero_point is None else int(qp.zero_point))
+           for name, qp in jq.quant_params.items()}
+    return {"constants": consts, "quant_params": qps}
+
+
+def greedy_hf(module, start_id: int, n_new: int, **enc_inputs) -> np.ndarray:
+    """The token-by-token full re-forward greedy loop of a live
+    encoder-decoder ``transformers`` module (JAX's tests' oracle):
+    [B, 1 + n_new] int32 ids starting with ``start_id``."""
+    import torch
+    batch = next(iter(enc_inputs.values())).shape[0]
+    ids = np.full((batch, 1), start_id, dtype=np.int64)
+    feeds = {k: torch.from_numpy(v) for k, v in enc_inputs.items()}
+    for _ in range(n_new):
+        with torch.no_grad():
+            logits = module(**feeds,
+                            decoder_input_ids=torch.from_numpy(ids)).logits
+        ids = np.concatenate([ids, logits[:, -1, :].argmax(-1).numpy()[:, None]],
+                             axis=1)
+    return ids.astype(np.int32)
