@@ -8,9 +8,11 @@ full-sequence generators over TinyLlama-1.1B), ONNX interop (the
 conformance vectors; QDQ/QOperator export and save/load of ViT-Base) and
 the PTQ accuracy passes (GPTQ, AdaRound, bias correction, SmoothQuant,
 AWQ, rotation, equalization, clipped calibration, mixed precision,
-dynamic quantization) and the CNN/GNN zoo (ResNet-18 and MobileNet-V1
-widths, Cora-size GCNs, a CNN, a U-Net and an LSTM classifier) on one
-NVIDIA GPU.
+dynamic quantization), the CNN/GNN zoo (ResNet-18 and MobileNet-V1
+widths, Cora-size GCNs, a CNN, a U-Net and an LSTM classifier),
+encoder-decoder generation, quantization-aware training and the rest of
+the model zoo (Mamba-130m, Mixtral-8x7B widths, CLIP ViT-B/32,
+BERT-base) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -313,7 +315,33 @@ Phases, one line each (any failure raises and the script exits non-zero):
      packed-matmul launch of one eager run per path against its plain
      version (0 mismatches; head-split: 0 flipped blocks where the exact
      form sums in torch's order), hs_plan's choice at every head-split
-     shape.
+     shape;
+ 22. QAT and the rest of the model zoo: (a) QAT of mlp.onnx at 4 bits
+     under JAX's tests/test_qat.py rules (the loss below 0.8x its first,
+     closer to float than PTQ, the float model untouched, train_filter
+     keeping fc1 at PTQ's integers, accuracy at least PTQ's), JAX's 3-bit
+     ViT capstone on the small fixture (QAT > PTQ + 0.015 held out, the
+     loss minimum below half the first) and on the ViT-Base-width fixture
+     (then optimize() + pack_weights(): packed_qmatmul, kernel == unpack,
+     captured bf16 B=96), BERT-base W4A8 (40 steps on int64 ids, every
+     MatMul weight 4 bits); (b) Mamba-130m at B=8: the L=128 full form
+     (38,024 nodes) float and int8 captured, the state-carry step under
+     generate_mamba (32 + 96; float tokens equal the full form's under
+     the margin rule), int8 from mamba_decode_calibration under "kernel"
+     (97 splitk_qmatmul launches per step, tokens equal "unpack"'s), the
+     state_carry engine over 16 requests equal to generate_mamba alone;
+     (c) Mixtral-8x7B widths at 1 of 32 layers: the int8 full form at
+     1 x 2048 (1 plain fusion at D=128, fused == unfused bit for bit),
+     the step at B=8, cache 512 (float tokens equal the L=64 full form's,
+     top-2 routing equal at every position; int8 fused with the int8
+     cache; W4 g=128 under "kernel"), fused_attention timed at D=128 and
+     splitk_wo_matmul at its six decode shapes; (d) CLIP ViT-B/32, 96
+     images x 1,000 prompts of 77 tokens (24 head-split fusions, fused ==
+     unfused, f32 and bf16 captured); (e) BERT-base at 32 x 128 (12
+     fusions, fused == unfused, one capture for three batches of device
+     ids). Every quantize/dequantize, head-split, plain-attention, packed
+     and weight-only launch of one eager run per model against its plain
+     version, with hs_plan's, qmm_plan's and wo_plan's choice per shape.
 Phases 1-17 run captured forwards from here on, except where a forward
 is swapped or hooked (plain_chain, boundary_cost, phase 3's kernel and
 plain-chain turns, record=True): those walk eagerly.
@@ -3967,13 +3995,14 @@ def outputs_equal(a, b) -> bool:
 
 def captured_forward(path: str, card: str, model, inputs: list,
                      units: int, unit: str, reps: int = CAPTURE_REPS,
-                     **labels) -> dict:
+                     trace_tries: int = 3, **labels) -> dict:
     """Phase 18 on a single-forward path: ``model(inputs)`` eager
     (config.eager_forward) and captured. The first captured call
     captures; a steady one must equal the eager outputs bit for bit,
     launch what eager launches, and sync the host 0 times; the captured
     graph must hold each hand kernel as often as eager launches it, and a
-    trace of one replay must show each (replay_trace).
+    trace of one replay must show each (replay_trace, at most
+    ``trace_tries`` traces).
     Prints eager and captured ``unit``s/s (``units`` per forward) in
     turns (eager, captured, eager, captured), the copy into the graph's
     input buffers, the capture's seconds and pool, busy ms, the idle
@@ -3994,8 +4023,8 @@ def captured_forward(path: str, card: str, model, inputs: list,
     (out, counts_steady), steady_syncs = host_syncs(lambda: counted(call))
     equal = outputs_equal(out, ref)
     graph_table, graph_equal = graph_check(model, counts_eager)
-    rows, table, trace_equal, present, traces = replay_trace(call,
-                                                              counts_eager)
+    rows, table, trace_equal, present, traces = replay_trace(
+        call, counts_eager, trace_tries)
     busy = sum(ms for _, ms, _ in rows)
     walls = {"eager": [], "captured": []}
     host = []
@@ -4957,17 +4986,47 @@ FIXTURE_FLOOR, FIXTURE_DROP = 0.97, 0.02  # JAX's capstone rules
 ED_REPS = 3              # timed forwards per turn of a captured forward
 ED_ATTN = ("fused_attention_hs", "fused_attention_hs_blockq")
 ED_KERNELS = ("quantize", "dequantize", "fused_attention_hs",
-              "fused_attention_hs_blockq", "splitk_qmatmul",
-              "splitk_wo_matmul")
+              "fused_attention_hs_blockq", "fused_attention",
+              "splitk_qmatmul", "packed_qmatmul", "splitk_wo_matmul")
 
 
-def ed_note(shapes: dict):
-    """A shadowed() note recording each head-split launch's shape: (kernel,
-    nq, N, heads, head dim, softmax form, bias) -> [calls, flipped (row,
-    head) blocks, (row, head) blocks, hs_plan's choice, exact_in_order]."""
+def ed_note(shapes: dict, plans: dict):
+    """A shadowed() note. Each head-split launch's shape: (kernel, nq, N,
+    heads, head dim, softmax form, bias) -> [calls, flipped (row, head)
+    blocks, (row, head) blocks, hs_plan's choice, exact_in_order]; the
+    plain [BH, N, D] attention kernel's: ("plain", BH, N, D) -> [calls,
+    mismatching outputs, outputs, exact_in_order]; the packed and
+    weight-only matmuls': (kernel, M, K, N, bits) -> [calls, qmm_plan's or
+    wo_plan's choice]."""
     from numpy_quant_tpu_torch.kernels import attention as A
+    from numpy_quant_tpu_torch.kernels import qmatmul as Q
 
     def note(name, a, kw, got, want):
+        sms = A.sm_count(got.device.index or 0)
+        if name == "fused_attention":
+            bh, n, d = a[0].shape
+            row = plans.setdefault(("plain", bh, n, d), [0, 0, 0, None])
+            row[0] += 1
+            row[1] += int((got != want).sum())
+            row[2] += got.numel()
+            row[3] = exact_in_order(bh * A.plain_tile(n), n)
+            return
+        if name in ("splitk_qmatmul", "packed_qmatmul", "splitk_wo_matmul"):
+            m, k = a[0].shape
+            if name == "splitk_wo_matmul":
+                p = Q.wo_plan(m, a[1].shape[1], a[1].shape[0], kw["bits"],
+                              sms)
+                plan = f"cluster{p['cluster']}:blocks{p['blocks']}"
+                n = a[1].shape[1]
+            else:
+                n = a[2].shape[1]
+                p = Q.qmm_plan(m, n, k, kw["bits"], "splitk", sms)
+                plan = f"bn{p['bn']}:stages{p['stages']}:" \
+                    f"blocks{p['blocks']}:slabs{p['slabs']}:turns{p['turns']}"
+            row = plans.setdefault((name, m, k, n, kw["bits"]), [0, None])
+            row[0] += 1
+            row[1] = plan
+            return
         if not name.startswith("fused_attention_hs"):
             return
         xq, xk = a[0], a[1]
@@ -4984,8 +5043,7 @@ def ed_note(shapes: dict):
         row[1] += int((per_block > 0).sum())
         row[2] += per_block.numel()
         if "blockq" not in name:
-            plan = A.hs_plan(nq, xk.shape[1], d, b * heads,
-                             A.sm_count(xq.device.index or 0),
+            plan = A.hs_plan(nq, xk.shape[1], d, b * heads, sms,
                              exact=form == "exact")
             row[3] = f"warps{plan['warps']}:passes{plan['passes']}:" \
                 f"kv_both{int(plan['kv_both'])}"
@@ -4997,39 +5055,56 @@ def ed_note(shapes: dict):
 
 
 def ed_shadow_check(label: str, run, card: str) -> dict:
-    """One eager ``run()`` with every quantize/dequantize, head-split and
-    packed-matmul launch held against its plain version: 0 mismatching
-    outputs for the exact kernels where the exact attention forms sum in
-    torch's order (else at most 1% of (row, head) blocks, each within one
-    output step), splitk_wo_matmul within WO_TOL. Prints hs_plan's choice at
-    each head-split shape. Returns {kernel: [calls, mismatches, ...]}."""
+    """One eager ``run()`` with every quantize/dequantize, head-split,
+    plain-attention, packed and weight-only launch held against its plain
+    version: 0 mismatching outputs for the exact kernels where the exact
+    attention forms sum in torch's order (else at most 1% of head-split
+    (row, head) blocks, each within one output step, or of the plain
+    kernel's outputs), splitk_wo_matmul within WO_TOL. Prints hs_plan's,
+    qmm_plan's and wo_plan's choice at each shape. Returns {kernel:
+    [calls, mismatches, ...]}."""
     from numpy_quant_tpu_torch.kernels import attention as A
     from numpy_quant_tpu_torch.kernels import qmatmul as Q
-    state, shapes = {}, {}
+    state, shapes, plans = {}, {}, {}
     extra = ((A, "fused_attention_hs_monolithic",
               A.fused_attention_hs_reference),
              (A, "fused_attention_hs_blockq",
               A.fused_attention_hs_blockq_reference),
+             (A, "fused_attention", A.fused_attention_reference),
              (Q, "splitk_wo_matmul", Q.splitk_wo_matmul_reference))
-    with shadowed(state, extra=extra, note=ed_note(shapes)):
+    with shadowed(state, extra=extra, note=ed_note(shapes, plans)):
         run()
+    cardw = card.replace(" ", "_")
     for key, (calls, flips, blocks, plan, ordered) in shapes.items():
         kind, nq, n, heads, d, form, bias = key
         say("ed-attention", path=label, kernel=kind, nq=nq, n=n, heads=heads,
             head_dim=d, softmax=form, score_bias=bias, calls=calls,
             plan=plan, exact_in_order=ordered,
-            flipped_blocks=f"{flips}/{blocks}", card=card.replace(" ", "_"))
+            flipped_blocks=f"{flips}/{blocks}", card=cardw)
         if form == "exact" and ordered:
             assert flips == 0, (label, key, flips)
         else:
             assert flips <= 0.01 * blocks, (label, key, flips, blocks)
+    for key, row in plans.items():
+        if key[0] == "plain":
+            _, bh, n, d = key
+            calls, bad, total, ordered = row
+            say("ed-plain-attention", path=label, bh=bh, n=n, head_dim=d,
+                calls=calls, exact_in_order=ordered,
+                mismatching=f"{bad}/{total}", card=cardw)
+            assert bad == 0 if ordered else bad <= 0.01 * total, \
+                (label, key, bad, total)
+        else:
+            name, m, k, n, bits = key
+            say("ed-plan", path=label, kernel=name, m=m, k=k, n=n, bits=bits,
+                calls=row[0], plan=row[1], card=cardw)
     say("ed-shadow", path=label, **{
         f"shadow_{k}": f"{v[0]}calls:{v[1]}mismatches:{v[2]:.3g}max_diff"
         for k, v in state.items()})
     for name, (calls, bad, diff, scale) in state.items():
         if name == "splitk_wo_matmul":
             assert diff <= WO_TOL["f32"] * max(scale, 1e-30), (label, diff)
-        elif not name.startswith("fused_attention_hs"):  # held per shape
+        elif not name.startswith("fused_attention"):  # held per shape
             assert bad == 0, (label, name, bad, diff)
     return state
 
@@ -5069,10 +5144,12 @@ def ed_rates(float_s: dict, int8_s: dict) -> dict:
             for unit in ("tokens_per_s", "ms_per_step")}
 
 
-def ed_packed(label: str, qmodel, inputs: list, card: str) -> dict:
+def ed_packed(label: str, qmodel, inputs: list, card: str,
+              kernel: str = "splitk_qmatmul") -> dict:
     """pack_weights() on an optimize()d QModel, then one forward under
-    "kernel" (its launches shadowed by their plain versions) against the
-    "unpack" forward, bit for bit. Returns the "kernel" launches."""
+    "kernel" (its launches shadowed by their plain versions, ``kernel``
+    launched once per packed weight) against the "unpack" forward, bit for
+    bit. Returns the "kernel" launches."""
     n = qmodel.pack_weights()
     with packed_execution("kernel"):
         ed_shadow_check(f"{label}_kernel", lambda: qmodel(inputs), card)
@@ -5080,9 +5157,9 @@ def ed_packed(label: str, qmodel, inputs: list, card: str) -> dict:
     unpacked = qmodel(inputs)[0]
     equal = same_bits(kern, unpacked)
     say("ed-packed", path=label, packed=n,
-        splitk_qmatmul_launches=counts["splitk_qmatmul"],
+        **{f"{kernel}_launches": counts[kernel]},
         kernel_equals_unpack_bitwise=equal, card=card.replace(" ", "_"))
-    assert equal and counts["splitk_qmatmul"] == n > 0, (label, counts, n)
+    assert equal and counts[kernel] == n > 0, (label, counts, n)
     return {k: counts[k] for k in ED_KERNELS}
 
 
@@ -5634,6 +5711,694 @@ def encdec_phase(card: str) -> dict:
     return res
 
 
+# -- phase 22: QAT and the rest of the model zoo --------------------------------
+
+Z_REPS = 2               # timed calls per turn of a phase 22 captured forward
+QAT_MLP_POINTS = 600     # JAX's tests/test_qat.py: circles, 4-bit rules
+QAT_MLP_STEPS, QAT_FILTER_STEPS, QAT_MLP_LR = 150, 120, 3e-3
+QAT_B, QAT_STEPS, QAT_LR, QAT_BITS = 64, 60, 1e-3, 3  # JAX's ViT capstone
+QAT_CALIB_SEED, QAT_EVAL_SEEDS = 1, (100, 101, 102, 103)
+QAT_GAIN = 0.015         # the capstone rule: QAT > PTQ + 0.015 held out
+QAT_SERVE_B = 96         # the QAT'd ViT-Base-width fixture's serving batch
+BERT_QAT_B, BERT_QAT_STEPS, BERT_QAT_LR = 8, 40, 1e-3  # test_qat.py's
+MAMBA_B, MAMBA_L = 8, 128
+MAMBA_PROMPT, MAMBA_NEW = 32, 96
+MAMBA_CHECK_NEW = 16     # new tokens of the captured-against-eager decodes
+MAMBA_REQS, MAMBA_BUDGETS, MAMBA_IDS = 16, (4, 24), 40
+# of Mixtral-8x7B's 32 layers: the depth is the only cut. Two layers took
+# phase 22 to 390 s (170 s of it Mixtral: three graph builds and
+# quantize_weights of 2.8 B weights on the host), past the script's limit
+MIXTRAL_LAYERS = 1
+MIXTRAL_N, MIXTRAL_B, MIXTRAL_CACHE = 2048, 8, 512
+MIXTRAL_L, MIXTRAL_PROMPT = 64, 16  # the full form the step is held to
+CLIP_IMAGES, CLIP_PROMPTS, CLIP_T = 96, 1000, 77
+BERT_B, BERT_T = 32, 128
+
+
+def qat_mlp(card: str) -> dict:
+    """Phase 22(a): the reference MLP at 4 bits under JAX's test_qat.py
+    rules, trained on the card."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.graph import Constant
+    from numpy_quant_tpu_torch.models.mlp import load_mlp, two_circles
+    t0 = time.perf_counter()
+    x, y = two_circles(QAT_MLP_POINTS, 0.03, 3)
+    model = Model.from_onnx(load_mlp())
+    with eager():
+        f_out = model([x])[0]
+    ptq = model.quantize([x], bit_width=4)
+    ts = time.perf_counter()
+    qat = model.qat_quantize([x], bit_width=4, steps=QAT_MLP_STEPS,
+                             lr=QAT_MLP_LR)
+    step_ms = (time.perf_counter() - ts) / QAT_MLP_STEPS * 1e3
+    hist = qat.qat_loss_history
+    mse = {k: float(np.mean((m([x])[0] - f_out) ** 2))
+           for k, m in (("ptq", ptq), ("qat", qat))}
+    with eager():
+        untouched = np.array_equal(model([x])[0], f_out)
+    yt = torch.from_numpy(y.astype(np.float32)).cuda()
+
+    def loss_fn(outs):
+        p = torch.clamp(outs[0][:, 0], 1e-6, 1 - 1e-6)
+        return -torch.mean(yt * torch.log(p) + (1 - yt) * torch.log(1 - p))
+    filt = model.qat_quantize([x], bit_width=4, steps=QAT_FILTER_STEPS,
+                              lr=QAT_MLP_LR, loss_fn=loss_fn,
+                              train_filter=lambda n: n.startswith("fc2."))
+
+    def payload(m, name):
+        return next(v.data.data for v in m.values
+                    if v.name == name and isinstance(v, Constant))
+
+    def acc(m):
+        return float(((m([x])[0][:, 0] > 0.5) == y).mean())
+    res = dict(loss_first=float(hist[0]), loss_min=float(hist.min()),
+               ptq_mse=mse["ptq"], qat_mse=mse["qat"],
+               float_untouched=untouched,
+               fc1_equals_ptq=bool(torch.equal(payload(filt, "fc1.weight"),
+                                               payload(ptq, "fc1.weight"))),
+               fc2_moved=not torch.equal(payload(filt, "fc2.weight"),
+                                         payload(ptq, "fc2.weight")),
+               filter_loss_fell=bool(filt.qat_loss_history.min()
+                                     < filt.qat_loss_history[0]),
+               ptq_acc=acc(ptq), qat_acc=acc(filt), ms_per_step=step_ms,
+               seconds=time.perf_counter() - t0)
+    say("z-qat-mlp", **res, card=card.replace(" ", "_"))
+    assert res["loss_min"] < 0.8 * res["loss_first"], res
+    assert res["qat_mse"] < res["ptq_mse"] and untouched, res
+    assert res["fc1_equals_ptq"] and res["fc2_moved"], res
+    assert res["filter_loss_fell"] and res["qat_acc"] >= res["ptq_acc"], res
+    return res
+
+
+def qat_vit(card: str, base: bool) -> dict:
+    """Phase 22(a): JAX's ViT capstone recipe (3 bits, one 64-image
+    calibration batch of seed 1, 60 self-distilled steps at lr 1e-3,
+    held-out seeds 100-103) on the small fixture, where JAX's rule holds,
+    or on the ViT-Base-width fixture, where it is a finding and the QAT'd
+    model is then deployed: optimize() -> pack_weights() -> bf16 B=96
+    under "kernel" (packed_qmatmul at 3 bits)."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models import fixtures as F
+    t0 = time.perf_counter()
+    size = F.BASE_IMAGE_SIZE if base else F.IMAGE_SIZE
+    proto = F.trained_vit_base_onnx() if base \
+        else F.trained_vit_onnx(batch_size=QAT_B)
+    model = Model.from_onnx(proto)
+    evals = [F.make_batch(np.random.default_rng(s), QAT_B, size)
+             for s in QAT_EVAL_SEEDS]
+    evals = [(torch.from_numpy(x).cuda(), y) for x, y in evals]
+
+    def acc(m):
+        hits = sum(int((m([x])[0].argmax(-1) == y).sum()) for x, y in evals)
+        return hits / (len(evals) * QAT_B)
+    calib, _ = F.make_batch(np.random.default_rng(QAT_CALIB_SEED), QAT_B,
+                            size)
+    float_acc = acc(model)
+    ptq_acc = acc(model.quantize([calib], bit_width=QAT_BITS))
+    ts = time.perf_counter()
+    qat = model.qat_quantize([calib], bit_width=QAT_BITS, steps=QAT_STEPS,
+                             lr=QAT_LR)
+    step_s = (time.perf_counter() - ts) / QAT_STEPS
+    hist = qat.qat_loss_history
+    qat_acc = acc(qat)
+    label = "vit_base_fixture" if base else "vit_fixture"
+    res = dict(float_acc=float_acc, ptq_acc=ptq_acc, qat_acc=qat_acc,
+               loss_first=float(hist[0]), loss_min=float(hist.min()),
+               s_per_step=step_s, steps=QAT_STEPS, bits=QAT_BITS)
+    say("z-qat-vit", fixture=label, image_size=size, **res,
+        card=card.replace(" ", "_"))
+    if not base:
+        assert qat_acc > ptq_acc + QAT_GAIN, res
+        assert res["loss_min"] < 0.5 * res["loss_first"], res
+        res["seconds"] = time.perf_counter() - t0
+        return res
+    assert res["loss_min"] < res["loss_first"], res
+    # deploy: the 3-bit weights pack as bit-planes (packed_qmatmul)
+    report = qat.optimize()
+    assert report["fusion_failures"] == [], report
+    x8 = evals[0][0][:B_F32]
+    res["launches_f32"] = ed_packed(f"qat_{label}", qat, [x8], card,
+                                    "packed_qmatmul")
+    x96 = torch.from_numpy(F.make_batch(np.random.default_rng(7),
+                                        QAT_SERVE_B, size)[0]).cuda()
+    with packed_execution("kernel"), config.low_precision_floats():
+        res["launches"] = ed_launches(lambda: qat([x96], as_numpy=False))
+        res["bf16"] = captured_forward(
+            f"qat_{label}_bf16", card, qat, [x96], QAT_SERVE_B, "images",
+            reps=Z_REPS, dtype="bf16", batch=QAT_SERVE_B,
+            packed_execution="kernel")
+    say("z-qat-deploy", fixture=label, batch=QAT_SERVE_B,
+        packed_qmatmul_launches=res["launches"]["packed_qmatmul"],
+        images_per_s=res["bf16"]["captured_images_per_s"],
+        card=card.replace(" ", "_"))
+    assert res["launches"]["packed_qmatmul"] > 0, res["launches"]
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def qat_bert(card: str) -> dict:
+    """Phase 22(a): BERT-base at W4A8, 40 QAT steps on int64 ids at
+    tests/test_qat.py's lr; every MatMul weight is 4 bits afterwards, the
+    output finite (that test's rules). Its third rule, a loss falling
+    below step 0's, is printed, not held: at BERT-base widths the first
+    Adam step flips W4 levels across every weight tensor and the
+    self-distillation loss jumps (the JAX package's qat_quantize gives the
+    same history step for step on the CPU)."""
+    import numpy as np
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.graph import Constant
+    from numpy_quant_tpu_torch.models import text as TT
+    from numpy_quant_tpu_torch.tensor import QTensor
+    t0 = time.perf_counter()
+    cfg = TT.BERT_BASE
+    model = Model.from_onnx(TT.bert_text_classifier(
+        TT.random_bert_weights(cfg, seed=0), cfg, batch_size=BERT_QAT_B,
+        seq_len=BERT_T))
+    ids = np.random.default_rng(22).integers(
+        0, cfg["vocab_size"], (BERT_QAT_B, BERT_T)).astype(np.int64)
+    ts = time.perf_counter()
+    qat = model.qat_quantize([ids], bit_width=8, weight_bit_width=4,
+                             steps=BERT_QAT_STEPS, lr=BERT_QAT_LR)
+    step_s = (time.perf_counter() - ts) / BERT_QAT_STEPS
+    hist = qat.qat_loss_history
+    out = qat([ids])[0]
+    widths = {v.data.bit_width for v in qat.values
+              if isinstance(v, Constant) and isinstance(v.data, QTensor)
+              and v.name.endswith("weight_t")}
+    res = dict(loss_first=float(hist[0]), loss_min=float(hist.min()),
+               loss_last=float(hist[-1]), loss_fell=bool(hist.min() < hist[0]),
+               s_per_step=step_s, weight_widths=sorted(widths),
+               finite=bool(np.isfinite(out).all()),
+               seconds=time.perf_counter() - t0)
+    say("z-qat-bert", batch=BERT_QAT_B, seq=BERT_T, lr=BERT_QAT_LR, **res,
+        card=card.replace(" ", "_"))
+    assert widths == {4}, res
+    assert res["finite"] and out.shape == (BERT_QAT_B, cfg["num_labels"])
+    return res
+
+
+def mamba_z(card: str) -> dict:
+    """Phase 22(b): Mamba-130m widths at B=8."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models import mamba as MB
+    from numpy_quant_tpu_torch.utils import (ContinuousBatcher, generate,
+                                             generate_mamba,
+                                             mamba_decode_calibration,
+                                             merge_calibration_stats)
+    t0 = time.perf_counter()
+    cfg = MB.MAMBA_130M
+    w = MB.random_mamba_weights(cfg, seed=0)
+    vocab = cfg["vocab_size"]
+    rng = np.random.default_rng(22)
+    full_p = MB.mamba_causal_lm(w, cfg, batch_size=MAMBA_B, seq_len=MAMBA_L)
+    wte = full_p._wte
+    full = Model.from_onnx(full_p)
+    step_p = MB.mamba_decode_step(w, cfg, batch_size=MAMBA_B)
+    step = Model.from_onnx(step_p)
+    del full_p, step_p, w
+    res = {"build_s": time.perf_counter() - t0, "nodes_full": len(full.nodes),
+           "nodes_step": len(step.nodes)}
+    x = torch.from_numpy(wte[rng.integers(0, vocab, (MAMBA_B, MAMBA_L))]) \
+        .cuda()
+    res["full_float"] = captured_forward(
+        "mamba_full_float", card, full, [x], MAMBA_B * MAMBA_L, "tokens",
+        reps=1, trace_tries=1, dtype="f32", batch=MAMBA_B, seq=MAMBA_L)
+    ts = time.perf_counter()
+    stats = full.calibration_stats([x])
+    qfull = full.quantize(bit_width=8, stats=stats)
+    res["calibrate_quantize_s"] = time.perf_counter() - ts
+    ed_shadow_check("mamba_full_int8", lambda: qfull([x]), card)
+    res["launches_full_int8"] = ed_launches(lambda: qfull([x]))
+    res["full_int8"] = captured_forward(
+        "mamba_full_int8", card, qfull, [x], MAMBA_B * MAMBA_L, "tokens",
+        reps=1, trace_tries=1, dtype="f32", batch=MAMBA_B, seq=MAMBA_L)
+    del qfull
+    say("z-mamba-full", nodes=res["nodes_full"],
+        build_s=res["build_s"],
+        calibrate_quantize_s=res["calibrate_quantize_s"],
+        float_capture_s=res["full_float"]["capture_s"],
+        int8_capture_s=res["full_int8"]["capture_s"],
+        float_pool_mb=res["full_float"]["pool_mb"],
+        int8_pool_mb=res["full_int8"]["pool_mb"],
+        scan_matmuls=cfg["num_hidden_layers"] * MAMBA_L,
+        card=card.replace(" ", "_"))
+
+    prompt = rng.integers(0, vocab, (MAMBA_B, MAMBA_PROMPT)).astype(np.int32)
+    steps = MAMBA_PROMPT + MAMBA_NEW - 1
+    eq = np.array_equal
+
+    def gen(m, new=MAMBA_NEW):
+        return generate_mamba(m, prompt, wte, new)
+
+    def checked(m):  # the captured-against-eager decode
+        return gen(m, MAMBA_CHECK_NEW), MAMBA_PROMPT + MAMBA_CHECK_NEW - 1
+
+    def toks(ids):
+        return ids.shape[0] * (ids.shape[1] - MAMBA_PROMPT)
+    res["step_float"] = captured_decode(
+        "mamba_step_float", card, step, checked, eq, toks, dtype="f32",
+        batch=MAMBA_B, prompt=MAMBA_PROMPT, new=MAMBA_CHECK_NEW)
+    rows = []
+    ids_f, res["float_s"] = synced_seconds(lambda: generate_mamba(
+        step, prompt, wte, MAMBA_NEW, step_logits=rows))
+    ids_full = generate(full, prompt, wte, MAMBA_NEW)
+    logits_full = full([torch.from_numpy(wte[ids_full]).cuda()],
+                       as_numpy=False)[0]
+    res["step_vs_full"] = step_margin_rule("mamba_step_float", ids_f, rows,
+                                           ids_full, logits_full)
+    del full
+
+    batches = mamba_decode_calibration(step, prompt, wte)
+    stats = merge_calibration_stats(*[step.calibration_stats(b)
+                                      for b in batches])
+    qstep = step.quantize(stats=stats, bit_width=8)
+    report = qstep.optimize()
+    say("z-optimize", path="mamba_step_int8", **report)
+    res["launches_step_int8"] = ed_launches(lambda: gen(qstep), steps)
+    # the "unpack" step signature: captured == eager on one step
+    one = [b.clone() for b in batches[-1]]
+    with eager():
+        ref = qstep(one, as_numpy=False)
+    qstep(one, as_numpy=False)
+    assert outputs_equal(qstep(one, as_numpy=False), ref), "Mamba unpack"
+    res["launches_step_kernel_forward"] = ed_packed(
+        "mamba_step_int8", qstep, [b.clone() for b in batches[-1]], card)
+    with packed_execution("kernel"):
+        ed_shadow_check("mamba_step_int8_kernel",
+                 lambda: generate_mamba(qstep, prompt[:, :2], wte, 2), card)
+        ids_k, res["int8_kernel_s"] = synced_seconds(lambda: gen(qstep))
+        res["launches_step_kernel"] = ed_launches(lambda: gen(qstep), steps)
+        res["step_int8_kernel"] = captured_decode(
+            "mamba_step_int8", card, qstep, checked, eq, toks, dtype="f32",
+            packed_execution="kernel", new=MAMBA_CHECK_NEW)
+    ids_u, res["int8_unpack_s"] = synced_seconds(lambda: gen(qstep))
+    say("z-mamba-step", new=MAMBA_NEW, int8_agreement_float=float(
+        (ids_u == ids_f)[:, MAMBA_PROMPT:].mean()),
+        **{f"{k}_ms_per_step": res[f"{k}_s"] / steps * 1e3
+           for k in ("float", "int8_kernel", "int8_unpack")},
+        kernel_tokens_equal_unpack=bool(eq(ids_k, ids_u)),
+        splitk_qmatmul_per_step=res["launches_step_kernel"][
+            "splitk_qmatmul"], card=card.replace(" ", "_"))
+    assert eq(ids_k, ids_u), "Mamba int8 step: kernel tokens != unpack"
+
+    # the engine: the state_carry layout, 16 ragged requests on 8 slots
+    reqs = []
+    for _ in range(MAMBA_REQS):
+        plen = int(rng.integers(1, 9))
+        new = int(rng.integers(MAMBA_BUDGETS[0], MAMBA_BUDGETS[1] + 1))
+        reqs.append((rng.integers(0, vocab, plen).astype(np.int32), new))
+
+    def engine(m):
+        eng = ContinuousBatcher(m, wte, state_carry=True, max_len=MAMBA_IDS)
+        out = eng.run(reqs)
+        return out, eng.stats["steps"]
+    with packed_execution("kernel"):
+        res["engine"] = captured_decode(
+            "mamba_engine", card, qstep, engine,
+            lambda a, b: a.keys() == b.keys() and all(eq(a[k], b[k])
+                                                      for k in a),
+            lambda out: generated(out, reqs), dtype="f32", slots=MAMBA_B,
+            requests=MAMBA_REQS, packed_execution="kernel")
+        got, _ = engine(qstep)
+        for rid, (p, new) in enumerate(reqs):
+            solo = generate_mamba(qstep, np.repeat(p[None], MAMBA_B, 0), wte,
+                                  new)[0]
+            assert eq(got[rid], solo), f"Mamba engine request {rid}"
+    say("z-mamba-engine", requests=MAMBA_REQS, slots=MAMBA_B,
+        tokens_equal_generate_mamba_alone=True,
+        seconds=time.perf_counter() - t0, card=card.replace(" ", "_"))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def mixtral_z(card: str) -> dict:
+    """Phase 22(c): Mixtral-8x7B widths, MIXTRAL_LAYERS of its 32 layers."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.kernels import attention as A
+    from numpy_quant_tpu_torch.models import moe as MX
+    from numpy_quant_tpu_torch.utils import (decode_calibration, generate,
+                                             generate_kv,
+                                             merge_calibration_stats)
+    t0 = time.perf_counter()
+    cfg = dict(MX.MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS)
+    vocab, heads = cfg["vocab_size"], cfg["num_attention_heads"]
+    torch.cuda.reset_peak_memory_stats()
+    w = MX.random_mixtral_weights(cfg, seed=0, device="cuda")
+    res = {"draw_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(22)
+
+    # the int8 full form at B=1, N=2048: 2 plain fusions at D=128
+    ts = time.perf_counter()
+    proto = MX.mixtral_causal_lm(w, cfg, batch_size=1, seq_len=MIXTRAL_N)
+    wte = proto._wte
+    model = Model.from_onnx(proto)
+    del proto
+    res["build_full_s"] = time.perf_counter() - ts
+    calib = wte[rng.integers(0, vocab, (1, MIXTRAL_N))]
+    x = torch.from_numpy(wte[rng.integers(0, vocab, (1, MIXTRAL_N))]).cuda()
+    ts = time.perf_counter()
+    stats = model.calibration_stats([calib])
+    qmodel = model.quantize(bit_width=8, stats=stats)
+    res["calibrate_quantize_s"] = time.perf_counter() - ts
+    with eager():
+        f_logits = model([x], as_numpy=False)[0]
+    del model, stats
+    with eager():
+        unfused = qmodel([x], as_numpy=False)[0]
+    report = qmodel.optimize()
+    plain = qmodel.fusion_report.get("plain_fusions", [])
+    say("z-optimize", path="mixtral_full_int8", **report)
+    assert report["fuse_attention"] == MIXTRAL_LAYERS == len(plain), report
+    assert len(report["fusion_failures"]) == MIXTRAL_LAYERS, report  # routers
+    ed_shadow_check("mixtral_full_int8", lambda: qmodel([x]), card)
+    with eager():
+        fused, counts = counted(lambda: qmodel([x], as_numpy=False)[0])
+    ordered = exact_in_order(heads * A.plain_tile(MIXTRAL_N), MIXTRAL_N)
+    equal = bool(torch.equal(fused, unfused))
+    res["launches_full_int8"] = {k: counts[k] for k in ED_KERNELS}
+    say("z-mixtral-full", batch=1, seq=MIXTRAL_N, head_dim=cfg["hidden_size"]
+        // heads, fused_attention_launches=counts["fused_attention"],
+        exact_in_order=ordered, fused_equals_unfused_bitwise=equal,
+        int8_top1_agreement_float=float(
+            (fused.argmax(-1) == f_logits.argmax(-1)).float().mean()),
+        card=card.replace(" ", "_"))
+    assert counts["fused_attention"] == MIXTRAL_LAYERS, counts
+    assert equal or not ordered, "Mixtral: fused f32 != unfused"
+    res["full_int8"] = captured_forward(
+        "mixtral_full_int8", card, qmodel, [x], MIXTRAL_N, "tokens",
+        reps=Z_REPS, dtype="f32", batch=1, seq=MIXTRAL_N)
+    del qmodel, fused, unfused, f_logits
+
+    # the full form at L=64, B=8: the greedy tokens the step is held to,
+    # and its router choices at every position
+    ts = time.perf_counter()
+    proto = MX.mixtral_causal_lm(w, cfg, batch_size=MIXTRAL_B,
+                                 seq_len=MIXTRAL_L)
+    full = Model.from_onnx(proto)
+    del proto
+    prompt = rng.integers(0, vocab, (MIXTRAL_B, MIXTRAL_PROMPT)) \
+        .astype(np.int32)
+    new = MIXTRAL_L - MIXTRAL_PROMPT
+    ids_full = generate(full, prompt, wte, new)
+    emb = torch.from_numpy(wte[ids_full]).cuda()
+    logits_full = full([emb], as_numpy=False, record=True)[0]
+    topk = [next(v for v in full.values
+                 if v.name == f"layers.{i}.moe/TopK_1").data.data.clone()
+            for i in range(MIXTRAL_LAYERS)]
+    del full
+    res["full_l64_s"] = time.perf_counter() - ts
+
+    # the decode step at B=8, cache 512: float, int8 (int8 cache), W4
+    ts = time.perf_counter()
+    proto = MX.mixtral_decode_step(w, cfg, batch_size=MIXTRAL_B,
+                                   max_len=MIXTRAL_CACHE)
+    rope = proto._rope_tables
+    step = Model.from_onnx(proto)
+    del proto, w
+    res["build_step_s"] = time.perf_counter() - ts
+    steps = MIXTRAL_L - 1
+    eq = np.array_equal
+
+    def gen(m, **kw):
+        return generate_kv(m, prompt, wte, None, new, rope=rope, **kw)
+
+    def toks(ids):
+        return ids.shape[0] * new
+    res["step_float"] = captured_decode(
+        "mixtral_step_float", card, step, lambda m: (gen(m), steps), eq,
+        toks, dtype="f32", batch=MIXTRAL_B, cache=MIXTRAL_CACHE)
+    rows = []
+    ids_f = gen(step, step_logits=rows)
+    res["step_vs_full"] = step_margin_rule("mixtral_step_float", ids_f, rows,
+                                           ids_full, logits_full)
+    # the step's router choices replayed on the full form's tokens
+    batches = decode_calibration(step, ids_full, wte, None, rope=rope)
+    same, total = 0, 0
+    with eager():
+        for t, inputs in enumerate(batches):
+            step(inputs, record=True)
+            for i in range(MIXTRAL_LAYERS):
+                got = next(v for v in step.values if v.name ==
+                           f"layers.{i}.moe/TopK_1").data.data[:, 0]
+                same += int((got == topk[i][:, t]).all(dim=-1).sum())
+                total += MIXTRAL_B
+    say("z-mixtral-routing", positions=len(batches), layers=MIXTRAL_LAYERS,
+        top2_equal=f"{same}/{total}", card=card.replace(" ", "_"))
+    assert same == total, (same, total)
+    stats = merge_calibration_stats(*[step.calibration_stats(b)
+                                      for b in batches[:MIXTRAL_PROMPT]])
+    del batches
+    qstep = step.quantize(stats=stats, bit_width=8)
+    report = qstep.optimize()
+    say("z-optimize", path="mixtral_step_int8", **report)
+    assert report["fuse_decode_attention"] == MIXTRAL_LAYERS, report
+    ed_shadow_check("mixtral_step_int8", lambda: generate_kv(
+        qstep, prompt[:, :2], wte, None, 2, rope=rope, kv_cache_dtype="int8"),
+        card)
+    res["step_int8_cache"] = captured_decode(
+        "mixtral_step_int8", card, qstep,
+        lambda m: (gen(m, kv_cache_dtype="int8"), steps), eq, toks,
+        dtype="f32", cache_dtype="int8")
+    ids_q = gen(qstep, kv_cache_dtype="int8")
+    res["launches_step_int8"] = ed_launches(
+        lambda: gen(qstep, kv_cache_dtype="int8"), steps)
+    del qstep
+    n_w4 = step.quantize_weights(bit_width=4, group_size=128)
+    with packed_execution("kernel"):
+        ed_shadow_check("mixtral_step_w4", lambda: generate_kv(
+            step, prompt[:, :2], wte, None, 2, rope=rope), card)
+        res["step_w4"] = captured_decode(
+            "mixtral_step_w4", card, step, lambda m: (gen(m), steps), eq,
+            toks, dtype="f32", packed_execution="kernel")
+        res["launches_step_w4"] = ed_launches(lambda: gen(step), steps)
+        ids_w4 = gen(step)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    say("z-mixtral-step", int8_agreement_float=float(
+        (ids_q == ids_f)[:, MIXTRAL_PROMPT:].mean()),
+        w4_agreement_float=float((ids_w4 == ids_f)[:, MIXTRAL_PROMPT:].mean()),
+        w4_weights=n_w4, splitk_wo_per_step=res["launches_step_w4"][
+            "splitk_wo_matmul"], peak_device_bytes=res["peak_bytes"],
+        draw_s=res["draw_s"], build_full_s=res["build_full_s"],
+        build_step_s=res["build_step_s"],
+        calibrate_quantize_s=res["calibrate_quantize_s"],
+        seconds=time.perf_counter() - t0, card=card.replace(" ", "_"))
+    assert res["launches_step_w4"]["splitk_wo_matmul"] == n_w4
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def clip_z(card: str) -> dict:
+    """Phase 22(d): CLIP ViT-B/32 widths, 96 images against 1,000 prompts
+    of 77 tokens (EOS at position 76)."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models import clip as CL
+    t0 = time.perf_counter()
+    cfg = CL.CLIP_VIT_B32
+    w = CL.random_clip_weights(cfg, seed=0)
+    proto = CL.clip_dual_encoder(w, cfg, batch_images=CLIP_IMAGES,
+                                 batch_texts=CLIP_PROMPTS, seq_len=CLIP_T)
+    model = Model.from_onnx(proto)
+    rng = np.random.default_rng(22)
+    vocab = cfg["text"]["vocab_size"]
+    ids = rng.integers(1, vocab - 1, (CLIP_PROMPTS, CLIP_T))
+    ids[:, -1] = vocab - 1  # EOS at the pooled position
+    emb = torch.from_numpy((proto._wte[ids] + proto._wpe[None, :CLIP_T])
+                           .astype(np.float32)).cuda()
+    px = torch.from_numpy(rng.normal(size=(CLIP_IMAGES, 3, 224, 224))
+                          .astype(np.float32)).cuda()
+    del proto, w
+    inputs = [px, emb]
+    with eager():
+        f_logits = model(inputs, as_numpy=False)[0]
+    qmodel = model.quantize(bit_width=8,
+                            stats=model.calibration_stats(inputs))
+    del model
+    with eager():
+        unfused = qmodel(inputs, as_numpy=False)[0]
+    report = qmodel.optimize()
+    say("z-optimize", path="clip_int8", **report)
+    n_layers = cfg["vision"]["num_hidden_layers"] \
+        + cfg["text"]["num_hidden_layers"]
+    assert report["fuse_attention"] == n_layers, report
+    assert report["fusion_failures"] == [], report
+    ed_shadow_check("clip_int8", lambda: qmodel(inputs), card)
+    with eager():
+        fused, counts = counted(lambda: qmodel(inputs, as_numpy=False)[0])
+    equal = bool(torch.equal(fused, unfused))
+    agree = float((fused.argmax(-1) == f_logits.argmax(-1)).float().mean())
+    res = {"launches": {k: counts[k] for k in ED_KERNELS}}
+    say("z-clip", images=CLIP_IMAGES, prompts=CLIP_PROMPTS, tokens=CLIP_T,
+        hs_launches=counts["fused_attention_hs"],
+        fused_equals_unfused_bitwise=equal,
+        int8_top1_agreement_float=agree, card=card.replace(" ", "_"))
+    assert equal and counts["fused_attention_hs"] == n_layers, counts
+    res["f32"] = captured_forward("clip_int8_f32", card, qmodel, inputs,
+                                  CLIP_IMAGES, "images", reps=Z_REPS,
+                                  dtype="f32")
+    with config.low_precision_floats():
+        bf = qmodel(inputs, as_numpy=False)[0]
+        res["bf16"] = captured_forward("clip_int8_bf16", card, qmodel,
+                                       inputs, CLIP_IMAGES, "images",
+                                       reps=Z_REPS, dtype="bf16")
+    say("z-clip-bf16", top1_agreement_f32=float(
+        (bf.argmax(-1) == fused.argmax(-1)).float().mean()),
+        card=card.replace(" ", "_"))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def bert_z(card: str) -> dict:
+    """Phase 22(e): BERT-base widths at B=32, 128 tokens, the ids a device
+    int64 tensor (one capture serves every batch)."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models import text as TT
+    t0 = time.perf_counter()
+    cfg = TT.BERT_BASE
+    model = Model.from_onnx(TT.bert_text_classifier(
+        TT.random_bert_weights(cfg, seed=0), cfg, batch_size=BERT_B,
+        seq_len=BERT_T))
+    rng = np.random.default_rng(23)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg["vocab_size"], (BERT_B, BERT_T))).cuda() for _ in range(3)]
+    ids = batches[0]
+    with eager():
+        f_logits = model([ids], as_numpy=False)[0]
+    qmodel = model.quantize(bit_width=8, stats=model.calibration_stats(
+        [ids.cpu().numpy()]))
+    del model
+    with eager():
+        unfused = qmodel([ids], as_numpy=False)[0]
+    report = qmodel.optimize()
+    say("z-optimize", path="bert_int8", **report)
+    assert report["fuse_attention"] == cfg["num_hidden_layers"], report
+    assert report["fusion_failures"] == [], report
+    ed_shadow_check("bert_int8", lambda: qmodel([ids]), card)
+    with eager():
+        fused, counts = counted(lambda: qmodel([ids], as_numpy=False)[0])
+    equal = bool(torch.equal(fused, unfused))
+    res = {"launches": {k: counts[k] for k in ED_KERNELS}}
+    assert equal, "BERT: fused f32 != unfused"
+    res["f32"] = captured_forward("bert_int8_f32", card, qmodel, [ids],
+                                  BERT_B, "sequences", reps=Z_REPS,
+                                  dtype="f32")
+    # every batch of ids replays the one captured graph
+    outs = [qmodel([b], as_numpy=False)[0] for b in batches]
+    with eager():
+        want = [qmodel([b], as_numpy=False)[0] for b in batches]
+    graphs = len(qmodel._graphs)
+    with config.low_precision_floats():
+        bf = qmodel([ids], as_numpy=False)[0]
+        res["bf16"] = captured_forward("bert_int8_bf16", card, qmodel, [ids],
+                                       BERT_B, "sequences", reps=Z_REPS,
+                                       dtype="bf16")
+    say("z-bert", batch=BERT_B, seq=BERT_T,
+        hs_launches=counts["fused_attention_hs"],
+        fused_equals_unfused_bitwise=equal,
+        label_agreement_float=float(
+            (fused.argmax(-1) == f_logits.argmax(-1)).float().mean()),
+        bf16_label_agreement_f32=float(
+            (bf.argmax(-1) == fused.argmax(-1)).float().mean()),
+        captures_for_3_batches=graphs, card=card.replace(" ", "_"))
+    assert graphs == 1 and all(same_bits(a, b) for a, b in zip(outs, want))
+    assert counts["fused_attention_hs"] == cfg["num_hidden_layers"], counts
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+# (K, N) of Mixtral-8x7B's decode MatMuls: q/o, k/v, the router, w1/w3,
+# w2 and the head
+MIXTRAL_WO_SHAPES = ((4096, 4096), (4096, 1024), (4096, 8), (4096, 14336),
+                     (14336, 4096), (4096, 32000))
+
+
+def time_mixtral_attention(name: str) -> dict:
+    """fused_attention at Mixtral's full-form shape (BH = 32, N = 2048,
+    D = 128, causal), int8 and f32 out: held against its plain version (no
+    flipped block where torch sums its rows in the kernel's order), then
+    timed (median of 20 CUDA-event calls behind a device sleep) beside its
+    bound and the plain version."""
+    from numpy_quant_tpu_torch.kernels import attention as A
+    rates = peaks(name)
+    bh, n, d = 32, MIXTRAL_N, 128
+    q, kt, v = plain_inputs(bh, n, d, seed=22)
+    in_order = exact_in_order(bh * A.plain_tile(n), n)
+    res = {}
+    for out, rq in (("int8", OUT_REQUANT), ("f32", None)):
+        kw = dict(QP, out_requant=rq, causal_mask_val=MASK_VAL)
+        flips, blocks, err = attention_diff(
+            A.fused_attention(q, kt, v, **kw),
+            A.fused_attention_reference(q, kt, v, **kw), 1, rq, QP,
+            f"plain BH{bh} N{n} D{d} {out}")
+        assert not in_order or flips == 0, (out, flips, blocks)
+        ms = cuda_ms(lambda: A.fused_attention(q, kt, v, **kw), lead=True)
+        plain_ms = cuda_ms(lambda: A.fused_attention_reference(
+            q, kt, v, **kw), lead=True)
+        nbytes = 3 * q.numel() + q.numel() * (1 if rq else 4)
+        ops = 2 * 2 * bh * (n * (n + 1) // 2) * d
+        t_bytes = nbytes / rates["bytes"] * 1e3
+        t_ops = ops / rates["int8"] * 1e3
+        res[out] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                        flipped_blocks=f"{flips}/{blocks}",
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations")
+        say("kernel-time", kernel="fused_attention", path="mixtral_full",
+            form="exact", shape=f"BH{bh}xN{n}xD{d}", causal=True, out=out,
+            in_torch_order=in_order, **res[out], bytes=nbytes, ops=ops,
+            library="none", card=name.replace(" ", "_"))
+    return res
+
+
+def qat_zoo_phase(card: str) -> dict:
+    """Phase 22: QAT (the MLP rules, JAX's ViT capstone on the small and
+    the ViT-Base-width fixtures, BERT-base W4A8) and the rest of the model
+    zoo at published widths (Mamba-130m, Mixtral-8x7B at MIXTRAL_LAYERS
+    layers, CLIP ViT-B/32, BERT-base). Returns the results by part."""
+    t_phase = time.perf_counter()
+    res = {"qat_mlp": qat_mlp(card), "qat_vit": qat_vit(card, base=False),
+           "qat_vit_base": qat_vit(card, base=True), "qat_bert": qat_bert(card),
+           "mamba": mamba_z(card), "mixtral": mixtral_z(card),
+           "clip": clip_z(card), "bert": bert_z(card)}
+    import torch
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    res["times"] = {"attention": time_mixtral_attention(name),
+                    "wo": time_wo(name, MIXTRAL_WO_SHAPES, "mixtral_decode"),
+                    "seconds": None}
+    res["times"]["seconds"] = time.perf_counter() - t0
+    say("z-phase", seconds=time.perf_counter() - t_phase,
+        **{f"{k}_s": v["seconds"] for k, v in res.items()},
+        card=card.replace(" ", "_"))
+    return res
+
+
+def z_paths(z: dict) -> dict:
+    """{path: launches per step or forward} of phase 22's results."""
+    return {"per_mamba_full_int8_forward": z["mamba"]["launches_full_int8"],
+            "per_mamba_int8_step_unpack": z["mamba"]["launches_step_int8"],
+            "per_mamba_int8_step_kernel": z["mamba"]["launches_step_kernel"],
+            "per_mixtral_full_int8_forward": z["mixtral"][
+                "launches_full_int8"],
+            "per_mixtral_int8_step": z["mixtral"]["launches_step_int8"],
+            "per_mixtral_w4_step_kernel": z["mixtral"]["launches_step_w4"],
+            "per_clip_int8_forward": z["clip"]["launches"],
+            "per_bert_int8_forward": z["bert"]["launches"],
+            "per_qat_vit_base_bf16_forward_kernel": z["qat_vit_base"][
+                "launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5936,6 +6701,9 @@ def main() -> int:
 
     # -- phase 21: encoder-decoder generation ---------------------------
     ed = encdec_phase(card)
+
+    # -- phase 22: QAT and the rest of the model zoo ---------------------
+    z = qat_zoo_phase(card)
     say("done", seconds=time.perf_counter() - t_start)
     e1, e5 = engine["per_step"]["E1"], engine["per_step"]["E5"]
     admit = admission["per_admission"]
@@ -6066,15 +6834,25 @@ def main() -> int:
             del row["zoo"]
         # phase 21: launches per step or forward of each path (zeros left
         # out)
-        if kname in ED_KERNELS:
-            row["encdec"] = {k: v[kname] for k, v in ed_paths(ed).items()
-                             if v.get(kname)}
+        paths = {k: v[kname] for k, v in ed_paths(ed).items()
+                 if v.get(kname)}
+        if paths:
+            row["encdec"] = paths
         shapes = {label: forms for label, forms in ed["attention"].items()
                   if forms["exact"]["kernel"] == kname}
         if shapes:
             row["encdec_shapes"] = shapes
+        # phase 22: launches per step or forward of each path (zeros left
+        # out)
+        paths = {k: v[kname] for k, v in z_paths(z).items()
+                 if v.get(kname)}
+        if paths:
+            row["qat_zoo"] = paths
     wo_row = next(r for r in rows if r["name"] == "splitk_wo_matmul")
     wo_row["ptq"]["vit_rows"] = {f"M{m}": t for m, t in ptq["wo"].items()}
+    wo_row["mixtral_decode_shapes"] = z["times"]["wo"]
+    next(r for r in rows if r["name"] == "fused_attention")[
+        "mixtral_full_shape"] = z["times"]["attention"]
     say("interop-summary", vectors=",".join(
         f"{k}:{v:.3g}" for k, v in vectors.items()))
     print(json.dumps({"kernels": rows}))

@@ -58,6 +58,10 @@ def place(arr, device, dtype) -> torch.Tensor:
     key = (device, dtype, arr.shape, arr.tobytes())
     t = _placed.get(key)
     if t is not None:
+        if t.is_inference() and torch.is_grad_enabled():
+            # a walk autograd tracks (qat.py) cannot save a tensor made
+            # under inference mode for backward: it reads a copy
+            return t.clone()
         return t
     if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(

@@ -205,6 +205,8 @@ class Model:
         t = self._device_tensor(array)
         if t.dtype == torch.float32:
             return FTensor(t)
+        if t.dtype == torch.int64:
+            return DITensor(t)  # device token ids: keyed by shape, not value
         raise ValueError(f"Array dtype {t.dtype} not supported")
 
     def _wrap_constant(self, value: Constant) -> Tensor:
@@ -963,6 +965,16 @@ class Model:
         from .passes import fuse_decode_attention
         return fuse_decode_attention(self)
 
+    def qat_quantize(self, inputs: list, **kw) -> "QModel":
+        """Quantization-aware training: fine-tune the weights end to end
+        under fake quantization (straight-through gradients through the
+        whole forward, torch autograd and Adam), then quantize with the
+        same frozen calibration params. See qat.qat_quantize for the knobs;
+        quantize() kwargs (bit_width, weight_bit_width, ...) pass through.
+        The float model is left untouched."""
+        from .qat import qat_quantize
+        return qat_quantize(self, inputs, **kw)
+
     def quantize_weights(self, bit_width: int = 8, per_channel: bool = True,
                          pack: bool = None, group_size: int = None) -> int:
         """Weight-only quantization: replace 2-D float MatMul/Gemm weights
@@ -1154,6 +1166,8 @@ class QModel(Model):
         if t.dtype == torch.int8:
             # pre-quantized with this input's calibrated params
             return QTensor(t, self.bit_width, qp.scale, qp.zero_point)
+        if t.dtype == torch.int64:
+            return DITensor(t)  # device token ids: keyed by shape, not value
         raise ValueError(f"Array dtype {t.dtype} not supported")
 
     def _node_inputs(self, node: Node, data: dict[str, Tensor],

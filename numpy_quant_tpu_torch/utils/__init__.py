@@ -4,7 +4,8 @@ port's models; the profiling, per-value parity, quantization-error and
 summary tools."""
 from .analyzer import print_quantization_report, quantization_report
 from .generate import (beam_search, decode_calibration, generate,
-                       generate_kv, generate_seq2seq, generate_speculative)
+                       generate_kv, generate_mamba, generate_seq2seq,
+                       generate_speculative, mamba_decode_calibration)
 from .serialization import (export_qdq, export_qoperator,
                             import_onnx_quantized, load_calibration_stats,
                             load_qmodel, load_weight_only,
@@ -20,7 +21,8 @@ from .summary import summarize
 __all__ = ["ContinuousBatcher", "beam_search", "compare_all_values",
            "decode_calibration", "device_busy_seconds", "device_trace",
            "export_qdq", "export_qoperator", "generate", "generate_kv",
-           "generate_seq2seq", "generate_speculative", "import_onnx_quantized",
+           "generate_mamba", "generate_seq2seq", "generate_speculative",
+           "import_onnx_quantized", "mamba_decode_calibration",
            "load_calibration_stats", "load_qmodel", "load_weight_only",
            "merge_calibration_stats", "print_quantization_report",
            "profile_results_plot", "quantization_report",

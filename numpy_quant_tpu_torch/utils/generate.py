@@ -3,9 +3,10 @@ full-sequence causal graph and over an encoder-decoder pair.
 
 Port of ``numpy_quant_tpu/utils/generate.py::generate_kv``,
 ``decode_calibration``, ``_next_token``, ``generate``, ``beam_search``,
-``generate_speculative`` and ``generate_seq2seq`` over ``models/gpt.py``,
-``models/llama.py``, ``models/t5.py``, ``models/seq2seq.py`` and
-``models/whisper.py``.
+``generate_speculative``, ``generate_seq2seq``, ``generate_mamba`` and
+``mamba_decode_calibration`` over ``models/gpt.py``, ``models/llama.py``,
+``models/moe.py``, ``models/t5.py``, ``models/seq2seq.py``,
+``models/whisper.py`` and ``models/mamba.py``.
 The JAX package compiles each loop into one XLA program; here each is an
 eager Python loop. ``generate_kv``'s caches are device tensors
 [B, heads, L, head] (float32, or int8 under ``kv_cache_dtype="int8"``)
@@ -690,3 +691,105 @@ def generate_seq2seq(enc_model, dec_model, src_ids: np.ndarray,
         embeds[:, i + 1] = wte_d[nxt]
         ids[:, i + 1] = nxt
     return ids[:, :1 + max_new_tokens].cpu().numpy().astype(np.int32)
+
+
+def _mamba_state_shapes(step_model) -> list:
+    """[(conv shape, ssm shape), ...] per layer, from the SSM step graph's
+    input hints (models/mamba.py::mamba_decode_step input order)."""
+    hints = [tuple(int(d) for d in v.shape_hint)
+             for v in step_model.inputs[1:]]
+    return list(zip(hints[0::2], hints[1::2]))
+
+
+def _state_buffers(step_model, shapes: list) -> list:
+    """The SSM carries, one zeroed float32 buffer per conv window and per
+    state, kept on the model from one decode to the next: the captured
+    step reads them in place (``inplace=``) and each step's new states are
+    copied into them."""
+    cache = step_model.__dict__.setdefault("_state_buffers", {})
+    flat = tuple(s for pair in shapes for s in pair)
+    bufs = cache.get(flat)
+    if bufs is None:
+        bufs = [torch.zeros(s, dtype=torch.float32, device=step_model.device)
+                for s in flat]
+        cache[flat] = bufs
+    for buf in bufs:
+        buf.zero_()
+    return bufs
+
+
+@torch.inference_mode()
+def generate_mamba(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
+                   max_new_tokens: int, temperature: float = None,
+                   top_k: int = None, top_p: float = None, key=None,
+                   min_p: float = None, repetition_penalty: float = None,
+                   generator: torch.Generator = None,
+                   step_logits: list = None) -> np.ndarray:
+    """Autoregressive decode through an SSM decode-step graph
+    (models/mamba.py::mamba_decode_step): O(1) per token. The carry is a
+    constant-size (conv window, SSM state) pair per layer, swapped in
+    wholesale each step (no positions, no masks): each step's outputs are
+    copied into the carry buffers the captured step reads in place. Steps
+    inside the prompt are teacher forced. The ids and carries stay on the
+    device; only the finished ids come back. Sampling knobs,
+    ``generator`` and ``step_logits`` as in :func:`generate_kv`; a JAX PRNG
+    ``key`` raises ``NotImplementedError``. Returns [B, t0 +
+    max_new_tokens] int32."""
+    _refuse_key(key)
+    prompt_ids = np.asarray(prompt_ids)
+    batch, t0 = prompt_ids.shape
+    shapes = _mamba_state_shapes(step_model)
+    dev = step_model.device
+    wte_d = _placed_table(step_model, "wte", wte)
+    sampling = not (temperature is None and top_k is None and top_p is None
+                    and min_p is None)
+    if sampling and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    total = t0 + max_new_tokens
+    ids = torch.zeros((batch, total), dtype=torch.int64, device=dev)
+    ids[:, :t0] = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
+    states = _state_buffers(step_model, shapes)
+    inplace = tuple(range(1, 1 + len(states)))
+    presence = None
+    if repetition_penalty is not None:
+        presence = torch.zeros((batch, wte_d.shape[0]), dtype=torch.float32,
+                               device=dev)
+        presence.scatter_(1, ids[:, :1], 1.0)
+    for t in range(total - 1):
+        x = wte_d[ids[:, t]][:, None, :]
+        outs = step_model([x] + states, as_numpy=False, inplace=inplace)
+        for buf, new in zip(states, outs[1:]):
+            buf.copy_(new)
+        row = outs[0][:, 0, :]
+        if step_logits is not None:
+            step_logits.append(row)
+        nxt = _next_token(row, temperature, top_k, top_p, generator, min_p,
+                          presence, repetition_penalty)
+        # teacher forcing: inside the prompt the next token is given
+        if t + 1 >= t0:
+            ids[:, t + 1] = nxt
+        if presence is not None:
+            presence.scatter_(1, ids[:, t + 1:t + 2], 1.0)
+    return ids.cpu().numpy().astype(np.int32)
+
+
+@torch.inference_mode()
+def mamba_decode_calibration(step_model, prompt_ids: np.ndarray,
+                             wte: np.ndarray) -> list:
+    """Teacher-forced replay of ``prompt_ids`` through the float SSM decode
+    step; returns one input list per step, as device tensors (the
+    state-carry counterpart of :func:`decode_calibration`)."""
+    prompt_ids = np.asarray(prompt_ids)
+    batch, t0 = prompt_ids.shape
+    shapes = _mamba_state_shapes(step_model)
+    dev = step_model.device
+    wte_d = _placed_table(step_model, "wte", wte)
+    ids = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
+    states = [torch.zeros(s, dtype=torch.float32, device=dev)
+              for pair in shapes for s in pair]
+    out = []
+    for t in range(t0):
+        inputs = [wte_d[ids[:, t]][:, None, :]] + [s.clone() for s in states]
+        out.append(inputs)
+        states = step_model(inputs, as_numpy=False)[1:]
+    return out

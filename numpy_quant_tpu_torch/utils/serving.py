@@ -41,9 +41,13 @@ request's slot takes the next queued one at once.
   that finishes inside the chunk freezes. The host reads the done mask once
   per chunk (plus ``pos`` where a slot finishes, and on paged engines
   before each chunk, to allocate blocks).
-
-The JAX engine's SSM layout (``state_carry``) raises
-``NotImplementedError``: its step graph is not ported.
+* ``state_carry=True`` serves an SSM step graph
+  (``models/mamba.py::mamba_decode_step``): x_step plus a (conv window,
+  SSM state) pair per layer, no mask, no positions. The carry is one
+  placed buffer pair per layer, read in place by the captured step; each
+  step's new states are copied into it wholesale (inactive rows evolve
+  garbage), and admission zeroes the admitted slot's rows between steps.
+  ``max_len`` bounds the ids and the budgets.
 """
 from __future__ import annotations
 
@@ -53,7 +57,8 @@ import numpy as np
 import torch
 
 from .generate import (_as_device, _cache_quantizer, _cache_start, _divide,
-                       _gumbel, _kv_layout, _placed_table)
+                       _gumbel, _kv_layout, _mamba_state_shapes,
+                       _placed_table)
 
 _PREFILL_STREAM = 1_000_000  # noise stream offset of sampled prefill tokens
 
@@ -94,10 +99,12 @@ class ContinuousBatcher:
     """Online serving engine over a KV-cache decode-step model.
 
     ``step_model`` is a decode-step graph (gpt_decode_step,
-    llama_decode_step, t5_decode_step, bart_decode_step,
-    whisper_decode_step) built with ``batch_size`` slots and cache length
-    ``max_len``; ``wte``/``wpe``/``rope``/``score_bias``/``kv_cache_dtype``
-    mirror :func:`generate_kv`'s layout arguments, and ``has_memory`` marks
+    llama_decode_step, mixtral_decode_step, t5_decode_step,
+    bart_decode_step, whisper_decode_step) built with ``batch_size`` slots
+    and cache length ``max_len``, or with ``state_carry=True`` an SSM step
+    graph (mamba_decode_step) and the ids' length ``max_len``;
+    ``wte``/``wpe``/``rope``/``score_bias``/``kv_cache_dtype`` mirror
+    :func:`generate_kv`'s layout arguments, and ``has_memory`` marks
     a seq2seq step graph, whose requests each bring their ``memory_row``.
     ``eos_id`` retires a slot early when generated. ``prefill_model``
     (gpt_prefill/llama_prefill, batch 1; not with the score-bias or memory
@@ -117,24 +124,42 @@ class ContinuousBatcher:
                  rope=None, score_bias: np.ndarray = None,
                  has_memory: bool = False, eos_id: int = None,
                  kv_cache_dtype: str = None, prefill_model=None,
-                 state_carry: bool = False, paged_kv: tuple = None, key=None,
-                 steps_per_sync: int = 1, seed: int = 0):
+                 state_carry: bool = False, max_len: int = None,
+                 paged_kv: tuple = None, key=None, steps_per_sync: int = 1,
+                 seed: int = 0):
         if key is not None:
             raise NotImplementedError(
                 "jax.random keys are not taken: pass seed= (an int) for "
                 "the sampling noise")
-        if state_carry:
-            raise NotImplementedError(
-                "the Mamba (state_carry) step graph is not ported")
         self.model = step_model
         self.eos_id = eos_id
         self.seed = int(seed)
         self._chunk = max(1, int(steps_per_sync))
-        cache_start = _cache_start(step_model, rope, score_bias is not None,
-                                   has_memory)
-        n_layer, b, nh, length, hd = _kv_layout(step_model, cache_start)
-        self.n_slots, self.max_len = int(b), int(length)
-        self._layout = (n_layer, int(nh), int(hd))
+        self._state_carry = bool(state_carry)
+        if state_carry:
+            if (wpe is not None or rope is not None
+                    or score_bias is not None or has_memory
+                    or kv_cache_dtype is not None
+                    or prefill_model is not None):
+                raise ValueError("state_carry engines take none of "
+                                 "wpe/rope/score_bias/memory/"
+                                 "kv_cache_dtype/prefill_model")
+            if max_len is None:
+                raise ValueError("state_carry engines need max_len= "
+                                 "(there is no cache to infer it from)")
+            if paged_kv is not None:
+                raise ValueError("paged_kv applies to KV-cache engines "
+                                 "only (state_carry caches are already "
+                                 "constant-size)")
+            shapes = _mamba_state_shapes(step_model)
+            self.n_slots, self.max_len = int(shapes[0][0][0]), int(max_len)
+            cache_start = 1
+        else:
+            cache_start = _cache_start(step_model, rope,
+                                       score_bias is not None, has_memory)
+            n_layer, b, nh, length, hd = _kv_layout(step_model, cache_start)
+            self.n_slots, self.max_len = int(b), int(length)
+            self._layout = (n_layer, int(nh), int(hd))
         self.device = dev = step_model.device
         self._wte = _placed_table(step_model, "wte", wte)
         self._wpe = _placed_table(step_model, "wpe", wpe)
@@ -180,13 +205,18 @@ class ContinuousBatcher:
             self._free = list(range(n_blocks - 1, 0, -1))
             self._owned: list[list[int]] = [[] for _ in range(B)]
             shape = (n_blocks, nh, blk, hd)
-        else:
+        elif not state_carry:
             shape = (B, nh, L, hd)
-        # one zeros tensor per cache (the identity quantizer returns its
-        # input); int8 caches start at quantize(0.0), the zero point
-        self._caches = [q(torch.zeros(shape, dtype=torch.float32,
-                                      device=dev)).to(cache_dtype)
-                        for q in self._q_cache]
+        if state_carry:
+            self._caches = [torch.zeros(s, dtype=torch.float32, device=dev)
+                            for pair in shapes for s in pair]
+        else:
+            # one zeros tensor per cache (the identity quantizer returns
+            # its input); int8 caches start at quantize(0.0), the zero
+            # point
+            self._caches = [q(torch.zeros(shape, dtype=torch.float32,
+                                          device=dev)).to(cache_dtype)
+                            for q in self._q_cache]
         # the captured step graph reads the memory and dense caches where
         # they lie; paged views are gathered anew each step, so they are
         # copied in
@@ -260,6 +290,14 @@ class ContinuousBatcher:
         if self._wpe is not None:
             x = x + self._wpe[pos.clamp(max=self._wpe.shape[0] - 1)]
         x = x[:, None, :]
+        if self._state_carry:
+            # the SSM carry swaps in wholesale, every row
+            outs = self.model([x] + self._caches, as_numpy=False,
+                              inplace=self._inplace)
+            for buf, new in zip(self._caches, outs[1:]):
+                buf.copy_(new)
+            return self._emit(self._pick(outs[0][:, 0, :], step, sampling),
+                              active)
         # per-row additive mask: cache lane j live iff j < pos_b, plus the
         # always-live self lane
         valid = self._lanes[None, :] < pos[:, None]
@@ -293,6 +331,12 @@ class ContinuousBatcher:
             for cache, present, q in zip(self._caches, outs[1:],
                                          self._q_cache):
                 cache[rows, :, wpos] = q(present).to(cache.dtype)[:, :, 0, :]
+        return self._emit(nxt, active)
+
+    def _emit(self, nxt: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        """Write each active row's next token ``nxt`` (teacher forced inside
+        the prompt), advance its position; returns the [B] done mask."""
+        rows, pos, L = self._rows, self._pos, self.max_len
         # teacher forcing: inside the prompt the next token is given
         in_prompt = pos + 1 < self._plen
         col = (pos + 1).clamp(max=L)
@@ -502,6 +546,12 @@ class ContinuousBatcher:
                 self.stats["completed"] += 1
                 self.stats["tokens_out"] += 1
                 return True
+        if self._state_carry:
+            # a new request's recurrent state restarts from zero (KV caches
+            # need no clearing: their masks hide stale rows); in place, as
+            # the captured step reads the buffers where they lie
+            for buf in self._caches:
+                buf[slot].zero_()
         self._ids[slot] = torch.from_numpy(row).to(self.device)
         self._pos[slot] = pos0
         self._plen[slot] = plen

@@ -255,6 +255,12 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.models.seq2seq\n"
             "import numpy_quant_tpu_torch.models.whisper\n"
             "import numpy_quant_tpu_torch.models.text_fixture\n"
+            "import numpy_quant_tpu_torch.qat\n"
+            "import numpy_quant_tpu_torch.models.mamba\n"
+            "import numpy_quant_tpu_torch.models.moe\n"
+            "import numpy_quant_tpu_torch.models.clip\n"
+            "import numpy_quant_tpu_torch.models.text\n"
+            "import numpy_quant_tpu_torch.models.testgen\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numpy_quant_tpu' or "
             "m.startswith('numpy_quant_tpu.')]\n"

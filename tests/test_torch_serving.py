@@ -362,13 +362,14 @@ def test_step_reset_and_stats_match_jax(llama):
 @pytest.mark.parametrize("arg", ["key", "state_carry", "has_memory",
                                  "score_bias"])
 def test_unported_arguments_raise(gpt, arg):
-    """A JAX key and the Mamba layout are refused; the T5 and seq2seq
-    layouts need a step graph with their inputs (GPT-2's has none)."""
+    """A JAX key is refused; the Mamba layout takes no wpe (JAX's
+    ValueError); the T5 and seq2seq layouts need a step graph with their
+    inputs (GPT-2's has none)."""
     value = {"key": 0, "state_carry": True, "has_memory": True,
              "score_bias": np.zeros((MAX_LEN, 4, MAX_LEN + 1),
                                     np.float32)}[arg]
     error, match = {"key": (NotImplementedError, "seed="),
-                    "state_carry": (NotImplementedError, "not ported")}.get(
+                    "state_carry": (ValueError, "state_carry engines")}.get(
         arg, (ValueError, "layout"))
     with pytest.raises(error, match=match):
         ContinuousBatcher(gpt["t"]["float"], gpt["twte"], gpt["twpe"],
