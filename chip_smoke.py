@@ -99,16 +99,18 @@ Phases, one line each (any failure raises and the script exits non-zero):
      TinyLlama scoring shape (B=4 x 32 heads, N=2048, D=64, causal, int8
      out): against its plain version (0 flips), and timed beside its bound
      and its plain version;
- 11. the int8 TinyLlama-1.1B scoring path at full width and depth: random
+ 11. the int8 TinyLlama-1.1B scoring path at full width and LLAMA_LAYERS
+     (6) of its 22 layers, as in phases 15, 16 and 19(c): random
      weights (seed 0) -> llama_causal_lm(B=4, seq 2048) -> Model.from_onnx
      -> calibration on 2 sequences -> quantize(int8) -> unfused B=1 forward
-     in f32 and bf16 -> optimize() (22 FusedAttention plain fusions, 0
-     FusedAttentionHS, no failures) -> fused B=1 forward (22 launches,
-     whether the kernel skips masked key tiles at these qparams,
-     logits within LOGIT_TOL of the unfused ones, argmax equal where the
-     margin clears it) -> fused B=1 bf16 forward (22 launches, the kernel
-     equal to its plain version on its operands; its distance from f32
-     beside the unfused bf16 walk's) -> fused B=4 forward (22 launches; row
+     in f32 and bf16 -> optimize() (one FusedAttention plain fusion per
+     layer, 0 FusedAttentionHS, no failures) -> fused B=1 forward (one
+     launch per layer, whether the kernel skips masked key tiles at
+     these qparams, logits within LOGIT_TOL of the unfused ones, argmax
+     equal where the margin clears it) -> fused B=1 bf16 forward (a
+     launch per layer, the kernel equal to its plain version on its
+     operands; its distance from f32 beside the unfused bf16 walk's) ->
+     fused B=4 forward (a launch per layer; row
      0 against the B=1 forward) -> bf16; tokens/s
      (median of 5 forwards per mode, in turns); one profiled bf16 forward;
      peak device memory of the unfused B=1 and fused B=4 forwards;
@@ -150,8 +152,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      bits; (e) ViT-Base W8A16 (16-bit activations, 8-bit weights) in f32
      at B=8 after optimize(): no fused attention (JAX's reason), closer to
      the float logits than int8, images/s, idle share, peak memory.
- 15. TinyLlama-1.1B decode and prefill at full width and depth (the
-     weights of phase 11, shared): (f) first the kernels at the path's new
+ 15. TinyLlama-1.1B decode and prefill at full width, LLAMA_LAYERS deep
+     (the weights of phase 11, shared): (f) first the kernels at the path's new
      shapes against their plain versions and timed -- splitk_wo_matmul at
      M = 8, W4 g=128 for 2048 -> 2048, 256, 5632, 32000 and 5632 -> 2048
      (f32, bf16, cold L2, its launch plan, beside torch.matmul on the
@@ -263,7 +265,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      launched), images/s beside plain W4A8's in turns, mean |dlogit|
      against float for both (reported); (c) the TinyLlama-1.1B int8
      prefill (P=512) after smooth_outliers(0.5): the float logits within
-     REPARAM_TOL, 22 fused_attention launches, fused f32 equal to unfused
+     REPARAM_TOL, a fused_attention launch per layer, fused f32 equal to
+     unfused
      bit for bit; (d) the modular-sum accuracy ladder at B=256
      (accuracy_ladder.py) held to the JAX package's capstone rules
      (MODSUM_RULES); (e) T5-small (B=2, 512 + 128) after equalize() on its
@@ -324,8 +327,8 @@ Phases, one line each (any failure raises and the script exits non-zero):
      loss minimum below half the first) and on the ViT-Base-width fixture
      (then optimize() + pack_weights(): packed_qmatmul, kernel == unpack,
      captured bf16 B=96), BERT-base W4A8 (40 steps on int64 ids, every
-     MatMul weight 4 bits); (b) Mamba-130m at B=8: the L=128 full form
-     (38,024 nodes) float and int8 captured, the state-carry step under
+     MatMul weight 4 bits); (b) Mamba-130m widths at MAMBA_LAYERS (8) of
+     its 24 layers, B=8: the L=128 full form float and int8 captured, the state-carry step under
      generate_mamba (32 + 96; float tokens equal the full form's under
      the margin rule), int8 from mamba_decode_calibration under "kernel"
      (97 splitk_qmatmul launches per step, tokens equal "unpack"'s), the
@@ -342,6 +345,26 @@ Phases, one line each (any failure raises and the script exits non-zero):
      ids). Every quantize/dequantize, head-split, plain-attention, packed
      and weight-only launch of one eager run per model against its plain
      version, with hs_plan's, qmm_plan's and wo_plan's choice per shape.
+ 23. data, tensor and pipeline parallelism: four ranks on the one card
+     over gloo (numpy_quant_tpu_torch/parallel; the card time-slices
+     them, so no time here is a scaling figure), each held against this
+     process's single-process port: (a) the int8 ViT-Base at B=32 saved
+     here, loaded by every rank, sharded DP x TP 2 x 2 and TP 4,
+     optimize() (12 MatMulSplit merges) and pack_weights() (24 stacked
+     row shards): logits equal bit for bit under both packed executions,
+     fused_attention_hs at 6 and 3 heads and splitk_qmatmul at N/tp
+     counted per rank, every kernel launch of one eager run against its
+     plain version; W3A8 through packed_qmatmul; (b) TP 2 decodes on two
+     rows of two ranks: GPT-2 small int8 and W4 g=128 ("kernel"),
+     TinyLlama-1.1B widths at PAR_LLAMA_LAYERS layers int8 (built on the
+     CPU, each rank moving its own shard), tokens equal; the engine over
+     the TP GPT-2 step, 16 requests on 8 slots, each equal to generate_kv
+     alone; (c) split_stages + pipeline_forward (2 stages x 4
+     microbatches) and PP x TP 2 x 2, logits equal bit for bit; (d) every
+     kernel at the shard shapes against its plain version and timed, and
+     merged against unmerged Q/K/V products; (e) a saved stacked model
+     loaded back byte for byte and a QDQ export after the merge equal to
+     the unmerged export's logits.
 Phases 1-17 run captured forwards from here on, except where a forward
 is swapped or hooked (plain_chain, boundary_cost, phase 3's kernel and
 plain-chain turns, record=True): those walk eagerly.
@@ -459,7 +482,10 @@ DEC_PROFILE_PROMPT, DEC_PROFILE_NEW = 1, 2  # the profiled decode: 2 steps
 # (K, N) of q/o, k/v, gate/up, down and the LM head
 LLAMA_WO_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
                    (2048, 32000))
-LLAMA_WO_PER_STEP = 22 * 7 + 1  # 7 projections per layer, the head
+# TinyLlama-1.1B's depth in phases 11, 15, 16 and 19c: cut from 22 to keep
+# the script inside its time limit with phase 23 (PERF.md §4)
+LLAMA_LAYERS = 6
+LLAMA_WO_PER_STEP = LLAMA_LAYERS * 7 + 1  # 7 projections per layer, head
 PREFILL_N = 512  # the int8 prefill (B=1); the float one runs DEC_PROMPT
 VIT_STEPS = 4  # seeded ViT-Base batches of B_SERVE under map_batches
 SERVE_PLENS, SERVE_PER_GROUP = (12, 24, 40), 8  # the engine's three groups
@@ -480,8 +506,14 @@ SERVE_LAUNCHES = {
     "fused_attention_hs_per_vit_forward": 12,
     "splitk_qmatmul_per_vit_forward_kernel": PACKED_PER_FORWARD,
     "splitk_wo_matmul_per_w4_engine_step": LLAMA_WO_PER_STEP,
-    "fused_attention_per_prefill_admission": 22,
-    "fused_attention_per_generate_forward": 22}
+    "fused_attention_per_prefill_admission": LLAMA_LAYERS,
+    "fused_attention_per_generate_forward": LLAMA_LAYERS}
+
+
+def tinyllama() -> dict:
+    """TinyLlama-1.1B's config at LLAMA_LAYERS layers (full width)."""
+    from numpy_quant_tpu_torch.models.llama import TINYLLAMA_1_1B
+    return dict(TINYLLAMA_1_1B, num_hidden_layers=LLAMA_LAYERS)
 
 
 def say(phase: str, **fields) -> None:
@@ -1818,9 +1850,8 @@ def llama_phase(card: str, weights) -> dict:
     import torch
     from numpy_quant_tpu_torch import Model, config
     from numpy_quant_tpu_torch.kernels import attention as A
-    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    llama_causal_lm)
-    cfg, n = TINYLLAMA_1_1B, LLAMA_SEQ
+    from numpy_quant_tpu_torch.models.llama import llama_causal_lm
+    cfg, n = tinyllama(), LLAMA_SEQ
     layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
     t0 = time.perf_counter()
     proto = llama_causal_lm(weights, cfg, batch_size=LLAMA_B, seq_len=n)
@@ -2881,10 +2912,9 @@ def float_prefill_check(weights, step, last, prompt, wte) -> None:
     logits, relative to max|cache|."""
     import torch
     from numpy_quant_tpu_torch import Model
-    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    llama_prefill)
+    from numpy_quant_tpu_torch.models.llama import llama_prefill
     t0 = time.perf_counter()
-    model = Model.from_onnx(llama_prefill(weights, TINYLLAMA_1_1B,
+    model = Model.from_onnx(llama_prefill(weights, tinyllama(),
                                           DEC_PROMPT))
     outs = model([torch.from_numpy(wte[prompt]).cuda()], as_numpy=False)
     res = step(last, as_numpy=False)
@@ -2914,9 +2944,8 @@ def int8_prefill_phase(card: str, weights):
     import torch
     from numpy_quant_tpu_torch import Model
     from numpy_quant_tpu_torch.kernels import attention as A
-    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    llama_prefill)
-    cfg, n = TINYLLAMA_1_1B, PREFILL_N
+    from numpy_quant_tpu_torch.models.llama import llama_prefill
+    cfg, n = tinyllama(), PREFILL_N
     layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
     t0 = time.perf_counter()
     proto = llama_prefill(weights, cfg, n)
@@ -3016,11 +3045,10 @@ def llama_decode_phase(card: str, weights) -> dict:
     import numpy as np
     import torch
     from numpy_quant_tpu_torch import Model
-    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    llama_decode_step)
+    from numpy_quant_tpu_torch.models.llama import llama_decode_step
     from numpy_quant_tpu_torch.utils import (decode_calibration, generate_kv,
                                              merge_calibration_stats)
-    cfg = TINYLLAMA_1_1B
+    cfg = tinyllama()
     layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
     # (a) build, calibrate on the teacher-forced prompt, quantize, fuse
     t0 = time.perf_counter()
@@ -3594,12 +3622,11 @@ def generators_phase(card: str, weights) -> dict:
     import numpy as np
     import torch
     from numpy_quant_tpu_torch import Model
-    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    llama_causal_lm)
+    from numpy_quant_tpu_torch.models.llama import llama_causal_lm
     from numpy_quant_tpu_torch.utils import (beam_search, generate,
                                              generate_speculative)
     from numpy_quant_tpu_torch.utils.generate import _log_softmax
-    cfg = TINYLLAMA_1_1B
+    cfg = tinyllama()
     t0 = time.perf_counter()
     proto = llama_causal_lm(weights, cfg, batch_size=BEAM_W, seq_len=GEN_LEN)
     wte = proto._wte
@@ -4507,10 +4534,9 @@ def ptq_llama_phase(card: str, weights) -> dict:
     import torch
     from numpy_quant_tpu_torch import Model
     from numpy_quant_tpu_torch.kernels import attention as A
-    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    llama_prefill)
+    from numpy_quant_tpu_torch.models.llama import llama_prefill
     t_phase = time.perf_counter()
-    cfg, n = TINYLLAMA_1_1B, PREFILL_N
+    cfg, n = tinyllama(), PREFILL_N
     layers, vocab = cfg["num_hidden_layers"], cfg["vocab_size"]
     proto = llama_prefill(weights, cfg, n)
     wte = proto._wte
@@ -5722,6 +5748,7 @@ QAT_GAIN = 0.015         # the capstone rule: QAT > PTQ + 0.015 held out
 QAT_SERVE_B = 96         # the QAT'd ViT-Base-width fixture's serving batch
 BERT_QAT_B, BERT_QAT_STEPS, BERT_QAT_LR = 8, 40, 1e-3  # test_qat.py's
 MAMBA_B, MAMBA_L = 8, 128
+MAMBA_LAYERS = 8  # of Mamba-130m's 24: cut for the script's time limit
 MAMBA_PROMPT, MAMBA_NEW = 32, 96
 MAMBA_CHECK_NEW = 16     # new tokens of the captured-against-eager decodes
 MAMBA_REQS, MAMBA_BUDGETS, MAMBA_IDS = 16, (4, 24), 40
@@ -5912,7 +5939,7 @@ def mamba_z(card: str) -> dict:
                                              mamba_decode_calibration,
                                              merge_calibration_stats)
     t0 = time.perf_counter()
-    cfg = MB.MAMBA_130M
+    cfg = dict(MB.MAMBA_130M, num_hidden_layers=MAMBA_LAYERS)
     w = MB.random_mamba_weights(cfg, seed=0)
     vocab = cfg["vocab_size"]
     rng = np.random.default_rng(22)
@@ -6399,6 +6426,653 @@ def z_paths(z: dict) -> dict:
                 "launches"]}
 
 
+PAR_WORLD = 4            # ranks of phase 23, all on the one card (gloo)
+PAR_B = 32               # ViT-Base batch of 23(a) and 23(c)
+PAR_MICRO = 4            # microbatches of the pipelines
+PAR_LLAMA_LAYERS = 4     # TinyLlama-1.1B depth in 23(b) (of 22)
+PAR_NEW = 24             # new tokens of each TP decode (prompt GPT_PROMPT)
+PAR_REQS, PAR_SLOTS = 16, 8  # the TP engine's requests and slots
+PAR_TIMEOUT = 600        # seconds any one rank call may take
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def _par_quiet():
+    """Ranks other than 0 print nothing (their checks still raise)."""
+    if _rank():
+        sys.stdout = open(os.devnull, "w")
+    return _rank()
+
+
+def _par_images(n: int, seed: int):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(n, 3, 224, 224)).astype(np.float32) * 0.5).cuda()
+
+
+def _par_mesh(kind: str):
+    from numpy_quant_tpu_torch import parallel as par
+    if kind == "dptp":
+        return par.make_dp_tp_mesh(PAR_WORLD, tp=2)
+    if kind == "tp":
+        return par.make_dp_tp_mesh(PAR_WORLD, tp=PAR_WORLD)
+    return par.make_mesh(PAR_WORLD, axes=("pipe", "model"), shape=(2, 2))
+
+
+def rank_vit(path: str, kind: str, modes: tuple, card: str) -> dict:
+    """23(a) on one rank: the saved int8 (or W3A8) ViT-Base loaded, sharded
+    (DP x TP 2 x 2 or TP 4), optimize() (merges Q/K/V under TP),
+    pack_weights() (row shards stacked), then one forward per packed
+    execution with its launches counted, and one eager forward with every
+    kernel launch held against its plain version at the shard shapes."""
+    import torch.distributed as dist
+    from numpy_quant_tpu_torch import parallel as par
+    from numpy_quant_tpu_torch.utils.serialization import load_qmodel
+    from numpy_quant_tpu_torch.ops import registry as R
+    t0 = time.perf_counter()
+    x = _par_images(PAR_B, 23)
+    q = load_qmodel(path, device="cuda")
+    mesh = _par_mesh(kind)
+    par.shard_model(q, mesh, rules=par.vit_tp_rules)
+    report = q.optimize()
+    packed = q.pack_weights()
+    layouts = {}
+    for v in q.values:
+        lay = getattr(getattr(v, "data", None), "layout", None)
+        if lay is not None:
+            layouts[lay] = layouts.get(lay, 0) + 1
+    res = dict(report={k: v for k, v in report.items()
+                       if k != "fusion_failures"},
+               failures=len(report["fusion_failures"]), packed=packed,
+               layouts=layouts, rank=dist.get_rank(),
+               coords=mesh.coords, logits={}, counts={})
+    heads = []
+    orig = R.attention_call
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        heads.append(out[3]["num_heads"])
+        return out
+
+    for mode in modes:
+        with packed_execution(mode):
+            R.attention_call = spy
+            try:
+                logits, counts = counted(lambda: q([x])[0])
+            finally:
+                R.attention_call = orig
+        res["logits"][mode] = logits
+        res["counts"][mode] = counts
+    res["heads"] = sorted(set(heads))
+    tp = mesh.shape["model"]
+    b_local = PAR_B // mesh.shape["data"]
+    for nq in (N_TOK, 1):
+        assert exact_in_order(b_local * HEADS // tp * nq, N_TOK)
+    with packed_execution(modes[-1]):
+        res["shadow"] = {k: v[:2] for k, v in ed_shadow_check(
+            f"par_vit_{kind}_r{dist.get_rank()}", lambda: q([x])[0],
+            card).items()}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def rank_decode(paths: dict, card: str) -> dict:
+    """23(b) on one rank. Pipe row 0 (ranks 0, 1) runs TP 2 decodes of the
+    GPT-2 int8 step and the TinyLlama int8 step (built on the CPU, each
+    rank moving its own shard to the card); row 1 (ranks 2, 3) runs the
+    GPT-2 W4 g=128 step under "kernel" and the engine over the int8 GPT-2
+    step. Returns the tokens."""
+    import numpy as np
+    from numpy_quant_tpu_torch import parallel as par
+    from numpy_quant_tpu_torch.utils import generate_kv
+    from numpy_quant_tpu_torch.utils.serialization import (load_qmodel,
+                                                           load_weight_only)
+    from numpy_quant_tpu_torch.utils.serving import ContinuousBatcher
+    t0 = time.perf_counter()
+    grid = _par_mesh("rows")
+    row = grid.index("pipe")
+    mesh = [grid.row("pipe", r, ("model",)) for r in range(2)][row]
+    gpt = np.load(paths["gpt_tables"])
+    prompt = np.load(paths["prompt"])
+    res = {"row": row, "counts": {}}
+    if row == 0:
+        q = load_qmodel(paths["gpt_int8"], device="cuda")
+        par.shard_model(q, mesh, rules=par.gpt_tp_rules)
+        q.optimize()
+        ids, counts = counted(lambda: generate_kv(
+            q, prompt, gpt["wte"], gpt["wpe"], PAR_NEW))
+        res["gpt_int8"], res["counts"]["gpt_int8"] = ids, counts
+        llama = np.load(paths["llama_tables"])
+        # built on the CPU: optimize() there (the merge forced, as the
+        # mesh's gate would), then each rank moves its own shard
+        lq = load_qmodel(paths["llama_int8"], device="cpu")
+        lq._opt_merge_matmuls = True
+        rep = lq.optimize()
+        par.shard_model(lq, mesh, rules=par.llama_tp_rules)
+        res["llama_merges"] = rep["merge_parallel_matmuls"]
+        ids, counts = counted(lambda: generate_kv(
+            lq, np.load(paths["llama_prompt"]), llama["wte"], None, PAR_NEW,
+            rope=(llama["cos"], llama["sin"])))
+        res["llama_int8"], res["counts"]["llama_int8"] = ids, counts
+    else:
+        w4 = load_weight_only(paths["gpt_w4"], device="cuda")
+        par.shard_model(w4, mesh, rules=par.gpt_tp_rules)
+        with packed_execution("kernel"):
+            ids, counts = counted(lambda: generate_kv(
+                w4, prompt, gpt["wte"], gpt["wpe"], PAR_NEW))
+        res["gpt_w4"], res["counts"]["gpt_w4"] = ids, counts
+        q = load_qmodel(paths["gpt_int8"], device="cuda")
+        par.shard_model(q, mesh, rules=par.gpt_tp_rules)
+        q.optimize()
+        reqs = [(r[0], int(r[1])) for r in np.load(paths["reqs"],
+                                                   allow_pickle=True)]
+        eng = ContinuousBatcher(q, gpt["wte"], gpt["wpe"])
+        res["engine"] = eng.run(reqs)
+        res["engine_steps"] = eng.stats["steps"]
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def rank_pipe(path: str) -> dict:
+    """23(c) on one rank: the saved int8 ViT-Base, optimize() (no mesh: no
+    merge), split_stages(2); a GPipe of 2 stages x PAR_MICRO microbatches
+    on ranks 0 and 1, then PP x TP (2 x 2) over every rank."""
+    from numpy_quant_tpu_torch import parallel as par
+    from numpy_quant_tpu_torch.utils.serialization import load_qmodel
+    t0 = time.perf_counter()
+    x = _par_images(PAR_B, 23)
+    q = load_qmodel(path, device="cuda")
+    q.optimize()
+    pipe = par.make_mesh(2, axes=("pipe",))
+    res = {}
+    if pipe.member:
+        stages = par.split_stages(q, 2)
+        res["cut"] = stages[1].inputs[0].name
+        res["gpipe"], res["gpipe_counts"] = counted(
+            lambda: par.pipeline_forward(stages, pipe, x,
+                                         ((PAR_B, 1000), "float32"),
+                                         PAR_MICRO))
+    stages = par.split_stages(q, 2)
+    res["pp_tp"], res["pp_tp_counts"] = counted(
+        lambda: par.pipeline_forward_stagewise(
+            stages, _par_mesh("rows"), x, PAR_MICRO, rules=par.vit_tp_rules))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def par_kernel_row(name: str, label: str, shape: str, fn, ref, nbytes: int,
+                   ops: int, rate: str, equal) -> dict:
+    """One kernel at a shard shape: against its plain version (``equal``
+    (got, want) -> mismatches), then timed beside its plain version and
+    its bound."""
+    import torch
+    rates = peaks(name)
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    mismatches = equal(got, want)
+    del got, want
+    ms = cuda_ms(fn, lead=True)
+    plain_ms = cuda_ms(ref, lead=True)
+    t_bytes = nbytes / rates["bytes"] * 1e3
+    t_ops = ops / rates[rate] * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               mismatches=mismatches)
+    say("par-kernel", kernel=label, shape=shape, **row, bytes=nbytes,
+        ops=ops, card=name.replace(" ", "_"))
+    return row
+
+
+def par_kernels(name: str) -> dict:
+    """23(d): every kernel at the shard shapes phase 23 gives it, in this
+    process, against its plain version (0 mismatches; the exact attention
+    forms where torch sums their rows in the kernels' order), timed; and
+    merged against unmerged Q/K/V products (torch._int_mm) at ViT-Base's
+    N = 768, 384 and 192."""
+    import torch
+    from numpy_quant_tpu_torch import intops
+    from numpy_quant_tpu_torch.kernels import attention as A
+    from numpy_quant_tpu_torch.kernels import qmatmul as Q
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res = {}
+
+    def neq(a, b):
+        return int((a != b).sum())
+
+    # head-split attention: ViT-Base at H/tp = 6 (B 16) and 3 (B 32),
+    # exact f32 out (the f32 path) and serving int8 out
+    for b, heads in ((PAR_B // 2, HEADS // 2), (PAR_B, HEADS // 4)):
+        q, k, v = attention_inputs(b, N_TOK, seed=230 + heads, heads=heads)
+        for form, rq in (("exact", None), ("fast", OUT_REQUANT)):
+            # the second rank's heads: each row summed where it lies
+            # among all HEADS (kernels/attention.py::_row_sums)
+            kw = attention_kw(heads, form, "none", rq, QP, head_base=heads,
+                              head_total=HEADS)
+            in_order = form != "exact" or exact_in_order(b * HEADS * N_TOK,
+                                                         N_TOK)
+            plan = A.hs_plan(N_TOK, N_TOK, HEAD_DIM, b * heads,
+                             exact=form == "exact")
+            row = par_kernel_row(
+                name, "fused_attention_hs", f"B{b}xN{N_TOK}xH{heads}",
+                lambda: A.fused_attention_hs(q, k, v, **kw),
+                lambda: A.fused_attention_hs_reference(q, k, v, **kw),
+                3 * q.numel() + q.numel() * (1 if rq else 4),
+                4 * b * heads * N_TOK * N_TOK * HEAD_DIM, "int8",
+                neq if form == "exact" and in_order else
+                lambda g, w: attention_diff(g, w, heads, rq, QP,
+                                            f"par {b}x{heads} {form}")[0])
+            row["plan"] = str(plan).replace(" ", "")
+            res[f"fused_attention_hs:B{b}xH{heads}:{form}"] = row
+            if form == "exact":
+                assert row["mismatches"] == 0, row
+    # blockwise: GPT-2 scoring under TP 2 (B 8, N 1024, H 6, causal)
+    q, k, v = attention_inputs(8, GPT_SEQ, seed=236, n=GPT_SEQ,
+                               heads=HEADS // 2)
+    kw = attention_kw(HEADS // 2, "exact", "full", OUT_REQUANT, QP,
+                      head_base=HEADS // 2, head_total=HEADS)
+    row = par_kernel_row(
+        name, "fused_attention_hs_blockq", f"B8xN{GPT_SEQ}xH6",
+        lambda: A.fused_attention_hs_blockq(q, k, v, **kw),
+        lambda: A.fused_attention_hs_blockq_reference(q, k, v, **kw),
+        4 * q.numel(), 2 * 8 * 6 * GPT_SEQ * (GPT_SEQ + 1) * HEAD_DIM,
+        "int8", lambda g, w: attention_diff(g, w, HEADS // 2, OUT_REQUANT,
+                                            QP, "par blockq H6")[0])
+    res["fused_attention_hs_blockq:B8xN1024xH6"] = row
+    # pre-split attention: TinyLlama prefill under TP 2 (BH = 4 * 16)
+    bh = LLAMA_B * 16
+    q, kt, v = plain_inputs(bh, LLAMA_SEQ, 64, seed=237)
+    kw = dict(QP, out_requant=OUT_REQUANT, causal_mask_val=MASK_VAL)
+    in_order = exact_in_order(bh * A.plain_tile(LLAMA_SEQ), LLAMA_SEQ)
+    row = par_kernel_row(
+        name, "fused_attention", f"BH{bh}xN{LLAMA_SEQ}xD64",
+        lambda: A.fused_attention(q, kt, v, **kw),
+        lambda: A.fused_attention_reference(q, kt, v, **kw),
+        4 * q.numel(), 2 * 2 * bh * (LLAMA_SEQ * (LLAMA_SEQ + 1) // 2) * 64,
+        "int8", lambda g, w: attention_diff(g, w, 1, OUT_REQUANT, QP,
+                                            "par plain BH64")[0])
+    assert not in_order or row["mismatches"] == 0, row
+    res[f"fused_attention:BH{bh}"] = row
+    # packed products at N/tp (merged Q/K/V, fc1) and K/tp (the stacked
+    # row groups' widths), W8 split-K, W4 per channel and W3 bit-planes
+    for kname, layout, bits, per_channel in (
+            ("splitk_qmatmul", "splitk", 8, False),
+            ("splitk_qmatmul", "splitk", 4, True),
+            ("packed_qmatmul", "bitplanes", 3, True)):
+        fn, ref = getattr(Q, kname), getattr(Q, kname + "_reference")
+        for m, k, n in ((PAR_B // 2 * N_TOK, 768, 3 * 768 // 2),
+                        (PAR_B // 2 * N_TOK, 768, 3072 // 2),
+                        (PAR_B * N_TOK, 768, 768 // 4),
+                        (PAR_B * N_TOK, 768, 3072 // 4),
+                        (PAR_B // 2 * N_TOK, 3072 // 2, 768),
+                        (PAR_B * N_TOK, 768 // 4, 768)):
+            x, payload, colsum, _, wvec, kw, _ = qmm_operands(
+                layout, bits, m, k, n, seed=238, per_channel=per_channel,
+                quantize_x=False, bias=False, requant=False)
+            plan = Q.qmm_plan(m, n, k, bits, layout, sms)
+            row = par_kernel_row(
+                name, kname, f"W{bits}:M{m}xK{k}xN{n}",
+                lambda: fn(x, payload, colsum, None, wvec, **kw),
+                lambda: ref(x, payload, colsum, None, wvec, **kw),
+                x.numel() + payload.numel() + 8 * n + 4 * m * n,
+                2 * m * n * k, "int8", neq)
+            row["plan"] = ",".join(f"{key}={plan[key]}" for key in (
+                "bn", "stages", "panels", "ranges", "slabs"))
+            res[f"{kname}:W{bits}:M{m}xK{k}xN{n}"] = row
+            assert row["mismatches"] == 0, row
+    # weight-only at the GPT-2 TP 2 decode widths (M = 8, W4 g = 128)
+    for k, n in ((768, 2304 // 2), (768, 3072 // 2)):
+        for dtype, tol in ((torch.float32, WO_TOL["f32"]),
+                           (torch.bfloat16, WO_TOL["bf16"])):
+            x, payload, scale = wo_operands(4, GPT_B, k, n, k // WO_GROUP,
+                                            seed=239, dtype=dtype)
+            plan = Q.wo_plan(GPT_B, n, payload.shape[0], 4, sms)
+
+            def within(g, w, tol=tol):
+                top = float(w.float().abs().max())
+                return int(float((g.float() - w.float()).abs().max())
+                           > tol * top)
+            row = par_kernel_row(
+                name, "splitk_wo_matmul",
+                f"{str(dtype)[6:]}:M{GPT_B}xK{k}xN{n}",
+                lambda: Q.splitk_wo_matmul(x, payload, scale, bits=4),
+                lambda: Q.splitk_wo_matmul_reference(x, payload, scale,
+                                                     bits=4),
+                x.numel() * x.element_size() + payload.numel()
+                + 4 * scale.numel() + GPT_B * n * x.element_size(),
+                2 * GPT_B * n * k,
+                "f32" if dtype == torch.float32 else "bf16", within)
+            row["plan"] = f"cluster={plan['cluster']}"
+            res[f"splitk_wo_matmul:{str(dtype)[6:]}:K{k}xN{n}"] = row
+            assert row["mismatches"] == 0, row
+    # merged against unmerged Q/K/V products at ViT-Base's N per rank
+    m = PAR_B // 2 * N_TOK
+    x8 = torch.randint(-128, 128, (m, 768), dtype=torch.int8, device="cuda")
+    merge = {}
+    for n in (768, 384, 192):
+        ws = [torch.randint(-127, 128, (768, n), dtype=torch.int8,
+                            device="cuda") for _ in range(3)]
+        wm = torch.cat(ws, 1)
+        sep = cuda_ms(lambda: [intops.int_matmul(x8, w) for w in ws],
+                      lead=True)
+        one = cuda_ms(lambda: intops.int_matmul(x8, wm), lead=True)
+        merge[n] = dict(unmerged_ms=sep, merged_ms=one,
+                        merged_over_unmerged=one / sep)
+        say("par-merge", m=m, k=768, n=n, unmerged_ms=sep, merged_ms=one,
+            merged_over_unmerged=one / sep, card=name.replace(" ", "_"))
+    res["merge"] = merge
+    return res
+
+
+def par_models(tmp: str) -> tuple[dict, dict]:
+    """23's models, quantized once here and saved under ``tmp`` for the
+    ranks: (paths, the single-process port's results on this card)."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model
+    from numpy_quant_tpu_torch.models.gpt import (GPT2_SMALL, gpt_decode_step,
+                                                  random_gpt2_weights)
+    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
+                                                    llama_decode_step,
+                                                    random_llama_weights)
+    from numpy_quant_tpu_torch.models.vit import (VIT_BASE, WEIGHT_CONFIGS,
+                                                  random_vit_weights,
+                                                  vit_image_classifier)
+    from numpy_quant_tpu_torch.utils import (decode_calibration, generate_kv,
+                                             merge_calibration_stats)
+    from numpy_quant_tpu_torch.utils.serialization import (save_qmodel,
+                                                           save_weight_only)
+    t0 = time.perf_counter()
+    proto = vit_image_classifier(random_vit_weights(VIT_BASE, seed=0),
+                                 VIT_BASE)
+    fmodel = Model.from_onnx(proto)
+    calib = _par_images(2, 0)
+    stats = fmodel.calibration_stats([calib])
+    paths = {}
+    singles = {}
+    x = _par_images(PAR_B, 23)
+    for mode in ("int8", "w3a8"):
+        kw = dict(bit_width=8, quantize_conv=True) if mode == "int8" \
+            else dict(WEIGHT_CONFIGS[mode], quantize_conv=True)
+        q = fmodel.quantize(stats=stats, **kw)
+        paths[mode] = os.path.join(tmp, f"vit_{mode}.onnx")
+        save_qmodel(q, paths[mode], proto)
+        q.optimize()
+        q.pack_weights()
+        singles[mode] = {m: packed_forward(q, x, m)[0]
+                         for m in ("unpack", "kernel")}
+    say("par-setup", part="vit", seconds=time.perf_counter() - t0)
+
+    gw = random_gpt2_weights(GPT2_SMALL, seed=0)
+    gproto = gpt_decode_step(gw, GPT2_SMALL, batch_size=GPT_B,
+                             max_len=GPT_MAX_LEN)
+    del gw
+    vocab = GPT2_SMALL["vocab_size"]
+    prompt = np.random.default_rng(23).integers(
+        0, vocab, size=(GPT_B, GPT_PROMPT)).astype(np.int32)
+    gmodel = Model.from_onnx(gproto)
+    batches = decode_calibration(gmodel, prompt, gproto._wte,
+                                 gproto._wpe)
+    gstats = merge_calibration_stats(*[gmodel.calibration_stats(b)
+                                       for b in batches])
+    del batches
+    gq = gmodel.quantize(bit_width=8, stats=gstats)
+    paths["gpt_int8"] = os.path.join(tmp, "gpt_int8.onnx")
+    save_qmodel(gq, paths["gpt_int8"], gproto)
+    gq.optimize()
+    gmodel.quantize_weights(bit_width=4, group_size=WO_GROUP)
+    paths["gpt_w4"] = os.path.join(tmp, "gpt_w4.onnx")
+    save_weight_only(gmodel, paths["gpt_w4"], gproto)
+    paths["gpt_tables"] = os.path.join(tmp, "gpt_tables.npz")
+    np.savez(paths["gpt_tables"], wte=gproto._wte, wpe=gproto._wpe)
+    paths["prompt"] = os.path.join(tmp, "prompt.npy")
+    np.save(paths["prompt"], prompt)
+    rng = np.random.default_rng(24)
+    reqs = [(rng.integers(0, vocab, size=(int(rng.integers(1, 9)),))
+             .astype(np.int32), int(rng.integers(8, 25)))
+            for _ in range(PAR_REQS)]
+    paths["reqs"] = os.path.join(tmp, "reqs.npy")
+    arr = np.empty(len(reqs), dtype=object)
+    arr[:] = [np.array([p, n], dtype=object) for p, n in reqs]
+    np.save(paths["reqs"], arr, allow_pickle=True)
+
+    lcfg = dict(TINYLLAMA_1_1B, num_hidden_layers=PAR_LLAMA_LAYERS)
+    lproto = llama_decode_step(random_llama_weights(lcfg, seed=0), lcfg,
+                               batch_size=GPT_B, max_len=GPT_MAX_LEN)
+    lmodel = Model.from_onnx(lproto)
+    lprompt = np.random.default_rng(25).integers(
+        0, lcfg["vocab_size"], size=(GPT_B, GPT_PROMPT)).astype(np.int32)
+    rope = lproto._rope_tables
+    batches = decode_calibration(lmodel, lprompt, lproto._wte, None,
+                                 rope=rope)
+    lstats = merge_calibration_stats(*[lmodel.calibration_stats(b)
+                                       for b in batches])
+    del batches
+    lq = lmodel.quantize(bit_width=8, stats=lstats)
+    del lmodel
+    paths["llama_int8"] = os.path.join(tmp, "llama_int8.onnx")
+    save_qmodel(lq, paths["llama_int8"], lproto)
+    lq.optimize()
+    paths["llama_tables"] = os.path.join(tmp, "llama_tables.npz")
+    np.savez(paths["llama_tables"], wte=lproto._wte, cos=rope[0],
+             sin=rope[1])
+    paths["llama_prompt"] = os.path.join(tmp, "llama_prompt.npy")
+    np.save(paths["llama_prompt"], lprompt)
+    say("par-setup", part="decoders", seconds=time.perf_counter() - t0)
+
+    # the single-process port on this card
+    want = {"gpt_int8": generate_kv(gq, prompt, gproto._wte, gproto._wpe,
+                                    PAR_NEW),
+            "llama_int8": generate_kv(lq, lprompt, lproto._wte, None,
+                                      PAR_NEW, rope=rope)}
+    with packed_execution("kernel"):
+        want["gpt_w4"] = generate_kv(gmodel, prompt, gproto._wte,
+                                     gproto._wpe, PAR_NEW)
+    solo = {}
+    for rid, (p, n) in enumerate(reqs):
+        solo[rid] = generate_kv(gq, np.repeat(p[None], GPT_B, 0),
+                                gproto._wte, gproto._wpe, n)[0]
+    del lq, lproto
+    torch.cuda.empty_cache()
+    say("par-setup", part="single_process", seconds=time.perf_counter()
+        - t0)
+
+    ref = dict(singles=singles, want=want, solo=solo, proto=proto,
+               fmodel=fmodel, stats=stats, x=x)
+    return paths, ref
+
+
+def parallel_phase(card: str) -> dict:
+    """Phase 23: data, tensor and pipeline parallelism on the card. The
+    parent quantizes each model once and hands the ranks the files; four
+    ranks share the one card over gloo (every collective through the
+    host), so no time here is a scaling figure. Each sharded result is held
+    against this process's single-process port on the same card."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, parallel as par
+    from numpy_quant_tpu_torch.models.vit import WEIGHT_CONFIGS
+    from numpy_quant_tpu_torch.parallel.mesh import Mesh
+    from numpy_quant_tpu_torch.utils.serialization import (
+        export_qdq, load_qmodel, save_qmodel)
+    name = torch.cuda.get_device_name(0)
+    cardw = card.replace(" ", "_")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="nq_par_")
+    res = {"launches": {}}
+    try:
+        paths, ref = par_models(tmp)
+        singles, want, solo = ref["singles"], ref["want"], ref["solo"]
+        proto, fmodel, stats, x = (ref["proto"], ref["fmodel"], ref["stats"],
+                                   ref["x"])
+        # ---- the ranks ----
+        t_ranks = time.perf_counter()
+        with par.Ranks(PAR_WORLD, backend="gloo", device="cuda",
+                       timeout_s=PAR_TIMEOUT) as ranks:
+            ranks.run(_par_quiet)
+            say("par-ranks", world=PAR_WORLD, backend="gloo", device="cuda:0",
+                up_seconds=time.perf_counter() - t_ranks,
+                note="one_card_time_slices_the_ranks:no_time_here_is_a_"
+                     "scaling_figure")
+            # (a) ViT-Base: DP x TP 2 x 2 and TP 4, int8, both executions
+            for kind in ("dptp", "tp"):
+                t0 = time.perf_counter()
+                out = ranks.run(rank_vit, paths["int8"], kind,
+                                ("unpack", "kernel"), card)
+                tp = 2 if kind == "dptp" else 4
+                for r in out:
+                    for mode in ("unpack", "kernel"):
+                        assert np.array_equal(r["logits"][mode],
+                                              singles["int8"][mode]), \
+                            (kind, r["rank"], mode)
+                    assert r["report"]["merge_parallel_matmuls"] == 12, r
+                    assert r["layouts"].get("splitk_stacked") == 24, r
+                    assert r["heads"] == [HEADS // tp], r["heads"]
+                    c = r["counts"]["kernel"]
+                    assert c["fused_attention_hs"] == 12, c
+                    assert c["splitk_qmatmul"] == 24, c
+                res["launches"][f"vit_int8_{kind}_kernel"] = \
+                    out[0]["counts"]["kernel"]
+                say("par-vit", mesh=kind, world=PAR_WORLD,
+                    groups=f"data{4 // tp}xmodel{tp}", batch=PAR_B,
+                    heads_per_rank=out[0]["heads"][0],
+                    merges=out[0]["report"]["merge_parallel_matmuls"],
+                    stacked=out[0]["layouts"].get("splitk_stacked"),
+                    logits_equal_single_process_bitwise=True,
+                    kernel_launches_per_rank=",".join(
+                        f"{k}:{v}" for k, v in
+                        out[0]["counts"]["kernel"].items() if v),
+                    shadow=",".join(f"{k}:{v[0]}calls:{v[1]}mismatches"
+                                    for k, v in out[0]["shadow"].items()),
+                    seconds=time.perf_counter() - t0, card=cardw)
+            t0 = time.perf_counter()
+            out = ranks.run(rank_vit, paths["w3a8"], "dptp", ("kernel",),
+                            card)
+            for r in out:
+                assert np.array_equal(r["logits"]["kernel"],
+                                      singles["w3a8"]["kernel"]), r["rank"]
+                assert r["counts"]["kernel"]["packed_qmatmul"] > 0, r
+            res["launches"]["vit_w3a8_dptp_kernel"] = \
+                out[0]["counts"]["kernel"]
+            say("par-vit", mesh="dptp", mode="w3a8", world=PAR_WORLD,
+                logits_equal_single_process_bitwise=True,
+                packed_qmatmul_per_rank=out[0]["counts"]["kernel"][
+                    "packed_qmatmul"],
+                seconds=time.perf_counter() - t0, card=cardw)
+            # (b) decode under TP 2
+            t0 = time.perf_counter()
+            out = ranks.run(rank_decode, paths, card)
+            by_row = {r["row"]: r for r in out}
+            for rank, r in enumerate(out):
+                for key in ("gpt_int8", "llama_int8", "gpt_w4"):
+                    if key not in r:
+                        continue
+                    apart = np.argwhere(r[key] != want[key])
+                    say("par-decode-tokens", rank=rank, path=key,
+                        tokens_apart=len(apart),
+                        first_apart=apart[:1].tolist(),
+                        prompt=GPT_PROMPT, new_tokens=PAR_NEW)
+                    assert len(apart) == 0, (rank, key)
+            for r in out:
+                if r["row"] == 1:
+                    assert sorted(r["engine"]) == list(range(PAR_REQS))
+                    for rid, toks in r["engine"].items():
+                        assert np.array_equal(np.asarray(toks), solo[rid]), \
+                            rid
+            for key, r in (("gpt_int8", by_row[0]), ("llama_int8", by_row[0]),
+                           ("gpt_w4", by_row[1])):
+                res["launches"][f"decode_{key}"] = r["counts"][key]
+            say("par-decode", world=PAR_WORLD, groups="2_rows_of_model2",
+                new_tokens=PAR_NEW, gpt2_int8_tokens_equal=True,
+                gpt2_w4_tokens_equal=True, tinyllama_int8_tokens_equal=True,
+                tinyllama_layers=PAR_LLAMA_LAYERS,
+                tinyllama_merges=by_row[0]["llama_merges"],
+                engine_requests=PAR_REQS, engine_slots=PAR_SLOTS,
+                engine_steps=by_row[1]["engine_steps"],
+                engine_equals_generate_kv_alone=True,
+                w4_wo_launches_per_rank=by_row[1]["counts"]["gpt_w4"][
+                    "splitk_wo_matmul"],
+                seconds=time.perf_counter() - t0, card=cardw)
+            # (c) pipelines
+            t0 = time.perf_counter()
+            out = ranks.run(rank_pipe, paths["int8"])
+            single = load_qmodel(paths["int8"])
+            single.optimize()
+            ref = single([x])[0]
+            for r in out:
+                if "gpipe" in r:
+                    assert np.array_equal(r["gpipe"], ref), "gpipe"
+                assert np.array_equal(r["pp_tp"], ref), "pp x tp"
+            res["launches"]["gpipe_stage0"] = out[0]["gpipe_counts"]
+            res["launches"]["gpipe_stage1"] = out[1]["gpipe_counts"]
+            res["launches"]["pp_tp_rank0"] = out[0]["pp_tp_counts"]
+            res["launches"]["pp_tp_rank2"] = out[2]["pp_tp_counts"]
+            say("par-pipeline", gpipe_stages=2, microbatches=PAR_MICRO,
+                cut=out[0]["cut"], pp_tp="pipe2xmodel2",
+                gpipe_equal_bitwise=True, pp_tp_equal_bitwise=True,
+                seconds=time.perf_counter() - t0, card=cardw)
+            del single
+        res["ranks_seconds"] = time.perf_counter() - t_ranks
+
+        # (d) the kernels at the shard shapes, in this process
+        t0 = time.perf_counter()
+        res["kernels"] = par_kernels(name)
+        say("par-kernels", seconds=time.perf_counter() - t0, card=cardw)
+
+        # (e) a saved stacked model loads back byte for byte; a QDQ export
+        # after the merge re-imports to the unmerged graph's logits
+        t0 = time.perf_counter()
+        q = fmodel.quantize(stats=stats, **dict(WEIGHT_CONFIGS["w4a8"],
+                                                quantize_conv=True))
+        layout = Mesh(np.arange(4).reshape(2, 2), ("data", "model"), "cuda")
+        par.shard_model(q, layout, rules=par.vit_tp_rules)
+        q.pack_weights()
+        q.mesh = None
+        path = os.path.join(tmp, "stacked.onnx")
+        save_qmodel(q, path, proto)
+        back = load_qmodel(path)
+        mine = {v.name: v.data for v in q.values}
+        stacked = 0
+        for v in back.values:
+            if getattr(v.data, "layout", None) == "splitk_stacked":
+                src = mine[v.name]
+                assert src.planes.cpu().numpy().tobytes() == \
+                    v.data.planes.cpu().numpy().tobytes(), v.name
+                stacked += 1
+        assert stacked == 24, stacked
+        assert np.array_equal(back([x[:B_F32]])[0], q([x[:B_F32]])[0])
+        # the same passes but the merge on the other model
+        unmerged = fmodel.quantize(stats=stats, bit_width=8,
+                                   quantize_conv=True)
+        unmerged._opt_merge_matmuls = False
+        unmerged.optimize()
+        merged = fmodel.quantize(stats=stats, bit_width=8,
+                                 quantize_conv=True)
+        merged._opt_merge_matmuls = True
+        assert merged.optimize()["merge_parallel_matmuls"] == 12
+        ua, ma = export_qdq(unmerged, proto), export_qdq(merged, proto)
+        assert ua.SerializeToString() == ma.SerializeToString()
+        a = Model.from_onnx(ua)([x[:B_F32]])[0]
+        b = Model.from_onnx(ma)([x[:B_F32]])[0]
+        assert np.array_equal(a, b), "merged export != unmerged export"
+        say("par-serialization", stacked_payloads_equal_bytewise=stacked,
+            qdq_after_merge_equals_unmerged_bitwise=True,
+            seconds=time.perf_counter() - t0, card=cardw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    say("par-phase", seconds=res["seconds"], ranks_seconds=res["ranks_seconds"],
+        backend="gloo", world=PAR_WORLD,
+        note="one_card_time_slices_the_ranks:no_time_here_is_a_scaling_"
+             "figure", card=cardw)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6411,6 +7085,10 @@ def main() -> int:
                                                   random_vit_weights,
                                                   vit_image_classifier)
     t_start = time.perf_counter()
+
+    def mark(upto: str) -> None:
+        say("elapsed", upto=upto, seconds=time.perf_counter() - t_start)
+
     card = card_line()
     name = torch.cuda.get_device_name(0)
     say("card", nvidia_smi=card.replace(" ", "_"), torch=torch.__version__,
@@ -6422,6 +7100,8 @@ def main() -> int:
     timing = time_attention(name)
     qworst, qforms = check_qmatmul()
     qtiming = time_qmatmul(name)
+
+    mark("phase_1")
 
     # -- phase 2: the main path in f32 --------------------------------
     t0 = time.perf_counter()
@@ -6479,6 +7159,8 @@ def main() -> int:
         assert exact_in_order(B_F32 * HEADS * nq, N_TOK)
     assert flips == 0, (flips, blocks)
 
+    mark("phase_2")
+
     # -- phase 3: bf16 serving mode at batch 96 (bench.py's form) -----
     x = torch.from_numpy(rng.normal(size=(B_SERVE, 3, 224, 224))
                          .astype(np.float32) * 0.5).cuda()
@@ -6515,6 +7197,8 @@ def main() -> int:
     assert bf16_equal, "bf16 B=96: kernel and plain-chain logits differ"
     say("bf16-profile", **bf16_profile(lambda: qmodel([x], as_numpy=False)[0]))
 
+    mark("phase_3")
+
     # -- phase 4: the packed paths in f32 at batch 8 ------------------
     main_launches = {}
     qmodels = {"int8": qmodel}
@@ -6549,6 +7233,8 @@ def main() -> int:
         assert equal, f"{mode}: kernel and unpack logits differ"
         if mode == "w3a8":
             main_launches[kname] = ck[kname]
+
+    mark("phase_4")
 
     # -- phase 5: the packed paths in bf16 serving at batch 96 ---------
     for mode in ("int8", "w4a8", "w3a8"):
@@ -6587,6 +7273,8 @@ def main() -> int:
                 say("packed-bf16-profile", mode=mode, **bf16_profile(
                     lambda: qm([x], as_numpy=False)[0]))
 
+    mark("phase_5")
+
     # -- phase 18 (a, b): the ViT-Base forwards captured ---------------
     for mode in ("unpack", "kernel"):
         with packed_execution(mode):
@@ -6602,22 +7290,32 @@ def main() -> int:
                              B_SERVE, "images", dtype="bf16",
                              packed_execution="kernel", batch=B_SERVE)
 
+    mark("phase_18ab")
+
     # -- phase 6: the weight-only kernel against its plain version -----
     wo_worst = check_wo()
     wo_timing = {t: rows["768x3072"] for t, rows in time_wo(name).items()}
+
+    mark("phase_6")
 
     # -- phase 7: the weight-only GPT-2 decode path at full width ------
     wo_counts = decode_phase(card)
     main_launches["splitk_wo_matmul"] = wo_counts["splitk_wo_matmul"]
 
+    mark("phase_7")
+
     # -- phase 8: the blockwise attention kernel ----------------------
     bq_worst = check_blockq()
     bq_timing = time_blockq(name)
+
+    mark("phase_8")
 
     # -- phase 9: the int8 GPT-2 scoring path at full context ---------
     score_counts = scoring_phase(card)
     main_launches["fused_attention_hs_blockq"] = \
         score_counts["fused_attention_hs_blockq"]
+
+    mark("phase_9")
 
     # -- phase 10: the pre-split attention kernel ---------------------
     plain_worst, plain_flips, plain_blocks = check_plain()
@@ -6627,23 +7325,30 @@ def main() -> int:
     assert plain_flips <= 0.001 * plain_blocks, (plain_flips, plain_blocks)
     plain_timing = time_plain(name)
 
+    mark("phase_10")
+
     # -- phase 11: TinyLlama-1.1B int8 scoring at full context --------
-    from numpy_quant_tpu_torch.models.llama import (TINYLLAMA_1_1B,
-                                                    random_llama_weights)
+    from numpy_quant_tpu_torch.models.llama import random_llama_weights
     t0 = time.perf_counter()
-    llama_weights = random_llama_weights(TINYLLAMA_1_1B, seed=0)
+    llama_weights = random_llama_weights(tinyllama(), seed=0)
     say("llama-weights", seconds=time.perf_counter() - t0,
         bytes=sum(w.nbytes for w in llama_weights.values()))
     llama_counts = llama_phase(card, llama_weights)
     main_launches["fused_attention"] = llama_counts["fused_attention"]
+
+    mark("phase_11")
 
     # -- phase 12: the score-bias forms of the head-split kernels -----
     sb_check = check_score_bias()
     sb_timing = time_score_bias(name)
     forms = forms_launched()
 
+    mark("phase_12")
+
     # -- phase 13: T5-small int8 scoring ------------------------------
     t5_counts, t5_cost = t5_phase(card)
+
+    mark("phase_13")
 
     # -- phase 14: quantize/dequantize at every boundary; 9-16 bits -----
     ew_check = check_elementwise()
@@ -6654,10 +7359,14 @@ def main() -> int:
     mlp_sweep_phase()
     w8a16_phase(card, model, stats, x8, fused)
 
+    mark("phase_14")
+
     # -- phase 16(a): ViT-Base under map_batches and serve_stream -------
     t16 = time.perf_counter()
     vit_serving = vit_serving_phase(card, qmodel)
     t16 = time.perf_counter() - t16
+
+    mark("phase_16a")
 
     # -- phase 17: ONNX interop (run here, on phase 3's models) -------
     t17 = time.perf_counter()
@@ -6666,6 +7375,8 @@ def main() -> int:
                             qmodels["int8"])
     say("interop-phase", seconds=time.perf_counter() - t17,
         card=card.replace(" ", "_"))
+
+    mark("phase_17")
 
     # -- phase 15: TinyLlama-1.1B decode and prefill ------------------
     t15 = time.perf_counter()
@@ -6676,6 +7387,8 @@ def main() -> int:
     decode = llama_decode_phase(card, llama_weights)
     prefill_counts, prefill_model = int8_prefill_phase(card, llama_weights)
     say("llama-decode-phase", seconds=time.perf_counter() - t15)
+
+    mark("phase_15")
 
     # -- phase 16(b-d): serving TinyLlama-1.1B ------------------------
     t0 = time.perf_counter()
@@ -6692,18 +7405,31 @@ def main() -> int:
         engine_step_idle_share=engine["profile"]["idle_share"],
         card=card.replace(" ", "_"))
 
+    mark("phase_16bcd")
+
     # -- phase 19: the PTQ accuracy passes ----------------------------
     ptq = ptq_phase(card, name, llama_weights)
     del llama_weights
 
+    mark("phase_19")
+
     # -- phase 20: the CNN and GNN zoo ---------------------------------
     zoo = zoo_phase(card)
+
+    mark("phase_20")
 
     # -- phase 21: encoder-decoder generation ---------------------------
     ed = encdec_phase(card)
 
+    mark("phase_21")
+
     # -- phase 22: QAT and the rest of the model zoo ---------------------
     z = qat_zoo_phase(card)
+
+    mark("phase_22")
+
+    # -- phase 23: data, tensor and pipeline parallelism ----------------
+    par = parallel_phase(card)
     say("done", seconds=time.perf_counter() - t_start)
     e1, e5 = engine["per_step"]["E1"], engine["per_step"]["E5"]
     admit = admission["per_admission"]
@@ -6848,6 +7574,15 @@ def main() -> int:
                  if v.get(kname)}
         if paths:
             row["qat_zoo"] = paths
+        # phase 23: launches per rank of each sharded path (zeros left
+        # out), and the kernel at its shard shapes
+        row["parallel"] = {
+            f"per_rank_{k}": c[kname] for k, c in par["launches"].items()
+            if c.get(kname)}
+        shapes = {k.split(":", 1)[1]: v for k, v in par["kernels"].items()
+                  if k.split(":", 1)[0] == kname}
+        if shapes:
+            row["parallel_shard_shapes"] = shapes
     wo_row = next(r for r in rows if r["name"] == "splitk_wo_matmul")
     wo_row["ptq"]["vit_rows"] = {f"M{m}": t for m, t in ptq["wo"].items()}
     wo_row["mixtral_decode_shapes"] = z["times"]["wo"]

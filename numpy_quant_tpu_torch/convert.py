@@ -28,9 +28,14 @@ The LLaMA graph's RMSNorm weights and RoPE tables are 8-bit constants like
 any weight.
 
 A packed weight (the JAX package's ``PackedQTensor``, after its
-``pack_weights()``) is given as ``{"layout": "splitk" or "bitplanes",
-"k": K, "n": N, "bit_width": b, "scale": ..., "payload": the packed
-array, "colsum": int32 [1, N]}`` and is installed packed, byte for byte.
+``pack_weights()``) is given as ``{"layout": "splitk", "bitplanes" or
+"splitk_stacked", "k": K, "n": N, "bit_width": b, "scale": ...,
+"payload": the packed array, "colsum": int32 [1, N]}`` and is installed
+packed, byte for byte: a tensor-parallel model's stacked row groups
+[S, KR_local, N] with their global colsum too. A model whose Q/K/V
+products JAX merged (``merge_parallel_matmuls``) takes its merged
+``<node>/merged_w`` constants once the port's graph is merged the same
+way.
 
 The two packages then compute the same function on the same inputs.
 """
@@ -91,8 +96,8 @@ def _packed(c: dict, payload: np.ndarray, value: Constant, device):
     if (k, n) != tuple(value.data.shape):
         raise ValueError(f"{value.name}: packed shape {(k, n)} != "
                          f"{tuple(value.data.shape)}")
-    dtype = np.int8 if c["layout"] == "splitk" and int(c["bit_width"]) == 8 \
-        else np.uint8
+    dtype = np.int8 if c["layout"] in ("splitk", "splitk_stacked") \
+        and int(c["bit_width"]) == 8 else np.uint8
     colsum = np.array(c["colsum"], np.int32).reshape(1, n)
     return PackedQTensor(torch.from_numpy(payload.astype(dtype)).to(device),
                          torch.from_numpy(colsum).to(device), k, n,

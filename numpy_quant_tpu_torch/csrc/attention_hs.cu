@@ -371,8 +371,10 @@ __device__ __forceinline__ void row_group(
         }
     group_sync<WG>(grp);
     // the row sums in torch's order: row r0 + i of the unfused [B, H, nq,
-    // N] exp tensor, rows 16 / WG * kh.. by warp kh
-    const size_t row0 = ((size_t)b * p.H + h) * p.nq + r0;
+    // N] exp tensor, rows 16 / WG * kh.. by warp kh; a tensor-parallel
+    // rank's heads sit at head_base.. of head_total in that tensor
+    const size_t row0 =
+        ((size_t)b * p.head_total + p.head_base + h) * p.nq + r0;
 #pragma unroll 4
     for (int i = 16 / WG * kh; i < 16 / WG * (kh + 1); ++i) {
       if (r0 + i >= p.nq) break;

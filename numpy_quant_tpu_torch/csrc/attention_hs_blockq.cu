@@ -427,7 +427,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         }
       __syncthreads();
       torch_order_stream_rows(a, &t.u.e[8 * warp * EP], EP, j0,
-                              min(BK, n - j0), n, (long long)b * p.H + h,
+                              min(BK, n - j0), n,
+                              (long long)b * p.head_total + p.head_base + h,
                               r0 + 8 * warp, p.nq, p.sum_tile, p.sum_vec,
                               p.sum_lanes, lane);
     });

@@ -74,7 +74,8 @@ class _HSParams(ctypes.Structure):
         "B", "nq", "N", "H", "D", "zq", "zk", "zv", "zp_p", "fast",
         "static_shift", "need_lo", "need_hi", "out_int8", "has_res_zp",
         "causal", "window", "skip", "has_bias", "sum_vec", "sum_lanes",
-        "sum_tile", "warps", "passes", "kv_both")] \
+        "sum_tile", "warps", "passes", "kv_both", "head_total",
+        "head_base")] \
         + [(name, ctypes.c_float) for name in (
             "c_score", "scaling", "czq", "base", "sp", "zp_pf", "c_out",
             "res_scale", "res_zp", "qmin", "qmax", "mask")]
@@ -259,6 +260,21 @@ def _mask_add(rows: torch.Tensor, n: int, mask, causal_window):
                        torch.full((), float(mask), device=rows.device))
 
 
+def _row_sums(e: torch.Tensor, head_base: int = 0,
+              head_total: int | None = None) -> torch.Tensor:
+    """e [B, H, rows, N] summed over its last dim. With ``head_total``
+    (a tensor-parallel rank's heads head_base.. of head_total), each row
+    is summed where it lies in the whole model's [B, head_total, rows, N]
+    tensor: torch's CUDA sum order depends on a row's alignment, (row *
+    N) % 4, so the rank's sums equal the single process's."""
+    b, h, rows, n = e.shape
+    if head_total is None or head_total == h:
+        return e.sum(dim=-1, keepdim=True)
+    whole = e.new_zeros((b, head_total, rows, n))
+    whole[:, head_base:head_base + h] = e
+    return whole.sum(dim=-1, keepdim=True)[:, head_base:head_base + h]
+
+
 def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
                                         scaling: float, sq: float, zq: int,
                                         sk: float, zk: int, sv: float,
@@ -270,11 +286,17 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
                                         causal_mask_val: float | None = None,
                                         causal_window: int | None = None,
                                         score_bias: torch.Tensor | None = None,
-                                        block_q: int | None = BLOCK_Q):
+                                        block_q: int | None = BLOCK_Q,
+                                        head_base: int = 0,
+                                        head_total: int | None = None):
     """Plain PyTorch version of the blockwise kernel: q rows in tiles of
     ``block_q`` (all rows in one tile when None), each tile's full rows
     in the JAX kernel's op order, so memory grows with block_q * N. The
-    ``score_bias`` rows [H, rows, N] follow the q tiles."""
+    ``score_bias`` rows [H, rows, N] follow the q tiles. ``head_base`` /
+    ``head_total``: these heads are heads head_base.. of a model with
+    head_total heads (a tensor-parallel rank's), and each softmax row is
+    summed where it lies in that model's [B, head_total, rows, N] tensor
+    (:func:`_row_sums`)."""
     k = _constants(scaling=scaling, sq=sq, zq=zq, sk=sk, sv=sv, sp=sp,
                    zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
                    fast=fast, score_max=score_max,
@@ -319,7 +341,7 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
             else:
                 e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
             r = torch.ones((), device=e.device) \
-                / (e.sum(dim=-1, keepdim=True) * float(k["sp"]))
+                / (_row_sums(e, head_base, head_total) * float(k["sp"]))
             pq = e * r + float(k["zp_pf"])
             if k["need_lo"] or k["need_hi"]:
                 pq = torch.clamp(pq, k["qmin"] if k["need_lo"] else None,
@@ -341,7 +363,7 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
                 s = s + mask
             m = s.amax(dim=-1, keepdim=True)
             e = torch.exp(s - m)
-            probs = e / e.sum(dim=-1, keepdim=True)
+            probs = e / _row_sums(e, head_base, head_total)
             pq = torch.round(torch.clamp(
                 _divide(probs, k["sp"]) + float(k["zp_pf"]),
                 k["qmin"], k["qmax"])).to(torch.int8)
@@ -375,7 +397,9 @@ def fused_attention_hs_reference(xq, xk, xv, *, num_heads: int,
                                  score_max: float | None = None,
                                  causal_mask_val: float | None = None,
                                  causal_window: int | None = None,
-                                 score_bias: torch.Tensor | None = None):
+                                 score_bias: torch.Tensor | None = None,
+                                 head_base: int = 0,
+                                 head_total: int | None = None):
     """Plain PyTorch version of the monolithic kernel, each head
     independent, in the same op order as the JAX kernel's variant: the
     blockwise plain version with all rows in one tile."""
@@ -384,7 +408,8 @@ def fused_attention_hs_reference(xq, xk, xv, *, num_heads: int,
         sk=sk, zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
         out_requant=out_requant, fast=fast, score_max=score_max,
         causal_mask_val=causal_mask_val, causal_window=causal_window,
-        score_bias=score_bias, block_q=None)
+        score_bias=score_bias, block_q=None, head_base=head_base,
+        head_total=head_total)
 
 
 def _check(xq, xk, xv, num_heads, causal_mask_val, score_bias=None):
@@ -469,7 +494,9 @@ def _launch(wrapper, name: str, xq, xk, xv, d: int, c: dict, kw: dict,
         sum_tile=max(1, int(sum_tile or nq)),
         warps=plan["warps"] if plan else 0,
         passes=plan["passes"] if plan else 0,
-        kv_both=int(plan["kv_both"]) if plan else 0, c_score=c["c_score"],
+        kv_both=int(plan["kv_both"]) if plan else 0,
+        head_total=int(kw.get("head_total") or kw["num_heads"]),
+        head_base=int(kw.get("head_base") or 0), c_score=c["c_score"],
         scaling=c["scaling"], czq=c["czq"],
         base=c["base"], sp=c["sp"], zp_pf=c["zp_pf"], c_out=c["c_out"],
         res_scale=c["res_scale"],
@@ -505,12 +532,16 @@ def fused_attention_hs(xq, xk, xv, *, num_heads: int, scaling: float,
                        causal_mask_val: float | None = None,
                        causal_window: int | None = None,
                        score_bias: torch.Tensor | None = None,
-                       block_q: int | None = None):
+                       block_q: int | None = None, head_base: int = 0,
+                       head_total: int | None = None):
     """xq [B, nq, H*D], xk/xv [B, N, H*D] int8 (nq <= N: narrow q runs
     fewer query rows against full K/V; a causal mask or a score bias
     needs nq == N). ``score_bias``: float32 [H, nq, N], added to the
     scaled scores of each batch row. Returns [B, nq, H*D] float32, or
-    int8 with ``out_requant=(scale, zero_point)``.
+    int8 with ``out_requant=(scale, zero_point)``. ``head_base`` /
+    ``head_total``: the H heads are heads head_base.. of a model with
+    head_total (a tensor-parallel rank's); the exact forms then sum each
+    softmax row in the whole model's order (:func:`_row_sums`).
 
     Long sequences and large biases (see :func:`blockwise`) go to
     :func:`fused_attention_hs_blockq`, the rest to
@@ -520,7 +551,8 @@ def fused_attention_hs(xq, xk, xv, *, num_heads: int, scaling: float,
               zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
               out_requant=out_requant, fast=fast, score_max=score_max,
               causal_mask_val=causal_mask_val, causal_window=causal_window,
-              score_bias=score_bias)
+              score_bias=score_bias, head_base=head_base,
+              head_total=head_total)
     if blockwise(xk.shape[1], block_q, nq=xq.shape[1],
                  bias_heads=None if score_bias is None else num_heads):
         return fused_attention_hs_blockq(xq, xk, xv, block_q=block_q or BLOCK_Q,
@@ -541,7 +573,9 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
                                   score_max: float | None = None,
                                   causal_mask_val: float | None = None,
                                   causal_window: int | None = None,
-                                  score_bias: torch.Tensor | None = None):
+                                  score_bias: torch.Tensor | None = None,
+                                  head_base: int = 0,
+                                  head_total: int | None = None):
     """The monolithic kernel whatever N (up to its shared memory): CUDA
     tensors launch ``csrc/attention_hs.cu`` (or raise), counted in
     ``fused_attention_hs.launches``; CPU tensors take
@@ -551,7 +585,8 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
               zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
               out_requant=out_requant, fast=fast, score_max=score_max,
               causal_mask_val=causal_mask_val, causal_window=causal_window,
-              score_bias=score_bias)
+              score_bias=score_bias, head_base=head_base,
+              head_total=head_total)
     if xq.device.type == "cpu":
         return fused_attention_hs_reference(xq, xk, xv, **kw)
     d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs")
@@ -597,7 +632,8 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
                               causal_mask_val: float | None = None,
                               causal_window: int | None = None,
                               score_bias: torch.Tensor | None = None,
-                              block_q: int = BLOCK_Q):
+                              block_q: int = BLOCK_Q, head_base: int = 0,
+                              head_total: int | None = None):
     """The blockwise form of :func:`fused_attention_hs` for long
     sequences: the same function of the same operands. CUDA tensors
     launch ``csrc/attention_hs_blockq.cu`` (or raise), which streams K/V
@@ -610,7 +646,8 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
               zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
               out_requant=out_requant, fast=fast, score_max=score_max,
               causal_mask_val=causal_mask_val, causal_window=causal_window,
-              score_bias=score_bias)
+              score_bias=score_bias, head_base=head_base,
+              head_total=head_total)
     if xq.device.type == "cpu":
         return fused_attention_hs_blockq_reference(xq, xk, xv,
                                                    block_q=block_q, **kw)

@@ -47,6 +47,24 @@ from .tensor import (
 )
 
 
+def _moved(t, device):
+    """A placed constant (FTensor / QTensor / PackedQTensor) on
+    ``device``."""
+    if isinstance(t, PackedQTensor):
+        return t.to(device)
+    if isinstance(t, QTensor):
+        zp = t.zero_point
+        if isinstance(zp, torch.Tensor):
+            zp = zp.to(device)
+        return QTensor(t.data.to(device), t.bit_width, t.scale, zp,
+                       colsum=None if t.colsum is None
+                       else t.colsum.to(device))
+    out = FTensor(t.data.to(device))
+    if getattr(t, "host", None) is not None:
+        out.host = t.host
+    return out
+
+
 class QuantizationParams:
     """(scale, zero_point) record."""
 
@@ -177,6 +195,15 @@ class Model:
         self._graph_pool = None
         self._failed = None  # (node, error) where a capture failed
         self._subgraphs: dict = {}  # If/Loop bodies, imported once
+        # tensor/data parallelism (parallel/sharding.py::shard_model)
+        self.mesh = None
+        self.data_axis = None
+        self.model_axis = "model"
+        self._shard_rules = None
+        self._shards = None  # (specs, local constants), built on first use
+        # {input or output name: layout} of values a sharded walk takes and
+        # hands back as this rank's piece (utils/generate.py's KV caches)
+        self._local_io: dict = {}
 
     def __repr__(self):
         return (f"{type(self).__name__}(nodes={len(self.nodes)}, "
@@ -273,9 +300,15 @@ class Model:
         inputs first). ``timings`` ({op type: seconds}) adds each node's
         wall time, the device synchronized around it (profile mode)."""
         data: dict[str, Tensor] = {}
+        walk = self._sharded_walk()
         for value in self.values:
             if isinstance(value, Constant):
-                data[value.name] = self._wrap_constant(value)
+                data[value.name] = self._wrap_constant(value) \
+                    if walk is None \
+                    else walk.constant(value, self._local_constant(value))
+        if walk is not None:
+            input_tensors = {name: walk.input(name, t)
+                             for name, t in input_tensors.items()}
         data.update(input_tensors)
         if visit is not None:
             for name, tensor in data.items():
@@ -288,7 +321,8 @@ class Model:
                     if timings is not None:
                         self._sync()
                         start = perf_counter()
-                    outs = self._run_node(node, ins, data)
+                    outs = self._run_node(node, ins, data) \
+                        if walk is None else walk.run(node, ins)
                     outs = self._post_node(node, outs)
                     if timings is not None:
                         self._sync()
@@ -307,10 +341,62 @@ class Model:
                 ins = outs = None
                 for name in last_uses.get(i, ()):
                     data.pop(name, None)
+        if walk is not None:
+            # every rank returns the global outputs
+            for o in self.outputs:
+                if o.name in data:
+                    data[o.name] = walk.output(o.name, data[o.name])
         if record:
             for variable in self.inputs:
                 variable.data = input_tensors.get(variable.name, variable.data)
         return data
+
+    # ------------------------------------------------------------------
+    # Sharded execution (parallel/): one rank's walk
+    # ------------------------------------------------------------------
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _sharded_walk(self):
+        if not self._sharded():
+            return None
+        from .parallel.walk import ShardedWalk
+        return ShardedWalk(self)
+
+    def _local_params(self) -> dict:
+        """{constant name: this rank's piece} of every constant the
+        sharding rules split (built once, on the mesh's device); a
+        constant built on another device is moved there whole."""
+        if self._shards is None:
+            from .parallel.sharding import param_shardings
+            shards = param_shardings(self, self.mesh, self._shard_rules)
+            specs = {n: spec for n, (spec, _) in shards.items()}
+            local = {n: t for n, (_, t) in shards.items()}
+            dev = self.mesh.device
+            for v in self.values:
+                if isinstance(v, Constant) and v.name not in local \
+                        and isinstance(v.data, (FTensor, QTensor,
+                                                PackedQTensor)) \
+                        and v.data.data.device != dev:
+                    local[v.name] = _moved(self._wrap_constant(v), dev)
+            self._shards = (specs, local)
+        return self._shards[1]
+
+    def _local_specs(self) -> dict:
+        self._local_params()
+        return self._shards[0]
+
+    def _local_constant(self, value: Constant) -> Tensor:
+        t = self._local_params().get(value.name)
+        if t is None:
+            return self._wrap_constant(value)
+        if isinstance(t, FTensor):
+            out = FTensor(t.data)  # the current float dtype
+            if getattr(t, "host", None) is not None:
+                out.host = t.host
+            return out
+        return t
 
     def _finalize_output(self, tensor: Tensor):
         data = tensor.data
@@ -458,7 +544,8 @@ class Model:
         and on the CPU, every call walks eagerly. ``as_numpy=False``
         returns the outputs as device tensors."""
         if profile or record or config.eager \
-                or self.device.type != "cuda":
+                or self.device.type != "cuda" or self._sharded():
+            # a sharded walk's collectives cannot sit in a captured graph
             input_tensors = {v.name: self._wrap_input(a, v)
                              for a, v in zip(inputs, self.inputs)}
             timings = self._profile_buckets() if profile else None
@@ -569,8 +656,10 @@ class Model:
 
     def invalidate_graphs(self) -> None:
         """Drop every captured forward: a weight, the graph or its
-        quantization changed, and a replay would read what is gone."""
+        quantization changed, and a replay would read what is gone. The
+        sharded constants go with them."""
         self._graphs.clear()
+        self._shards = None
 
     def invalidate_params(self) -> None:
         """A constant changed: drop what was built from the old values (on
@@ -596,8 +685,12 @@ class Model:
         def visit(name, tensor):
             shapes[name] = tuple(int(s) for s in tensor.data.shape)
 
-        with torch.inference_mode():
-            self._forward(input_tensors, visit=visit)
+        mesh, self.mesh = self.mesh, None  # global shapes: walk unsharded
+        try:
+            with torch.inference_mode():
+                self._forward(input_tensors, visit=visit)
+        finally:
+            self.mesh = mesh
         return shapes
 
     # ------------------------------------------------------------------
@@ -661,7 +754,11 @@ class Model:
             return torch.stack(rows) if rows else torch.zeros((0, 2))
 
         floats = [a for a in inputs if not _is_shape_input(a)]
-        if mode == "jit" and self.device.type == "cuda":
+        if percentile is not None and self._sharded():
+            raise ValueError("percentile calibration under a mesh: run "
+                             "calibration_stats on the unsharded model")
+        if mode == "jit" and self.device.type == "cuda" \
+                and not self._sharded():
             floats = [self._device_tensor(a) for a in floats]
             stream = _warm_up(fold, floats, self.device)
             graph, extremes = _capture_graph(
@@ -670,7 +767,15 @@ class Model:
             extremes = extremes.cpu().numpy()
             del graph
         else:
-            extremes = fold(floats).cpu().numpy()
+            extremes = fold(floats)
+            if self._sharded():
+                # min and max are associative: the shards' extremes reduce
+                # to the single-process stats exactly
+                from .parallel.mesh import all_reduce
+                extremes = torch.stack(
+                    [all_reduce(extremes[:, 0], self.mesh, None, "min"),
+                     all_reduce(extremes[:, 1], self.mesh, None, "max")], 1)
+            extremes = extremes.cpu().numpy()
         device = {name: (np.float32(mn), np.float32(mx))
                   for name, (mn, mx) in zip(names, extremes)}
         return {name: host[name] if name in host else device[name]
@@ -1052,6 +1157,12 @@ class QModel(Model):
         # values planned for early quantization (int8_dataflow pass)
         self._int8_values: set = set()
         self._dp_cache = None
+        # pipeline stages (parallel/pipeline.py): an interior stage takes
+        # and hands on the float boundary activation as it is
+        self._passthrough_wrap = False
+        self._passthrough_finalize = False
+        # merge_parallel_matmuls in optimize(): None follows the mesh
+        self._opt_merge_matmuls = None
 
     def _device_params(self) -> dict[str, torch.Tensor]:
         """Constant payloads as executed: int8 storage for <= 8-bit
@@ -1139,7 +1250,8 @@ class QModel(Model):
         rhs: the q_matmul correction reduces them once, not per
         forward (identical integers)."""
         data = value.data.data
-        if data.ndim != 2 or not only_rhs_of(value, ("MatMul",)):
+        if data.ndim != 2 or not only_rhs_of(value,
+                                             ("MatMul", "MatMulSplit")):
             return None
         idt = torch.int64 if data.dtype == torch.int64 else torch.int32
         return data.to(idt).sum(dim=0, keepdim=True, dtype=idt)
@@ -1159,6 +1271,8 @@ class QModel(Model):
         if isinstance(array, np.ndarray) and array.dtype == np.int64:
             return ITensor(array)
         t = self._device_tensor(array)
+        if self._passthrough_wrap and t.is_floating_point():
+            return FTensor(t)  # a stage boundary: the float carry as is
         qp = self.quant_params[variable.name]
         if t.dtype == torch.float32:
             return quantize_tensor(FTensor(t), self.bit_width, qp.scale,
@@ -1259,6 +1373,8 @@ class QModel(Model):
         return outputs
 
     def _finalize_output(self, tensor: Tensor):
+        if self._passthrough_finalize and isinstance(tensor, FTensor):
+            return tensor.data  # handed to the next stage as it flows
         if isinstance(tensor, QTensor):
             # dequantizes to the float dtype, bf16 in the serving mode
             tensor = tensor.dequantize()
@@ -1302,6 +1418,13 @@ class QModel(Model):
         from .passes import pack_weights
         return pack_weights(self)
 
+    def merge_parallel_matmuls(self) -> int:
+        """Merge the MatMuls that share one activation (the Q/K/V
+        projections) into one MatMulSplit over the concatenated weights.
+        See passes/matmul_merge.py."""
+        from .passes.matmul_merge import merge_parallel_matmuls
+        return merge_parallel_matmuls(self)
+
     def optimize(self, verbose: bool = False) -> dict:
         """Apply the graph passes that keep the executor's numerics:
         attention fusion, GELU fusion, dead-token elimination and early
@@ -1313,6 +1436,13 @@ class QModel(Model):
         # the [B, 1, H] KV-cache chain, which fuse_attention's
         # full-sequence patterns reject
         dec = self.fuse_decode_attention()
+        # merged Q/K/V products: the JAX package's gate (on by itself
+        # under a tensor-parallel mesh; ``_opt_merge_matmuls`` True/False
+        # forces either way)
+        from .parallel.sharding import model_axis_size
+        flag = self._opt_merge_matmuls
+        do_merge = flag if flag is not None else model_axis_size(self) >= 2
+        merged = self.merge_parallel_matmuls() if do_merge else 0
         gelu = self.fuse_gelu()
         narrowed = self.narrow_gather()
         planned = self.int8_dataflow()
@@ -1321,6 +1451,6 @@ class QModel(Model):
             for name, reason in failures:
                 print(f"optimize: Softmax {name!r} not fused: {reason}")
         return {"fuse_attention": fused, "fuse_decode_attention": dec,
-                "fuse_gelu": gelu,
+                "merge_parallel_matmuls": merged, "fuse_gelu": gelu,
                 "narrow_gather": narrowed, "int8_dataflow": planned,
                 "fusion_failures": failures}

@@ -3,8 +3,8 @@
 ops, weight-only MatMul/Gemm, the interop ops of ``interop.py`` (QDQ,
 QOperator, dynamic quantization, Cast, ConstantOfShape), LSTM/GRU
 (``recurrent.py``) and the standard op set of ``standard.py`` --
-every op name the JAX package dispatches but ``MatMulSplit`` (the
-internal op of its matmul-merge pass). If/Loop run in ``Model``
+every op name the JAX package dispatches, ``MatMulSplit`` (the merged
+Q/K/V product of passes/matmul_merge.py) included. If/Loop run in ``Model``
 (their bodies are graphs). Any other op raises ``NotImplementedError``
 with its name."""
 from __future__ import annotations
@@ -103,7 +103,10 @@ def attention_call(inputs: list[Tensor], attrs: dict):
         sp=float(attrs["probs_scale"]),
         zp_p=int(attrs["probs_zero_point"]),
         bit_width=xq.bit_width,
-        out_requant=attrs.get("out_requant"))  # set by int8_dataflow
+        out_requant=attrs.get("out_requant"),  # set by int8_dataflow
+        # a tensor-parallel rank's heads among the model's (parallel/walk.py)
+        head_base=int(attrs.get("head_base", 0)),
+        head_total=attrs.get("head_total"))
     return (qdata.to(torch.int8).contiguous(),
             xk.data.to(torch.int8).contiguous(),
             xv.data.to(torch.int8).contiguous(), kwargs, narrow_q)
@@ -246,8 +249,30 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
                                    container=torch.int8), scale, qp[1])
 
     qf = as_float(q, "q_qp")            # [B, H, 1, D]
-    kcf = as_float(kc, "ktc_qp")        # [B, H, L, D]
-    khf = as_float(kh, "kts_qp")        # [B, H, 1, D]
+    whole = attrs.get("lead_whole")
+    local = tuple(qf.shape[:2])
+    lead = None if whole is None else tuple(
+        slice(b, b + n) for b, n in zip(attrs["lead_base"], local))
+
+    def placed(t):
+        # a rank's block of a tensor-parallel step, placed where it lies in
+        # the whole [B, H] grid (zeros elsewhere): cuBLAS picks its kernel,
+        # and so its summation order, by the batch of the product, so the
+        # rank's dots equal the single process's only at its shape
+        if lead is None or t.ndim < 4:
+            return t
+        # an axis of q's local size is this rank's; a size-1 axis of a
+        # wider q broadcasts
+        real = [t.shape[i] == local[i] for i in range(2)]
+        out = t.new_zeros([whole[i] if real[i] else 1 for i in range(2)]
+                          + list(t.shape[2:]))
+        out[tuple(lead[i] if real[i] else slice(None)
+                  for i in range(2))] = t
+        return out
+
+    qf = placed(qf)
+    kcf = placed(as_float(kc, "ktc_qp"))  # [B, H, L, D]
+    khf = placed(as_float(kh, "kts_qp"))  # [B, H, 1, D]
     s_past = torch.matmul(*_promoted(qf, kcf.transpose(-1, -2)))
     s_self = torch.matmul(*_promoted(qf, khf.transpose(-1, -2)))
     s = torch.cat(_promoted(s_past, s_self), dim=-1)
@@ -257,7 +282,7 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
         else:
             e = extras[int(val)]
             e = e.dequantize().data if isinstance(e, QTensor) else e.data
-            s, e = _promoted(s, e)
+            s, e = _promoted(s, placed(e))
             s = s + e
     probs = FTensor(s).softmax(axis=-1).data
     p_past, p_self = probs[..., :cache_len], probs[..., cache_len:]
@@ -265,10 +290,13 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
         sp, zp = np.float32(attrs["p_qp"][0]), attrs["p_qp"][1]
         p_past = dequantize(quantize(p_past, bw, sp, zp,
                                      container=torch.int8), sp, zp)
-    vcf = as_float(vc, "vc_qp")         # [B, H, L, D]
+    vcf = placed(as_float(vc, "vc_qp"))  # [B, H, L, D]
     ctx = _context_dot(p_past, vcf)
-    vhf = vh.dequantize().data if isinstance(vh, QTensor) else vh.data
+    vhf = placed(vh.dequantize().data if isinstance(vh, QTensor)
+                 else vh.data)
     ctx = ctx + torch.mul(*_promoted(p_self, vhf))
+    if lead is not None:
+        ctx = ctx[lead].contiguous()
     return [FTensor(ctx)]
 
 
@@ -395,6 +423,44 @@ def _matmul(a: Tensor, b: Tensor) -> list[Tensor]:
             return [_packed_matmul(a, b)]
         return [a.matmul(b.unpack())]
     return [a.matmul(b)]
+
+
+def _matmul_split(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
+    """One wide product against the horizontally concatenated weights of
+    QModel.merge_parallel_matmuls, split back into the source products'
+    outputs (JAX ``ops/registry.py:659-685``). Each segment keeps its
+    source's scalar (s_x * s_w) float32 scale, so every value downstream
+    equals the unmerged graph's. Under ``packed_execution == "kernel"`` a
+    packed merged weight runs the packed kernel as an unmerged packed
+    MatMul does, and the segments are its dequantized columns."""
+    a, w = inputs[0], inputs[1]
+    segments = [int(s) for s in attrs["segments"]]
+    seg_scales = [np.float32(s) for s in attrs["segment_scales"]]
+    if isinstance(w, PackedQTensor):
+        if config.packed_execution == "kernel" and isinstance(a, QTensor) \
+                and a.bit_width <= 8:
+            y = _packed_matmul(a, w)
+            bounds = np.cumsum([0] + segments)
+            return [FTensor(y.data[..., s:e])
+                    for s, e in zip(bounds[:-1], bounds[1:])]
+        w = w.unpack()
+    y = a.matmul(w)
+    a_scale = np.float32(a.scale) if isinstance(a, QTensor) else None
+    outs = []
+    start = 0
+    for n_i, s_i in zip(segments, seg_scales):
+        sl = (Ellipsis, slice(start, start + n_i))
+        if isinstance(y, QTensor):
+            zp = y.zero_point
+            if isinstance(zp, torch.Tensor) and zp.ndim > 0:
+                zp = zp[sl]
+            # the float32 product q_matmul computes for the unmerged dot
+            outs.append(QTensor(y.data[sl], y.bit_width,
+                                np.float32(a_scale * s_i), zp))
+        else:
+            outs.append(FTensor(y.data[sl]))
+        start += n_i
+    return outs
 
 
 def _layer_norm(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
@@ -573,6 +639,8 @@ def onnx_operator_implementation(op: str, inputs: list[Tensor],
         return _layer_norm(inputs, attrs)
     if op == "MatMul":
         return _matmul(inputs[0], inputs[1])
+    if op == "MatMulSplit":
+        return _matmul_split(inputs, attrs)
     if op == "Mul":
         return [inputs[0] * inputs[1]]
     if op == "Neg":

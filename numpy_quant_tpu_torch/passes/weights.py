@@ -1,5 +1,5 @@
 """Weight-storage passes: packed sub-byte weights (port of
-``numpy_quant_tpu/passes/weights.py::pack_weights``, without the
+``numpy_quant_tpu/passes/weights.py::pack_weights``, with the
 tensor-parallel stacked layout), the integer-domain bias shift and the
 float-constant rewrites the PTQ accuracy passes share."""
 from __future__ import annotations
@@ -12,11 +12,29 @@ from ..intops import qrange
 from ..tensor import FTensor, QTensor, pack_qtensor
 
 
+def _row_shards(model, name: str) -> int:
+    """The model axis's size if the sharding rules row-(K-)shard this 2-D
+    weight, else 1 (JAX ``passes/weights.py:32-45``)."""
+    rules = getattr(model, "_shard_rules", None)
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or rules is None:
+        return 1
+    m_ax = getattr(model, "model_axis", "model")
+    if m_ax not in mesh.shape or mesh.shape[m_ax] < 2:
+        return 1
+    parts = tuple(rules(name, 2))
+    if parts and parts[0] == m_ax and all(p is None for p in parts[1:]):
+        return mesh.shape[m_ax]
+    return 1
+
+
 def pack_weights(model) -> int:
     """Switch every 2-D, symmetric, <= 8-bit quantized constant consumed
-    only as a MatMul rhs to packed storage (kernels/pack.py: split-K at
-    bits 1/2/4/8, bit-planes at odd widths), exactly bit_width bits per
-    value. Returns the number of weights packed."""
+    only as a MatMul (or MatMulSplit) rhs to packed storage
+    (kernels/pack.py: split-K at bits 1/2/4/8, bit-planes at odd widths),
+    exactly bit_width bits per value. Under a tensor-parallel mesh a
+    weight the rules row-shard packs per rank into the stacked layout.
+    Returns the number of weights packed."""
     packed = 0
     for value in model.values:
         if not isinstance(value, Constant) \
@@ -24,9 +42,12 @@ def pack_weights(model) -> int:
             continue
         qt = value.data
         if qt.zero_point is not None or qt.data.ndim != 2 \
-                or qt.bit_width > 8 or not only_rhs_of(value, ("MatMul",)):
+                or qt.bit_width > 8 \
+                or not only_rhs_of(value, ("MatMul", "MatMulSplit")):
             continue
-        value.data = pack_qtensor(qt)
+        shards = _row_shards(model, value.name) \
+            if qt.bit_width in (1, 2, 4, 8) else 1
+        value.data = pack_qtensor(qt, shards=shards)
         packed += 1
     model.invalidate_params()
     return packed

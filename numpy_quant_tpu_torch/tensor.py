@@ -466,7 +466,10 @@ class PackedQTensor:
     [1, N] for the zero-point correction. Layouts (kernels/pack.py):
 
     * ``"splitk"`` (bits 1/2/4; 8 = the plain int8 weight): [KR, N];
-    * ``"bitplanes"`` (any bits, e.g. 3/5/6/7): uint8[b, ceil(K/8), N].
+    * ``"bitplanes"`` (any bits, e.g. 3/5/6/7): uint8[b, ceil(K/8), N];
+    * ``"splitk_stacked"`` (bits 1/2/4/8): [S, KR_local, N], S row groups
+      of ceil(K/S) rows each packed on its own (pad rows hold 0), one per
+      tensor-parallel rank of a row-sharded weight; the colsum is global.
 
     ``scale`` is a host float32 scalar (per tensor), [1, N] (per output
     channel) or [K/g, N] (grouped, ``Model.quantize_weights(group_size=)``).
@@ -476,7 +479,7 @@ class PackedQTensor:
 
     def __init__(self, planes: torch.Tensor, colsum: torch.Tensor, k: int,
                  n: int, bit_width: int, scale, layout: str = "bitplanes"):
-        if layout not in ("splitk", "bitplanes"):
+        if layout not in ("splitk", "bitplanes", "splitk_stacked"):
             raise ValueError(f"unknown packed layout {layout!r}")
         self.planes = planes
         self.colsum = colsum
@@ -515,7 +518,14 @@ class PackedQTensor:
 
     def unpack(self) -> QTensor:
         from .kernels.pack import unpack_bitplanes, unpack_splitk
-        if self.layout == "splitk":
+        if self.layout == "splitk_stacked":
+            s = self.planes.shape[0]
+            kl = -(-self.k // s)
+            groups = [self.planes[t] if self.bit_width == 8
+                      else unpack_splitk(self.planes[t], self.bit_width, kl)
+                      for t in range(s)]
+            vals = torch.cat([g[:kl] for g in groups], 0)[:self.k]
+        elif self.layout == "splitk":
             vals = self.planes if self.bit_width == 8 else \
                 unpack_splitk(self.planes, self.bit_width, self.k)
         else:
@@ -528,9 +538,15 @@ class PackedQTensor:
                 f"bit_width={self.bit_width}, layout={self.layout!r})")
 
 
-def pack_qtensor(qt: QTensor) -> PackedQTensor:
+def pack_qtensor(qt: QTensor, shards: int = 1) -> PackedQTensor:
     """2-D symmetric QTensor -> packed weight on the same device: the
-    split-K layout at bits 1/2/4/8, bit-planes at odd widths."""
+    split-K layout at bits 1/2/4/8, bit-planes at odd widths.
+
+    ``shards > 1`` (bits 1/2/4/8): each of S contiguous row groups packs on
+    its own into a stacked [S, KR_local, N] payload (``splitk_stacked``)
+    whose leading axis a tensor-parallel mesh splits: a flat split-K
+    payload interleaves K segments and cannot be row-sliced. Pad rows hold
+    0 and add nothing to products or the colsum."""
     from .kernels.pack import pack_bitplanes, pack_splitk
     if qt.zero_point is not None or qt.data.ndim != 2 or qt.bit_width > 8:
         raise ValueError("only 2-D symmetric weights of <= 8 bits pack")
@@ -538,7 +554,18 @@ def pack_qtensor(qt: QTensor) -> PackedQTensor:
     data = qt.data.cpu().numpy()
     k, n = data.shape
     colsum = data.astype(np.int64).sum(axis=0, keepdims=True).astype(np.int32)
-    if qt.bit_width == 8:
+    if shards > 1 and qt.bit_width in (1, 2, 4, 8):
+        kl = -(-k // shards)
+        padded = np.zeros((shards * kl, n), np.int32)
+        padded[:k] = data
+        if qt.bit_width == 8:
+            payload = padded.astype(np.int8).reshape(shards, kl, n)
+        else:
+            payload = np.stack([pack_splitk(padded[t * kl:(t + 1) * kl],
+                                            qt.bit_width)
+                                for t in range(shards)])
+        layout = "splitk_stacked"
+    elif qt.bit_width == 8:
         payload, layout = data.astype(np.int8), "splitk"
     elif qt.bit_width in (1, 2, 4):
         payload, layout = pack_splitk(data, qt.bit_width), "splitk"

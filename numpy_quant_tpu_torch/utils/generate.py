@@ -319,8 +319,17 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
     total = t0 + max_new_tokens
     ids = torch.zeros((batch, total), dtype=torch.int64, device=dev)
     ids[:, :t0] = torch.from_numpy(prompt_ids.astype(np.int64)).to(dev)
-    caches = _kv_buffers(step_model, q_cache, (batch, nh, length, hd),
-                         cache_dtype)
+    # a sharded step model keeps its caches per rank: the batch rows of its
+    # data shard and the heads of its model shard (parallel/sharding.py)
+    from ..parallel.sharding import kv_cache_layout, local_shape
+    cache_lay = kv_cache_layout(step_model, batch, nh)
+    caches = _kv_buffers(step_model, q_cache, local_shape(
+        (batch, nh, length, hd), cache_lay, getattr(step_model, "mesh", None)),
+        cache_dtype)
+    if cache_lay:
+        step_model._local_io = {v.name: cache_lay for v in
+                                step_model.inputs[cache_start:]
+                                + step_model.outputs[1:]}
     # the captured step graph reads the caches and the memory where they lie
     inplace = tuple(range(cache_start - len(memory_in),
                           cache_start + len(caches)))
@@ -353,6 +362,8 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
             ids[:, t + 1] = nxt
         if presence is not None:
             presence.scatter_(1, ids[:, t + 1:t + 2], 1.0)
+    if cache_lay:
+        step_model._local_io = {}
     return ids.cpu().numpy().astype(np.int32)
 
 

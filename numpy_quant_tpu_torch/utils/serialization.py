@@ -8,11 +8,10 @@ under the key ``"numpy_quant_tpu.qmodel"`` -- the JAX package's key and
 layout, so a file either package writes loads in the other. Weight-only
 models ride under ``"numpy_quant_tpu.weight_only"``. ``export_qdq`` and
 ``export_qoperator`` write the standard QDQ and QOperator formats any
-ONNX runtime serves (and this package runs: ``ops/interop.py``).
-
-Not ported yet: the tensor-parallel stacked packed layout
-(``"splitk_stacked"``: loading one raises) and export after
-``merge_parallel_matmuls`` (ROADMAP queue 1 item 7).
+ONNX runtime serves (and this package runs: ``ops/interop.py``). The
+tensor-parallel stacked layout (``"splitk_stacked"``) saves and loads as
+it is stored, and an export after ``merge_parallel_matmuls`` re-slices each
+source weight out of the merged payload.
 """
 from __future__ import annotations
 
@@ -207,9 +206,12 @@ def _packed_values(planes: np.ndarray, layout: str, bits: int,
                    k: int) -> np.ndarray:
     """A packed payload's integer values [K, N] (host)."""
     if layout == "splitk_stacked":
-        raise NotImplementedError(
-            "the tensor-parallel stacked packed layout 'splitk_stacked' is "
-            "not ported yet (ROADMAP queue 1 item 7, parallelism)")
+        # S row groups of ceil(K/S) rows, each packed on its own
+        s = planes.shape[0]
+        kl = -(-k // s)
+        groups = [_packed_values(planes[t], "splitk", bits, kl)
+                  for t in range(s)]
+        return np.concatenate(groups, axis=0)[:k]
     if layout == "splitk":
         return planes.astype(np.int8) if bits == 8 \
             else unpack_splitk_np(planes, bits, k)
@@ -264,6 +266,28 @@ def _unpack_packed(data):
                    data.bit_width, data.scale, None)
 
 
+def _merged_weight_slices(qmodel: QModel) -> dict:
+    """{source weight name: its QTensor} re-sliced out of each merged
+    MatMulSplit payload (merge_parallel_matmuls removed the sources), so
+    an export carries the integers the executor computes with (JAX
+    ``utils/serialization.py:281-301``)."""
+    out = {}
+    for node in qmodel.nodes:
+        if node.op != "MatMulSplit" or "source_weights" not in node.attrs:
+            continue
+        mdata = _unpack_packed(node.inputs[1].data)
+        vals = _host(mdata.data)
+        start = 0
+        for name, seg, sc in zip(node.attrs["source_weights"],
+                                 node.attrs["segments"],
+                                 node.attrs["segment_scales"]):
+            out[name] = QTensor(torch.from_numpy(np.ascontiguousarray(
+                vals[:, start:start + seg])), mdata.bit_width,
+                np.float32(sc), None)
+            start += seg
+    return out
+
+
 def _per_channel_axis(v, arr: np.ndarray, scale: np.ndarray) -> int:
     """Channel axis of a per-channel weight's DequantizeLinear, from the
     CONSUMER (the per_channel_weights rule: MatMul rhs -> axis 1, Gemm
@@ -286,9 +310,13 @@ def _quantized_initializers(qmodel: QModel, g):
     integer payload, flat scale, stored array); other initializers as
     (init, None, ...)."""
     qconst = {v.name: v for v in qmodel.values if isinstance(v, Constant)}
+    merged = _merged_weight_slices(qmodel)
     for init in g.initializer:
         v = qconst.get(init.name)
-        data = _unpack_packed(getattr(v, "data", None))
+        data = getattr(v, "data", None)
+        if data is None and init.name in merged:
+            v, data = None, merged[init.name]
+        data = _unpack_packed(data)
         if not isinstance(data, QTensor) or data.zero_point is not None:
             yield init, None, None, None, None
             continue

@@ -170,7 +170,7 @@ def _vit_qmodel():
 @pytest.mark.parametrize("change", [
     "invalidate_params", "pack_weights", "optimize", "fuse_attention",
     "fuse_decode_attention", "fuse_gelu", "narrow_gather",
-    "int8_dataflow"])
+    "int8_dataflow", "merge_parallel_matmuls"])
 def test_graph_cache_drops_on_a_change(change):
     """Wherever JAX clears its jit cache (or the port drops its placed
     payloads) every captured forward goes: a replay would read weights or

@@ -9,10 +9,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import numpy_quant_tpu as nq
 from numpy_quant_tpu_torch import onnx as O
 from numpy_quant_tpu_torch.ops.registry import onnx_operator_implementation
+from numpy_quant_tpu_torch.tensor import QTensor
 
 from .torch_parity import FLOAT, graph, jax_model, port_model, run_jax
 
@@ -117,9 +119,8 @@ PORTED = (
     "Round ScatterElements ScatterND Selu Shrink Sign Sin Sinh Softplus "
     "Softsign SpaceToDepth Squeeze Sub Sum Tan ThresholdedRelu Tile TopK "
     "Trilu Unique Xor").split()
-# QModel.merge_parallel_matmuls' internal op: waits for the port of
-# passes/matmul_merge.py (ROADMAP queue 1)
-WAITING = ("MatMulSplit",)
+# every op name the JAX package dispatches is dispatched
+WAITING = ()
 
 
 def test_registry_dispatches_every_jax_op():
@@ -133,5 +134,12 @@ def test_registry_dispatches_every_jax_op():
             pytest.fail(f"{op} is not dispatched")
         except Exception:  # noqa: BLE001 -- dispatched, no inputs given
             pass
-    with pytest.raises(NotImplementedError, match="MatMulSplit"):
-        onnx_operator_implementation("MatMulSplit", [], {})
+    # MatMulSplit (passes/matmul_merge.py's merged product) dispatches
+    x = QTensor(torch.tensor([[1, 2]], dtype=torch.int32), 8,
+                np.float32(0.5), None)
+    w = QTensor(torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32), 8,
+                np.float32(0.25), None)
+    outs = onnx_operator_implementation(
+        "MatMulSplit", [x, w], {"segments": [1, 2],
+                                "segment_scales": [0.25, 0.25]})
+    assert [o.data.tolist() for o in outs] == [[[9]], [[12, 15]]]

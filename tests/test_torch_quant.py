@@ -261,6 +261,9 @@ def test_port_imports_no_jax():
             "import numpy_quant_tpu_torch.models.clip\n"
             "import numpy_quant_tpu_torch.models.text\n"
             "import numpy_quant_tpu_torch.models.testgen\n"
+            "import numpy_quant_tpu_torch.parallel\n"
+            "import numpy_quant_tpu_torch.parallel.walk\n"
+            "import numpy_quant_tpu_torch.passes.matmul_merge\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'numpy_quant_tpu' or "
             "m.startswith('numpy_quant_tpu.')]\n"

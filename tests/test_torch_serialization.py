@@ -154,6 +154,87 @@ def test_exports_equal_jax(request, export, model, mode, optimize):
     assert g_inits == w_inits
 
 
+@pytest.mark.parametrize("export", ["export_qdq", "export_qoperator"])
+def test_exports_after_merge_equal_jax(vit, export):
+    """After merge_parallel_matmuls (Q/K/V in one MatMulSplit) both
+    packages re-slice the source weights out of the merged payload: the
+    port's export equals JAX's, and its QDQ export equals the port's
+    export of the same model optimized without the merge."""
+    jq, tq = _pair(vit, "int8")
+    _, plain = _pair(vit, "int8")
+    jq._opt_merge_matmuls = tq._opt_merge_matmuls = True
+    plain._opt_merge_matmuls = False
+    assert jq.optimize()["merge_parallel_matmuls"] \
+        == tq.optimize()["merge_parallel_matmuls"] == CFG["num_hidden_layers"]
+    plain.optimize()
+    want = getattr(JU, export)(jq, vit["jproto"])
+    got = getattr(TU, export)(tq, vit["tproto"])
+    assert _graph_of(got, O) == _graph_of(want, nq.onnx)
+    if export == "export_qdq":
+        assert got.SerializeToString() \
+            == TU.export_qdq(plain, vit["tproto"]).SerializeToString()
+
+
+def test_load_jax_params_installs_stacked_and_merged(vit):
+    """convert.load_jax_params takes a tensor-parallel JAX QModel's stacked
+    row groups byte for byte, and a merged model's '<node>/merged_w'
+    payloads once the port's graph is merged the same way."""
+    from numpy_quant_tpu import parallel as jpar
+    from numpy_quant_tpu_torch import parallel as tpar
+    from numpy_quant_tpu_torch.parallel.mesh import Mesh
+    kw = MODES["w4a8_per_channel"]
+    jq, plain = _pair(vit, "w4a8_per_channel")
+    jpar.shard_model(jq, jpar.make_dp_tp_mesh(8, tp=2), rules=jpar.vit_tp_rules)
+    assert jq.pack_weights() > 0
+    tq = Model.from_onnx(vit["tproto"], device="cpu").quantize(
+        stats=vit["stats"], **kw)
+    tpar.shard_model(tq, Mesh(np.arange(8).reshape(4, 2), ("data", "model"),
+                              "cpu"), rules=tpar.vit_tp_rules)
+    tq.pack_weights()
+    load_jax_params(tq, _jax_state(jq))
+    jpayload = {v.name: v.data for v in jq.values
+                if isinstance(getattr(v, "data", None), JPackedQTensor)}
+    stacked = 0
+    for v in tq.values:
+        if getattr(v.data, "layout", None) == "splitk_stacked":
+            assert v.data.planes.numpy().tobytes() \
+                == np.asarray(jpayload[v.name].planes).tobytes()
+            stacked += 1
+    assert stacked == 2 * CFG["num_hidden_layers"]
+    tq.mesh = None  # the stacked payloads, run whole
+    np.testing.assert_array_equal(tq([vit["x"]])[0], plain([vit["x"]])[0])
+
+    jm, tm = _pair(vit, "int8")
+    jm._opt_merge_matmuls = tm._opt_merge_matmuls = True
+    jm.optimize()
+    tm.optimize()
+    state = _jax_state(jm)
+    merged = [n for n in state["constants"] if n.endswith("/merged_w")]
+    assert len(merged) == CFG["num_hidden_layers"]
+    assert load_jax_params(tm, state) == len(state["constants"])
+
+
+def test_merged_forward_matches_jax(vit):
+    """One merged forward (Q/K/V in a MatMulSplit) against JAX's merged
+    single-device model on the same payloads, under the cross-package
+    contract of the save/load test (labels equal, logits within 1e-2 of
+    max|logit|), and equal to the port's unmerged forward bit for bit."""
+    jq, tq = _pair(vit, "int8")
+    _, plain = _pair(vit, "int8")
+    jq._opt_merge_matmuls = tq._opt_merge_matmuls = True
+    jq.optimize()
+    tq.optimize()
+    plain.optimize()
+    assert [n.op for n in tq.nodes].count("MatMulSplit") \
+        == CFG["num_hidden_layers"]
+    x = vit["x"]
+    got, want = tq([x])[0], np.asarray(jq([x])[0])
+    np.testing.assert_array_equal(got, plain([x])[0])
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-2 * float(np.abs(want).max()))
+
+
 def _mean_abs(a, b):
     return float(np.abs(np.asarray(a) - np.asarray(b)).mean())
 
@@ -305,20 +386,39 @@ def test_save_qmodel_external_data(mlp, tmp_path):
 
 
 def test_stacked_layout_is_refused(vit, tmp_path):
-    _, tq = _saved_pair(vit, "int8", True)
-    path = tmp_path / "stacked.onnx"
-    TU.save_qmodel(tq, path, vit["tproto"])
-    proto = O.load(path)
-    entry = next(e for e in proto.metadata_props
-                 if e.key == "numpy_quant_tpu.qmodel")
-    meta = json.loads(entry.value)
-    for m in meta["quantized_initializers"].values():
-        if m.get("packed"):
-            m["layout"] = "splitk_stacked"
-    entry.value = json.dumps(meta)
-    O.save(proto, path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TU.load_qmodel(path, device="cpu")
+    """The tensor-parallel stacked layout is no longer refused: packed under
+    a tp = 2 layout, the port's file equals JAX's byte for byte, loads
+    back stacked in the port and in JAX, and computes what the unsharded
+    packed model computes."""
+    from numpy_quant_tpu import parallel as jpar
+    from numpy_quant_tpu_torch import parallel as tpar
+    from numpy_quant_tpu_torch.parallel.mesh import Mesh
+    jq, tq = _pair(vit, "w4a8_per_channel")
+    _, plain = _saved_pair(vit, "w4a8_per_channel", True)
+    jpar.shard_model(jq, jpar.make_dp_tp_mesh(8, tp=2), rules=jpar.vit_tp_rules)
+    tpar.shard_model(tq, Mesh(np.arange(8).reshape(4, 2), ("data", "model"),
+                              "cpu"), rules=tpar.vit_tp_rules)
+    assert jq.pack_weights() == tq.pack_weights() > 0
+    stacked = [v.name for v in tq.values
+               if getattr(v.data, "layout", None) == "splitk_stacked"]
+    assert len(stacked) == 2 * CFG["num_hidden_layers"]
+    t_path, j_path = tmp_path / "port.onnx", tmp_path / "jax.onnx"
+    TU.save_qmodel(tq, t_path, vit["tproto"])
+    JU.save_qmodel(jq, j_path, vit["jproto"])
+    assert t_path.read_bytes() == j_path.read_bytes()
+    loaded = TU.load_qmodel(t_path, device="cpu")
+    by_name = {v.name: v for v in loaded.values}
+    for name in stacked:
+        got, want = by_name[name].data, next(
+            v.data for v in tq.values if v.name == name)
+        assert got.layout == "splitk_stacked"
+        assert got.planes.numpy().tobytes() == want.planes.numpy().tobytes()
+        np.testing.assert_array_equal(got.colsum.numpy(), want.colsum.numpy())
+    np.testing.assert_array_equal(loaded([vit["x"]])[0],
+                                  plain([vit["x"]])[0])
+    j_loaded = JU.load_qmodel(t_path)
+    assert any(getattr(v.data, "layout", None) == "splitk_stacked"
+               for v in j_loaded.values)
 
 
 @pytest.mark.parametrize("bits,group", [(8, None), (4, 16), (3, None)])

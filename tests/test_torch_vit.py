@@ -37,8 +37,9 @@ from numpy_quant_tpu_torch.tensor import PackedQTensor, QTensor
 CFG = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
            intermediate_size=128, image_size=32, patch_size=8,
            num_labels=10)
-PASSES = ("fuse_attention", "fuse_decode_attention", "fuse_gelu",
-          "narrow_gather", "int8_dataflow")
+PASSES = ("fuse_attention", "fuse_decode_attention",
+          "merge_parallel_matmuls", "fuse_gelu", "narrow_gather",
+          "int8_dataflow")
 # the 8-bit-activation configurations: int8, W4A8 per-channel, W3A8
 MODES = {k: c for k, c in TV.WEIGHT_CONFIGS.items() if c["bit_width"] <= 8}
 # the dict form of weight_bit_width: per-weight widths, the rest at 8 bits
