@@ -64,9 +64,11 @@
 // tile's exp in shared memory and streams it into its lanes' accumulators,
 // strided below 128 keys, 4-vectors with each row's unaligned head and
 // tail from 128 on, the row's alignment taken from the plain version's q
-// tiles (``sum_tile`` rows). Wherever torch sums a row in one warp
-// (kernels/attention.py::in_torch_order) the kernel so equals the plain
-// version bit for bit.
+// tiles (``sum_tile`` rows) and the row's place in the whole model's
+// tensor (``heads``, ``head_base``, ``head_total``: a tensor-parallel
+// rank's rows sum as the single process's). Wherever torch sums a row in
+// one warp (kernels/attention.py::in_torch_order) the kernel so equals the
+// plain version bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,7 +80,7 @@
 // Mirror of kernels/attention.py::_PlainParams.
 struct PlainParams {
   int BH, N, D, zq, zk, zv, zp_p, out_int8, has_res_zp, causal, window, skip,
-      sum_vec, sum_lanes, sum_tile;
+      sum_vec, sum_lanes, sum_tile, heads, head_total, head_base;
   float c_score, scaling, sp, zp_pf, c_out, res_scale, res_zp, qmin, qmax,
       mask;
 };
@@ -274,6 +276,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int g = lane >> 2, tq = lane & 3;
   const int rg = warp >> 1, kh = warp & 1;
   const int bh = blockIdx.y;
+  // where (batch row, head) bh lies in the whole model's [B * head_total,
+  // rows, N] softmax tensor, whose row alignment sets torch's sum order (a
+  // tensor-parallel rank's heads sit at head_base.. of head_total)
+  const long long head =
+      (long long)(bh / p.heads) * p.head_total + p.head_base + bh % p.heads;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int n = p.N;
   const size_t base = (size_t)bh * n * D;  // q, k^T, v and out alike
@@ -387,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (tile + 1 < t_hi) store_kt(t.k[cur ^ 1], fk, tid);
       __syncthreads();
       torch_order_stream_rows(a, &t.u.e[8 * warp * EP], EP, j0,
-                              min(BK, n - j0), n, bh, r0 + 8 * warp, n,
+                              min(BK, n - j0), n, head, r0 + 8 * warp, n,
                               p.sum_tile, p.sum_vec, p.sum_lanes, lane);
       __syncthreads();
     }
@@ -544,7 +551,8 @@ extern "C" int nq_attention_plain(const void* q, const void* kt,
   const auto* kk = static_cast<const int8_t*>(kt);
   const auto* vv = static_cast<const int8_t*>(v);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (p.BH > 65535 || p.sum_tile < 1) return (int)cudaErrorInvalidValue;
+  if (p.BH > 65535 || p.sum_tile < 1 || p.heads < 1)
+    return (int)cudaErrorInvalidValue;
   switch (p.D) {
     case 16: return (int)launch<16>(qq, kk, vv, out, p, s);
     case 32: return (int)launch<32>(qq, kk, vv, out, p, s);

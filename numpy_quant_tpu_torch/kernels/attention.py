@@ -40,6 +40,7 @@ version only for CPU tensors, and counts its kernel launches in its
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,7 +63,8 @@ class _PlainParams(ctypes.Structure):
     """Mirror of ``PlainParams`` in csrc/attention_plain.cu."""
     _fields_ = [(name, ctypes.c_int) for name in (
         "BH", "N", "D", "zq", "zk", "zv", "zp_p", "out_int8", "has_res_zp",
-        "causal", "window", "skip", "sum_vec", "sum_lanes", "sum_tile")] \
+        "causal", "window", "skip", "sum_vec", "sum_lanes", "sum_tile",
+        "heads", "head_total", "head_base")] \
         + [(name, ctypes.c_float) for name in (
             "c_score", "scaling", "sp", "zp_pf", "c_out", "res_scale",
             "res_zp", "qmin", "qmax", "mask")]
@@ -581,21 +583,13 @@ def fused_attention_hs_monolithic(xq, xk, xv, *, num_heads: int,
     ``fused_attention_hs.launches``; CPU tensors take
     ``fused_attention_hs_reference``."""
     _check(xq, xk, xv, num_heads, causal_mask_val, score_bias)
-    kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
-              zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
-              out_requant=out_requant, fast=fast, score_max=score_max,
-              causal_mask_val=causal_mask_val, causal_window=causal_window,
-              score_bias=score_bias, head_base=head_base,
-              head_total=head_total)
-    if xq.device.type == "cpu":
-        return fused_attention_hs_reference(xq, xk, xv, **kw)
-    d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs")
-    plan = hs_plan(xq.shape[1], xk.shape[1], d, xq.shape[0] * num_heads,
-                   sm_count(xq.device.index or 0), exact=not fast)
-    c = _constants(**kw)
-    kw["score_bias"] = _kernel_bias(score_bias, fast)
-    return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d, c, kw,
-                   plan=plan)
+    _check_device(xq, "fused_attention_hs")
+    return torch.ops.nqt.fused_attention_hs(xq, xk, xv, score_bias, *_hs_args(
+        num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk, zk=zk,
+        sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
+        out_requant=out_requant, fast=fast, score_max=score_max,
+        causal_mask_val=causal_mask_val, causal_window=causal_window,
+        head_base=head_base, head_total=head_total))
 
 
 def skips_masked_tiles(d: int, **kw) -> bool:
@@ -642,15 +636,125 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
     tensors take ``fused_attention_hs_blockq_reference`` with q tiles of
     ``block_q`` rows (the kernel's own tiles are fixed)."""
     _check(xq, xk, xv, num_heads, causal_mask_val, score_bias)
-    kw = dict(num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
-              zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
-              out_requant=out_requant, fast=fast, score_max=score_max,
-              causal_mask_val=causal_mask_val, causal_window=causal_window,
-              score_bias=score_bias, head_base=head_base,
-              head_total=head_total)
-    if xq.device.type == "cpu":
-        return fused_attention_hs_blockq_reference(xq, xk, xv,
-                                                   block_q=block_q, **kw)
+    _check_device(xq, "fused_attention_hs_blockq")
+    return torch.ops.nqt.fused_attention_hs_blockq(
+        xq, xk, xv, score_bias, *_hs_args(
+            num_heads=num_heads, scaling=scaling, sq=sq, zq=zq, sk=sk,
+            zk=zk, sv=sv, zv=zv, sp=sp, zp_p=zp_p, bit_width=bit_width,
+            out_requant=out_requant, fast=fast, score_max=score_max,
+            causal_mask_val=causal_mask_val, causal_window=causal_window,
+            head_base=head_base, head_total=head_total), int(block_q))
+
+
+fused_attention_hs_blockq.launches = 0
+fused_attention_hs_blockq.launches_by_form = dict.fromkeys(HS_FORMS, 0)
+
+
+# -- the head-split custom ops ----------------------------------------------
+#
+# nqt::fused_attention_hs (the monolithic kernel) and
+# nqt::fused_attention_hs_blockq take the wrappers' keyword arguments as
+# typed values in _HS_ARGS order: ``out_requant=(scale, zero_point)``
+# splits into out_int8, res_scale and res_zp. The launch plan is computed
+# inside the CUDA implementation, from the shapes.
+
+_DEVICES = ("cpu", "cuda")
+_HS_ARGS = ("num_heads", "scaling", "sq", "zq", "sk", "zk", "sv", "zv", "sp",
+            "zp_p", "bit_width", "out_int8", "res_scale", "res_zp", "fast",
+            "score_max", "causal_mask_val", "causal_window", "head_base",
+            "head_total")
+
+
+def _check_device(x: torch.Tensor, name: str) -> None:
+    if x.device.type not in _DEVICES:
+        raise ValueError(f"no {name} for device {x.device}")
+
+
+def _opt(v, cast):
+    return None if v is None else cast(v)
+
+
+def _requant_args(out_requant) -> tuple:
+    """(out_int8, res_scale, res_zp) of ``out_requant=(scale, zp)``."""
+    if out_requant is None:
+        return False, 1.0, None
+    return True, float(out_requant[0]), _opt(out_requant[1], float)
+
+
+def _hs_args(*, num_heads, scaling, sq, zq, sk, zk, sv, zv, sp, zp_p,
+             bit_width, out_requant, fast, score_max, causal_mask_val,
+             causal_window, head_base, head_total) -> tuple:
+    """The head-split ops' arguments after the score bias, in _HS_ARGS
+    order."""
+    return (int(num_heads), float(scaling), float(sq), int(zq), float(sk),
+            int(zk), float(sv), int(zv), float(sp), int(zp_p),
+            int(bit_width), *_requant_args(out_requant), bool(fast),
+            _opt(score_max, float), _opt(causal_mask_val, float),
+            _opt(causal_window, int), int(head_base), _opt(head_total, int))
+
+
+def _hs_kw(score_bias, args) -> dict:
+    """The wrappers' keyword arguments back from an op's _HS_ARGS."""
+    kw = dict(zip(_HS_ARGS, args))
+    out_int8, res_scale, res_zp = (kw.pop(k) for k in
+                                   ("out_int8", "res_scale", "res_zp"))
+    kw["out_requant"] = (res_scale, res_zp) if out_int8 else None
+    kw["score_bias"] = score_bias
+    return kw
+
+
+def _hs_fake(xq, xk, xv, score_bias, *args):
+    return xq.new_empty(xq.shape, dtype=torch.int8 if args[11]
+                        else torch.float32)
+
+
+@torch.library.custom_op("nqt::fused_attention_hs", mutates_args=(),
+                         device_types="cuda")
+def _hs_op(xq: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
+           score_bias: Optional[torch.Tensor], num_heads: int,
+           scaling: float, sq: float, zq: int, sk: float, zk: int,
+           sv: float, zv: int, sp: float, zp_p: int, bit_width: int,
+           out_int8: bool, res_scale: float, res_zp: Optional[float],
+           fast: bool, score_max: Optional[float],
+           causal_mask_val: Optional[float], causal_window: Optional[int],
+           head_base: int, head_total: Optional[int]) -> torch.Tensor:
+    kw = _hs_kw(score_bias, (num_heads, scaling, sq, zq, sk, zk, sv, zv, sp,
+                             zp_p, bit_width, out_int8, res_scale, res_zp,
+                             fast, score_max, causal_mask_val,
+                             causal_window, head_base, head_total))
+    d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs")
+    plan = hs_plan(xq.shape[1], xk.shape[1], d, xq.shape[0] * num_heads,
+                   sm_count(xq.device.index or 0), exact=not fast)
+    c = _constants(**kw)
+    kw["score_bias"] = _kernel_bias(score_bias, fast)
+    return _launch(fused_attention_hs, "attention_hs", xq, xk, xv, d, c, kw,
+                   plan=plan)
+
+
+@_hs_op.register_kernel("cpu")
+def _hs_cpu(xq, xk, xv, score_bias, *args):
+    return fused_attention_hs_reference(
+        xq, xk, xv, **_hs_kw(score_bias, args)).contiguous()
+
+
+_hs_op.register_fake(_hs_fake)
+
+
+@torch.library.custom_op("nqt::fused_attention_hs_blockq", mutates_args=(),
+                         device_types="cuda")
+def _hs_blockq_op(xq: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
+                  score_bias: Optional[torch.Tensor], num_heads: int,
+                  scaling: float, sq: float, zq: int, sk: float, zk: int,
+                  sv: float, zv: int, sp: float, zp_p: int, bit_width: int,
+                  out_int8: bool, res_scale: float, res_zp: Optional[float],
+                  fast: bool, score_max: Optional[float],
+                  causal_mask_val: Optional[float],
+                  causal_window: Optional[int], head_base: int,
+                  head_total: Optional[int], block_q: int) -> torch.Tensor:
+    kw = _hs_kw(score_bias, (num_heads, scaling, sq, zq, sk, zk, sv, zv, sp,
+                             zp_p, bit_width, out_int8, res_scale, res_zp,
+                             fast, score_max, causal_mask_val,
+                             causal_window, head_base, head_total))
     d = _launch_checks(xq, xk, xv, num_heads, "fused_attention_hs_blockq")
     n = xk.shape[1]
     if n > MAX_BLOCKQ_N:
@@ -664,8 +768,15 @@ def fused_attention_hs_blockq(xq, xk, xv, *, num_heads: int, scaling: float,
                    xv, d, c, kw, skip=skip, sum_tile=block_q)
 
 
-fused_attention_hs_blockq.launches = 0
-fused_attention_hs_blockq.launches_by_form = dict.fromkeys(HS_FORMS, 0)
+@_hs_blockq_op.register_kernel("cpu")
+def _hs_blockq_cpu(xq, xk, xv, score_bias, *args):
+    *args, block_q = args
+    return fused_attention_hs_blockq_reference(
+        xq, xk, xv, block_q=block_q,
+        **_hs_kw(score_bias, args)).contiguous()
+
+
+_hs_blockq_op.register_fake(_hs_fake)
 
 
 # -- torch's CUDA row-sum order ---------------------------------------------
@@ -770,6 +881,28 @@ def torch_sums_in_kernel_order(device, rows: int = 64, n: int = 1024) -> bool:
     return bool(np.array_equal(got[sel].cpu().numpy(), want))
 
 
+def _plain_row_sums(e: torch.Tensor, heads: int | None, head_base: int,
+                    head_total: int | None) -> torch.Tensor:
+    """e [BH, rows, N] summed over its last dim. With ``head_total``, row
+    block bh (batch row bh // heads, head bh % heads) is summed where it
+    lies in the whole model's [B * head_total, rows, N] tensor, at block
+    (bh // heads) * head_total + head_base + bh % heads (a tensor-parallel
+    rank's heads; head_base also counts the batch rows before a rank's
+    batch shard): torch's CUDA sum order depends on a row's alignment,
+    (row * N) % 4, so the rank's sums equal the single process's."""
+    bh = e.shape[0]
+    if head_total is None or heads is None:
+        return e.sum(dim=-1, keepdim=True)
+    i = torch.arange(bh, device=e.device)
+    at = (i // heads) * head_total + head_base + i % heads
+    # alignments repeat every 4 blocks: the leading multiple of 4 goes
+    at = at - head_base // 4 * 4
+    whole = e.new_zeros((int((bh - 1) // heads * head_total + head_base
+                             - head_base // 4 * 4 + heads),) + e.shape[1:])
+    whole[at] = e
+    return whole.sum(dim=-1, keepdim=True)[at]
+
+
 def fused_attention_reference(q, kt, v, *, scaling: float, sq: float,
                               zq: int, sk: float, zk: int, sv: float,
                               zv: int, sp: float, zp_p: int,
@@ -777,13 +910,18 @@ def fused_attention_reference(q, kt, v, *, scaling: float, sq: float,
                               out_requant: tuple | None = None,
                               causal_mask_val: float | None = None,
                               causal_window: int | None = None,
-                              block_q: int | None = None):
+                              block_q: int | None = None,
+                              num_heads: int | None = None,
+                              head_base: int = 0,
+                              head_total: int | None = None):
     """Plain PyTorch version of :func:`fused_attention`, in the op order of
     JAX's ``_attention_kernel`` over the real keys (the TPU's pad keys add
     nothing: their score is -inf, so their quantized probability is zp_p,
     and v's pad rows hold zv). q rows run in tiles of ``block_q`` rows
     (default: JAX's 256-row tiles at N >= 1024, else one tile); rows are
-    independent, so the tiling changes no bit."""
+    independent, so the tiling changes no bit. ``num_heads`` /
+    ``head_base`` / ``head_total``: each softmax row is summed where it
+    lies in the whole model's tensor (:func:`_plain_row_sums`)."""
     c = _constants(scaling=scaling, sq=sq, zq=zq, sk=sk, sv=sv, sp=sp,
                    zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
                    fast=False, score_max=None,
@@ -816,7 +954,7 @@ def fused_attention_reference(q, kt, v, *, scaling: float, sq: float,
             rows = torch.arange(r0, r0 + qt.shape[1], device=s.device)
             s = s + _mask_add(rows, n, c["mask"], causal_window)
         e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        probs = e / e.sum(dim=-1, keepdim=True)
+        probs = e / _plain_row_sums(e, num_heads, head_base, head_total)
         pq = torch.round(torch.clamp(
             _divide(probs, c["sp"]) + float(c["zp_pf"]),
             c["qmin"], c["qmax"])).to(i32)
@@ -843,18 +981,24 @@ def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
                     zp_p: int, bit_width: int = 8,
                     out_requant: tuple | None = None,
                     causal_mask_val: float | None = None,
-                    causal_window: int | None = None):
+                    causal_window: int | None = None,
+                    num_heads: int | None = None, head_base: int = 0,
+                    head_total: int | None = None):
     """Pre-split int8 attention: q [BH, N, D], kt [BH, D, N] (keys
     transposed), v [BH, N, D], all int8. Returns [BH, N, D] float32, or
     int8 with ``out_requant=(scale, zero_point)``. Exact f32 only (JAX's
-    ``fused_attention`` has no fast form). CUDA tensors launch
+    ``fused_attention`` has no fast form). Runs the custom op
+    ``nqt::fused_attention``: CUDA tensors launch
     ``csrc/attention_plain.cu`` (or raise), counted in
     ``fused_attention.launches``; CPU tensors take
     ``fused_attention_reference``. The kernel sums each softmax row in
     torch's CUDA order (csrc/torch_order.cuh) for the plain version's
     softmax tensor, [BH, q tile rows, N], so wherever
     ``in_torch_order(BH * rows, N)`` holds for its q tiles it equals the
-    plain version bit for bit."""
+    plain version bit for bit. ``num_heads`` / ``head_base`` /
+    ``head_total``: the BH rows are (batch row, head) pairs of num_heads
+    heads, which sit at block head_base.. of head_total in the whole
+    model's tensor (a tensor-parallel rank's; :func:`_plain_row_sums`)."""
     for t in (q, kt, v):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.int8:
             raise TypeError("fused_attention takes int8 tensors")
@@ -867,13 +1011,41 @@ def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
         raise ValueError(f"shapes q {tuple(q.shape)}, kt {tuple(kt.shape)}, "
                          f"v {tuple(v.shape)} are not [BH, N, D], [BH, D, N], "
                          "[BH, N, D]")
-    kw = dict(scaling=scaling, sq=sq, zq=zq, sk=sk, zk=zk, sv=sv, zv=zv,
-              sp=sp, zp_p=zp_p, bit_width=bit_width, out_requant=out_requant,
-              causal_mask_val=causal_mask_val, causal_window=causal_window)
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, kt, v, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"no fused_attention for device {q.device}")
+    if head_total is not None and (not num_heads or bh % num_heads):
+        raise ValueError(f"{bh} rows are not batch rows of {num_heads} "
+                         "heads")
+    _check_device(q, "fused_attention")
+    return torch.ops.nqt.fused_attention(
+        q, kt, v, float(scaling), float(sq), int(zq), float(sk), int(zk),
+        float(sv), int(zv), float(sp), int(zp_p), int(bit_width),
+        *_requant_args(out_requant), _opt(causal_mask_val, float),
+        _opt(causal_window, int), _opt(num_heads, int), int(head_base),
+        _opt(head_total, int))
+
+
+def _plain_kw(args) -> dict:
+    """fused_attention's keyword arguments back from the op's."""
+    (scaling, sq, zq, sk, zk, sv, zv, sp, zp_p, bit_width, out_int8,
+     res_scale, res_zp, causal_mask_val, causal_window, num_heads,
+     head_base, head_total) = args
+    return dict(scaling=scaling, sq=sq, zq=zq, sk=sk, zk=zk, sv=sv, zv=zv,
+                sp=sp, zp_p=zp_p, bit_width=bit_width,
+                out_requant=(res_scale, res_zp) if out_int8 else None,
+                causal_mask_val=causal_mask_val, causal_window=causal_window,
+                num_heads=num_heads, head_base=head_base,
+                head_total=head_total)
+
+
+@torch.library.custom_op("nqt::fused_attention", mutates_args=(),
+                         device_types="cuda")
+def _plain_op(q: torch.Tensor, kt: torch.Tensor, v: torch.Tensor,
+              scaling: float, sq: float, zq: int, sk: float, zk: int,
+              sv: float, zv: int, sp: float, zp_p: int, bit_width: int,
+              out_int8: bool, res_scale: float, res_zp: Optional[float],
+              causal_mask_val: Optional[float], causal_window: Optional[int],
+              num_heads: Optional[int], head_base: int,
+              head_total: Optional[int]) -> torch.Tensor:
+    bh, n, d = q.shape
     if d not in KERNEL_DIMS:
         raise ValueError(f"head dim {d} not in {KERNEL_DIMS}")
     if n > MAX_BLOCKQ_N:
@@ -884,20 +1056,24 @@ def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
             raise ValueError("fused_attention needs contiguous, 16-byte "
                              "aligned tensors")
     out = torch.empty(q.shape, device=q.device,
-                      dtype=torch.float32 if out_requant is None
-                      else torch.int8)
+                      dtype=torch.int8 if out_int8 else torch.float32)
     if out.numel() == 0:
         return out
+    kw = _plain_kw((scaling, sq, zq, sk, zk, sv, zv, sp, zp_p, bit_width,
+                    out_int8, res_scale, res_zp, causal_mask_val,
+                    causal_window, None, 0, None))
     c = _constants(fast=False, score_max=None, **kw)
     vec, lanes = sum_order(n)
+    heads = num_heads if head_total is not None else bh
     p = _PlainParams(
-        BH=bh, N=n, D=d, zq=int(zq), zk=int(zk), zv=int(zv), zp_p=int(zp_p),
-        out_int8=int(out_requant is not None),
-        has_res_zp=int(c["res_zp"] is not None),
+        BH=bh, N=n, D=d, zq=zq, zk=zk, zv=zv, zp_p=zp_p,
+        out_int8=int(out_int8), has_res_zp=int(c["res_zp"] is not None),
         causal=int(causal_mask_val is not None),
-        window=0 if causal_window is None else int(causal_window),
+        window=0 if causal_window is None else causal_window,
         skip=int(skips_masked_tiles(d, **kw)),
         sum_vec=int(vec), sum_lanes=lanes, sum_tile=max(1, plain_tile(n)),
+        heads=max(1, heads), head_total=heads if head_total is None
+        else head_total, head_base=head_base if head_total is not None else 0,
         c_score=c["c_score"], scaling=c["scaling"], sp=c["sp"],
         zp_pf=c["zp_pf"], c_out=c["c_out"], res_scale=c["res_scale"],
         res_zp=0.0 if c["res_zp"] is None else c["res_zp"],
@@ -911,6 +1087,17 @@ def fused_attention(q, kt, v, *, scaling: float, sq: float, zq: int,
                            f"error {rc}")
     fused_attention.launches += 1
     return out
+
+
+@_plain_op.register_kernel("cpu")
+def _plain_cpu(q, kt, v, *args):
+    return fused_attention_reference(q, kt, v, **_plain_kw(args)).contiguous()
+
+
+@_plain_op.register_fake
+def _plain_fake(q, kt, v, *args):
+    return q.new_empty(q.shape, dtype=torch.int8 if args[10]
+                       else torch.float32)
 
 
 fused_attention.launches = 0

@@ -21,15 +21,18 @@ int32 subtract); int64 is its x64 mode (the zero point added in f64, the
 dequantize product taken in f64 and rounded once to f32). A zero scale
 anywhere makes 0/0 quantize to 0, as XLA's conversion does.
 
-On CPU tensors the wrappers take the plain versions ``*_reference`` (the
-torch chains); on CUDA tensors they launch the kernels, which equal the
-plain versions bit for bit, or raise; any other device raises. Each
-wrapper's ``launches`` counts its kernel launches.
+Each wrapper checks its arguments and calls its custom op
+(``nqt::quantize``, ``nqt::dequantize``; ``torch.export`` traces them
+through their fake versions). The dispatcher sends CPU tensors to the
+plain versions ``*_reference`` (the torch chains) and CUDA tensors to the
+kernels, which equal the plain versions bit for bit, or raise; any other
+device raises. Each wrapper's ``launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,6 +81,12 @@ def _any_zero(scale) -> bool:
 def quantize_reference(x: torch.Tensor, bit_width: int, scale, zero_point,
                        out_dtype=torch.int32) -> torch.Tensor:
     """Plain PyTorch version of ``quantize``: divide, +zp, clip, rint."""
+    return _quantize_plain(x, bit_width, scale, zero_point, out_dtype,
+                           _any_zero(scale))
+
+
+def _quantize_plain(x, bit_width, scale, zero_point, out_dtype,
+                    nan_to_zero: bool) -> torch.Tensor:
     wide = out_dtype == torch.int64
     q = x.to(torch.float32) / as_tensor(scale, x.device)
     if zero_point is not None:
@@ -87,7 +96,7 @@ def quantize_reference(x: torch.Tensor, bit_width: int, scale, zero_point,
                 + q.to(torch.float64)
         else:
             q = as_tensor(zero_point, x.device) + q
-    if _any_zero(scale):
+    if nan_to_zero:
         # a constant-valued tensor's zero scale gives 0/0: XLA's
         # float->int conversion maps that NaN to 0, torch's does not
         q = torch.nan_to_num(q, nan=0.0)
@@ -254,8 +263,9 @@ def quantize(x: torch.Tensor, bit_width: int, scale, zero_point=None,
     """x (float32 or bfloat16) -> ``out_dtype`` (int8, int32 or int64)
     quantized values at ``bit_width`` bits: rint(clip(x / scale + zp)).
     int64 out adds the zero point in f64 (x64 mode). The result has x's
-    shape and, where x is dense, its strides. CUDA tensors launch the
-    kernel of csrc/elementwise.cu (or raise); CPU tensors take
+    shape and, where x is dense, its strides. Runs the custom op
+    ``nqt::quantize``: CUDA tensors launch the kernel of
+    csrc/elementwise.cu (or raise); CPU tensors take
     ``quantize_reference``."""
     if x.dtype not in _Q_IN:
         raise TypeError(f"quantize takes float32 or bfloat16, not {x.dtype}")
@@ -264,11 +274,83 @@ def quantize(x: torch.Tensor, bit_width: int, scale, zero_point=None,
                         f"not {out_dtype}")
     if not 1 <= bit_width <= (8 if out_dtype == torch.int8 else 64):
         raise ValueError(f"{bit_width} bits do not fit {out_dtype}")
-    if x.device.type == "cpu":
-        return quantize_reference(x, bit_width, scale, zero_point, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in _DEVICES:
         raise ValueError(f"no quantize kernel for device {x.device}")
-    x, p, svec, zvec = _operands(x, scale, zero_point)
+    return torch.ops.nqt.quantize(x, bit_width, *_op_args(x, scale,
+                                                         zero_point),
+                                  out_dtype)
+
+
+def dequantize(q: torch.Tensor, scale, zero_point=None,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """q (int8, int32 or int64) -> ``out_dtype`` (float32 or bfloat16):
+    float(q - zp) * scale, in f32 for int8/int32 and as one f64 product
+    rounded to f32 for int64 (x64 mode). The result has q's shape and,
+    where q is dense, its strides. Runs the custom op
+    ``nqt::dequantize``: CUDA tensors launch the kernel of
+    csrc/elementwise.cu (or raise); CPU tensors take
+    ``dequantize_reference``."""
+    if q.dtype not in _D_IN:
+        raise TypeError(f"dequantize takes int8, int32 or int64, "
+                        f"not {q.dtype}")
+    if out_dtype not in _D_OUT:
+        raise TypeError(f"dequantize writes float32 or bfloat16, "
+                        f"not {out_dtype}")
+    if q.device.type not in _DEVICES:
+        raise ValueError(f"no dequantize kernel for device {q.device}")
+    scale, scale_t, zp, zp_t, _ = _op_args(q, scale, zero_point)
+    return torch.ops.nqt.dequantize(q, scale, scale_t, zp, zp_t, out_dtype)
+
+
+quantize.launches = 0
+dequantize.launches = 0
+
+
+# -- the custom ops -------------------------------------------------------
+#
+# nqt::quantize and nqt::dequantize take the scale and the zero point each
+# as a value (a float) or a tensor: a host array is placed on the device
+# before the op (intops.place, once per distinct array), so the schema
+# holds no host object. ``nan_to_zero`` is _any_zero of the caller's scale,
+# read on the host where it lies there.
+
+_DEVICES = ("cpu", "cuda")
+
+
+def _op_args(x: torch.Tensor, scale, zero_point) -> tuple:
+    """(scale, scale tensor, zero point, zero-point tensor, nan_to_zero) as
+    the ops take them, on x's device."""
+    if _is_scalar(scale):
+        scale, scale_t = float(scale), None
+        nan_to_zero = scale == 0.0
+    else:
+        nan_to_zero = _any_zero(scale)
+        scale_t = scale.to(x.device) if isinstance(scale, torch.Tensor) \
+            else as_tensor(scale, x.device)
+        scale = 0.0
+    zp_t = None
+    if zero_point is not None and not _is_scalar(zero_point):
+        zp_t = zero_point.to(x.device) if isinstance(zero_point, torch.Tensor) \
+            else as_tensor(zero_point, x.device, torch.int64)
+        zero_point = None
+    elif zero_point is not None:
+        zero_point = float(zero_point)
+    return scale, scale_t, zero_point, zp_t, nan_to_zero
+
+
+def _pick(value, tensor):
+    return value if tensor is None else tensor
+
+
+@torch.library.custom_op("nqt::quantize", mutates_args=(),
+                         device_types="cuda")
+def _quantize_op(x: torch.Tensor, bit_width: int, scale: float,
+                 scale_t: Optional[torch.Tensor], zero_point: Optional[float],
+                 zp_t: Optional[torch.Tensor], nan_to_zero: bool,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    x, p, svec, zvec = _operands(x, _pick(scale, scale_t),
+                                 _pick(zero_point, zp_t))
+    p.nan_to_zero = int(nan_to_zero)
     out = torch.empty_like(x, dtype=out_dtype)
     if x.numel() == 0:
         return out
@@ -279,25 +361,28 @@ def quantize(x: torch.Tensor, bit_width: int, scale, zero_point=None,
     return out
 
 
-def dequantize(q: torch.Tensor, scale, zero_point=None,
-               out_dtype=torch.float32) -> torch.Tensor:
-    """q (int8, int32 or int64) -> ``out_dtype`` (float32 or bfloat16):
-    float(q - zp) * scale, in f32 for int8/int32 and as one f64 product
-    rounded to f32 for int64 (x64 mode). The result has q's shape and,
-    where q is dense, its strides. CUDA tensors launch the kernel of
-    csrc/elementwise.cu (or raise); CPU tensors take
-    ``dequantize_reference``."""
-    if q.dtype not in _D_IN:
-        raise TypeError(f"dequantize takes int8, int32 or int64, "
-                        f"not {q.dtype}")
-    if out_dtype not in _D_OUT:
-        raise TypeError(f"dequantize writes float32 or bfloat16, "
-                        f"not {out_dtype}")
-    if q.device.type == "cpu":
-        return dequantize_reference(q, scale, zero_point, out_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"no dequantize kernel for device {q.device}")
-    q, p, svec, zvec = _operands(q, scale, zero_point)
+@_quantize_op.register_kernel("cpu")
+def _quantize_cpu(x, bit_width, scale, scale_t, zero_point, zp_t,
+                  nan_to_zero, out_dtype):
+    y = _quantize_plain(x, bit_width, _pick(scale, scale_t),
+                        _pick(zero_point, zp_t), out_dtype, nan_to_zero)
+    return torch.empty_like(x, dtype=out_dtype).copy_(y)
+
+
+@_quantize_op.register_fake
+def _quantize_fake(x, bit_width, scale, scale_t, zero_point, zp_t,
+                   nan_to_zero, out_dtype):
+    return torch.empty_like(x, dtype=out_dtype)
+
+
+@torch.library.custom_op("nqt::dequantize", mutates_args=(),
+                         device_types="cuda")
+def _dequantize_op(q: torch.Tensor, scale: float,
+                   scale_t: Optional[torch.Tensor],
+                   zero_point: Optional[float], zp_t: Optional[torch.Tensor],
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    q, p, svec, zvec = _operands(q, _pick(scale, scale_t),
+                                 _pick(zero_point, zp_t))
     out = torch.empty_like(q, dtype=out_dtype)
     if q.numel() == 0:
         return out
@@ -307,8 +392,16 @@ def dequantize(q: torch.Tensor, scale, zero_point=None,
     return out
 
 
-quantize.launches = 0
-dequantize.launches = 0
+@_dequantize_op.register_kernel("cpu")
+def _dequantize_cpu(q, scale, scale_t, zero_point, zp_t, out_dtype):
+    y = dequantize_reference(q, _pick(scale, scale_t),
+                             _pick(zero_point, zp_t), out_dtype)
+    return torch.empty_like(q, dtype=out_dtype).copy_(y)
+
+
+@_dequantize_op.register_fake
+def _dequantize_fake(q, scale, scale_t, zero_point, zp_t, out_dtype):
+    return torch.empty_like(q, dtype=out_dtype)
 
 
 def _library() -> ctypes.CDLL:

@@ -17,9 +17,12 @@ symmetric weight W [K, N] with column sums colsum [1, N],
 uint8 [ceil(K/r), N] at 1/2/4 bits); ``packed_qmatmul`` reads bit-planes
 uint8 [b, ceil(K/8), N] at any width 1..8 (kernels/pack.py).
 
-On CUDA tensors the wrappers launch the hand-written kernel of
-``csrc/qmatmul.cu`` (or raise); on CPU tensors they take the plain
-PyTorch versions ``splitk_qmatmul_reference`` / ``packed_qmatmul_reference``.
+Each wrapper checks its arguments and calls its custom op
+(``nqt::splitk_qmatmul``, ``nqt::packed_qmatmul``,
+``nqt::splitk_wo_matmul``). On CUDA tensors the op launches the
+hand-written kernel of ``csrc/qmatmul.cu`` (or raises); on CPU tensors it
+takes the plain PyTorch versions ``splitk_qmatmul_reference`` /
+``packed_qmatmul_reference``; any other device raises.
 The kernel runs persistent blocks that each decode one weight panel into
 shared memory once; ``qmm_plan`` lays out its launch and ``qmm_form``
 picks its x loader (TMA for aligned int8 x, a converting loader for the
@@ -37,6 +40,7 @@ another order than the plain version's, so the two agree to rounding.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -322,20 +326,29 @@ def _launch(entry: str, x, payload, colsum, bias, w_scale_vec, *, bits,
     return out, form
 
 
-def _dispatch(fn, reference, entry, layout, x, payload, colsum, bias,
-              w_scale_vec, kw):
+def _dispatch(op, layout, x, payload, colsum, bias, w_scale_vec, kw):
+    """Check a packed matmul's arguments and call its custom op with them
+    typed: host rows placed on x's device, ``out_requant=(res_scale,
+    res_zp, res_bits)`` split."""
     _check(x, payload, layout=layout, bits=kw["bits"],
            quantize_x=kw["quantize_x"], w_scale=kw["w_scale"],
            w_scale_vec=w_scale_vec)
-    if x.device.type == "cpu":
-        return reference(x, payload, colsum, bias, w_scale_vec, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"no {entry} kernel for device {x.device}")
-    out, form = _launch(entry, x, payload, colsum, bias, w_scale_vec, **kw)
-    if form is not None:
-        fn.launches += 1
-        fn.launches_by_form[form] += 1
-    return out
+    if x.device.type not in _DEVICES:
+        raise ValueError(f"no {op.__name__} kernel for device {x.device}")
+    dev, n = x.device, payload.shape[-1]
+    rq = kw["out_requant"]
+    return getattr(torch.ops.nqt, op.__name__)(
+        x, payload, None if colsum is None else _row(colsum, n, dev,
+                                                     torch.int32),
+        None if bias is None else _row(bias, n, dev, torch.float32),
+        None if w_scale_vec is None else _row(w_scale_vec, n, dev,
+                                              torch.float32),
+        int(kw["bits"]), int(kw["bit_width"]), float(kw["x_scale"]),
+        _opt(kw["x_zp"], float), _opt(kw["w_scale"], float),
+        bool(kw["quantize_x"]), rq is not None,
+        1.0 if rq is None else float(rq[0]),
+        None if rq is None else _opt(rq[1], float),
+        8 if rq is None else int(rq[2]))
 
 
 def splitk_qmatmul(x, packed, colsum, bias=None, w_scale_vec=None, *,
@@ -350,12 +363,12 @@ def splitk_qmatmul(x, packed, colsum, bias=None, w_scale_vec=None, *,
     at 1/2/4 bits. colsum: int32 [1, N]. Weight scale: the scalar
     ``w_scale`` or the per-channel ``w_scale_vec`` [1, N]. bias: optional
     f32 [1, N]. ``out_requant=(res_scale, res_zp, res_bits)`` returns int8,
-    else float32 [M, N]. CUDA tensors launch the kernel (or raise); CPU
-    tensors take ``splitk_qmatmul_reference``."""
+    else float32 [M, N]. Runs the custom op ``nqt::splitk_qmatmul``: CUDA
+    tensors launch the kernel (or raise); CPU tensors take
+    ``splitk_qmatmul_reference``."""
     kw = dict(bits=bits, bit_width=bit_width, x_scale=x_scale, x_zp=x_zp,
               w_scale=w_scale, quantize_x=quantize_x, out_requant=out_requant)
-    return _dispatch(splitk_qmatmul, splitk_qmatmul_reference,
-                     "nq_splitk_qmatmul", "splitk", x, packed, colsum, bias,
+    return _dispatch(splitk_qmatmul, "splitk", x, packed, colsum, bias,
                      w_scale_vec, kw)
 
 
@@ -365,13 +378,13 @@ def packed_qmatmul(x, planes, colsum, bias=None, w_scale_vec=None, *,
                    quantize_x: bool = True,
                    out_requant: tuple | None = None):
     """``splitk_qmatmul``'s function over bit-planes uint8 [b, ceil(K/8), N]
-    (any width 1..8). CUDA tensors launch the kernel (or raise); CPU
-    tensors take ``packed_qmatmul_reference``."""
+    (any width 1..8). Runs the custom op ``nqt::packed_qmatmul``: CUDA
+    tensors launch the kernel (or raise); CPU tensors take
+    ``packed_qmatmul_reference``."""
     kw = dict(bits=bits, bit_width=bit_width, x_scale=x_scale, x_zp=x_zp,
               w_scale=w_scale, quantize_x=quantize_x, out_requant=out_requant)
-    return _dispatch(packed_qmatmul, packed_qmatmul_reference,
-                     "nq_packed_qmatmul", "bitplanes", x, planes, colsum,
-                     bias, w_scale_vec, kw)
+    return _dispatch(packed_qmatmul, "bitplanes", x, planes, colsum, bias,
+                     w_scale_vec, kw)
 
 
 splitk_qmatmul.launches = 0
@@ -379,6 +392,92 @@ packed_qmatmul.launches = 0
 # launches by x loader (qmm_form), so that a run shows which form it took
 splitk_qmatmul.launches_by_form = {"tma": 0, "general": 0}
 packed_qmatmul.launches_by_form = {"tma": 0, "general": 0}
+
+
+# -- the packed-matmul custom ops -------------------------------------------
+#
+# nqt::splitk_qmatmul and nqt::packed_qmatmul: the wrappers' arguments
+# typed, [N] rows as device tensors; the launch plan is computed inside the
+# CUDA implementation, from the shapes.
+
+_DEVICES = ("cpu", "cuda")
+
+
+def _opt(v, cast):
+    return None if v is None else cast(v)
+
+
+def _qmm_kw(args) -> dict:
+    """The wrappers' keyword arguments back from a packed op's scalars."""
+    (bits, bit_width, x_scale, x_zp, w_scale, quantize_x, out_int8,
+     res_scale, res_zp, res_bits) = args
+    return dict(bits=bits, bit_width=bit_width, x_scale=x_scale, x_zp=x_zp,
+                w_scale=w_scale, quantize_x=quantize_x,
+                out_requant=(res_scale, res_zp, res_bits) if out_int8
+                else None)
+
+
+def _qmm_cuda(wrapper, entry: str, x, payload, colsum, bias, w_scale_vec,
+              args) -> torch.Tensor:
+    out, form = _launch(entry, x, payload, colsum, bias, w_scale_vec,
+                        **_qmm_kw(args))
+    if form is not None:
+        wrapper.launches += 1
+        wrapper.launches_by_form[form] += 1
+    return out
+
+
+def _qmm_fake(x, payload, colsum, bias, w_scale_vec, *args):
+    return x.new_empty((x.shape[0], payload.shape[-1]),
+                       dtype=torch.int8 if args[6] else torch.float32)
+
+
+@torch.library.custom_op("nqt::splitk_qmatmul", mutates_args=(),
+                         device_types="cuda")
+def _splitk_op(x: torch.Tensor, packed: torch.Tensor,
+               colsum: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               w_scale_vec: Optional[torch.Tensor], bits: int,
+               bit_width: int, x_scale: float, x_zp: Optional[float],
+               w_scale: Optional[float], quantize_x: bool, out_int8: bool,
+               res_scale: float, res_zp: Optional[float],
+               res_bits: int) -> torch.Tensor:
+    return _qmm_cuda(splitk_qmatmul, "nq_splitk_qmatmul", x, packed, colsum,
+                     bias, w_scale_vec, (bits, bit_width, x_scale, x_zp,
+                                         w_scale, quantize_x, out_int8,
+                                         res_scale, res_zp, res_bits))
+
+
+@_splitk_op.register_kernel("cpu")
+def _splitk_cpu(x, packed, colsum, bias, w_scale_vec, *args):
+    return splitk_qmatmul_reference(x, packed, colsum, bias, w_scale_vec,
+                                    **_qmm_kw(args)).contiguous()
+
+
+_splitk_op.register_fake(_qmm_fake)
+
+
+@torch.library.custom_op("nqt::packed_qmatmul", mutates_args=(),
+                         device_types="cuda")
+def _packed_op(x: torch.Tensor, planes: torch.Tensor,
+               colsum: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               w_scale_vec: Optional[torch.Tensor], bits: int,
+               bit_width: int, x_scale: float, x_zp: Optional[float],
+               w_scale: Optional[float], quantize_x: bool, out_int8: bool,
+               res_scale: float, res_zp: Optional[float],
+               res_bits: int) -> torch.Tensor:
+    return _qmm_cuda(packed_qmatmul, "nq_packed_qmatmul", x, planes, colsum,
+                     bias, w_scale_vec, (bits, bit_width, x_scale, x_zp,
+                                         w_scale, quantize_x, out_int8,
+                                         res_scale, res_zp, res_bits))
+
+
+@_packed_op.register_kernel("cpu")
+def _packed_cpu(x, planes, colsum, bias, w_scale_vec, *args):
+    return packed_qmatmul_reference(x, planes, colsum, bias, w_scale_vec,
+                                    **_qmm_kw(args)).contiguous()
+
+
+_packed_op.register_fake(_qmm_fake)
 
 
 # -- weight-only: float x times a split-K packed weight ----------------------
@@ -484,10 +583,13 @@ def splitk_wo_matmul_reference(x, packed, scale, *, bits: int,
     """Plain PyTorch version of ``splitk_wo_matmul``: the weight unpacked
     and dequantized whole (one f32 product per element, rounded once to
     x's type), then an f32 product of the upcast operands, cast once."""
+    scalar, rows, gsz = _wo_scale(scale, x.shape[1], packed.shape[1],
+                                  packed.shape[0], bits, group_size, x.device)
+    return _wo_plain(x, packed, scalar, rows, gsz, bits)
+
+
+def _wo_plain(x, packed, scalar, rows, gsz: int, bits: int) -> torch.Tensor:
     k = x.shape[1]
-    n = packed.shape[1]
-    scalar, rows, gsz = _wo_scale(scale, k, n, packed.shape[0], bits,
-                                  group_size, x.device)
     w = packed.to(torch.int8)[:k] if bits == 8 \
         else unpack_splitk(packed, bits, k)
     if scalar is not None:
@@ -554,23 +656,45 @@ def splitk_wo_matmul(x, packed, scale, *, bits: int,
     x [M, K] float32 or bfloat16; packed uint8 [ceil(K/r), N] split-K
     payload (int8 [K, N] at 8 bits); scale a scalar (per tensor), [1, N] or
     [N] (per output channel) or [K/g, N] (grouped), as a tensor or host
-    array. Returns [M, N] in x's dtype. CUDA tensors launch the kernel of
+    array. Returns [M, N] in x's dtype. Runs the custom op
+    ``nqt::splitk_wo_matmul``: CUDA tensors launch the kernel of
     csrc/qmatmul_wo.cu (or raise); CPU tensors take
     ``splitk_wo_matmul_reference``."""
     _wo_check(x, packed, bits)
-    if x.device.type == "cpu":
-        return splitk_wo_matmul_reference(x, packed, scale, bits=bits,
-                                          group_size=group_size)
-    if x.device.type != "cuda":
+    if x.device.type not in _DEVICES:
         raise ValueError(f"no splitk_wo_matmul kernel for device {x.device}")
     scalar, rows, gsz = _wo_scale(scale, x.shape[1], packed.shape[1],
                                   packed.shape[0], bits, group_size, x.device)
-    out = _wo_launch(x, packed, scalar, rows, gsz, bits)
+    return torch.ops.nqt.splitk_wo_matmul(
+        x, packed, 0.0 if scalar is None else scalar, rows, gsz, bits)
+
+
+splitk_wo_matmul.launches = 0
+
+
+# nqt::splitk_wo_matmul: the scale as the kernel reads it (_wo_scale) -- a
+# per-tensor value, or scale rows [G, N] on x's device in groups of gsz.
+
+@torch.library.custom_op("nqt::splitk_wo_matmul", mutates_args=(),
+                         device_types="cuda")
+def _wo_op(x: torch.Tensor, packed: torch.Tensor, scale: float,
+           scale_rows: Optional[torch.Tensor], gsz: int,
+           bits: int) -> torch.Tensor:
+    out = _wo_launch(x, packed, None if scale_rows is not None else scale,
+                     scale_rows, gsz, bits)
     splitk_wo_matmul.launches += 1
     return out
 
 
-splitk_wo_matmul.launches = 0
+@_wo_op.register_kernel("cpu")
+def _wo_cpu(x, packed, scale, scale_rows, gsz, bits):
+    return _wo_plain(x, packed, None if scale_rows is not None else scale,
+                     scale_rows, gsz, bits).contiguous()
+
+
+@_wo_op.register_fake
+def _wo_fake(x, packed, scale, scale_rows, gsz, bits):
+    return x.new_empty((x.shape[0], packed.shape[1]))
 
 
 def _library() -> ctypes.CDLL:

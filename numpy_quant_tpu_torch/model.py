@@ -181,6 +181,28 @@ def _capture_graph(fn, floats: list, stream, pool) -> tuple:
     return graph, outputs
 
 
+def capture_walk(fn, floats: list, device, pool, failed=None) -> tuple:
+    """(graph, outputs, launches): ``fn(floats)`` warmed up
+    (:func:`_warm_up`) and captured (:func:`_capture_graph`). The warm-up
+    and the capture leave the launch counters as they were; ``launches``
+    is what each replay adds (kernels.add_launch_counts). ``failed(exc)``,
+    if given, makes the error raised for a capture that fails."""
+    before = _kernels.launch_counts()
+    try:
+        stream = _warm_up(fn, floats, device)
+        warm = _kernels.launch_counts()
+        try:
+            graph, outputs = _capture_graph(fn, floats, stream, pool)
+        except Exception as exc:
+            if failed is None:
+                raise
+            raise failed(exc) from exc
+        launches = _kernels.launch_delta(_kernels.launch_counts(), warm)
+    finally:
+        _kernels.set_launch_counts(before)
+    return graph, outputs, launches
+
+
 class Model:
     def __init__(self, nodes: list[Node], values: list[Value],
                  inputs: List[Variable], outputs: List[Value],
@@ -632,25 +654,18 @@ class Model:
         floats = [static[i] for i in sorted(static)]
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        before = _kernels.launch_counts()
-        try:
-            stream = _warm_up(fn, floats, self.device)
-            warm = _kernels.launch_counts()
-            self._failed = None
-            try:
-                graph, outputs = _capture_graph(fn, floats, stream,
-                                                self._graph_pool)
-            except Exception as exc:
-                if self._failed is None:
-                    raise RuntimeError(
-                        f"the forward cannot be captured: {exc}") from exc
-                node, first = self._failed
-                raise RuntimeError(
-                    f"the forward cannot be captured at node {node.name!r} "
-                    f"({node.op}): {first}") from exc
-            launches = _kernels.launch_delta(_kernels.launch_counts(), warm)
-        finally:
-            _kernels.set_launch_counts(before)
+
+        def failed(exc):
+            if self._failed is None:
+                return RuntimeError(f"the forward cannot be captured: {exc}")
+            node, first = self._failed
+            return RuntimeError(
+                f"the forward cannot be captured at node {node.name!r} "
+                f"({node.op}): {first}")
+
+        self._failed = None
+        graph, outputs, launches = capture_walk(fn, floats, self.device,
+                                                self._graph_pool, failed)
         return _Captured(graph, static, outputs, launches,
                          _bound(arrays, inplace), perf_counter() - start)
 

@@ -155,6 +155,14 @@ def plain_attention_call(inputs: list[Tensor], attrs: dict):
         zp_p=int(attrs["probs_zero_point"]),
         bit_width=q.bit_width,
         out_requant=attrs.get("out_requant"))  # set by int8_dataflow
+    whole = attrs.get("lead_whole")
+    if whole is not None:
+        # a tensor-parallel rank's [B, H] block of the whole grid
+        # (parallel/walk.py): its softmax rows sum where they lie there
+        heads, total = int(q.data.shape[1]), int(whole[1])
+        b0, h0 = (int(i) for i in attrs["lead_base"])
+        kwargs.update(num_heads=heads, head_total=total,
+                      head_base=b0 * total + h0)
     return (q.data.to(torch.int8).reshape(-1, n, d).contiguous(),
             kt.data.to(torch.int8).reshape(-1, d, n).contiguous(),
             v.data.to(torch.int8).reshape(-1, n, d).contiguous(), kwargs)

@@ -496,9 +496,12 @@ class ShardedWalk:
             return None
         ts, target = res
         attrs = node.attrs
-        if node.op == "DecodeAttention" and target:
+        if target and (node.op == "DecodeAttention"
+                       or _ndim(ts[0]) == 4):
             # where this rank's (batch row, head) block lies in the whole
-            # [B, H] grid: the float dots run there (ops/registry.py)
+            # [B, H] grid: DecodeAttention's float dots run there, and
+            # FusedAttention's softmax rows sum in that order
+            # (ops/registry.py)
             g = self.global_shape(ts[0], {a: s for a, s in target.items()
                                           if a < 2})
             base = [0, 0]

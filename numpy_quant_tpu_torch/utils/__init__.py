@@ -1,8 +1,10 @@
 """Decode loops, the continuous-batching engine, calibration-stat merging,
-QModel save/load and the standard-format (QDQ, QOperator) exports over the
-port's models; the profiling, per-value parity, quantization-error and
-summary tools."""
+QModel save/load, the standard-format (QDQ, QOperator) exports and the
+deployment artifacts (``torch.export`` programs) over the port's models;
+the profiling, per-value parity, quantization-error and summary tools."""
 from .analyzer import print_quantization_report, quantization_report
+from .aot import (load_compiled, load_decode_loop, save_compiled,
+                  save_decode_loop)
 from .generate import (beam_search, decode_calibration, generate,
                        generate_kv, generate_mamba, generate_seq2seq,
                        generate_speculative, mamba_decode_calibration)
@@ -23,9 +25,11 @@ __all__ = ["ContinuousBatcher", "beam_search", "compare_all_values",
            "export_qdq", "export_qoperator", "generate", "generate_kv",
            "generate_mamba", "generate_seq2seq", "generate_speculative",
            "import_onnx_quantized", "mamba_decode_calibration",
-           "load_calibration_stats", "load_qmodel", "load_weight_only",
+           "load_calibration_stats", "load_compiled", "load_decode_loop",
+           "load_qmodel", "load_weight_only",
            "merge_calibration_stats", "print_quantization_report",
            "profile_results_plot", "quantization_report",
-           "record_all_values", "save_calibration_stats", "save_qmodel",
+           "record_all_values", "save_calibration_stats", "save_compiled",
+           "save_decode_loop", "save_qmodel",
            "save_qmodel_qdq", "save_qmodel_qoperator", "save_weight_only",
            "summarize", "summarize_device_trace"]

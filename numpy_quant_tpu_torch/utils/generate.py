@@ -200,14 +200,15 @@ def _filtered_logits(row: torch.Tensor, temperature, top_k, top_p,
 def _next_token(row: torch.Tensor, temperature=None, top_k=None,
                 top_p=None, generator: torch.Generator = None, min_p=None,
                 presence: torch.Tensor = None,
-                repetition_penalty=None) -> torch.Tensor:
+                repetition_penalty=None, noise=None) -> torch.Tensor:
     """The next ids [B] of a [B, V] logit row: greedy argmax (the first
     maximum, as jnp.argmax) when no sampling knob is set, else the
     temperature/top-k/top-p/min-p filtered categorical draw, taken as
-    argmax(logits + Gumbel noise from ``generator``).
-    ``repetition_penalty`` (HF CTRL semantics: positive logits divide,
-    negative multiply) applies first, to the tokens marked in the [B, V]
-    ``presence`` mask; it composes with greedy decoding too."""
+    argmax(logits + Gumbel noise from ``generator``, or the [B, V]
+    ``noise`` given, drawn so before). ``repetition_penalty`` (HF CTRL
+    semantics: positive logits divide, negative multiply) applies first,
+    to the tokens marked in the [B, V] ``presence`` mask; it composes with
+    greedy decoding too."""
     if repetition_penalty is not None and presence is not None:
         penalized = torch.where(row > 0, _divide(row, repetition_penalty),
                                 row * np.float32(repetition_penalty))
@@ -216,7 +217,8 @@ def _next_token(row: torch.Tensor, temperature=None, top_k=None,
             and min_p is None:
         return torch.argmax(row, dim=-1)
     logits = _filtered_logits(row, temperature, top_k, top_p, min_p)
-    noise = _gumbel(tuple(logits.shape), generator).to(logits.device)
+    if noise is None:
+        noise = _gumbel(tuple(logits.shape), generator).to(logits.device)
     return torch.argmax(logits + noise, dim=-1)
 
 
@@ -245,6 +247,63 @@ def _cache_quantizer(step_model, kv_cache_dtype, cache_start: int):
                                   qp.zero_point, container=torch.int8)
     return [quantizer(qp_map[v.name])
             for v in step_model.inputs[cache_start:]], torch.int8
+
+
+def _step_masks(steps: int, length: int, device) -> torch.Tensor:
+    """[steps, 1, 1, 1, L+1]: :func:`_step_mask` of each step, on
+    ``device``."""
+    return torch.from_numpy(np.stack(
+        [_step_mask(t, length) for t in range(max(steps, 1))])).to(device)
+
+
+def _kv_step(forward, tables: dict, ids: torch.Tensor, caches: list,
+             presence, pos: torch.Tensor, t0: int, q_cache: list,
+             knobs: dict, noise=None, generator=None, functional=False):
+    """One step of :func:`generate_kv` at position t, held in ``pos`` (an
+    int64 [1] device tensor, so that a traced loop reads every row by it:
+    utils/aot.py): the embedding and position rows of the token at t, the
+    step mask, RoPE and score-bias rows, ``forward`` over them and the
+    caches, the presents written into the caches at t, the next token
+    (teacher forced inside the prompt of ``t0`` tokens) written into
+    ``ids`` at t + 1, and the presence mask updated. ``tables``: wte, wpe,
+    masks, rope, bias (None where not used) and memory (a list). Returns
+    (logit row [B, V], ids, caches, presence): new tensors when
+    ``functional``, else the ones given, written in place."""
+    x = tables["wte"].index_select(0, ids.index_select(1, pos).reshape(-1))
+    if tables["wpe"] is not None:
+        x = x + tables["wpe"].index_select(0, pos)
+    extra = [] if tables["rope"] is None \
+        else [r.index_select(2, pos) for r in tables["rope"]]
+    if tables["bias"] is not None:
+        extra.append(tables["bias"].index_select(0, pos)[0][None, :, None, :])
+    outs = forward([x[:, None, :], tables["masks"].index_select(0, pos)[0]]
+                   + extra + tables["memory"] + caches)
+    row = outs[0][:, 0, :]
+    written = [q(present) for present, q in zip(outs[1:], q_cache)]
+    if functional:
+        caches = [c.index_copy(2, pos, w) for c, w in zip(caches, written)]
+    else:
+        for c, w in zip(caches, written):
+            c.index_copy_(2, pos, w)
+    nxt = _next_token(row, knobs["temperature"], knobs["top_k"],
+                      knobs["top_p"], generator, knobs["min_p"], presence,
+                      knobs["repetition_penalty"], noise=noise)
+    # teacher forcing: inside the prompt the next token is given
+    at = pos + 1
+    nxt = torch.where(at >= t0, nxt, ids.index_select(1, at).reshape(-1))
+    if functional:
+        ids = ids.index_copy(1, at, nxt[:, None])
+    else:
+        ids.index_copy_(1, at, nxt[:, None])
+    if presence is not None:
+        presence = presence.scatter(1, nxt[:, None], 1.0) if functional \
+            else presence.scatter_(1, nxt[:, None], 1.0)
+    return row, ids, caches, presence
+
+
+def _sampling(knobs: dict) -> bool:
+    return any(knobs[k] is not None
+               for k in ("temperature", "top_k", "top_p", "min_p"))
 
 
 @torch.inference_mode()
@@ -312,9 +371,9 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
     bias_d = _placed_table(step_model, "score_bias", score_bias)
     memory_in = [] if memory is None else [
         _placed_memory(step_model, memory, cache_start)]
-    sampling = not (temperature is None and top_k is None and top_p is None
-                    and min_p is None)
-    if sampling and generator is None:
+    knobs = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                 min_p=min_p, repetition_penalty=repetition_penalty)
+    if _sampling(knobs) and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     total = t0 + max_new_tokens
     ids = torch.zeros((batch, total), dtype=torch.int64, device=dev)
@@ -333,35 +392,24 @@ def generate_kv(step_model, prompt_ids: np.ndarray, wte: np.ndarray,
     # the captured step graph reads the caches and the memory where they lie
     inplace = tuple(range(cache_start - len(memory_in),
                           cache_start + len(caches)))
-    masks = torch.from_numpy(np.stack(
-        [_step_mask(t, length) for t in range(max(total - 1, 1))])).to(dev)
+    tables = dict(wte=wte_d, wpe=wpe_d, rope=rope_d, bias=bias_d,
+                  memory=memory_in, masks=_step_masks(total - 1, length, dev))
     presence = None
     if repetition_penalty is not None:
         presence = torch.zeros((batch, wte_d.shape[0]), dtype=torch.float32,
                                device=dev)
         presence.scatter_(1, ids[:, :1], 1.0)
+    positions = torch.arange(total, device=dev)
+
+    def forward(inputs):
+        return step_model(inputs, as_numpy=False, inplace=inplace)
+
     for t in range(total - 1):
-        x = wte_d[ids[:, t]]
-        if wpe_d is not None:
-            x = x + wpe_d[t]
-        extra = [] if rope_d is None else [r[:, :, t:t + 1, :] for r in rope_d]
-        if bias_d is not None:
-            extra.append(bias_d[t][None, :, None, :])
-        outs = step_model([x[:, None, :], masks[t]] + extra + memory_in
-                          + caches,
-                          as_numpy=False, inplace=inplace)
-        row = outs[0][:, 0, :]
+        row, ids, caches, presence = _kv_step(
+            forward, tables, ids, caches, presence, positions[t:t + 1], t0,
+            q_cache, knobs, generator=generator)
         if step_logits is not None:
             step_logits.append(row)
-        for cache, present, q in zip(caches, outs[1:], q_cache):
-            cache[:, :, t:t + 1, :] = q(present)
-        nxt = _next_token(row, temperature, top_k, top_p, generator, min_p,
-                          presence, repetition_penalty)
-        # teacher forcing: inside the prompt the next token is given
-        if t + 1 >= t0:
-            ids[:, t + 1] = nxt
-        if presence is not None:
-            presence.scatter_(1, ids[:, t + 1:t + 2], 1.0)
     if cache_lay:
         step_model._local_io = {}
     return ids.cpu().numpy().astype(np.int32)
