@@ -327,7 +327,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
      loss minimum below half the first) and on the ViT-Base-width fixture
      (then optimize() + pack_weights(): packed_qmatmul, kernel == unpack,
      captured bf16 B=96), BERT-base W4A8 (40 steps on int64 ids, every
-     MatMul weight 4 bits); (b) Mamba-130m widths at MAMBA_LAYERS (4) of
+     MatMul weight 4 bits); (b) Mamba-130m widths at MAMBA_LAYERS (2) of
      its 24 layers, B=8: the L=128 full form float and int8 captured, the state-carry step under
      generate_mamba (32 + 96; float tokens equal the full form's under
      the margin rule), int8 from mamba_decode_calibration under "kernel"
@@ -375,6 +375,21 @@ Phases, one line each (any failure raises and the script exits non-zero):
      AOT_LLAMA_LAYERS layers (int8, int8 cache, RoPE) and the copy fixture
      greedy and sampled: tokens equal generate_kv's; (c) every custom op
      inside a loaded artifact and through torch.library.opcheck.
+ 25. serve_ring and the fixture trainers: (a) after phase 16(a), the main
+     path's int8 ViT-Base under serve_ring over RING_STEPS batches from a
+     live generator, f32 B=8 "unpack" and bf16 B=96 "kernel": every output
+     equal to __call__'s bit for bit, launches per ring step equal to one
+     __call__'s; images/s of serve_ring, map_batches and
+     serve_stream(depth=2) in turns, host syncs per step, the idle share
+     of one profiled session and the probe's seconds; (b)
+     train_base_fixture at its full configuration (ViT-Base widths, 2
+     layers, 180 steps of 32) from the port's seeded init: s/step, the
+     held-out accuracy beside the committed fixture's by the same forward
+     (at least it less 0.05), then the fresh weights through the int8 main
+     path, bf16 B=96 "kernel" (2 fused_attention_hs launches, labels
+     against float); (c) the copy and modsum trainers at full width, 200
+     steps each, dropout on: the last step's loss below step 0's by
+     LOSS_DROP, s/step and the full runs reckoned from it.
 Phases 1-17 run captured forwards from here on, except where a forward
 is swapped or hooked (plain_chain, boundary_cost, phase 3's kernel and
 plain-chain turns, record=True): those walk eagerly.
@@ -391,6 +406,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -493,9 +509,9 @@ DEC_PROFILE_PROMPT, DEC_PROFILE_NEW = 1, 2  # the profiled decode: 2 steps
 LLAMA_WO_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
                    (2048, 32000))
 # TinyLlama-1.1B's depth in phases 11, 15, 16 and 19c: cut from 22 (to 6
-# with phase 23, to 3 with phase 24) to keep the script well inside its
-# time limit on a slow host (PERF.md §4)
-LLAMA_LAYERS = 3
+# with phase 23, to 3 with phase 24, to 2 with phase 25) to keep the script
+# well inside its time limit on a slow host (PERF.md §4)
+LLAMA_LAYERS = 2
 LLAMA_WO_PER_STEP = LLAMA_LAYERS * 7 + 1  # 7 projections per layer, head
 PREFILL_N = 512  # the int8 prefill (B=1); the float one runs DEC_PROMPT
 VIT_STEPS = 4  # seeded ViT-Base batches of B_SERVE under map_batches
@@ -5769,7 +5785,7 @@ QAT_GAIN = 0.015         # the capstone rule: QAT > PTQ + 0.015 held out
 QAT_SERVE_B = 96         # the QAT'd ViT-Base-width fixture's serving batch
 BERT_QAT_B, BERT_QAT_STEPS, BERT_QAT_LR = 8, 40, 1e-3  # test_qat.py's
 MAMBA_B, MAMBA_L = 8, 128
-MAMBA_LAYERS = 4  # of Mamba-130m's 24: cut for the script's time limit
+MAMBA_LAYERS = 2  # of Mamba-130m's 24: cut for the script's time limit
 MAMBA_PROMPT, MAMBA_NEW = 32, 96
 MAMBA_CHECK_NEW = 16     # new tokens of the captured-against-eager decodes
 MAMBA_REQS, MAMBA_BUDGETS, MAMBA_IDS = 16, (4, 24), 40
@@ -7574,6 +7590,211 @@ def aot_ops_phase(card: str, llama_weights) -> dict:
     return res
 
 
+# -- phase 25: serve_ring and the fixture trainers ---------------------------
+
+RING_STEPS = 20          # batches from a live generator per ring session
+RING_DISTINCT = 4        # distinct seeded batches the generator cycles
+TRAIN_GPT_STEPS = 200    # 25(c): steps of each GPT trainer
+# 25(c): the last step's loss below step 0's by at least this factor,
+# stated before the first run on the card
+LOSS_DROP = {"copy": 1.8, "modsum": 1.05}
+BASE_ACC_SLACK = 0.05    # 25(b): fresh held-out accuracy >= committed - this
+
+
+class event_waits:
+    """Counts the host's waits on CUDA events (torch.cuda.Event.synchronize)
+    while in the block: the ring's reads of its output slots."""
+
+    def __enter__(self):
+        import torch
+        self.n = 0
+        self._orig = torch.cuda.Event.synchronize
+
+        def counting(event):
+            self.n += 1
+            return self._orig(event)
+
+        torch.cuda.Event.synchronize = counting
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.Event.synchronize = self._orig
+
+
+def ring_phase(card: str, qmodel) -> dict:
+    """25(a): the optimized, packed int8 ViT-Base under serve_ring at f32
+    B=8 "unpack" and bf16 B=96 "kernel". Returns {label: launches per ring
+    step} and the probe's seconds."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import config
+    from numpy_quant_tpu_torch.serving import (map_batches, ring_supported,
+                                               serve_stream)
+    t0 = time.perf_counter()
+    assert ring_supported(), "the ring probe failed on the card"
+    probe_s = time.perf_counter() - t0
+    rng = np.random.default_rng(25)
+    image = tuple(qmodel.inputs[0].shape_hint[1:])
+    out = {"probe_seconds": probe_s, "launches": {}}
+    for label, batch, mode, low in (("f32_b8_unpack", B_F32, "unpack",
+                                     False),
+                                    ("bf16_b96_kernel", B_SERVE, "kernel",
+                                     True)):
+        xs = rng.standard_normal((RING_DISTINCT, batch) + image,
+                                 dtype=np.float32) * 0.5
+        pulled = []
+
+        def live():
+            for i in range(RING_STEPS):
+                pulled.append(i)
+                yield [xs[i % RING_DISTINCT]]
+
+        floats = config.low_precision_floats() if low \
+            else contextlib.nullcontext()
+        with floats, packed_execution(mode):
+            want = [qmodel([x])[0] for x in xs]
+            _, one = counted(lambda: qmodel([xs[0]]))
+            with event_waits() as ew:
+                (got, where), counts = counted(lambda: host_syncs(
+                    lambda: qmodel.serve_ring(live())))
+            waits = ew.n
+            pulls = list(pulled)
+            equal = len(got) == RING_STEPS and all(
+                np.array_equal(g[0], want[i % RING_DISTINCT])
+                for i, g in enumerate(got))
+            stacked = np.stack([xs[i % RING_DISTINCT]
+                                for i in range(RING_STEPS)])
+            runs = {
+                "serve_ring": lambda: qmodel.serve_ring(live()),
+                "map_batches": lambda: map_batches(qmodel, [stacked]),
+                "serve_stream": lambda: list(serve_stream(
+                    qmodel, ([xs[i % RING_DISTINCT]]
+                             for i in range(RING_STEPS)), depth=2))}
+            seconds = {k: [] for k in runs}
+            for turn in ("serve_ring", "map_batches", "serve_stream",
+                         "serve_stream", "map_batches", "serve_ring"):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                runs[turn]()
+                torch.cuda.synchronize()
+                seconds[turn].append(time.perf_counter() - t1)
+            wall = statistics.median(seconds["serve_ring"]) * 1e3
+            _, _, busy, tries = profiled(lambda: qmodel.serve_ring(live()))
+        per_step = {k: v / RING_STEPS for k, v in counts.items()}
+        images = RING_STEPS * batch
+        say("ring", path=label, batch=batch, steps=RING_STEPS,
+            ring_equals_call_bitwise=equal, pulls=len(pulls),
+            **{f"{k}_per_step": v for k, v in per_step.items()},
+            **{f"images_per_s_{k}": images / statistics.median(v)
+               for k, v in seconds.items()},
+            **{f"ms_runs_{k}": ",".join(f"{t * 1e3:.1f}" for t in v)
+               for k, v in seconds.items()},
+            host_syncs_per_step=sum(where.values()) / RING_STEPS,
+            event_waits_per_step=waits / RING_STEPS,
+            session_wall_ms=wall, session_busy_ms=busy,
+            idle_share=None if busy is None else 1 - busy / wall,
+            profile_tries=tries, probe_seconds=probe_s,
+            card=card.replace(" ", "_"))
+        for (path, line), n in where.most_common():
+            say("ring-sync", path=label, per_step=n / RING_STEPS,
+                at=f"{path}:{line}")
+        assert equal, f"{label}: serve_ring outputs differ from __call__'s"
+        assert pulls == list(range(RING_STEPS)), pulls
+        assert per_step == {k: float(v) for k, v in one.items()}, \
+            (per_step, one)
+        assert per_step["fused_attention_hs"] == 12, per_step
+        assert per_step["splitk_qmatmul"] == (
+            PACKED_PER_FORWARD if mode == "kernel" else 0), per_step
+        assert waits == RING_STEPS, waits
+        out["launches"][label] = per_step
+    return out
+
+
+def train_base_phase(card: str, tmp: str) -> dict:
+    """25(b): train_base_fixture at its defaults on the card, its held-out
+    accuracy beside the committed fixture's, then the fresh weights served
+    through the int8 main path. Returns the served forward's launches."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch import Model, config
+    from numpy_quant_tpu_torch.models import fixtures as F
+    from numpy_quant_tpu_torch.models.vit import vit_image_classifier
+    path = os.path.join(tmp, "vit_base_fresh.npz")
+    history = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = F.train_base_fixture(path=path, history=history)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    committed = F.held_out_accuracy(F.trained_vit_base_weights(),
+                                     F.BASE_FIXTURE_CONFIG, 0,
+                                     F.BASE_IMAGE_SIZE, "cuda")
+    eval_s = time.perf_counter() - t0
+    steps = len(history)
+    # the fresh weights through the main path: int8, optimize(),
+    # pack_weights(), bf16 B=96 "kernel"
+    fresh = F.load_weights(path)
+    proto = vit_image_classifier(fresh, F.BASE_FIXTURE_CONFIG)
+    fm = Model.from_onnx(proto)
+    calib, _ = F.make_batch(np.random.default_rng(7), 32,
+                            image_size=F.BASE_IMAGE_SIZE)
+    q = fm.quantize(bit_width=8, stats=fm.calibration_stats([calib]),
+                    quantize_conv=True)
+    q.optimize()
+    q.pack_weights()
+    xh, yh = F.make_batch(np.random.default_rng(1), B_SERVE,
+                          image_size=F.BASE_IMAGE_SIZE)
+    ref = fm([xh])[0]
+    with config.low_precision_floats(), packed_execution("kernel"):
+        q([xh])
+        logits, counts = counted(lambda: q([xh])[0])
+    agree = float((logits.argmax(1) == ref.argmax(1)).mean())
+    say("train-base", steps=steps, batch=32, s_per_step_call=call_s / steps,
+        s_per_step_less_held_out=(call_s - eval_s) / steps,
+        call_seconds=call_s, held_out_pass_seconds=eval_s,
+        loss_first=history[0], loss_last=history[-1],
+        held_out_fresh=acc, held_out_committed=committed,
+        int8_bf16_kernel_label_agreement_float=agree,
+        int8_held_out=float((logits.argmax(1) == yh).mean()),
+        fused_attention_hs=counts["fused_attention_hs"],
+        splitk_qmatmul=counts["splitk_qmatmul"],
+        quantize=counts["quantize"], dequantize=counts["dequantize"],
+        card=card.replace(" ", "_"))
+    assert steps == 180 and np.isfinite(history).all()
+    assert acc >= committed - BASE_ACC_SLACK, (acc, committed)
+    assert counts["fused_attention_hs"] == 2, counts
+    assert np.isfinite(logits).all()
+    return counts
+
+
+def train_gpt_phase(card: str) -> None:
+    """25(c): the copy and modsum trainers at full width, TRAIN_GPT_STEPS
+    steps each with dropout on: the loss falls by LOSS_DROP; s/step and the
+    full runs reckoned from it."""
+    import numpy as np
+    import torch
+    from numpy_quant_tpu_torch.models import modsum_fixture, text_fixture
+    for label, mod, full in (("copy", text_fixture, 3000),
+                             ("modsum", modsum_fixture, 8000)):
+        history = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = mod.train_fixture(steps=TRAIN_GPT_STEPS, history=history)
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / TRAIN_GPT_STEPS
+        drop = history[0] / history[-1]
+        say("train-gpt", fixture=label, steps=TRAIN_GPT_STEPS,
+            loss_first=history[0], loss_last=history[-1], drop=drop,
+            drop_required=LOSS_DROP[label], held_out=acc,
+            s_per_step_call=per_step, full_steps=full,
+            full_run_seconds_reckoned=per_step * full,
+            card=card.replace(" ", "_"))
+        assert np.isfinite(history).all() and len(history) == TRAIN_GPT_STEPS
+        assert drop >= LOSS_DROP[label], (label, drop)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7893,6 +8114,18 @@ def main() -> int:
 
     mark("phase_16a")
 
+    # -- phase 25: serve_ring on the main path; the fixture trainers -----
+    t25 = time.perf_counter()
+    ring = ring_phase(card, qmodel)
+    mark("phase_25a")
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train_base_phase(card, tmp)
+    train_gpt_phase(card)
+    say("ring-train-phase", seconds=time.perf_counter() - t25,
+        card=card.replace(" ", "_"))
+
+    mark("phase_25bc")
+
     # -- phase 17: ONNX interop (run here, on phase 3's models) -------
     t17 = time.perf_counter()
     vectors = conformance_phase(card)
@@ -8112,6 +8345,12 @@ def main() -> int:
         # (zeros left out)
         row["aot"] = {f"per_loaded_{k}": c[kname] for k, c in aot.items()
                       if c.get(kname)}
+        # phase 25: launches per ring step of each path, and per forward
+        # of the freshly trained fixture through the int8 main path
+        row["ring"] = {f"per_ring_step_{k}": c[kname]
+                       for k, c in ring["launches"].items()}
+        row["trained_base"] = {
+            "per_int8_bf16_kernel_forward": trained[kname]}
     wo_row = next(r for r in rows if r["name"] == "splitk_wo_matmul")
     wo_row["ptq"]["vit_rows"] = {f"M{m}": t for m, t in ptq["wo"].items()}
     wo_row["mixtral_decode_shapes"] = z["times"]["wo"]

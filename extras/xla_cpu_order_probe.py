@@ -11,7 +11,12 @@ On the small trained ViT fixture at B=4 (``make_batch`` seed 7) it prints:
 * XLA's CPU row sum of [4, 65, 128] over the last axis against the exactly
   rounded float64 sum and against candidate orders (a sequential chain,
   strided lanes finished by halves, adjacent pairs or a chain, unrolled
-  accumulators, pairwise blocks): the best share of rows each matches.
+  accumulators, pairwise blocks, and the mapped one: windows of 32, each
+  chained from 0, the partials reduced by the same rule, which the port
+  replays on CPU tensors as ``intops.xla_cpu_row_sum``): the best share
+  of rows each matches;
+* the first value apart, when it is a batched MatMul, against a replay in
+  four k lanes of fused multiply-adds finished (l0 + l1) + (l2 + l3).
 
     JAX_PLATFORMS=cpu python extras/xla_cpu_order_probe.py
 
@@ -46,6 +51,22 @@ def fma_replay(a, b, block: int = 512):
     return out.numpy().reshape(*a.shape[:-1], b.shape[1])
 
 
+def lanes4_replay(a, b):
+    """a [..., M, K] @ b [..., K, N]: k in four lanes (k mod 4), each a
+    chain of float32 fused multiply-adds from 0, finished
+    (l0 + l1) + (l2 + l3)."""
+    import torch
+    from numpy_quant_tpu_torch.ops.registry import _fma_f32
+    ta, tb = torch.from_numpy(np.array(a)), torch.from_numpy(np.array(b))
+    shape = torch.broadcast_shapes(ta.shape[:-2], tb.shape[:-2]) \
+        + (ta.shape[-2], tb.shape[-1])
+    lanes = [torch.zeros(shape) for _ in range(4)]
+    for k in range(ta.shape[-1]):
+        lanes[k % 4] = _fma_f32(ta[..., k:k + 1], tb[..., k:k + 1, :],
+                                lanes[k % 4])
+    return ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3])).numpy()
+
+
 def sum_orders(x: np.ndarray) -> dict:
     """{order: row sums of x [rows, n] in float32} for candidate orders."""
     def chain(cols):
@@ -72,7 +93,25 @@ def sum_orders(x: np.ndarray) -> dict:
         return (pairwise(cols[:, :h]) + pairwise(cols[:, h:])) \
             .astype(np.float32)
 
-    out = {"chain": chain(x), "pairwise8": pairwise(x)}
+    def windows32(cols):
+        # XLA's CPU rewrite: zero-pad to a multiple of 32, (pad // 2) in
+        # front, chain each window from 0, reduce the partials alike
+        while cols.shape[1] > 32:
+            w = -(-cols.shape[1] // 32)
+            pad = 32 * w - cols.shape[1]
+            cols = np.pad(cols, ((0, 0), (pad // 2, pad - pad // 2)))
+            part = cols.reshape(cols.shape[0], w, 32)
+            acc = np.zeros(part.shape[:2], np.float32)
+            for j in range(32):
+                acc = (acc + part[:, :, j]).astype(np.float32)
+            cols = acc
+        acc = np.zeros(cols.shape[0], np.float32)
+        for j in range(cols.shape[1]):
+            acc = (acc + cols[:, j]).astype(np.float32)
+        return acc
+
+    out = {"chain": chain(x), "pairwise8": pairwise(x),
+           "windows32": windows32(x)}
     n = x.shape[1]
     for width in (2, 4, 8, 16, 32, 64, 128):
         acc = np.zeros((x.shape[0], width), np.float32)
@@ -126,6 +165,12 @@ def main() -> None:
         if not np.array_equal(a, t):
             print(f"first value apart: {name} ({node.op}), "
                   f"{(a != t).mean():.3f} of its entries")
+            if node.op == "MatMul":
+                lhs, rhs = (jv[v.name] for v in node.inputs)
+                print(f"  four-lane fma replay on JAX's operands "
+                      f"{lhs.shape} @ {rhs.shape}: "
+                      f"{(lanes4_replay(lhs, rhs) == a).mean():.3f} of "
+                      "entries")
             break
     consts = {v.name: v for v in tm.values if isinstance(v, Constant)}
     for proj in ("query", "key", "value"):

@@ -78,6 +78,37 @@ def place(arr, device, dtype) -> torch.Tensor:
     return t
 
 
+# XLA's CPU compiler rewrites a reduce longer than this into windows of it
+_XLA_CPU_WINDOW = 32
+
+
+def _chain(x: torch.Tensor) -> torch.Tensor:
+    """The last axis of ``x`` (not empty) summed left to right from 0."""
+    acc = x[..., 0] + 0.0  # 0 + x0: -0.0 becomes +0.0, as XLA's does
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def xla_cpu_row_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of ``x`` over ``dim`` in the order XLA's CPU compiler emits for
+    a float row reduce, bit for bit (``jnp.sum``, eager or jitted; ``dim``
+    dropped). A row of n > 32 is padded with zeros to a multiple of 32,
+    (32·⌈n/32⌉ − n) // 2 of them in front and the rest behind, each window
+    of 32 is chained from 0 and the ⌈n/32⌉ partials are reduced by the same
+    rule; a row of at most 32 is one chain from 0. At most 32 vector adds
+    per level; ``x`` has at least one element along ``dim``."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    while n > _XLA_CPU_WINDOW:
+        windows = -(-n // _XLA_CPU_WINDOW)
+        pad = windows * _XLA_CPU_WINDOW - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = _chain(x.reshape(*x.shape[:-1], windows, _XLA_CPU_WINDOW))
+        n = windows
+    return _chain(x)
+
+
 def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     extra = size - t.shape[dim]
     if extra <= 0:

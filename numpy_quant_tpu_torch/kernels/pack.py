@@ -93,6 +93,19 @@ def unpack_splitk_np(packed: np.ndarray, bits: int, k: int) -> np.ndarray:
     return np.concatenate(segs, axis=0)[:k].astype(np.int8)
 
 
+def unpack_stacked_np(planes: np.ndarray, bits: int, k: int) -> np.ndarray:
+    """Host inverse of the tensor-parallel stacked layout
+    (``"splitk_stacked"``): [S, KR_local, N] -> int8[K, N], S row groups of
+    ceil(K/S) rows, each packed on its own."""
+    planes = np.asarray(planes)
+    s, n = planes.shape[0], planes.shape[2]
+    kl = -(-k // s)
+    if bits == 8:
+        return planes.astype(np.int8).reshape(s * kl, n)[:k]
+    segs = [unpack_splitk_np(planes[t], bits, kl) for t in range(s)]
+    return np.concatenate(segs, axis=0)[:k]
+
+
 def unpack_splitk(packed: torch.Tensor, bits: int, k: int) -> torch.Tensor:
     """Torch inverse of pack_splitk on the payload's device:
     uint8[KR, N] -> int8[K, N]."""

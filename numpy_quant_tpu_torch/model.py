@@ -217,6 +217,7 @@ class Model:
         self._graph_pool = None
         self._failed = None  # (node, error) where a capture failed
         self._subgraphs: dict = {}  # If/Loop bodies, imported once
+        self._ring_state: dict = {}  # serve_ring sessions running
         # tensor/data parallelism (parallel/sharding.py::shard_model)
         self.mesh = None
         self.data_axis = None
@@ -612,15 +613,23 @@ class Model:
         int64 shape inputs are bound through ``__call__``)."""
         return self._bound_fn({})
 
-    def _replay(self, arrays: list, inplace: tuple) -> list:
+    def _captured(self, arrays: list, inplace: tuple = ()) -> tuple:
+        """(entry, fresh): the captured forward of ``arrays``' signature,
+        captured now (``fresh``) if there is none or its bound inputs
+        moved."""
         key = graph_key(arrays, self.device)
         entry = self._graphs.get(key)
-        if entry is None or entry.bound != _bound(arrays, inplace):
-            # a replaced graph goes first: its pool blocks serve the new one
-            self._graphs.pop(key, None)
-            entry = self._capture(arrays, inplace)
-            self._graphs[key] = entry
-        else:
+        if entry is not None and entry.bound == _bound(arrays, inplace):
+            return entry, False
+        # a replaced graph goes first: its pool blocks serve the new one
+        self._graphs.pop(key, None)
+        entry = self._capture(arrays, inplace)
+        self._graphs[key] = entry
+        return entry, True
+
+    def _replay(self, arrays: list, inplace: tuple) -> list:
+        entry, fresh = self._captured(arrays, inplace)
+        if not fresh:
             for i, buf in entry.inputs.items():
                 a = arrays[i]
                 if a is not buf and i not in inplace:
@@ -1065,14 +1074,12 @@ class Model:
         from .serving import serve_stream
         return serve_stream(self, batches, depth=depth, as_numpy=as_numpy)
 
-    def serve_ring(self, batches, probe: bool = True):
-        """JAX's persistent serving loop (one program pulling batches
-        through host callbacks) is not carried over: use map_batches or
-        serve_stream."""
-        raise NotImplementedError(
-            "serve_ring (a persistent device loop over host callbacks) is "
-            "not carried over to the PyTorch port; use map_batches or "
-            "serve_stream")
+    def serve_ring(self, batches, probe: bool = True) -> list:
+        """Serve a live feed of batches in one session the device paces:
+        on CUDA each batch replays the signature's captured forward, fed
+        from a ring of pinned host buffers. See serving.py."""
+        from .serving import serve_ring
+        return serve_ring(self, batches, probe=probe)
 
     def fuse_decode_attention(self) -> int:
         """Fuse KV-cache decode-step attention chains ([B, 1, H] query,

@@ -11,8 +11,8 @@ The weights are data of the JAX package (``gpt_trained.npz``, float16, in
 HuggingFace's ``GPT2LMHeadModel`` key names) and are read where they lie;
 the port builds the graphs with its own ``models/gpt.py`` builders.
 :func:`make_copy_batch` draws the same sequences as the JAX package's from
-the same ``numpy.random.Generator`` state. Retraining is not ported: the
-oracles need only the committed weights.
+the same ``numpy.random.Generator`` state. :func:`train_fixture` trains
+one anew on the port's float walk (``train.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ import os
 import numpy as np
 
 from .fixtures import FIXTURE_DIR, load_weights
-from .gpt import gpt_causal_lm, gpt_decode_step, gpt_prefill
+from .gpt import (gpt_causal_lm, gpt_decode_step, gpt_prefill,
+                  random_gpt2_weights)
 
 WEIGHTS_PATH = os.path.join(FIXTURE_DIR, "gpt_trained.npz")
 
@@ -82,3 +83,57 @@ def copy_accuracy(generated: np.ndarray, expected: np.ndarray) -> float:
     """Fraction of generated tokens matching the copy target."""
     generated = np.asarray(generated)[..., :expected.shape[-1]]
     return float((generated == expected).mean())
+
+
+def train_fixture(steps: int = 3000, batch: int = 128, lr: float = 1e-3,
+                  seed: int = 0, path: str | None = None,
+                  init: dict | None = None, device=None,
+                  history: list | None = None) -> float:
+    """Train the copy-language GPT (the JAX package's ``train_fixture``:
+    AdamW, cosine decay over ``steps``, the loss on every next token,
+    ``GPT2Config``'s dropout while training) through the port's float
+    walk, from ``init`` (default: ``random_gpt2_weights`` at ``seed``) on
+    ``device``. The weights are rounded to float16 and the held-out copy
+    accuracy (512 sequences from ``seed + 1``) measured on exactly those;
+    written to ``path`` when given. Each step's loss goes to ``history``
+    when given. Returns the held-out next-token copy accuracy."""
+    import torch
+
+    from .. import config as port_config
+    from ..model import Model
+    from ..train import GraphTrainer, gpt_dropout_sites, lm_loss, train
+    dev = port_config.resolve_device(device)
+    if init is None:
+        init = random_gpt2_weights(FIXTURE_CONFIG, seed=seed)
+    trainer = GraphTrainer(
+        lambda w: gpt_causal_lm(w, FIXTURE_CONFIG, batch_size=batch,
+                                seq_len=SEQ_LEN), init, dev,
+        embed="transformer.wte.weight",
+        dropout=gpt_dropout_sites(FIXTURE_CONFIG["n_layer"]),
+        seed=seed)
+    rng = np.random.default_rng(seed)
+
+    def data(step):
+        seqs = make_copy_batch(rng, batch)
+        return [seqs], seqs
+
+    opt = torch.optim.AdamW(list(trainer.params.values()), lr=lr)
+    sched = torch.optim.lr_scheduler.CosineAnnealingLR(opt, T_max=steps)
+    state = train(trainer, steps, data,
+                  lambda outs, labels: lm_loss(outs[0], labels), opt,
+                  sched, history=history)
+    if "lm_head.weight" in state:
+        state["lm_head.weight"] = state["transformer.wte.weight"]
+    stored = {k: v.astype(np.float16) for k, v in state.items()}
+    seqs = make_copy_batch(np.random.default_rng(seed + 1), 512)
+    proto = gpt_causal_lm({k: v.astype(np.float32) for k, v in
+                           stored.items()}, FIXTURE_CONFIG,
+                          batch_size=len(seqs), seq_len=SEQ_LEN)
+    model = Model.from_onnx(proto, device=dev)
+    with port_config.eager_forward(), torch.inference_mode():
+        logits = model([proto._wte[seqs]])[0][:, COPY_LEN:-1]
+    acc = float((logits.argmax(-1) == seqs[:, COPY_LEN + 1:]).mean())
+    if path is not None:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez_compressed(path, **stored)
+    return acc

@@ -44,6 +44,11 @@ def _f32(a) -> np.ndarray:
     return np.asarray(a, dtype=np.float32)
 
 
+def _key(prefix: str, name: str) -> str:
+    """A state-dict key under ``prefix`` ("" for the module's own)."""
+    return f"{prefix}.{name}" if prefix else name
+
+
 class _ViTEmitter:
     """Node-emission helpers over a GraphBuilder and a state dict."""
 
@@ -56,23 +61,23 @@ class _ViTEmitter:
         """torch Linear on a 3D tensor: MatMul + Add (exporter pattern)."""
         g = self.g
         w = g.init(f"{name}.weight_t",
-                   np.ascontiguousarray(_f32(self.w[f"{key}.weight"]).T))
+                   np.ascontiguousarray(_f32(self.w[_key(key, "weight")]).T))
         y = g.node("MatMul", [x, w], out=f"{name}/MatMul_out")
-        b = g.init(f"{name}.bias", _f32(self.w[f"{key}.bias"]))
+        b = g.init(f"{name}.bias", _f32(self.w[_key(key, "bias")]))
         return g.node("Add", [y, b], out=f"{name}/Add_out")
 
     def linear2d(self, x: str, key: str, name: str) -> str:
         """torch Linear on a 2D tensor: Gemm(transB=1)."""
         g = self.g
-        w = g.init(f"{name}.weight", _f32(self.w[f"{key}.weight"]))
-        b = g.init(f"{name}.bias", _f32(self.w[f"{key}.bias"]))
+        w = g.init(f"{name}.weight", _f32(self.w[_key(key, "weight")]))
+        b = g.init(f"{name}.bias", _f32(self.w[_key(key, "bias")]))
         return g.node("Gemm", [x, w, b], out=f"{name}/Gemm_out",
                       alpha=1.0, beta=1.0, transB=1)
 
     def layernorm(self, x: str, key: str, name: str) -> str:
         g = self.g
-        scale = g.init(f"{name}.weight", _f32(self.w[f"{key}.weight"]))
-        bias = g.init(f"{name}.bias", _f32(self.w[f"{key}.bias"]))
+        scale = g.init(f"{name}.weight", _f32(self.w[_key(key, "weight")]))
+        bias = g.init(f"{name}.bias", _f32(self.w[_key(key, "bias")]))
         return g.node("LayerNormalization", [x, scale, bias],
                       out=f"{name}/LayerNorm_out", axis=-1, epsilon=self.eps)
 
@@ -103,9 +108,9 @@ class _ViTEmitter:
         context; returns the (B, N, H) context."""
         g = self.g
         scaling = np.float32(1.0 / np.sqrt(head_size))
-        q = self.linear3d(x, f"{key}.query", f"{name}.query")
-        k = self.linear3d(x, f"{key}.key", f"{name}.key")
-        v = self.linear3d(x, f"{key}.value", f"{name}.value")
+        q = self.linear3d(x, _key(key, "query"), f"{name}.query")
+        k = self.linear3d(x, _key(key, "key"), f"{name}.key")
+        v = self.linear3d(x, _key(key, "value"), f"{name}.value")
 
         b_dim = self.batch_dim(x, f"{name}/bdim")
         tail = g.const(np.array([-1, num_heads, head_size], dtype=np.int64),
@@ -138,17 +143,17 @@ class _ViTEmitter:
     def encoder_layer(self, x: str, key: str, name: str, num_heads: int,
                       head_size: int) -> str:
         """HF ViTLayer: pre-LN attention + residual, pre-LN MLP + residual."""
-        ln1 = self.layernorm(x, f"{key}.layernorm_before", f"{name}.ln_before")
-        ctx = self.self_attention(ln1, f"{key}.attention.attention",
+        ln1 = self.layernorm(x, _key(key, "layernorm_before"), f"{name}.ln_before")
+        ctx = self.self_attention(ln1, _key(key, "attention.attention"),
                                   f"{name}.attention", num_heads, head_size)
-        att_out = self.linear3d(ctx, f"{key}.attention.output.dense",
+        att_out = self.linear3d(ctx, _key(key, "attention.output.dense"),
                                 f"{name}.attention.output")
         x1 = self.g.node("Add", [att_out, x], out=f"{name}/residual1")
-        ln2 = self.layernorm(x1, f"{key}.layernorm_after", f"{name}.ln_after")
-        inter = self.linear3d(ln2, f"{key}.intermediate.dense",
+        ln2 = self.layernorm(x1, _key(key, "layernorm_after"), f"{name}.ln_after")
+        inter = self.linear3d(ln2, _key(key, "intermediate.dense"),
                               f"{name}.intermediate")
         act = self.gelu(inter, f"{name}.gelu")
-        mlp_out = self.linear3d(act, f"{key}.output.dense", f"{name}.output")
+        mlp_out = self.linear3d(act, _key(key, "output.dense"), f"{name}.output")
         return self.g.node("Add", [mlp_out, x1], out=f"{name}/residual2")
 
     def embeddings(self, x: str, key: str, name: str, hidden: int,
@@ -156,9 +161,9 @@ class _ViTEmitter:
         """HF ViTEmbeddings: patch conv, flatten, cls concat, pos add."""
         g = self.g
         w = g.init(f"{name}.projection.weight",
-                   _f32(self.w[f"{key}.patch_embeddings.projection.weight"]))
+                   _f32(self.w[_key(key, "patch_embeddings.projection.weight")]))
         b = g.init(f"{name}.projection.bias",
-                   _f32(self.w[f"{key}.patch_embeddings.projection.bias"]))
+                   _f32(self.w[_key(key, "patch_embeddings.projection.bias")]))
         conv = g.node("Conv", [x, w, b], out=f"{name}/Conv_out",
                       kernel_shape=[patch, patch], pads=[0, 0, 0, 0],
                       strides=[patch, patch])
@@ -171,7 +176,7 @@ class _ViTEmitter:
         patches = g.node("Transpose", [flat], out=f"{name}/patches",
                          perm=[0, 2, 1])
         # cls token: expand (B, 1, H) via the torch Expand lowering
-        cls = g.init(f"{name}.cls_token", _f32(self.w[f"{key}.cls_token"]))
+        cls = g.init(f"{name}.cls_token", _f32(self.w[_key(key, "cls_token")]))
         minus1 = g.const(np.array([-1, -1], dtype=np.int64), "minus1")
         target = g.node("Concat", [b_dim, minus1],
                         out=f"{name}/Concat_target", axis=0)
@@ -184,8 +189,128 @@ class _ViTEmitter:
         tokens = g.node("Concat", [cls_exp, patches],
                         out=f"{name}/tokens", axis=1)
         pos = g.init(f"{name}.position_embeddings",
-                     _f32(self.w[f"{key}.position_embeddings"]))
+                     _f32(self.w[_key(key, "position_embeddings")]))
         return g.node("Add", [tokens, pos], out=f"{name}/embeddings")
+
+    def pooler(self, x: str, key: str, name: str) -> str:
+        """HF ViTPooler: dense + tanh on the CLS token."""
+        g = self.g
+        i0 = g.const(np.array(0, dtype=np.int64), "idx0")
+        cls = g.node("Gather", [x, i0], out=f"{name}/cls", axis=1)
+        dense = self.linear2d(cls, _key(key, "dense"), f"{name}.dense")
+        return g.node("Tanh", [dense], out=f"{name}/Tanh_out")
+
+
+# ---------------------------------------------------------------------------
+# The sub-graph generators (the JAX package's vit_self_attention,
+# vit_embedding, vit_layer, vit_pooler and vit; the reference's
+# models/test.py generators): the same parameters, the weights an HF-keyed
+# state dict of the sub-module (``weights=None``: vit_part_weights' seeded
+# draw)
+# ---------------------------------------------------------------------------
+
+def _finish(g: GraphBuilder, y: str, name: str, shape: list) -> O.ModelProto:
+    g.node("Identity", [y], out=name, name="out_identity")
+    g.output(name, shape)
+    return g.model()
+
+
+def vit_self_attention(batch_size: int, embeddings_size: int,
+                       hidden_size: int, num_attention_heads: int,
+                       seed: int = 0, weights: dict | None = None
+                       ) -> O.ModelProto:
+    """HF ViTSelfAttention: ``weights`` keyed ``query.weight`` ..."""
+    cfg = dict(hidden_size=hidden_size,
+               num_attention_heads=num_attention_heads)
+    w = vit_part_weights("self_attention", cfg, seed) if weights is None \
+        else weights
+    g = GraphBuilder("vit_self_attention")
+    e = _ViTEmitter(g, w, VIT_BASE["layer_norm_eps"])
+    shape = [batch_size, embeddings_size, hidden_size]
+    x = g.input("input_states", shape)
+    ctx = e.self_attention(x, "", "attn", num_attention_heads,
+                           hidden_size // num_attention_heads)
+    return _finish(g, ctx, "output_states", shape)
+
+
+def vit_embedding(batch_size: int, image_size: int, patch_size: int,
+                  hidden_size: int, seed: int = 0,
+                  weights: dict | None = None) -> O.ModelProto:
+    """HF ViTEmbeddings: ``weights`` keyed ``cls_token``,
+    ``position_embeddings``, ``patch_embeddings.projection.*``."""
+    cfg = dict(image_size=image_size, patch_size=patch_size,
+               hidden_size=hidden_size)
+    w = vit_part_weights("embeddings", cfg, seed) if weights is None \
+        else weights
+    g = GraphBuilder("vit_embedding")
+    e = _ViTEmitter(g, w, VIT_BASE["layer_norm_eps"])
+    x = g.input("inputs", [batch_size, 3, image_size, image_size])
+    emb = e.embeddings(x, "", "embeddings", hidden_size, patch_size)
+    n_tokens = (image_size // patch_size) ** 2 + 1
+    return _finish(g, emb, "hidden_states",
+                   [batch_size, n_tokens, hidden_size])
+
+
+def vit_layer(batch_size: int, image_size: int, patch_size: int,
+              intermediate_size: int, hidden_size: int,
+              num_attention_heads: int, seed: int = 0,
+              weights: dict | None = None) -> O.ModelProto:
+    """HF ViTLayer: ``weights`` keyed ``attention.attention.query.weight``
+    ... ``layernorm_after.bias``."""
+    cfg = dict(image_size=image_size, patch_size=patch_size,
+               hidden_size=hidden_size,
+               num_attention_heads=num_attention_heads,
+               intermediate_size=intermediate_size)
+    w = vit_part_weights("layer", cfg, seed) if weights is None else weights
+    g = GraphBuilder("vit_layer")
+    e = _ViTEmitter(g, w, VIT_BASE["layer_norm_eps"])
+    shape = [batch_size, (image_size // patch_size) ** 2 + 1, hidden_size]
+    x = g.input("inputs", shape)
+    y = e.encoder_layer(x, "", "layer", num_attention_heads,
+                        hidden_size // num_attention_heads)
+    return _finish(g, y, "hidden_states", shape)
+
+
+def vit_pooler(batch_size: int, image_size: int, patch_size: int,
+               hidden_size: int, seed: int = 0,
+               weights: dict | None = None) -> O.ModelProto:
+    """HF ViTPooler: ``weights`` keyed ``dense.weight``, ``dense.bias``."""
+    cfg = dict(image_size=image_size, patch_size=patch_size,
+               hidden_size=hidden_size)
+    w = vit_part_weights("pooler", cfg, seed) if weights is None \
+        else weights
+    g = GraphBuilder("vit_pooler")
+    e = _ViTEmitter(g, w, VIT_BASE["layer_norm_eps"])
+    n_tokens = (image_size // patch_size) ** 2 + 1
+    x = g.input("inputs", [batch_size, n_tokens, hidden_size])
+    y = e.pooler(x, "", "pooler")
+    return _finish(g, y, "pooler_output", [batch_size, hidden_size])
+
+
+def vit(batch_size: int, image_size: int, patch_size: int,
+        intermediate_size: int, hidden_size: int, num_attention_heads: int,
+        num_hidden_layers: int = 2, seed: int = 0,
+        weights: dict | None = None) -> O.ModelProto:
+    """HF ViTModel without its pooler (embeddings, encoder, final
+    LayerNorm): ``weights`` keyed ``embeddings.*``, ``encoder.layer.{i}.*``,
+    ``layernorm.*``."""
+    cfg = dict(image_size=image_size, patch_size=patch_size,
+               hidden_size=hidden_size,
+               num_attention_heads=num_attention_heads,
+               intermediate_size=intermediate_size,
+               num_hidden_layers=num_hidden_layers)
+    w = vit_part_weights("vit", cfg, seed) if weights is None else weights
+    g = GraphBuilder("vit")
+    e = _ViTEmitter(g, w, VIT_BASE["layer_norm_eps"])
+    x = g.input("inputs", [batch_size, 3, image_size, image_size])
+    h = e.embeddings(x, "embeddings", "embeddings", hidden_size, patch_size)
+    for i in range(num_hidden_layers):
+        h = e.encoder_layer(h, f"encoder.layer.{i}", f"encoder.layer.{i}",
+                            num_attention_heads,
+                            hidden_size // num_attention_heads)
+    h = e.layernorm(h, "layernorm", "layernorm")
+    n_tokens = (image_size // patch_size) ** 2 + 1
+    return _finish(g, h, "hidden_states", [batch_size, n_tokens, hidden_size])
 
 
 def vit_image_classifier(weights: dict, config: dict,
@@ -260,11 +385,36 @@ def random_vit_weights(config: dict, seed: int = 0,
         key = f"vit.encoder.layer.{i}"
         for part in ("query", "key", "value"):
             linear(f"{key}.attention.attention.{part}", hid, hid)
-        linear(f"{key}.attention.output.dense", hid, hid)
-        linear(f"{key}.intermediate.dense", inter, hid)
-        linear(f"{key}.output.dense", hid, inter)
-        layernorm(f"{key}.layernorm_before")
-        layernorm(f"{key}.layernorm_after")
+        linear(_key(key, "attention.output.dense"), hid, hid)
+        linear(_key(key, "intermediate.dense"), inter, hid)
+        linear(_key(key, "output.dense"), hid, inter)
+        layernorm(_key(key, "layernorm_before"))
+        layernorm(_key(key, "layernorm_after"))
     layernorm("vit.layernorm")
     linear("classifier", int(cfg["num_labels"]), hid)
     return w
+
+
+# the classifier's state-dict prefix of each sub-module vit_part_weights
+# draws
+_PARTS = {"vit": "vit.", "embeddings": "vit.embeddings.",
+          "layer": "vit.encoder.layer.0.",
+          "self_attention": "vit.encoder.layer.0.attention.attention."}
+
+
+def vit_part_weights(part: str, config: dict, seed: int = 0,
+                     std: float = 0.02) -> dict[str, np.ndarray]:
+    """A seeded HF state dict of one sub-module -- ``part`` is
+    "self_attention", "embeddings", "layer", "pooler" or "vit" -- drawn as
+    :func:`random_vit_weights` draws the classifier's (the pooler's dense
+    layer likewise), keyed as the sub-module's own ``state_dict()``."""
+    if part == "pooler":
+        hid = int(dict(VIT_BASE, **config)["hidden_size"])
+        rng = np.random.default_rng(seed)
+        return {"dense.weight": _trunc_normal(rng, (hid, hid), std),
+                "dense.bias": np.zeros(hid, np.float32)}
+    prefix = _PARTS[part]
+    cfg = dict(config) if part == "vit" else dict(config, num_hidden_layers=1)
+    full = random_vit_weights(cfg, seed=seed, std=std)
+    return {k[len(prefix):]: v for k, v in full.items()
+            if k.startswith(prefix)}

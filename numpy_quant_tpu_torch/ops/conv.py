@@ -66,3 +66,23 @@ def conv1d_ncl(x, w, b, pads, strides, dilations=(1,), group=1):
     if b is not None:
         y = y + b.reshape(1, -1, 1)
     return y
+
+
+def extract_sliding_windows_nhwc(x, ksize, pads, strides):
+    """im2col patches of float data: x [B, H, W, C] -> [B, OH, OW,
+    KH*KW*C], patch layout (KH, KW, C), zero padding. JAX builds them with
+    ``conv_general_dilated_patches``, a product with one-hot filters;
+    here they are the same values moved (:func:`extract_patches_exact`)."""
+    return extract_patches_exact(x, ksize, pads, strides, 0.0)
+
+
+def conv2d_im2col(x, w, pads, strides, matmul):
+    """Conv as im2col and a caller's ``matmul(patches_2d, w_2d)`` (the
+    integer path passes a quantized matmul). x: [B, H, W, C]; w: [KH, KW,
+    C, O]. Returns [B, OH, OW, O]."""
+    kh, kw, c, o = w.shape
+    patches = extract_sliding_windows_nhwc(x, (kh, kw), pads, strides)
+    b, oh, ow, _ = patches.shape
+    y = matmul(patches.reshape(b * oh * ow, kh * kw * c),
+               w.reshape(kh * kw * c, o))
+    return y.reshape(b, oh, ow, o)

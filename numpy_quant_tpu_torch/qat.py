@@ -86,20 +86,24 @@ class _FakeQuantModel(Model):
     """The float executor with fake quantization at the integer executor's
     quantize points. It borrows the float model's graph; ``params``
     ({constant name: tensor}) stand in for those constants' payloads in
-    the walk (the trainable tensors)."""
+    the walk (the trainable tensors). ``qref=None`` turns fake
+    quantization off: the plain float walk under autograd, which the
+    fixture trainers (``train.py``) train through."""
 
-    def __init__(self, float_model: Model, qref: QModel):
+    def __init__(self, float_model: Model, qref: QModel | None):
         super().__init__(float_model.nodes, float_model.values,
                          float_model.inputs, float_model.outputs,
                          float_model.device)
-        self.bit_width = qref.bit_width
-        self.quant_params = qref.quant_params
-        self.quantized_ops = qref.quantized_ops
-        self.requantized_ops = qref.requantized_ops
         self.params: dict[str, torch.Tensor] = {}
         # name -> (scale, zero_point, bit_width) of every float constant
         # the PTQ pass quantized (weights, biases, quantized scalars)
         self._const_fq: dict[str, tuple] = {}
+        self.bit_width = None if qref is None else qref.bit_width
+        self.quant_params = {} if qref is None else qref.quant_params
+        self.quantized_ops = () if qref is None else qref.quantized_ops
+        self.requantized_ops = () if qref is None else qref.requantized_ops
+        if qref is None:
+            return
         qvals = {v.name: v for v in qref.values}
         for value in float_model.values:
             if not isinstance(value, Constant) \
@@ -113,7 +117,7 @@ class _FakeQuantModel(Model):
 
     def _wrap_input(self, array, variable: Variable):
         t = super()._wrap_input(array, variable)
-        if isinstance(t, FTensor):
+        if isinstance(t, FTensor) and self.bit_width is not None:
             qp = self.quant_params[variable.name]
             return FTensor(_fq(t.data, qp.scale, qp.zero_point,
                                self.bit_width))

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import config
-from .intops import as_tensor, place
+from .intops import as_tensor, place, xla_cpu_row_sum
 from .ops.conv import conv2d_nchw, extract_patches_exact
 from .ops.erf import erf as _erf
 from .quantization import (
@@ -300,15 +300,38 @@ class FTensor:
     def max(self, axis: int, keepdims: bool) -> "FTensor":
         return FTensor(torch.amax(self._data, dim=axis, keepdim=keepdims))
 
+    def _xla_axis(self, axis):
+        """The one axis of a float32 CPU tensor over which its sum or mean
+        replays XLA's CPU order (``intops.xla_cpu_row_sum``), so a CPU walk's
+        LayerNorm and ReduceMean equal JAX's bit for bit; None elsewhere,
+        where torch's order stands (the card's kernels replay torch's)."""
+        d = self._data
+        if isinstance(axis, (tuple, list)) and len(axis) == 1:
+            axis = axis[0]
+        if d.device.type == "cpu" and d.dtype == torch.float32 \
+                and isinstance(axis, int) and d.shape[axis] > 0:
+            return axis
+        return None
+
     def mean(self, axis, keepdims: bool) -> "FTensor":
-        return FTensor(torch.mean(self._data, dim=axis, keepdim=keepdims))
+        ax = self._xla_axis(axis)
+        if ax is None:
+            return FTensor(torch.mean(self._data, dim=axis, keepdim=keepdims))
+        # XLA's mean: the sum times float32(1/n), a float32 product
+        s = xla_cpu_row_sum(self._data, ax) \
+            * float(np.float32(1.0 / self._data.shape[ax]))
+        return FTensor(s.unsqueeze(ax) if keepdims else s)
 
     def relu(self) -> "FTensor":
         # the JAX package's (x > 0) * x (torch.relu keeps -0.0 apart)
         return FTensor((self._data > 0) * self._data)
 
     def sum(self, axis: int, keepdims: bool) -> "FTensor":
-        return FTensor(torch.sum(self._data, dim=axis, keepdim=keepdims))
+        ax = self._xla_axis(axis)
+        if ax is None:
+            return FTensor(torch.sum(self._data, dim=axis, keepdim=keepdims))
+        s = xla_cpu_row_sum(self._data, ax)
+        return FTensor(s.unsqueeze(ax) if keepdims else s)
 
     def sigmoid(self) -> "FTensor":
         # the JAX package's composition 1 / (1 + exp(-x)), not
@@ -319,10 +342,18 @@ class FTensor:
         # max-subtracted, the reference's composition
         m = self + (-(self.max(axis=axis, keepdims=True)))
         e = m.exp()
-        return e.div(e.sum(axis=axis, keepdims=True))
+        # torch's order on every device: the attention kernels' plain
+        # versions sum softmax rows so, and fused == unfused holds on both
+        return e.div(FTensor(torch.sum(e.data, dim=axis, keepdim=True)))
 
     def sqrt(self) -> "FTensor":
-        return FTensor(torch.sqrt(self._data))
+        d = self._data
+        if d.device.type == "cpu" and d.dtype == torch.float32:
+            # torch's vectorized CPU sqrt is an ulp off IEEE on ~1% of
+            # inputs; XLA's and the card's are IEEE. The float64 root
+            # rounds to the IEEE float32 one (53 >= 2·24 + 2 bits)
+            return FTensor(torch.sqrt(d.double()).float())
+        return FTensor(torch.sqrt(d))
 
     def tanh(self) -> "FTensor":
         return FTensor(torch.tanh(self._data))

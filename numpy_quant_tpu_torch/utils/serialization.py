@@ -23,7 +23,8 @@ import torch
 from .. import config
 from .. import onnx as O
 from ..graph import Constant, import_onnx
-from ..kernels.pack import unpack_bitplanes_np, unpack_splitk_np
+from ..kernels.pack import (unpack_bitplanes_np, unpack_splitk_np,
+                            unpack_stacked_np)
 from ..model import Model, QModel, QuantizationParams
 from ..tensor import PackedQTensor, QTensor
 
@@ -206,12 +207,7 @@ def _packed_values(planes: np.ndarray, layout: str, bits: int,
                    k: int) -> np.ndarray:
     """A packed payload's integer values [K, N] (host)."""
     if layout == "splitk_stacked":
-        # S row groups of ceil(K/S) rows, each packed on its own
-        s = planes.shape[0]
-        kl = -(-k // s)
-        groups = [_packed_values(planes[t], "splitk", bits, kl)
-                  for t in range(s)]
-        return np.concatenate(groups, axis=0)[:k]
+        return unpack_stacked_np(planes, bits, k)
     if layout == "splitk":
         return planes.astype(np.int8) if bits == 8 \
             else unpack_splitk_np(planes, bits, k)

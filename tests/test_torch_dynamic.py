@@ -79,16 +79,17 @@ def test_dynamic_matches_jax(case, x, monkeypatch):
                                       np.asarray(jw[name].scale), name)
         assert qt.bit_width == jw[name].bit_width
 
-    # end to end: the float ops between the matmuls (LayerNorm, softmax,
-    # erf) round apart in the last ulp, so an activation may quantize one
-    # level apart -- and with per-tensor scales one ulp of a tensor's max
-    # moves its whole grid; the test_torch_vit contract: within 1e-5 *
-    # max|y| where nothing moved, else 1e-2 * max|y|, labels equal
+    # end to end: the float ops between the matmuls (the batched attention
+    # dots, softmax, erf) round apart in the last ulp, so an activation may
+    # quantize one level apart -- and with per-tensor scales one ulp of a
+    # tensor's max moves its whole grid. Measured 9.51e-4, 1.09e-3 and
+    # 1.99e-4 of max|y| (row-tensor-w8, tensor-channel-w8,
+    # row-channel-w4); held within 2e-3 * max|y|, labels equal
     jy = np.asarray(jd([x])[0])
     ty = td([x])[0]
     diff = float(np.abs(ty - jy).max()) / float(np.abs(jy).max())
     print(f"{case}: end to end |y - y_jax| / max|y| {diff:.3g}")
-    assert diff <= (1e-5 if diff <= 1e-5 else 1e-2)
+    assert diff <= 2e-3
     np.testing.assert_array_equal(ty.argmax(1), jy.argmax(1))
 
     # each DynamicMatMul on JAX's own input: equal integer accumulators

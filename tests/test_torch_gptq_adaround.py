@@ -3,12 +3,12 @@ small trained ViT fixture (4 layers, hidden 128; 25 weights: 24 MatMul
 and the classifier's transB Gemm), both QModels quantized from the same
 JAX stats, in TPU-mode numerics (x64 off):
 
-* GPTQ levels equal JAX's in at least 99.9% of entries, each difference
-  one level (W4A8 per channel, W3A8 per tensor); fed JAX's own
-  activations, every level equals JAX's -- also at B=4, where fc2's
-  Hessian (260 rows for K=256, condition ~5e8) turns the ~1e-6 by which
-  the port's float forward rounds XLA's matmuls apart into 43 of 525,312
-  levels (up to 2 apart) on the port's own activations;
+* GPTQ levels equal JAX's in every entry (W4A8 per channel, W3A8 per
+  tensor), on JAX's own activations and on the port's -- also at B=4,
+  where fc2's Hessian (260 rows for K=256, condition ~5e8) magnifies any
+  ulp by which the port's float forward rounds apart from XLA's (43 of
+  525,312 levels, up to 2 apart, before the port's CPU row sums replayed
+  XLA's order);
 * AdaRound (50 iterations) decisions equal JAX's in at least 99%, each
   layer's reconstruction MSE within 5% of JAX's;
 * bias-correction shifts equal JAX's (Gemm and quantized Add biases);
@@ -132,7 +132,7 @@ def test_gptq_levels_match_jax(vit, mode):
         pairs.values(), _plain_weights(vit, mode).values()))
     print(f"GPTQ {mode}: levels differing from JAX's {differ} of {total} "
           f"(max {worst}); moved off nearest rounding {moved}")
-    assert differ <= 0.001 * total and worst <= 1
+    assert differ == 0 and worst == 0
     assert moved > 0
 
 
@@ -179,13 +179,12 @@ def test_gptq_solver_matches_jax_on_jax_activations(vit, b, monkeypatch):
 
 
 def test_gptq_b4_on_port_activations_as_measured(vit):
-    """The one unpinned case of the port's float rounding (ROADMAP queue 3
-    item 3): GPTQ at B=4 on the port's own activations. fc2's Hessian
-    (260 rows for K=256, condition ~5e8) turns the ~1e-6 by which the
-    port's float forward rounds XLA's matmuls apart into a few levels
-    apart from JAX's; the count is held to what was measured (43 of
-    525,312, up to 2 apart) and must stay above 0, so a change either way
-    shows."""
+    """GPTQ at B=4 on the port's own activations (ROADMAP queue 3 item 3).
+    fc2's Hessian (260 rows for K=256, condition ~5e8) turned the ulps by
+    which the port's CPU LayerNorm rounded apart from XLA's into 43 of
+    525,312 levels apart, up to 2; since the port's CPU row sums replay
+    XLA's order (``intops.xla_cpu_row_sum``) and its CPU square root is
+    IEEE, every level equals JAX's."""
     calib, stats, _, jq = _jax_gptq(vit, 4)
     tq = Model.from_onnx(TF.trained_vit_onnx(batch_size=4),
                          device="cpu").quantize(stats=stats, **MODES["w4a8"])
@@ -198,7 +197,7 @@ def test_gptq_b4_on_port_activations_as_measured(vit):
     print(f"GPTQ w4a8 B=4 on the port's activations: {differ} of {total} "
           f"levels differ from JAX's (max {worst})")
     assert total == 525_312
-    assert 0 < differ <= 43 and worst <= 2
+    assert differ == 0 and worst == 0
 
 
 def _recon_mse(vit, tq) -> dict:

@@ -1,12 +1,14 @@
-"""The port's serving shapes (``serving.py::map_batches``, ``serve_stream``;
-``Model.map_batches``/``serve_stream``/``serve_ring``) on a small ViT
+"""The port's serving shapes (``serving.py::map_batches``, ``serve_stream``,
+``serve_ring``; ``Model.map_batches``/``serve_stream``/``serve_ring``) on a
+small ViT
 (2 layers, hidden 64, 4 heads, intermediate 128, 32x32 images, 8x8 patches,
 10 labels), float and int8 (quantized with JAX's stats; the int8 model also
 ``optimize()``d and ``pack_weights()``ed under both packed executions), in
 TPU-mode numerics (x64 off).
 
-Tolerances: the port's ``map_batches`` and ``serve_stream`` outputs equal
-its own per-batch ``__call__`` bit for bit. Against JAX's ``map_batches``:
+Tolerances: the port's ``map_batches``, ``serve_stream`` and ``serve_ring``
+outputs equal its own per-batch ``__call__`` bit for bit. Against JAX's
+``map_batches`` and ``serve_ring``:
 float logits within 1e-5 * max|logit|; int8 labels equal and logits within
 1e-2 * max|logit| (``tests/test_torch_vit.py``'s bound: an intermediate may
 round 1 LSB apart).
@@ -128,15 +130,38 @@ def test_serve_stream_keeps_depth_in_flight(vit):
     assert issued == [0, 1, 2]
 
 
-@pytest.mark.parametrize("case", ["int64_input", "depth_0", "serve_ring"])
+@pytest.mark.parametrize("case", ["int64_input", "depth_0"])
 def test_refusals(vit, case):
     tm = vit["t"]["float"]
     if case == "int64_input":
         with pytest.raises(ValueError, match="float inputs only"):
             tm.map_batches([np.zeros((2, 4), np.int64)])
-    elif case == "depth_0":
+    else:
         with pytest.raises(ValueError, match="depth"):
             list(tm.serve_stream([[vit["xs"][0]]], depth=0))
-    else:
-        with pytest.raises(NotImplementedError, match="not carried over"):
-            tm.serve_ring([[vit["xs"][0]]])
+
+
+@pytest.mark.parametrize("kind", ["float", "int8", "int8_packed"])
+def test_serve_ring_equals_calls_and_jax(vit, execution, kind, monkeypatch):
+    """``serve_ring`` over a live generator: one pull per step, every
+    output equal to ``__call__``'s; against JAX's ``serve_ring`` under
+    "unpack"."""
+    monkeypatch.setenv("NQ_TPU_RING", "1")
+    tm, xs = vit["t"][kind], vit["xs"]
+    pulled = []
+
+    def live():
+        for i, x in enumerate(xs):
+            pulled.append(i)
+            yield [x]
+
+    got = tm.serve_ring(live())
+    assert pulled == list(range(STEPS)) and len(got) == STEPS
+    np.testing.assert_array_equal(np.stack([g[0] for g in got]),
+                                  _per_call(tm, xs))
+    if execution == "kernel":
+        return  # JAX's ring is held once per model, under "unpack"
+    with jax.enable_x64(False):
+        want = vit["j"][kind].serve_ring([x] for x in xs)
+    _close_to_jax(np.stack([g[0] for g in got]),
+                  np.stack([np.asarray(w[0]) for w in want]), kind)

@@ -65,6 +65,23 @@ def test_splitk_matches_jax(bits, k):
     np.testing.assert_array_equal(got.numpy(), w.astype(np.int8))
 
 
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shards", [2, 3])
+def test_unpack_stacked_matches_jax(bits, shards):
+    """The tensor-parallel stacked layout's host inverse: S row groups of
+    ceil(K/S) rows, each packed on its own."""
+    w = _weight(bits)
+    kl = -(-K // shards)
+    rows = np.zeros((shards * kl, N), np.int32)
+    rows[:K] = w
+    groups = [rows[t * kl:(t + 1) * kl] for t in range(shards)]
+    planes = np.stack([g.astype(np.int8) if bits == 8
+                       else TP.pack_splitk(g, bits) for g in groups])
+    got = TP.unpack_stacked_np(planes, bits, K)
+    np.testing.assert_array_equal(got, JP.unpack_stacked_np(planes, bits, K))
+    np.testing.assert_array_equal(got, w.astype(np.int8))
+
+
 @pytest.mark.parametrize("bits", range(1, 9))
 def test_pack_qtensor_matches_jax(bits):
     w = _weight(bits)

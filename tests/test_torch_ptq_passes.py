@@ -251,10 +251,12 @@ def test_awq_alphas_match_jax_on_jax_activations(bits, group, per_channel,
 
 @pytest.mark.parametrize("bits,group,per_channel", AWQ_MODES)
 def test_awq_on_port_activations(bits, group, per_channel):
-    """On its own float forward (which rounds matmuls in another order than
-    XLA's, ~1e-6) a group's reconstruction error may cross a 3- or 4-bit
-    rounding boundary at some alpha: the alphas may then part from JAX's
-    by one grid step (printed). The rewrite stays exact."""
+    """On its own float forward (whose batched attention dots round in
+    another order than XLA's, ~1e-6; ROADMAP queue 3 item 3) a group's
+    reconstruction error may cross a 4-bit rounding boundary at some
+    alpha: one W4 g=32 group's alpha parts from JAX's by one grid step
+    (layer 1's ``ln_after``, 0.40 against 0.45), no W3 group (printed).
+    The rewrite stays exact."""
     pair = _vit()
     jm, tm = pair.jmake(), pair.tmake()
     y0 = tm(pair.inputs)[0]
@@ -264,7 +266,7 @@ def test_awq_on_port_activations(bits, group, per_channel):
     parted = {k: (tr[k], jr[k]) for k in jr if tr[k] != jr[k]}
     print(f"AWQ W{bits} g={group}: alphas parted from JAX's: {parted}")
     assert all(abs(a - b) <= 0.05 + 1e-9 for a, b in parted.values())
-    assert len(parted) <= 1
+    assert len(parted) <= (1 if bits == 4 else 0)
     np.testing.assert_allclose(tm(pair.inputs)[0], y0, rtol=1e-4,
                                atol=1e-4 * float(np.abs(y0).max()))
 
