@@ -135,15 +135,22 @@ Phases, one line each (any failure raises and the script exits non-zero):
      logits against f32); target tokens/s (median of 5 forwards per mode,
      in turns); one profiled bf16 forward; peak device memory.
  14. the quantize boundaries and the 9-16-bit path: (a) the elementwise
-     kernels quantize and dequantize (csrc/elementwise.cu) against their
-     plain chains bit for bit at widths 1-64 in every form (f32/bf16 in;
-     int8/int32/int64 out; zero point none, scalar or a tensor; scale
-     scalar or per channel; a zero scale; ties, infinities, NaN and values
-     past the clip; contiguous, misaligned, transposed and strided data);
-     (b) both timed at ViT-Base's largest boundary and the GPT-2 and
-     TinyLlama scoring shapes beside their bytes bound, the chains and
-     torch's quantized-tensor calls (another function), and their host
-     time per call; (c) the ViT-Base int8 f32 forward equal with the
+     kernels quantize, dequantize and fake_quantize (csrc/elementwise.cu)
+     against their plain chains bit for bit at widths 1-64 in every form
+     (f32/bf16 in; int8/int32/int64 out; zero point none, scalar or a
+     tensor; scale scalar or per channel; a zero scale; ties, infinities,
+     NaN and values past the clip; contiguous, misaligned, transposed,
+     strided and dense-rows data read in place), then every form of the
+     launch plan (scalar, inner, outer, full, general) at 3-D and 4-D
+     layouts; (b) each path form timed at ViT-Base's largest boundary,
+     the GPT-2 and TinyLlama scoring shapes and W8A16's fc1 beside its
+     bytes bound and its chain (quantize with a scalar and a per-channel
+     scale; dequantize with a scalar, [1, N] and [M, 1] zero point),
+     torch's quantized-tensor calls (another function), the host time per
+     call, and the decode shapes: the int8 cache writes, p_past
+     [8, 32, 1, 2048] read in place, the cache fake-quant
+     [8, 32, 2048, 64] in one fake_quantize launch beside the two-launch
+     chain; (c) the ViT-Base int8 f32 forward equal with the
      kernels and with the chains swapped in, the kernels' launches per
      forward on the ViT, GPT-2, TinyLlama and T5 paths, aten calls and
      wall time per forward of ViT-Base and T5-small with either; (d) the
@@ -157,10 +164,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      shapes against their plain versions and timed -- splitk_wo_matmul at
      M = 8, W4 g=128 for 2048 -> 2048, 256, 5632, 32000 and 5632 -> 2048
      (f32, bf16, cold L2, its launch plan, beside torch.matmul on the
-     dequantized weight), quantize/dequantize at the int8 cache write
-     [8, 4, 1, 64], DecodeAttention's cache probabilities [8, 32, 1, 2048]
-     (a strided slice) and cache fake-quant [8, 32, 2048, 64] (bit for
-     bit), fused_attention at BH = 32, N = 512 causal (no flipped block);
+     dequantized weight) (quantize/dequantize/fake_quantize at the decode
+     shapes: phase 14(b)), fused_attention at BH = 32, N = 512 causal (no
+     flipped block);
      (a) llama_decode_step(B=8, cache 2048) -> Model.from_onnx ->
      decode_calibration over a 32-id prompt -> merged stats ->
      quantize(int8) twice, one optimize()d (22 DecodeAttention, no
@@ -170,8 +176,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      int8 unfused (cut to 32 + 8), int8 fused with a float and with the
      int8 cache, W4 under "kernel" and "unpack", each the median of 3 taken
      in turns: tokens/s, ms/step, aten calls and device busy time per step
-     (one profiled 2-step decode), idle share, quantize/dequantize and
-     splitk_wo_matmul launches per step (155 under "kernel", 0 under
+     (one profiled 2-step decode), idle share, quantize, dequantize,
+     fake_quantize (DecodeAttention's fake quantizations, one launch each)
+     and splitk_wo_matmul launches per step (155 under "kernel", 0 under
      "unpack"); KV-cache bytes (int8 one quarter of f32); int8-cache tokens
      equal to float-cache tokens; fused vs unfused and "kernel" vs
      "unpack" in f32 under phase 7's margin rule; (d) seeded sampling
@@ -267,9 +274,9 @@ Phases, one line each (any failure raises and the script exits non-zero):
      prefill (P=512) after smooth_outliers(0.5): the float logits within
      REPARAM_TOL, a fused_attention launch per layer, fused f32 equal to
      unfused
-     bit for bit; (d) the modular-sum accuracy ladder at B=256
-     (accuracy_ladder.py) held to the JAX package's capstone rules
-     (MODSUM_RULES); (e) T5-small (B=2, 512 + 128) after equalize() on its
+     bit for bit; (d) the rows of the modular-sum accuracy ladder
+     (accuracy_ladder.py) at B=256 that the JAX package's capstone rules
+     read (MODSUM_ROWS), held to those rules (MODSUM_RULES); (e) T5-small (B=2, 512 + 128) after equalize() on its
      12 ReLU feed-forward pairs: the float logits within REPARAM_TOL, then
      int8 optimize()d scoring with 6 blockwise and 12 monolithic head-split
      launches.
@@ -298,15 +305,15 @@ Phases, one line each (any failure raises and the script exits non-zero):
      W4 g=128 under "kernel" (splitk_wo_matmul at M = 8 and 4096), each a
      phase 18 captured decode; the 12 cross K/V products per step timed
      alone (their share of the step); the engine (score_bias=,
-     has_memory=True, int8 cache) over 16 requests on 8 slots, each
+     has_memory=True, int8 cache) over 16 requests (budgets 8-24) on 8 slots, each
      request's tokens equal to generate_kv's for it alone; (b) BART-base
      int8 at source 1024, target 128: 18 fusions, no failure, the f32
      fused forward equal to the unfused one bit for bit, 12 blockwise and
      6 monolithic launches, captured f32 and bf16 forwards, pack_weights()
-     "kernel" == "unpack" bit for bit; generate_seq2seq (64 new) float and
+     "kernel" == "unpack" bit for bit; generate_seq2seq (32 new) float and
      int8; bart_decode_step under generate_kv(memory=) against the full
      form (tokens equal, or parted only within phase 7's margin rule);
-     (c) Whisper-tiny from features [8, 80, 3000]: generate_seq2seq (64
+     (c) Whisper-tiny from features [8, 80, 3000]: generate_seq2seq (32
      new), the decode step against the full form, the int8 encoder (Conv1d
      into the blockwise kernel at N = 1500; packed "kernel" == "unpack"),
      decoder (cross 128 x 1500) and step (cross 1 x 1500), int8 agreement
@@ -336,7 +343,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
      state_carry engine over 16 requests equal to generate_mamba alone;
      (c) Mixtral-8x7B widths at 1 of 32 layers: the int8 full form at
      1 x 2048 (1 plain fusion at D=128, fused == unfused bit for bit),
-     the step at B=8, cache 512 (float tokens equal the L=64 full form's,
+     the step at B=8, cache 512 (float tokens equal the L=32 full form's,
      top-2 routing equal at every position; int8 fused with the int8
      cache; W4 g=128 under "kernel"), fused_attention timed at D=128 and
      splitk_wo_matmul at its six decode shapes; (d) CLIP ViT-B/32, 96
@@ -360,7 +367,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
      TinyLlama-1.1B widths at PAR_LLAMA_LAYERS layers int8 (built on the
      CPU, each rank moving its own shard), tokens equal; the engine over
      the TP GPT-2 step, 16 requests on 8 slots, each equal to generate_kv
-     alone; (c) split_stages + pipeline_forward (2 stages x 4
+     alone (decodes of GPT_PROMPT + PAR_NEW tokens); (c) split_stages + pipeline_forward (2 stages x 4
      microbatches) and PP x TP 2 x 2, logits equal bit for bit; (d) every
      kernel at the shard shapes against its plain version and timed, and
      merged against unmerged Q/K/V products; (e) a saved stacked model
@@ -371,7 +378,7 @@ Phases, one line each (any failure raises and the script exits non-zero):
      f32 B=8 and bf16 B=96, both artifacts loaded in one fresh process:
      logits equal the live captured forward's bit for bit, launches
      equal; (b) after phase 7, decode loops (save_decode_loop ->
-     load_decode_loop) of GPT-2 small W4, TinyLlama widths at
+     load_decode_loop) of GPT-2 small W4 (16 + AOT_NEW, 16), TinyLlama widths at
      AOT_LLAMA_LAYERS layers (int8, int8 cache, RoPE) and the copy fixture
      greedy and sampled: tokens equal generate_kv's; (c) every custom op
      inside a loaded artifact and through torch.library.opcheck.
@@ -487,7 +494,7 @@ SB_FORMS = ("per_head", "shared", "decoder")
 # target tokens (t5's fine-tuning input length)
 T5_B, T5_SRC, T5_TGT = 8, 512, 128
 # quantize/dequantize (phase 14): the boundary kernels every path runs
-ELEMENTWISE = ("quantize", "dequantize")
+ELEMENTWISE = ("quantize", "dequantize", "fake_quantize")
 # intops.int_matmul (phase 1): the sweep of small shapes cuBLASLt's int8
 # kernels refused before the M padding, [70, 48] @ [48, 40] among them
 INT_MM_M = (1, 8, 16, 17, 24, 31, 33, 40, 63, 65, 70, 100, 127, 131, 200)
@@ -495,7 +502,7 @@ INT_MM_K = (2, 8, 16, 24, 48, 50, 64, 96, 120, 127, 128, 136, 200)
 INT_MM_N = (1, 8, 24, 31, 32, 40, 64, 100, 128, 200)
 EW_WIDTHS = (1, 2, 3, 4, 7, 8, 9, 12, 16, 32, 64)
 EW_SHAPE = (37, 29)  # 1,073 elements: no multiple of the 4-wide vector
-EW_LAYOUTS = ("contiguous", "offset", "transposed", "strided")
+EW_LAYOUTS = ("contiguous", "offset", "transposed", "strided", "rows")
 EW_SCALE, EW_ZP = 0.0213, -7  # the timed calls' qparams
 MLP_ACC_RULE = 6  # the reference's rule: accuracy > 0.9 from 6 bits
 # TinyLlama-1.1B decode (phase 15): a server answering DEC_B requests, one
@@ -2367,25 +2374,33 @@ def t5_phase(card: str) -> tuple[dict, dict]:
 def plain_chain():
     """Swap the torch chains (the kernels' plain versions) in for the
     elementwise kernels at every quantize boundary: the module functions
-    quantization.quantize/dequantize call. The forwards inside walk
-    eagerly (a captured graph would replay the kernels)."""
+    quantization.quantize/dequantize/fake_quantize call. The forwards
+    inside walk eagerly (a captured graph would replay the kernels)."""
     from numpy_quant_tpu_torch import config
     from numpy_quant_tpu_torch.kernels import elementwise as E
-    saved = E.quantize, E.dequantize
-    E.quantize, E.dequantize = E.quantize_reference, E.dequantize_reference
+    saved = E.quantize, E.dequantize, E.fake_quantize
+    E.quantize, E.dequantize, E.fake_quantize = (
+        E.quantize_reference, E.dequantize_reference,
+        E.fake_quantize_reference)
     try:
         with config.eager_forward():
             yield
     finally:
-        E.quantize, E.dequantize = saved
+        E.quantize, E.dequantize, E.fake_quantize = saved
 
 
 def ew_layout(x, layout: str):
     """``x`` (2-D, on the card) in one of the layouts the executor hands
     the kernels: contiguous, contiguous from an odd element (no vector
-    access), transposed (dense, another dim order) or strided (not
-    dense)."""
+    access), transposed (dense, another dim order), strided (not dense:
+    copied first) or dense rows with a row stride (read in place, as
+    DecodeAttention's probs[..., :L])."""
     import torch
+    if layout == "rows":
+        wide = torch.zeros(x.shape[0], x.shape[1] + 3, dtype=x.dtype,
+                           device=x.device)
+        wide[:, :x.shape[1]] = x
+        return wide[:, :x.shape[1]]
     if layout == "offset":
         flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
         flat[1:] = x.reshape(-1)
@@ -2475,6 +2490,11 @@ def check_elementwise() -> dict:
                      f"{layout}")
             ew_report("quantize", label, E.quantize(x, bits, s, zp, out),
                       E.quantize_reference(x, bits, s, zp, out), state)
+            if out != torch.int32 or bits <= 32:  # the container holds it
+                ew_report("fake_quantize", label,
+                          E.fake_quantize(x, bits, s, zp, out),
+                          E.fake_quantize_reference(x, bits, s, zp, out),
+                          state)
     # a zero scale: 0/0 -> 0, x/0 -> the clip bounds
     for bits, out, zp in itertools.product((8, 16, 32), (torch.int32,
                                                          torch.int64),
@@ -2485,6 +2505,9 @@ def check_elementwise() -> dict:
             ew_report("quantize", f"zero_scale:b{bits}:{out}:{zp}",
                       E.quantize(x, bits, s, zp, out),
                       E.quantize_reference(x, bits, s, zp, out), state)
+            ew_report("fake_quantize", f"zero_scale:b{bits}:{out}:{zp}",
+                      E.fake_quantize(x, bits, s, zp, out),
+                      E.fake_quantize_reference(x, bits, s, zp, out), state)
     # dequantize: int8, int32 (8-bit values, 32-bit accumulators with
     # wrapping corrections) and int64 (x64-mode accumulators past 2^24)
     sources = {
@@ -2521,16 +2544,85 @@ def check_elementwise() -> dict:
                      f"{s_kind}:{layout}")
             ew_report("dequantize", label, E.dequantize(q, s, zp, out),
                       E.dequantize_reference(q, s, zp, out), state)
+    forms = ew_plan_forms(state, rng)
     torch.cuda.synchronize()
-    say("kernel-check", kernel="quantize,dequantize",
-        variants_quantize=state["variants"]["quantize"],
-        variants_dequantize=state["variants"]["dequantize"],
+    say("kernel-check", kernel="quantize,dequantize,fake_quantize",
+        **{f"variants_{k}": state["variants"][k] for k in ELEMENTWISE},
         mismatches=state["mismatches"], first_mismatch=state["first"],
         layouts_with_other_strides=state["stride_differs"],
-        max_abs_err_quantize=state["worst"]["quantize"],
-        max_abs_err_dequantize=state["worst"]["dequantize"])
+        plan_forms=",".join(sorted(forms)),
+        **{f"max_abs_err_{k}": state["worst"][k] for k in ELEMENTWISE})
     assert state["mismatches"] == 0, state["first"]
+    assert forms == {"scalar", "scalar_narrow", "inner", "outer", "full",
+                     "general"}, forms
     return state
+
+
+def ew_plan_layouts(rng):
+    """(label, x, operand) on the card in the layouts the executor hands
+    the kernels at 4-D and 3-D, each broadcast operand in one of the
+    plan's forms: a conv's NHWC accumulator with [1, C, 1, 1] column sums
+    or its own full walk, [B, H, N, D] heads over [B, N, H, D] memory with
+    permuted [B, H, N, 1] row sums (a three-digit row walk) or another
+    dim order (general), DecodeAttention's dense rows probs[..., :L] with
+    [B, H, 1, 1] row values, a transposed accumulator; scalar operands
+    on a small tensor and on dense rows (the narrow vectors) and on one
+    that fills the card (the wide ones)."""
+    import torch
+
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, size=shape)
+                                ).to(torch.int32).cuda()
+
+    conv = ints(4, 9, 11, 40).permute(0, 3, 1, 2)
+    heads = ints(3, 33, 5, 24).permute(0, 2, 1, 3)
+    rows = ints(3, 5, 1, 130)[..., :129]
+    acc = ints(37, 29)
+    return [("conv_colsum", conv, ints(1, 40, 1, 1)),
+            ("conv_full", conv, ints(4, 9, 11, 40).permute(0, 3, 1, 2)),
+            ("heads_rowsum", heads, ints(3, 5, 33, 1)),
+            ("heads_general", heads,
+             ints(3, 5, 24, 33).transpose(-1, -2)),
+            ("rows_outer", rows, ints(3, 5, 1, 1)),
+            ("rows_inner", rows, ints(1, 1, 1, 129)),
+            ("transposed_rows", acc.t(), ints(29, 1)),
+            ("scalar", acc, None),
+            ("rows_scalar", rows, None),
+            ("scalar_wide", ints(2048, 1100), None)]
+
+
+def ew_plan_forms(state: dict, rng) -> set:
+    """Phase 14(a), the plan: dequantize (the layouts' int32 data and
+    zero points), quantize and fake quantize (their values as floats, the
+    operands' magnitudes as f32 scales) in every form of
+    kernels/elementwise.py::plan, against the plain versions; returns the
+    forms the plan named ("scalar_narrow": scalar operands on narrow
+    vectors)."""
+    import torch
+    from numpy_quant_tpu_torch.kernels import elementwise as E
+    forms = set()
+    for label, x, op in ew_plan_layouts(rng):
+        pl = E.plan(tuple(x.shape), x.stride(), 4, 4, None,
+                    None if op is None else (tuple(op.shape), op.stride()))
+        forms.add(pl.zp.form if op is not None else
+                  "scalar_narrow" if pl.narrow else "scalar")
+        for out in (torch.float32, torch.bfloat16):
+            ew_report("dequantize", f"plan:{label}:{str(out)[6:]}",
+                      E.dequantize(x, 0.0137, op, out),
+                      E.dequantize_reference(x, 0.0137, op, out), state)
+        xf = x.to(torch.float32) * 1e-5
+        scale = None if op is None else (op.abs().float() + 1.0) * 1e-4
+        zp = None if op is None else (op % 7 - 3)
+        for kname, kernel, plain in (
+                ("quantize", E.quantize, E.quantize_reference),
+                ("fake_quantize", E.fake_quantize,
+                 E.fake_quantize_reference)):
+            for s, z in ((scale if scale is not None else 0.01, None),
+                         (0.01, zp)):
+                ew_report(kname, f"plan:{label}", kernel(
+                    xf, 8, s, z, torch.int8), plain(xf, 8, s, z, torch.int8),
+                    state)
+    return forms
 
 
 def same_bits(a, b) -> bool:
@@ -2575,7 +2667,7 @@ def time_elementwise(name: str) -> dict:
                                     torch.float32, torch.int32, 8),
               "vit_w8a16_fc1_f32": ((B_F32 * N_TOK, 3072), torch.float32,
                                     torch.int64, 16)}
-    res = {k: {"shapes": {}} for k in ELEMENTWISE}
+    res = {k: {"shapes": {}} for k in ("quantize", "dequantize")}
     g = torch.Generator(device="cuda").manual_seed(14)
     compared = {"forms": 0, "elements": 0, "mismatched_forms": []}
 
@@ -2615,6 +2707,45 @@ def time_elementwise(name: str) -> dict:
                     f"{'scalar' if np.ndim(s) == 0 else 'channel'}"
                 hold(form, E.dequantize(acc, s, z, fdt),
                      E.dequantize_reference(acc, s, z, fdt))
+        # each path form timed beside its bytes bound (and its chain at
+        # the ViT shape; the other shapes time the chain in `calls`):
+        # quantize with a scalar and a per-channel scale, dequantize with a
+        # scalar, a [1, N] and an [M, 1] zero point
+        isz, asz = x.element_size(), acc.element_size()
+        for form, kernel, plain, nbytes in (
+                ("quantize_scalar",
+                 lambda: E.quantize(x, bits, EW_SCALE, EW_ZP, container),
+                 lambda: E.quantize_reference(x, bits, EW_SCALE, EW_ZP,
+                                              container),
+                 n * (isz + asz)),
+                ("quantize_channel",
+                 lambda: E.quantize(x, bits, channel, None, container),
+                 lambda: E.quantize_reference(x, bits, channel, None,
+                                              container),
+                 n * (isz + asz) + 4 * cols),
+                ("dequantize_scalar",
+                 lambda: E.dequantize(acc, EW_SCALE, EW_ZP, dtype),
+                 lambda: E.dequantize_reference(acc, EW_SCALE, EW_ZP, dtype),
+                 n * (isz + asz)),
+                ("dequantize_cols",
+                 lambda: E.dequantize(acc, EW_SCALE, zrow, dtype),
+                 lambda: E.dequantize_reference(acc, EW_SCALE, zrow, dtype),
+                 n * (isz + asz) + asz * cols),
+                ("dequantize_rows",
+                 lambda: E.dequantize(acc, EW_SCALE, zcol, dtype),
+                 lambda: E.dequantize_reference(acc, EW_SCALE, zcol, dtype),
+                 n * (isz + asz) + asz * rows)):
+            row = dict(ms=cuda_ms(kernel, lead=True),
+                       bound_ms=nbytes / rate * 1e3, bytes=nbytes)
+            if label == "vit_fc1_bf16":
+                row["plain_ms"] = cuda_ms(plain, lead=True)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            res[form.split("_")[0]].setdefault("forms", {})[
+                f"{label}:{form}"] = row
+            say("kernel-time", kernel=form.split("_")[0], form=form,
+                shape=f"{rows}x{cols}", dtype=str(dtype)[6:],
+                container=str(container)[6:], bits=bits, label=label, **row,
+                card=name.replace(" ", "_"))
         # torch's own quantized-tensor calls compute another function
         # (rounding before the zero point, a reciprocal multiply; a scalar
         # zero point): timed as a yardstick only
@@ -2651,7 +2782,7 @@ def time_elementwise(name: str) -> dict:
         forms=compared["forms"], elements_compared=compared["elements"],
         mismatched_forms="|".join(compared["mismatched_forms"]) or None)
     assert not compared["mismatched_forms"], compared["mismatched_forms"]
-    for kname in ELEMENTWISE:
+    for kname in ("quantize", "dequantize"):
         res[kname].update(res[kname]["shapes"]["vit_fc1_bf16"])
     # host time per call where the device is not the limit
     small = torch.randn(8, 64, device="cuda")
@@ -2660,6 +2791,8 @@ def time_elementwise(name: str) -> dict:
     zs = torch.randint(-99, 99, (1, 64), device="cuda", dtype=torch.int32)
     host = {}
     for label, fn in (
+            ("fake_quantize_kernel", lambda: E.fake_quantize(
+                small, 8, EW_SCALE, EW_ZP)),
             ("quantize_kernel", lambda: E.quantize(small, 8, EW_SCALE, EW_ZP)),
             ("quantize_plain", lambda: E.quantize_reference(
                 small, 8, EW_SCALE, EW_ZP)),
@@ -2862,14 +2995,16 @@ def w8a16_phase(card: str, model, stats, x8, int8_logits) -> None:
 
 
 def ew_path_check(name: str) -> dict:
-    """Phase 15(f): quantize/dequantize at the decode and serving paths'
-    new shapes, each against its chain bit for bit, then timed beside the
-    bytes bound: the int8 cache write [8, 4, 1, 64] (a present, f32 ->
-    int8), a prefill admission's cache write [1, 4, 512, 64] (its
-    presents, f32 -> int8; phase 16(c)), DecodeAttention's cache
-    probabilities p_past [8, 32, 1, 2048] (a strided slice of the
-    [.., 2049] softmax, f32 and bf16 -> int8 and back) and its cache
-    fake-quant [8, 32, 2048, 64] (f32 and bf16)."""
+    """Phase 14(b), the decode shapes: quantize/dequantize/fake_quantize
+    at the decode and serving paths' shapes, each against its chain bit
+    for bit, then timed beside the bytes bound: the int8 cache write
+    [8, 4, 1, 64] (a present, f32 -> int8), a prefill admission's cache
+    write [1, 4, 512, 64] (its presents, f32 -> int8; phase 16(c)),
+    DecodeAttention's cache probabilities p_past [8, 32, 1, 2048] (dense
+    rows of the [.., 2049] softmax, read in place: f32 and bf16 -> int8
+    and back, and fake-quantized) and its cache fake-quant
+    [8, 32, 2048, 64] (f32 and bf16): one fake_quantize launch against
+    the two-launch chain quantize -> dequantize."""
     import torch
     from numpy_quant_tpu_torch.kernels import elementwise as E
     rate = peaks(name)["bytes"]
@@ -2901,7 +3036,36 @@ def ew_path_check(name: str) -> dict:
                 q, scale, zp, torch.float32)), f"dequantize {label} {fdt}"
             forms += 2
             n = x.numel()
-            for kname, kernel, plain, nbytes in (
+            timed = []
+            if label in ("p_past", "cache_fake_quant"):
+                fq, c = counted(lambda: E.fake_quantize(x, 8, scale, zp,
+                                                        torch.int8))
+                assert c["fake_quantize"] == 1 and c["quantize"] == 0 \
+                    and c["dequantize"] == 0, c
+                assert same_bits(fq, E.fake_quantize_reference(
+                    x, 8, scale, zp, torch.int8)) and same_bits(fq, deq), \
+                    f"fake_quantize {label} {fdt}"
+                forms += 1
+                in_place = not E.plan(tuple(x.shape), x.stride(),
+                                      x.element_size(), 4).copy
+                say("kernel-check", kernel="fake_quantize", label=label,
+                    dtype=str(fdt)[6:], launches=c["fake_quantize"],
+                    read_in_place=in_place)
+                if label == "p_past":
+                    assert in_place, "p_past is copied before the kernel"
+                timed = [
+                    ("fake_quantize",
+                     lambda: E.fake_quantize(x, 8, scale, zp, torch.int8),
+                     lambda: E.fake_quantize_reference(x, 8, scale, zp,
+                                                       torch.int8),
+                     n * x.element_size() + 4 * n),
+                    ("fake_quantize_chain",
+                     lambda: E.dequantize(E.quantize(x, 8, scale, zp,
+                                                     torch.int8), scale, zp),
+                     lambda: E.fake_quantize_reference(x, 8, scale, zp,
+                                                       torch.int8),
+                     n * x.element_size() + 4 * n)]
+            for kname, kernel, plain, nbytes in timed + [
                     ("quantize",
                      lambda: E.quantize(x, 8, scale, zp, torch.int8),
                      lambda: E.quantize_reference(x, 8, scale, zp,
@@ -2911,7 +3075,7 @@ def ew_path_check(name: str) -> dict:
                      lambda: E.dequantize(q, scale, zp, torch.float32),
                      lambda: E.dequantize_reference(q, scale, zp,
                                                     torch.float32),
-                     n + 4 * n)):
+                     n + 4 * n)]:
                 row = dict(ms=cuda_ms(kernel, lead=True),
                            plain_ms=cuda_ms(plain, lead=True),
                            bound_ms=nbytes / rate * 1e3, bytes=nbytes)
@@ -2922,7 +3086,7 @@ def ew_path_check(name: str) -> dict:
                     contiguous=x.is_contiguous(), **row,
                     card=name.replace(" ", "_"))
         del full, x32
-    say("kernel-check", kernel="quantize,dequantize",
+    say("kernel-check", kernel="quantize,dequantize,fake_quantize",
         scope="tinyllama_decode_and_admission_shapes", forms=forms, mismatched_forms=0)
     return res
 
@@ -3208,11 +3372,15 @@ def llama_decode_phase(card: str, weights) -> dict:
             splitk_wo_launches_per_step=wo / n,
             quantize_launches_per_step=counts["quantize"] / n,
             dequantize_launches_per_step=counts["dequantize"] / n,
+            fake_quantize_launches_per_step=counts["fake_quantize"] / n,
             finite=finite, card=card.replace(" ", "_"))
         assert ids.shape == (DEC_B, DEC_PROMPT + new), ids.shape
         assert (ids[:, :DEC_PROMPT] == prompt).all() and finite, run
         want_wo = LLAMA_WO_PER_STEP * n if run[1] == "w4_kernel" else 0
         assert wo == want_wo and others(counts) == wo, (run, counts)
+        # DecodeAttention's fake quantizations: one launch each
+        assert (counts["fake_quantize"] > 0) == run[1].startswith(
+            "int8_fused"), (run, counts)
     gen = slice(DEC_PROMPT, None)
 
     def agree(a, b):
@@ -3497,6 +3665,8 @@ def engine_phase(card: str, step, w4, wte, rope) -> dict:
             host_syncs_per_step_call=syncs / calls,
             quantize_launches_per_step=counts["quantize"] / st["steps"],
             dequantize_launches_per_step=counts["dequantize"] / st["steps"],
+            fake_quantize_launches_per_step=(counts["fake_quantize"]
+                                             / st["steps"]),
             seconds=wall, card=card.replace(" ", "_"))
         assert equal == len(reqs), (label, equal)
         assert others(counts) == 0, (label, counts)
@@ -3940,7 +4110,7 @@ TRACE_KERNELS = (("attention_hs_kernel", ("fused_attention_hs",)),
                  ("plain_kernel", ("fused_attention",)),
                  ("qmatmul_kernel", ("splitk_qmatmul", "packed_qmatmul")),
                  ("wo_kernel", ("splitk_wo_matmul",)),
-                 ("qdq_kernel", ("quantize", "dequantize")))
+                 ("qdq_kernel", ("quantize", "dequantize", "fake_quantize")))
 CAPTURE_REPS = 10  # timed forwards per turn of a single-forward path
 
 
@@ -4290,6 +4460,12 @@ MODSUM_RULES = (
     ("w3 per-tensor plain <= 0.9", lambda r: r["w3-pertensor-plain"] <= 0.9),
     ("|w3 per-tensor awq - plain| <= 0.1",
      lambda r: abs(r["w3-pertensor-awq"] - r["w3-pertensor-plain"]) <= 0.1))
+# the ladder's rows those rules read: the script runs these alone (the
+# whole ladder is `python -m numpy_quant_tpu_torch.accuracy_ladder`)
+MODSUM_ROWS = ("float", "w4-perchan-plain", "w4a8-perchan-plain",
+               "w2a8-perchan-plain", "w2a8-perchan-gptq",
+               "w2a8-perchan-adaround", "w3-pertensor-plain",
+               "w3-pertensor-awq")
 
 
 def synced_seconds(fn):
@@ -4616,11 +4792,13 @@ def ptq_llama_phase(card: str, weights) -> dict:
 
 def ptq_modsum_phase(card: str) -> dict:
     """Phase 19d: the modular-sum accuracy ladder (accuracy_ladder.py) at
-    B=256 on the card, held to the JAX package's capstone rules."""
+    B=256 on the card, its rows that the JAX package's capstone rules
+    read, held to those rules."""
     from numpy_quant_tpu_torch.accuracy_ladder import ladder
     t_phase = time.perf_counter()
     rows = ladder(emit=lambda line: say("ptq-modsum", row=line.replace(
-        " ", "")))
+        " ", "")), only=set(MODSUM_ROWS))
+    assert set(rows) == set(MODSUM_ROWS), sorted(rows)
     held = {rule: bool(check(rows)) for rule, check in MODSUM_RULES}
     say("ptq-modsum-rules", **{k.replace(" ", "_"): v
                                for k, v in held.items()},
@@ -4713,7 +4891,8 @@ ZOO_KERNELS = ("quantize", "dequantize", "splitk_qmatmul")
 
 @contextlib.contextmanager
 def shadowed(state: dict, extra: tuple = (), note=None):
-    """Every quantize, dequantize and packed-matmul launch of the forwards
+    """Every quantize, dequantize, fake-quantize and packed-matmul launch of
+    the forwards
     inside also runs the kernel's plain version on the same operands;
     ``state[kernel]`` gathers [calls, mismatching outputs, max |diff|,
     max |plain output|]. ``extra``: more (module, wrapper name, plain
@@ -4751,8 +4930,8 @@ def shadowed(state: dict, extra: tuple = (), note=None):
         return run
 
     saved = [(m, n, getattr(m, n), getattr(m, n + "_reference")) for m, n in
-             ((E, "quantize"), (E, "dequantize"), (Q, "splitk_qmatmul"),
-              (Q, "packed_qmatmul"))]
+             ((E, "quantize"), (E, "dequantize"), (E, "fake_quantize"),
+              (Q, "splitk_qmatmul"), (Q, "packed_qmatmul"))]
     saved += [(m, n, getattr(m, n), ref) for m, n, ref in extra]
     for m, n, _, ref in saved:
         setattr(m, n, shadow(m, n, ref))
@@ -5041,14 +5220,14 @@ ED_B = 8                 # batch (slots) of every phase 21 path
 T5_LEN, T5_SRC = 128, 512  # T5-small decode: cache slots, source tokens
 T5_PROMPT, T5_NEW = 4, 28  # teacher-forced ids (start first), new tokens
 ED_REQS = 16             # engine requests over ED_B slots
-ED_BUDGETS = (8, 40)     # their new tokens, uniform, inclusive
+ED_BUDGETS = (8, 24)     # their new tokens, uniform, inclusive
 BART_SRC, BART_TGT = 1024, 128
-ED_NEW = 64              # new tokens of each seq2seq generation
+ED_NEW = 32              # new tokens of each seq2seq generation
 WHISPER_TGT = 128
 FIXTURE_FLOOR, FIXTURE_DROP = 0.97, 0.02  # JAX's capstone rules
 ED_REPS = 3              # timed forwards per turn of a captured forward
 ED_ATTN = ("fused_attention_hs", "fused_attention_hs_blockq")
-ED_KERNELS = ("quantize", "dequantize", "fused_attention_hs",
+ED_KERNELS = ("quantize", "dequantize", "fake_quantize", "fused_attention_hs",
               "fused_attention_hs_blockq", "fused_attention",
               "splitk_qmatmul", "packed_qmatmul", "splitk_wo_matmul")
 
@@ -5786,6 +5965,8 @@ QAT_SERVE_B = 96         # the QAT'd ViT-Base-width fixture's serving batch
 BERT_QAT_B, BERT_QAT_STEPS, BERT_QAT_LR = 8, 40, 1e-3  # test_qat.py's
 MAMBA_B, MAMBA_L = 8, 128
 MAMBA_LAYERS = 2  # of Mamba-130m's 24: cut for the script's time limit
+# prompt + new = MAMBA_L: the step is held to the full form's logits over
+# all of its L positions
 MAMBA_PROMPT, MAMBA_NEW = 32, 96
 MAMBA_CHECK_NEW = 16     # new tokens of the captured-against-eager decodes
 MAMBA_REQS, MAMBA_BUDGETS, MAMBA_IDS = 16, (4, 24), 40
@@ -5794,7 +5975,7 @@ MAMBA_REQS, MAMBA_BUDGETS, MAMBA_IDS = 16, (4, 24), 40
 # quantize_weights of 2.8 B weights on the host), past the script's limit
 MIXTRAL_LAYERS = 1
 MIXTRAL_N, MIXTRAL_B, MIXTRAL_CACHE = 2048, 8, 512
-MIXTRAL_L, MIXTRAL_PROMPT = 64, 16  # the full form the step is held to
+MIXTRAL_L, MIXTRAL_PROMPT = 32, 16  # the full form the step is held to
 CLIP_IMAGES, CLIP_PROMPTS, CLIP_T = 96, 1000, 77
 BERT_B, BERT_T = 32, 128
 
@@ -6467,7 +6648,7 @@ PAR_WORLD = 4            # ranks of phase 23, all on the one card (gloo)
 PAR_B = 32               # ViT-Base batch of 23(a) and 23(c)
 PAR_MICRO = 4            # microbatches of the pipelines
 PAR_LLAMA_LAYERS = 2     # TinyLlama-1.1B depth in 23(b) (of 22)
-PAR_NEW = 24             # new tokens of each TP decode (prompt GPT_PROMPT)
+PAR_NEW = 12             # new tokens of each TP decode (prompt GPT_PROMPT)
 PAR_REQS, PAR_SLOTS = 16, 8  # the TP engine's requests and slots
 PAR_TIMEOUT = 600        # seconds any one rank call may take
 
@@ -7144,7 +7325,7 @@ def parallel_phase(card: str) -> dict:
 # -- phase 24: deployment artifacts ------------------------------------------
 
 AOT_DIR = os.path.join(REPO, "build", "aot")
-AOT_NEW = 32  # 24(b): GPT-2 small W4 decode, GPT_PROMPT + AOT_NEW tokens
+AOT_NEW = 16  # 24(b): GPT-2 small W4 decode, GPT_PROMPT + AOT_NEW tokens
 AOT_TURNS = 2  # rounds of timed decodes, each (generate_kv, loaded x 2, generate_kv)
 AOT_IPS_REPS = 20  # forwards per images/s run
 # 24(b): TinyLlama-1.1B widths: layers, batch, cache, prompt, new tokens
@@ -7451,6 +7632,9 @@ def aot_ops_check(card: str) -> dict:
             torch.zeros((1, 128), dtype=torch.int32, device="cuda")),
         "dequantize:int8_bf16": lambda: K.dequantize(i8(64, 128), EW_SCALE,
                                                      EW_ZP, torch.bfloat16),
+        "fake_quantize:int8": lambda: K.fake_quantize(x, 8, EW_SCALE, EW_ZP),
+        "fake_quantize:rows_bf16": lambda: K.fake_quantize(
+            x.to(torch.bfloat16)[:, :100], 8, 1.0 / 255.0, -128),
         "fused_attention_hs:exact": lambda: K.fused_attention_hs(
             i8(2, N_TOK, 768), i8(2, N_TOK, 768), i8(2, N_TOK, 768),
             **attention_kw(HEADS, "exact", "none", None, QP)),
@@ -8099,6 +8283,7 @@ def main() -> int:
     # -- phase 14: quantize/dequantize at every boundary; 9-16 bits -----
     ew_check = check_elementwise()
     ew_timing = time_elementwise(name)
+    dec_ew = ew_path_check(name)
     ew_launches = {"vit_int8_f32_b8": counts_f32, "gpt2_scoring": score_counts,
                    "tinyllama_scoring": llama_counts, "t5_scoring": t5_counts}
     routing_phase(qmodel, x8, ew_launches, t5_cost)
@@ -8139,7 +8324,6 @@ def main() -> int:
     # -- phase 15: TinyLlama-1.1B decode and prefill ------------------
     t15 = time.perf_counter()
     dec_wo = time_wo(name, LLAMA_WO_SHAPES, "tinyllama")
-    dec_ew = ew_path_check(name)
     dec_plain = plain_decode_shape(name)
     del model, qmodel, qmodels, vit_proto
     decode = llama_decode_phase(card, llama_weights)
@@ -8298,6 +8482,25 @@ def main() -> int:
                         "per_generate_forward": gen_counts[kname]},
             "interop": {f"per_reimported_{k}_forward": c[kname]
                         for k, c in interop.items()}})
+    # fake_quantize: the one-pass form of row 7, on the decode path
+    # (DecodeAttention's q, key-cache and p_past fake quantization)
+    fq = dec_ew["fake_quantize"]["cache_fake_quant_float32"]
+    rows.append({
+        "name": "fake_quantize", "route": "cuda",
+        "source": "numpy_quant_tpu_torch/csrc/elementwise.cu",
+        "replaces": "numpy_quant_tpu/ops/registry.py:775",
+        "launches": decode["counts"]["int8_fused"]["fake_quantize"],
+        "max_abs_err": ew_check["worst"]["fake_quantize"],
+        "ms": fq["ms"], "plain_ms": fq["plain_ms"], "bound_ms": fq["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "two_launch_chain_ms": dec_ew["fake_quantize_chain"][
+            "cache_fake_quant_float32"]["ms"],
+        "variants_checked": ew_check["variants"]["fake_quantize"],
+        "shapes": {k: v for k, v in dec_ew["fake_quantize"].items()},
+        "tinyllama_decode": {"launches_per_step": {
+            mode: c["fake_quantize"] / decode["steps"][mode]
+            for mode, c in decode["counts"].items()}},
+        "serving": {"per_int8_engine_step": e1["fake_quantize"]}})
     # phase 19's paths: launches per forward (zeros left out), and
     # splitk_wo_matmul at ViT-Base's rows
     for row in rows:

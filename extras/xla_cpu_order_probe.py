@@ -15,8 +15,13 @@ On the small trained ViT fixture at B=4 (``make_batch`` seed 7) it prints:
   chained from 0, the partials reduced by the same rule, which the port
   replays on CPU tensors as ``intops.xla_cpu_row_sum``): the best share
   of rows each matches;
-* the first value apart, when it is a batched MatMul, against a replay in
-  four k lanes of fused multiply-adds finished (l0 + l1) + (l2 + l3).
+* the first value apart, when it is a MatMul or Gemm, against the mapped
+  order of XLA's CPU dot (``ops/registry.py::_xla_cpu_dot``: YNNPACK's k
+  lanes where XLA hands it the dot, else Eigen's chain) on JAX's operands.
+  The port's CPU softmax (XLA's exp and row sums), exact-form erf and
+  batched dots of two activations replay XLA's orders, so the fixture's
+  first value apart is the classifier's Gemm (a weight product, which
+  keeps torch's order).
 
     JAX_PLATFORMS=cpu python extras/xla_cpu_order_probe.py
 
@@ -142,6 +147,11 @@ def main() -> None:
     from numpy_quant_tpu.utils.parity import record_all_values as jrec
     from numpy_quant_tpu_torch import Model
     from numpy_quant_tpu_torch.graph import Constant
+    from numpy_quant_tpu_torch.ops.registry import _xla_cpu_dot as xla_cpu_dot
+    from numpy_quant_tpu_torch.ops.registry import _ynn_lanes as ynn_lanes
+
+    def consts_of(model):
+        return {v.name: v for v in model.values if isinstance(v, Constant)}
     from numpy_quant_tpu_torch.models import fixtures as TF
     from numpy_quant_tpu_torch.utils.parity import record_all_values as trec
 
@@ -165,12 +175,23 @@ def main() -> None:
         if not np.array_equal(a, t):
             print(f"first value apart: {name} ({node.op}), "
                   f"{(a != t).mean():.3f} of its entries")
-            if node.op == "MatMul":
-                lhs, rhs = (jv[v.name] for v in node.inputs)
-                print(f"  four-lane fma replay on JAX's operands "
-                      f"{lhs.shape} @ {rhs.shape}: "
-                      f"{(lanes4_replay(lhs, rhs) == a).mean():.3f} of "
-                      "entries")
+            if node.op in ("MatMul", "Gemm"):
+                lhs = jv[node.inputs[0].name]
+                rhs = jv.get(node.inputs[1].name)
+                if rhs is None:  # a weight
+                    rhs = consts_of(tm)[node.inputs[1].name].data.data \
+                        .numpy()
+                if node.op == "Gemm" and node.attrs.get("transB"):
+                    rhs = rhs.T
+                m, k, n = lhs.shape[-2], lhs.shape[-1], rhs.shape[-1]
+                rep = xla_cpu_dot(torch.from_numpy(np.ascontiguousarray(lhs)),
+                                  torch.from_numpy(np.ascontiguousarray(rhs)))
+                if node.op == "Gemm" and len(node.inputs) > 2:
+                    rep = rep + consts_of(tm)[node.inputs[2].name].data.data
+                print(f"  the mapped dot order ({ynn_lanes(m, k, n)} k "
+                      f"lanes; 0: Eigen's chain) on JAX's operands "
+                      f"{lhs.shape} @ {rhs.shape}, then the bias: "
+                      f"{(rep.numpy() == a).mean():.3f} of entries")
             break
     consts = {v.name: v for v in tm.values if isinstance(v, Constant)}
     for proj in ("query", "key", "value"):

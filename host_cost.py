@@ -4,18 +4,20 @@ this is run from:
 
     python3 host_cost.py <tag>
 
-- quantize and dequantize: host µs per eager call at chip_smoke.py phase
-  14's small shape ([8, 64] f32 -> int32, scalar scale and zero point;
-  int32 -> f32 with a [1, 64] zero-point tensor), 500 calls after 50
-  warm-up calls, with autograd on (phase 14's form) and under
-  ``torch.inference_mode`` (the form every forward walk takes);
+- quantize, dequantize and fake_quantize (where the checkout has it):
+  host µs per eager call at chip_smoke.py phase 14's small shape ([8, 64]
+  f32 -> int32, scalar scale and zero point; int32 -> f32 with a [1, 64]
+  zero-point tensor; f32 -> int8 -> f32, scalar scale and zero point),
+  500 calls after 50 warm-up calls, with autograd on (phase 14's form)
+  and under ``torch.inference_mode`` (the form every forward walk takes);
 - one eager TinyLlama-1.1B decode step at full width and chip_smoke.py's
   LLAMA_LAYERS layers (B=8, cache 2048, int8 with DecodeAttention fused,
   int8 cache, f32: phase 15's int8_fused_int8_cache mode) under
   ``config.eager_forward``: ms per step of a generate_kv of DEC_PROMPT
   teacher-forced and HOST_NEW new tokens, the median of HOST_REPS decodes.
 
-Prints one line, ``[host-cost] {json}``. To hold two commits against each
+Prints one line, ``[host-cost] {json}``; ``python3 host_cost.py <tag>
+elementwise`` leaves the decode step out. To hold two commits against each
 other, run it in a checkout of each, in turns (parent, change, change,
 parent), one after another on one card.
 """
@@ -50,6 +52,9 @@ def elementwise_us(C) -> dict:
     zs = torch.randint(-99, 99, (1, 64), device="cuda", dtype=torch.int32)
     calls = {"quantize": lambda: E.quantize(small, 8, C.EW_SCALE, C.EW_ZP),
              "dequantize": lambda: E.dequantize(acc, C.EW_SCALE, zs)}
+    if hasattr(E, "fake_quantize"):
+        calls["fake_quantize"] = lambda: E.fake_quantize(
+            small, 8, C.EW_SCALE, C.EW_ZP, torch.int8)
     res = {}
     for name, fn in calls.items():
         res[f"{name}_us"] = per_call_us(fn)
@@ -101,11 +106,14 @@ def main() -> int:
         print("host_cost: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as C
-    C.build_kernels()
+    whole = sys.argv[2:] != ["elementwise"]
+    if whole:
+        C.build_kernels()
     res = {"tag": sys.argv[1] if len(sys.argv) > 1 else "",
            "card": C.card_line()}
-    res.update(elementwise_us(C))
-    res.update(llama_step_ms(C))
+    res.update(elementwise_us(C))  # a first call builds its kernel
+    if whole:
+        res.update(llama_step_ms(C))
     print("[host-cost] " + json.dumps(res), flush=True)
     return 0
 

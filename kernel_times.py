@@ -25,6 +25,14 @@ this is run from:
   int8 x, f32 out) beside torch._int_mm on the unpacked weight plus the
   eager epilogue;
 - quantize and dequantize at ViT-Base's bf16 fc1 output at batch 96;
+- the quantize boundaries in every path form at the four large shapes
+  (ViT-Base bf16 fc1 at batch 96, GPT-2 fc and TinyLlama MLP scoring in
+  f32, ViT-Base W8A16 fc1 f32 -> int64 at 16 bits): quantize with a scalar
+  and a per-channel scale, dequantize with a scalar, a [1, N] and an
+  [M, 1] zero point, each with its bytes bound; DecodeAttention's key-cache
+  fake quantization [8, 32, 2048, 64] (f32 and bf16 in) and p_past
+  [8, 32, 1, 2048] as one fake_quantize launch, where the checkout has
+  it, and as the two-launch chain quantize -> dequantize;
 - the TinyLlama-1.1B decode and prefill shapes: splitk_wo_matmul at M = 8,
   W4 g=128 for 2048 -> 2048, 256, 5632, 32000 and 5632 -> 2048 (f32 and
   bf16, cold L2), quantize/dequantize at the int8 cache write
@@ -37,7 +45,9 @@ this is run from:
 
 Each is the median of 20 CUDA-event timed calls (chip_smoke.py's helpers),
 the calls shorter than their Python wrapper behind a device sleep. Prints
-one line, ``[compare] {json}``. To hold two commits against each other,
+one line, ``[compare] {json}``. ``python3 kernel_times.py <tag>
+elementwise`` times the quantize boundaries alone (the last three items
+and the fc1 pair). To hold two commits against each other,
 run it in a checkout of each, in turns (parent, change, change, parent),
 one after another on one card.
 """
@@ -95,13 +105,14 @@ def head_split_times(C, A) -> dict:
     return res
 
 
-def llama_decode_times(C, A, Q, E) -> dict:
-    """The kernels at the TinyLlama-1.1B decode and prefill shapes."""
+def llama_decode_times(C, A, Q, E, elementwise_only: bool = False) -> dict:
+    """The kernels at the TinyLlama-1.1B decode and prefill shapes (the
+    quantize boundaries alone with ``elementwise_only``)."""
     import torch
     res = {}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        for k, n in C.LLAMA_WO_SHAPES:
+        for k, n in () if elementwise_only else C.LLAMA_WO_SHAPES:
             x, pl, sc = C.wo_operands(4, C.DEC_B, k, n, k // C.WO_GROUP,
                                       seed=k + n, dtype=dt)
             res[f"wo_llama_{name}_{k}x{n}_ms"] = C.cuda_ms(
@@ -122,10 +133,82 @@ def llama_decode_times(C, A, Q, E) -> dict:
             ("dequantize_p_past", lambda: E.dequantize(
                 q8, 1.0 / 255.0, -128, torch.float32))):
         res[f"{label}_ms"] = C.cuda_ms(fn, lead=True)
+    if elementwise_only:
+        return res
     q, kt, v = C.plain_inputs(32, C.PREFILL_N, 64, seed=15)
     kw = dict(C.QP, out_requant=C.OUT_REQUANT, causal_mask_val=C.MASK_VAL)
     res["fused_attention_prefill_ms"] = C.cuda_ms(
         lambda: A.fused_attention(q, kt, v, **kw), lead=True)
+    torch.cuda.synchronize()
+    return res
+
+
+def elementwise_times(C, E) -> dict:
+    """The quantize boundaries in every path form at the four large
+    shapes, and the decode path's fake quantizations, each beside its
+    bytes bound (``*_bound_ms``: each input read once, each output written
+    once, at the card's data-sheet rate)."""
+    import torch
+    from numpy_quant_tpu_torch.models.llama import TINYLLAMA_1_1B
+    rate = C.peaks(torch.cuda.get_device_name(0))["bytes"]
+    res = {}
+    g = torch.Generator(device="cuda").manual_seed(22)
+    shapes = {"vit_fc1_bf16": ((C.B_TIME * C.N_TOK, 3072), torch.bfloat16,
+                               torch.int32, 8),
+              "gpt2_fc_f32": ((C.GPT_B * C.GPT_SEQ, 3072), torch.float32,
+                              torch.int32, 8),
+              "tinyllama_mlp_f32": ((C.LLAMA_B * C.LLAMA_SEQ,
+                                     TINYLLAMA_1_1B["intermediate_size"]),
+                                    torch.float32, torch.int32, 8),
+              "w8a16_fc1_f32": ((C.B_F32 * C.N_TOK, 3072), torch.float32,
+                                torch.int64, 16)}
+    for label, ((rows, cols), dtype, container, bits) in shapes.items():
+        x = torch.randn(rows, cols, device="cuda", generator=g).to(dtype)
+        span = 2 ** 40 if container == torch.int64 else 2 ** 20
+        acc = torch.randint(-span, span, (rows, cols), device="cuda",
+                            dtype=container, generator=g)
+        zrow = torch.randint(-span, span, (1, cols), device="cuda",
+                             dtype=container, generator=g)
+        zcol = torch.randint(-span, span, (rows, 1), device="cuda",
+                             dtype=container, generator=g)
+        channel = (C.EW_SCALE * torch.rand(1, cols, device="cuda",
+                                           generator=g) + 1e-3).cpu().numpy()
+        n, isz, asz = rows * cols, x.element_size(), acc.element_size()
+        for form, fn, nbytes in (
+                ("quantize_scalar", lambda: E.quantize(
+                    x, bits, C.EW_SCALE, C.EW_ZP, container), n * (isz + asz)),
+                ("quantize_channel", lambda: E.quantize(
+                    x, bits, channel, None, container),
+                 n * (isz + asz) + 4 * cols),
+                ("dequantize_scalar", lambda: E.dequantize(
+                    acc, C.EW_SCALE, C.EW_ZP, dtype), n * (isz + asz)),
+                ("dequantize_cols", lambda: E.dequantize(
+                    acc, C.EW_SCALE, zrow, dtype),
+                 n * (isz + asz) + asz * cols),
+                ("dequantize_rows", lambda: E.dequantize(
+                    acc, C.EW_SCALE, zcol, dtype),
+                 n * (isz + asz) + asz * rows)):
+            res[f"{form}_{label}_ms"] = C.cuda_ms(fn, lead=True)
+            res[f"{form}_{label}_bound_ms"] = nbytes / rate * 1e3
+        del x, acc, zrow, zcol
+    fake = getattr(E, "fake_quantize", None)
+    probs = torch.softmax(torch.randn(C.DEC_B, 32, 1, C.DEC_LEN + 1,
+                                      device="cuda", generator=g), dim=-1)
+    keys = torch.randn(C.DEC_B, 32, C.DEC_LEN, 64, device="cuda",
+                       generator=g)
+    for label, x, scale, zp in (
+            ("key_cache_f32", keys, C.EW_SCALE, C.EW_ZP),
+            ("key_cache_bf16", keys.to(torch.bfloat16), C.EW_SCALE, C.EW_ZP),
+            ("p_past", probs[..., :C.DEC_LEN], 1.0 / 255.0, -128)):
+        n = x.numel()
+        res[f"fake_quantize_{label}_bound_ms"] = \
+            n * (x.element_size() + 4) / rate * 1e3
+        res[f"fake_quantize_chain_{label}_ms"] = C.cuda_ms(
+            lambda: E.dequantize(E.quantize(x, 8, scale, zp, torch.int8),
+                                 scale, zp), lead=True)
+        if fake is not None:
+            res[f"fake_quantize_{label}_ms"] = C.cuda_ms(
+                lambda: fake(x, 8, scale, zp, torch.int8), lead=True)
     torch.cuda.synchronize()
     return res
 
@@ -154,6 +237,12 @@ def main() -> int:
         return 2
     res = {"tag": sys.argv[1] if len(sys.argv) > 1 else "",
            "card": C.card_line()}
+    if sys.argv[2:] == ["elementwise"]:
+        res.update(elementwise_times(C, E))
+        res.update(llama_decode_times(C, A, Q, E, elementwise_only=True))
+        res.update(serving_times(C, E))
+        print("[compare]", json.dumps(res), flush=True)
+        return 0
     res.update(head_split_times(C, A))
     bh, n, d = C.LLAMA_B * 32, C.LLAMA_SEQ, 64
     q, kt, v = C.plain_inputs(bh, n, d, seed=99)
@@ -208,6 +297,7 @@ def main() -> int:
     res["dequantize_vit_fc1_bf16_ms"] = C.cuda_ms(
         lambda: E.dequantize(acc, C.EW_SCALE, zrow, torch.bfloat16),
         lead=True)
+    res.update(elementwise_times(C, E))
     res.update(llama_decode_times(C, A, Q, E))
     res.update(serving_times(C, E))
     print("[compare]", json.dumps(res), flush=True)

@@ -24,9 +24,10 @@ WEIGHT_ONLY = [(8, None, True), (4, None, True), (4, 32, True),
                (3, None, False)]
 
 
-def ladder(device=None, emit=print) -> dict:
+def ladder(device=None, emit=print, only=None) -> dict:
     """{row name: sum accuracy} of the ladder on ``device`` (CUDA unless
-    given), each row passed to ``emit`` as a JSON line as it is done."""
+    given), each row passed to ``emit`` as a JSON line as it is done;
+    with ``only`` (row names), those rows alone."""
     rng = np.random.default_rng(5)
     seqs = MF.make_modsum_batch(rng, BATCH)
     proto = MF.trained_modsum_onnx(batch_size=BATCH)
@@ -35,40 +36,50 @@ def ladder(device=None, emit=print) -> dict:
     calib = np.take(proto._wte, calib_ids, axis=0).astype(np.float32)
     rows: dict = {}
 
-    def row(name, model):
-        rows[name] = MF.modsum_accuracy(model([x])[0], seqs)
+    def row(name, make):
+        if only is not None and name not in only:
+            return
+        rows[name] = MF.modsum_accuracy(make()([x])[0], seqs)
         emit(json.dumps({"config": name, "sum_acc": round(rows[name], 4)}))
 
     def fresh(batch: int = BATCH):
         return Model.from_onnx(MF.trained_modsum_onnx(batch_size=batch),
                                device=device)
 
-    row("float", fresh())
+    def weight_only(bw, gs, pc, awq):
+        m = fresh()
+        if awq:
+            m.awq_scale_weights([calib], bit_width=bw, group_size=gs)
+        m.quantize_weights(bit_width=bw, group_size=gs, pack=False,
+                           per_channel=pc)
+        return m
+
+    row("float", fresh)
     for bw, gs, pc in WEIGHT_ONLY:
         tag = f"w{bw}" + (f"-g{gs}" if gs
                           else ("-perchan" if pc else "-pertensor"))
-        m = fresh()
-        m.quantize_weights(bit_width=bw, group_size=gs, pack=False,
-                           per_channel=pc)
-        row(f"{tag}-plain", m)
-        m = fresh()
-        m.awq_scale_weights([calib], bit_width=bw, group_size=gs)
-        m.quantize_weights(bit_width=bw, group_size=gs, pack=False,
-                           per_channel=pc)
-        row(f"{tag}-awq", m)
+        for awq in (False, True):
+            row(f"{tag}-{'awq' if awq else 'plain'}",
+                lambda: weight_only(bw, gs, pc, awq))
 
-    stats = fresh(calib.shape[0]).calibration_stats([calib])
-    row("int8-ptq", fresh().quantize(stats=stats, bit_width=8))
+    stats = []
+
+    def static(wbw, label):
+        if not stats:
+            stats.append(fresh(calib.shape[0]).calibration_stats([calib]))
+        qm = fresh().quantize(stats=stats[0], bit_width=8,
+                              weight_bit_width=wbw,
+                              per_channel_weights=wbw is not None)
+        if label == "gptq":
+            qm.gptq(fresh(), [calib])
+        elif label == "adaround":
+            qm.adaround(fresh(), [calib])
+        return qm
+
+    row("int8-ptq", lambda: static(None, "plain"))
     for wbw in (4, 3, 2):
         for label in ("plain", "gptq", "adaround"):
-            qm = fresh().quantize(stats=stats, bit_width=8,
-                                  weight_bit_width=wbw,
-                                  per_channel_weights=True)
-            if label == "gptq":
-                qm.gptq(fresh(), [calib])
-            elif label == "adaround":
-                qm.adaround(fresh(), [calib])
-            row(f"w{wbw}a8-perchan-{label}", qm)
+            row(f"w{wbw}a8-perchan-{label}", lambda: static(wbw, label))
     return rows
 
 

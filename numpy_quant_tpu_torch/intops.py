@@ -109,6 +109,82 @@ def xla_cpu_row_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _chain(x)
 
 
+_FUSED_CHECKED = []
+
+
+def _check_fused() -> None:
+    """Raise unless torch's CPU addcmul rounds a * b + c once in this
+    build, on a vector body, its tail and a broadcast walk: (1 + 2^-23)^2
+    - (1 + 2^-22) is 2^-46 fused and 0 with the product rounded first."""
+    one = 1.0 + 2.0 ** -23
+    for sa, sb, sc in (((67,), (67,), (67,)), ((67, 1), (1, 5), (67, 5))):
+        got = torch.addcmul(torch.full(sc, -(1.0 + 2.0 ** -22)),
+                            torch.full(sa, one), torch.full(sb, one))
+        if not bool((got == 2.0 ** -46).all()):
+            raise RuntimeError(
+                "torch's CPU addcmul rounds the product before the sum in "
+                "this build, so XLA's CPU float32 order (fused "
+                "multiply-adds) cannot be replayed on the CPU")
+    _FUSED_CHECKED.append(True)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """round_f32(a * b + c) of float32 CPU tensors, one rounding (fused):
+    torch's CPU addcmul, whose vector unit's fused multiply-add is checked
+    on a probe at the first call (it raises where the build rounds twice;
+    ``tests/test_torch_xla_order.py`` holds it to an exact replay)."""
+    if not _FUSED_CHECKED:
+        _check_fused()
+    return torch.addcmul(c, a, b)
+
+
+# XLA's CPU exp of float32 (jaxlib 0.9): Cephes' range reduction and
+# polynomial in fused multiply-adds, 2^m with m at most 127, and results
+# below the smallest normal flushed to 0 (XLA runs its CPU code with
+# denormals off)
+_EXP_LOG2E = 1.44269504088896341
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_F32_MIN_NORMAL = 2.0 ** -126
+_EXP_FLUSHED = -88.0  # exp(x) < 2^-126 below: 0, whatever m's range
+
+
+def xla_cpu_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor bit for bit as XLA's CPU compiler emits it
+    (``jnp.exp``, eager or inside a fused program): m = floor(x log2(e) +
+    1/2) capped at 127, r = x - m ln2 in two fused steps, e^r by a
+    degree-7 polynomial in fused multiply-adds, times 2^m; below
+    2^-126 the result is 0. Nine vectorized fused multiply-adds."""
+    def c(v):
+        return torch.full((), v, dtype=torch.float32)
+
+    m = torch.floor(fma_f32(x, c(_EXP_LOG2E), c(0.5))).clamp(max=127.0)
+    r = fma_f32(m, c(-_EXP_C1), x)
+    r = fma_f32(m, c(-_EXP_C2), r)
+    y = fma_f32(r, c(_EXP_POLY[0]), c(_EXP_POLY[1]))
+    for p in _EXP_POLY[2:]:
+        y = fma_f32(y, r, c(p))
+    y = fma_f32(y, r * r, r) + 1.0
+    # 2^m from its bits (m = -127 gives 0: every such result is flushed)
+    pow2 = ((m.clamp(min=-127.0).to(torch.int32) + 127) << 23) \
+        .view(torch.float32)
+    out = y * pow2
+    out = torch.where((out < _F32_MIN_NORMAL) | (x < _EXP_FLUSHED),
+                      torch.zeros_like(out), out)
+    return torch.where(x == float("inf"), x, out)
+
+
+def replays_xla(*ts: torch.Tensor) -> bool:
+    """Whether CPU float32 math on ``ts`` replays XLA's CPU order: float32
+    CPU tensors outside an autograd walk (a walk that autograd tracks,
+    QAT's and the trainers', keeps torch's ops, which it can
+    differentiate)."""
+    return all(t.device.type == "cpu" and t.dtype == torch.float32
+               and not (t.requires_grad and torch.is_grad_enabled())
+               for t in ts)
+
+
 def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     extra = size - t.shape[dim]
     if extra <= 0:

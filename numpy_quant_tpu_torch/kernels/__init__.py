@@ -17,6 +17,8 @@ from .attention import (
 from .elementwise import (
     dequantize,
     dequantize_reference,
+    fake_quantize,
+    fake_quantize_reference,
     quantize,
     quantize_reference,
 )
@@ -30,7 +32,7 @@ from .qmatmul import (
 )
 
 # every wrapper that counts its launches
-COUNTED = (quantize, dequantize, fused_attention_hs,
+COUNTED = (quantize, dequantize, fake_quantize, fused_attention_hs,
            fused_attention_hs_blockq, fused_attention, splitk_qmatmul,
            packed_qmatmul, splitk_wo_matmul)
 
@@ -77,6 +79,7 @@ def add_launch_counts(delta: tuple) -> None:
 
 
 __all__ = ["COUNTED", "add_launch_counts", "dequantize",
+           "fake_quantize", "fake_quantize_reference",
            "dequantize_reference", "fused_attention", "fused_attention_hs",
            "fused_attention_hs_blockq",
            "fused_attention_hs_blockq_reference",

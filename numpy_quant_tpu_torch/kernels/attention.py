@@ -45,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..intops import replays_xla, xla_cpu_exp, xla_cpu_row_sum
 from .build import load, sm_count
 
 KERNEL_DIMS = (16, 32, 64, 128)  # head dims the kernels are built for
@@ -262,14 +263,23 @@ def _mask_add(rows: torch.Tensor, n: int, mask, causal_window):
                        torch.full((), float(mask), device=rows.device))
 
 
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """The exact forms' exp: XLA's on float32 CPU tensors, as the unfused
+    graph's CPU softmax takes it (FTensor.softmax), else torch's."""
+    return xla_cpu_exp(x) if replays_xla(x) else torch.exp(x)
+
+
 def _row_sums(e: torch.Tensor, head_base: int = 0,
               head_total: int | None = None) -> torch.Tensor:
-    """e [B, H, rows, N] summed over its last dim. With ``head_total``
+    """e [B, H, rows, N] summed over its last dim, in XLA's CPU order on a
+    float32 CPU tensor (FTensor.softmax's). With ``head_total``
     (a tensor-parallel rank's heads head_base.. of head_total), each row
     is summed where it lies in the whole model's [B, head_total, rows, N]
     tensor: torch's CUDA sum order depends on a row's alignment, (row *
     N) % 4, so the rank's sums equal the single process's."""
     b, h, rows, n = e.shape
+    if replays_xla(e):
+        return xla_cpu_row_sum(e, -1).unsqueeze(-1)
     if head_total is None or head_total == h:
         return e.sum(dim=-1, keepdim=True)
     whole = e.new_zeros((b, head_total, rows, n))
@@ -364,7 +374,7 @@ def fused_attention_hs_blockq_reference(xq, xk, xv, *, num_heads: int,
             if mask is not None:
                 s = s + mask
             m = s.amax(dim=-1, keepdim=True)
-            e = torch.exp(s - m)
+            e = _exp(s - m)
             probs = e / _row_sums(e, head_base, head_total)
             pq = torch.round(torch.clamp(
                 _divide(probs, k["sp"]) + float(k["zp_pf"]),
@@ -883,7 +893,8 @@ def torch_sums_in_kernel_order(device, rows: int = 64, n: int = 1024) -> bool:
 
 def _plain_row_sums(e: torch.Tensor, heads: int | None, head_base: int,
                     head_total: int | None) -> torch.Tensor:
-    """e [BH, rows, N] summed over its last dim. With ``head_total``, row
+    """e [BH, rows, N] summed over its last dim, in XLA's CPU order on a
+    float32 CPU tensor (FTensor.softmax's). With ``head_total``, row
     block bh (batch row bh // heads, head bh % heads) is summed where it
     lies in the whole model's [B * head_total, rows, N] tensor, at block
     (bh // heads) * head_total + head_base + bh % heads (a tensor-parallel
@@ -891,6 +902,8 @@ def _plain_row_sums(e: torch.Tensor, heads: int | None, head_base: int,
     batch shard): torch's CUDA sum order depends on a row's alignment,
     (row * N) % 4, so the rank's sums equal the single process's."""
     bh = e.shape[0]
+    if replays_xla(e):
+        return xla_cpu_row_sum(e, -1).unsqueeze(-1)
     if head_total is None or heads is None:
         return e.sum(dim=-1, keepdim=True)
     i = torch.arange(bh, device=e.device)
@@ -953,7 +966,7 @@ def fused_attention_reference(q, kt, v, *, scaling: float, sq: float,
         if causal_mask_val is not None:
             rows = torch.arange(r0, r0 + qt.shape[1], device=s.device)
             s = s + _mask_add(rows, n, c["mask"], causal_window)
-        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        e = _exp(s - s.amax(dim=-1, keepdim=True))
         probs = e / _plain_row_sums(e, num_heads, head_base, head_total)
         pq = torch.round(torch.clamp(
             _divide(probs, c["sp"]) + float(c["zp_pf"]),

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..intops import replays_xla, xla_cpu_exp
+
 _A1 = 0.254829592
 _A2 = -0.284496736
 _A3 = 1.421413741
@@ -29,8 +31,11 @@ def exact_erf(x: torch.Tensor) -> torch.Tensor:
     sign = torch.sign(x)
     x = torch.abs(x)
     t = 1.0 / (1.0 + _P * x)
+    # on float32 CPU tensors the exp is XLA's, as the JAX package's jnp.exp
+    # computes it there
+    ex = xla_cpu_exp(-x * x) if replays_xla(x) else torch.exp(-x * x)
     y = 1.0 - (((((_A5 * t + _A4) * t) + _A3) * t + _A2) * t + _A1) * t \
-        * torch.exp(-x * x)
+        * ex
     return sign * y
 
 

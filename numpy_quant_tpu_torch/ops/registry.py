@@ -13,8 +13,8 @@ import numpy as np
 import torch
 
 from .. import config
-from ..intops import place
-from ..quantization import as_tensor, dequantize, quantize
+from ..intops import fma_f32 as _fma_f32, place, replays_xla
+from ..quantization import as_tensor, fake_quantize
 from ..tensor import (
     DITensor,
     FTensor,
@@ -192,21 +192,70 @@ def _promoted(a: torch.Tensor, b: torch.Tensor):
     return a.to(dt), b.to(dt)
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """round_f32(a * b + c) of float32 tensors, one rounding: the float64
-    product is exact, the float64 sum is rounded to odd (a sticky last
-    bit), and the odd-rounded sum rounds to float32 as the exact one
-    would."""
-    a, b, c = a.double(), b.double(), c.double()
-    p = a * b
-    s = p + c
-    bp = s - c
-    err = (c - (s - bp)) + (p - bp)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    return torch.where((err != 0) & even, torch.nextafter(s, toward),
-                       s).float()
+# XLA's CPU compiler (jaxlib 0.9, an AVX-512 host) hands a float32 dot
+# [m, k] @ [k, n] to YNNPACK where it has more than 50 rows, or at most 16
+# columns, with 2 rows and 2 columns at least; elsewhere to Eigen, whose
+# order is one fused multiply-add chain per output from k = 0. Below 11
+# products a sum its order is not mapped (9 and 10 part from the lanes).
+_YNN_MIN_ROWS = 51
+_YNN_MIN_DEPTH = 11
+_YNN_MAX_NARROW = 16
+_YNN_TILE = 64  # accumulator columns of YNNPACK's kernel, per row
+
+
+def _ynn_lanes(m: int, k: int, n: int) -> int:
+    """The k lanes of XLA's CPU float32 dot of an [m, k] @ [k, n] product,
+    0 where YNNPACK does not take it or k is below 11. Its kernel keeps 64
+    accumulator columns a row: n tiled by 64 where 64 divides it, by 32
+    where 32 does, else by 16, and 64 // tile lanes of k (k mod lanes)
+    fill the rest (``extras/xla_cpu_order_probe.py`` checks it). The rule
+    was mapped on jaxlib 0.9.0 on an AVX-512 CPU; another jaxlib or vector
+    unit may route or tile the dot otherwise, and the CPU parity tests
+    then fail first on ``tests/torch_parity.py::
+    assert_mapped_xla_cpu_host``."""
+    if m < 2 or n < 2 or k < _YNN_MIN_DEPTH \
+            or (m < _YNN_MIN_ROWS and n > _YNN_MAX_NARROW):
+        return 0
+    tile = 64 if n % 64 == 0 else 32 if n % 32 == 0 else 16
+    return _YNN_TILE // tile
+
+
+def _lane_sums(a: torch.Tensor, b: torch.Tensor, lanes: int) -> torch.Tensor:
+    """a [..., m, s·lanes] @ b [..., s·lanes, n] in ``lanes`` k lanes, each
+    a chain of fused multiply-adds from 0, finished by adjacent pairs:
+    (l0 + l1) + (l2 + l3)."""
+    steps = a.shape[-1] // lanes
+    ar = a.reshape(*a.shape[:-1], steps, lanes).movedim(-1, -3)
+    br = b.reshape(*b.shape[:-2], steps, lanes, b.shape[-1])
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + (lanes, a.shape[-2], b.shape[-1]))
+    # ar [..., lanes, m, steps], br [..., steps, lanes, n]
+    for j in range(steps):
+        acc = _fma_f32(ar[..., j:j + 1], br[..., j, :, None, :], acc)
+    while acc.shape[-3] > 1:
+        acc = acc[..., 0::2, :, :] + acc[..., 1::2, :, :]
+    return acc[..., 0, :, :]
+
+
+def _xla_cpu_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., m, k] @ b [..., k, n] of float32 CPU tensors, bit for bit
+    as XLA's CPU compiler sums it where YNNPACK takes the dot
+    (``_ynn_lanes``): the first k // lanes · lanes products in the lanes,
+    the rest one to a lane of a second set summed alike, the two added;
+    torch.matmul elsewhere. k // lanes + 1 vectorized steps at most."""
+    lanes = _ynn_lanes(a.shape[-2], a.shape[-1], b.shape[-1])
+    if lanes == 0:
+        return torch.matmul(a, b)
+    k = a.shape[-1]
+    main = k // lanes * lanes
+    out = _lane_sums(a[..., :main], b[..., :main, :], lanes)
+    if main < k:
+        pad = lanes - (k - main)
+        tail = _lane_sums(
+            torch.nn.functional.pad(a[..., main:], (0, pad)),
+            torch.nn.functional.pad(b[..., main:, :], (0, 0, 0, pad)), lanes)
+        out = out + tail
+    return out
 
 
 def _context_dot(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -232,8 +281,10 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     quantization the unfused executor applies is replayed with the same
     calibrated params through quantization.quantize/dequantize (the hand
     kernels on the card): fake-quant of q, the caches, the step key and
-    the cache probabilities, dequantize of int8 inputs; an accumulator
-    arriving at another width requantizes first, as the unfused executor
+    the cache probabilities (quantization.fake_quantize: one launch, the
+    cache probabilities read where they lie in probs), dequantize of int8
+    inputs; an accumulator arriving at another width requantizes first,
+    as the unfused executor
     narrows it. The three dots are float products (torch.matmul; JAX's
     jnp.einsum outside any kernel); on the CPU the context product sums in
     XLA's order (``_context_dot``). The fake-quant values are float32, so
@@ -253,8 +304,7 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
         if qp is None:
             return t.data
         scale = np.float32(qp[0])
-        return dequantize(quantize(t.data, bw, scale, qp[1],
-                                   container=torch.int8), scale, qp[1])
+        return fake_quantize(t.data, bw, scale, qp[1], container=torch.int8)
 
     qf = as_float(q, "q_qp")            # [B, H, 1, D]
     whole = attrs.get("lead_whole")
@@ -296,8 +346,7 @@ def _decode_attention(inputs: list[Tensor], attrs: dict) -> list[Tensor]:
     p_past, p_self = probs[..., :cache_len], probs[..., cache_len:]
     if bw is not None and attrs.get("p_qp") is not None:
         sp, zp = np.float32(attrs["p_qp"][0]), attrs["p_qp"][1]
-        p_past = dequantize(quantize(p_past, bw, sp, zp,
-                                     container=torch.int8), sp, zp)
+        p_past = fake_quantize(p_past, bw, sp, zp, container=torch.int8)
     vcf = placed(as_float(vc, "vc_qp"))  # [B, H, L, D]
     ctx = _context_dot(p_past, vcf)
     vhf = placed(vh.dequantize().data if isinstance(vh, QTensor)
@@ -430,6 +479,12 @@ def _matmul(a: Tensor, b: Tensor) -> list[Tensor]:
                 and a.bit_width <= 8:
             return [_packed_matmul(a, b)]
         return [a.matmul(b.unpack())]
+    if isinstance(a, FTensor) and isinstance(b, FTensor) \
+            and a.data.ndim > 2 and b.data.ndim > 2 \
+            and replays_xla(a.data, b.data):
+        # a batched product of two activations (attention's scores and
+        # context): XLA's CPU order (``_xla_cpu_dot``)
+        return [FTensor(_xla_cpu_dot(a.data, b.data))]
     return [a.matmul(b)]
 
 

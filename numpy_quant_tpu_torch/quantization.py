@@ -144,6 +144,16 @@ def dequantize(arr: torch.Tensor, scale, zero_point,
     return _elementwise.dequantize(arr, scale, zero_point, out_dtype=dtype)
 
 
+def fake_quantize(data: torch.Tensor, bit_width: int, scale, zero_point,
+                  container: torch.dtype = None) -> torch.Tensor:
+    """float tensor -> float32 ``dequantize(quantize(data, ...,
+    container), scale, zero_point)`` in one pass (one kernel launch on
+    the card)."""
+    return _elementwise.fake_quantize(
+        data, bit_width, scale, zero_point,
+        container=container or container_dtype(bit_width))
+
+
 def wide_matmul(a: torch.Tensor, b: torch.Tensor,
                 bit_width: int) -> torch.Tensor:
     """Exact int64 product of integer tensors holding values of at most

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from . import config
-from .intops import as_tensor, place, xla_cpu_row_sum
+from .intops import (as_tensor, place, replays_xla, xla_cpu_exp,
+                     xla_cpu_row_sum)
 from .ops.conv import conv2d_nchw, extract_patches_exact
 from .ops.erf import erf as _erf
 from .quantization import (
@@ -341,9 +342,14 @@ class FTensor:
     def softmax(self, axis: int) -> "FTensor":
         # max-subtracted, the reference's composition
         m = self + (-(self.max(axis=axis, keepdims=True)))
+        if replays_xla(m.data):
+            # XLA's CPU exp and row-sum order, as the attention kernels'
+            # plain versions take them on CPU tensors (fused == unfused)
+            e = xla_cpu_exp(m.data)
+            return FTensor(e / xla_cpu_row_sum(e, axis).unsqueeze(axis))
         e = m.exp()
-        # torch's order on every device: the attention kernels' plain
-        # versions sum softmax rows so, and fused == unfused holds on both
+        # torch's order elsewhere: the attention kernels' plain versions
+        # sum softmax rows so, and fused == unfused holds on the card
         return e.div(FTensor(torch.sum(e.data, dim=axis, keepdim=True)))
 
     def sqrt(self) -> "FTensor":

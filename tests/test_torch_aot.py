@@ -22,7 +22,7 @@ as ``torch.library`` custom ops, held against the JAX package's
   accuracy 1.0; sampled with a seeded generator, equal to generate_kv
   with the same seed. A 2-layer narrow TinyLlama step, int8, fused, with
   an int8 cache and RoPE: equal to generate_kv.
-* ``torch.library.opcheck`` of each of the eight ops at one small shape
+* ``torch.library.opcheck`` of each of the nine ops at one small shape
   per form, each op's arguments as its public wrapper hands them over.
 """
 import os
@@ -395,6 +395,10 @@ def _cases():
             qi.to(torch.int8), rows, zps, torch.bfloat16),
         "dequantize:int64": lambda: K.dequantize(qi.to(torch.int64), 0.1,
                                                  None),
+        "fake_quantize:int8": lambda: K.fake_quantize(x, 8, 0.05, 3),
+        "fake_quantize:bf16_rows_int64": lambda: K.fake_quantize(
+            x.to(torch.bfloat16)[:, :5], 12, rows[:, :5], zps.to(
+                torch.int64), torch.int64),
         "fused_attention_hs:exact": _attention(rng, K.fused_attention_hs),
         "fused_attention_hs:fast_requant": _attention(
             rng, K.fused_attention_hs, fast=True, out_requant=(0.1, 2)),

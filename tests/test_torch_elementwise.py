@@ -9,9 +9,12 @@ plain versions.
   plain versions differ only where x / scale + zp lies on a rounding tie
   (interpret mode folds the divide into a reciprocal multiply); the count
   is printed.
-* The kernels' operand walk (the broadcast scale and zero point read in the
-  data's memory order) is replayed on the CPU over every layout the
-  executor hands them.
+* The kernels' plan (x as rows x columns in its memory order, each
+  broadcast scale and zero point read at a row offset plus a column
+  stride, with multiply-shift divisions) is replayed on the CPU over every
+  layout the executor hands them, dense rows read in place.
+* ``fake_quantize``'s plain version equals the plain chain, and JAX's
+  ``dequantize(quantize(...))``, bit for bit.
 * On a meta tensor both wrappers raise: nothing falls back."""
 import jax
 import numpy as np
@@ -177,8 +180,33 @@ def test_wide_dequantize_takes_a_scalar_scale_unrounded(kind):
     np.testing.assert_array_equal(got, want)
     rounded = TQ.dequantize(_t(q), np.float32(scale), np.int64(-3)).numpy()
     assert (got != rounded).any() == (kind != "float32")
-    _, p, _, _ = E._operands(_t(q), scale, np.int64(-3))
-    assert p.scale_d == float(scale) and p.scale == float(np.float32(scale))
+    by_value = E._scale_values(E._op_args(_t(q), scale, np.int64(-3))[0])
+    assert by_value == (float(np.float32(scale)), float(scale))
+
+
+@pytest.mark.parametrize("fn", ["dequantize", "fake_quantize"])
+def test_wide_zero_point_is_subtracted_exactly(fn):
+    """An int64 dequantize subtracts a scalar zero point past 2^53 exactly,
+    through the custom op as through the plain chain (the op takes it as
+    an int, not a float)."""
+    zp = np.int64(3 - 2 ** 62)
+    scale = np.float32(2.0 ** -62)
+    rng = np.random.default_rng(64)
+    rounded = np.int64(int(float(zp)))                   # 2^53 apart
+    if fn == "dequantize":
+        q = _t(zp + rng.integers(-10 ** 6, 10 ** 6, size=64))
+        got = E.dequantize(q, scale, zp)
+        want = E.dequantize_reference(q, scale, zp)
+        off = E.dequantize_reference(q, scale, rounded)
+    else:
+        x = _t((rng.integers(-10 ** 6, 10 ** 6, size=64) + 0.5)
+               .astype(np.float32) * scale)
+        got = E.fake_quantize(x, 64, scale, zp, torch.int64)
+        want = E.fake_quantize_reference(x, 64, scale, zp, torch.int64)
+        off = E.dequantize_reference(E.quantize_reference(
+            x, 64, scale, zp, torch.int64), scale, rounded)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, off)
 
 
 def test_zero_point_added_in_f64_above_8_bits():
@@ -271,28 +299,98 @@ def test_plain_against_interpret_pallas(bits):
         E.dequantize_reference(_t(q), np.float32(scale), zp).numpy(), dwant)
 
 
-def _replay_walk(x: torch.Tensor, op: torch.Tensor) -> torch.Tensor:
-    """What the kernel reads from ``op`` for each element of ``x``: storage
-    position j of x -> j's digits over the walk's dims -> op's offset.
-    Returned with x's shape and strides, for a logical comparison."""
-    dims = E._memory_order(x)
-    assert dims is not None
-    b = E._walk(op, x.shape, dims)
-    flat = op.as_strided((op.untyped_storage().nbytes() // op.element_size()
-                          - op.storage_offset(),), (1,))
-    got = torch.empty_like(x, dtype=op.dtype)
-    store = got.as_strided((x.numel(),), (1,))
-    for j in range(x.numel()):
-        r, off = j, 0
-        for d in reversed(range(b.ndim)):
-            r, digit = divmod(r, b.size[d])
-            off += digit * b.stride[d]
-        store[j] = flat[off]
-    return got
+@pytest.mark.parametrize("container", ["int8", "int32"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("bits", TPU_WIDTHS)
+def test_fake_quantize_matches_the_chain_and_jax(bits, per_channel, dtype,
+                                                 container):
+    """fake_quantize's plain version equals quantize then dequantize (the
+    plain chain) and JAX's dequantize(quantize(...)) in TPU mode, bit for
+    bit, with a scalar and a per-channel scale."""
+    rng = np.random.default_rng(bits + 10 * per_channel)
+    scale, zp = _scale_zp(bits, True)
+    x = np.concatenate([_inputs(bits, bits, scale, zp)[:240],
+                        rng.normal(size=24).astype(np.float32)])
+    x = x[np.isfinite(x)][:240].reshape(20, 12)
+    xt = _t(x).to(getattr(torch, dtype))
+    if per_channel:
+        scale = (scale * rng.uniform(0.5, 2.0, size=(1, 12))) \
+            .astype(np.float32)
+    ctype = getattr(torch, container)
+    got = E.fake_quantize(xt, bits, scale, zp, container=ctype)
+    chain = E.dequantize_reference(
+        E.quantize_reference(xt, bits, scale, zp, ctype), scale, zp)
+    assert got.dtype == torch.float32 and got.shape == xt.shape
+    assert torch.equal(got, chain)
+    assert torch.equal(E.fake_quantize_reference(xt, bits, scale, zp, ctype),
+                       chain)
+    with jax.enable_x64(False):
+        xj = xt.float().numpy()
+        want = np.asarray(JQ.dequantize(JQ.quantize(xj, bits, scale, zp),
+                                        scale, zp))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fake_quantize_on_the_cpu_counts_nothing_and_reads_views():
+    """A CPU call takes the plain version (no launch), and a view of dense
+    rows gives what its dense copy gives."""
+    before = E.fake_quantize.launches
+    probs = torch.rand(2, 3, 1, 10)
+    view = probs[..., :9]
+    got = TQ.fake_quantize(view, 8, np.float32(1 / 255), np.int64(-128),
+                           container=torch.int8)
+    assert torch.equal(got, E.fake_quantize_reference(
+        view.contiguous(), 8, np.float32(1 / 255), np.int64(-128)))
+    assert got.is_contiguous() and E.fake_quantize.launches == before
+
+
+def _row_offset(walk, r: int) -> int:
+    """The kernel's row offset: the digits of r, innermost first, each
+    but the outermost divided off by its multiply-shift."""
+    off = 0
+    for d, (size, stride) in enumerate(walk.rows):
+        if d == len(walk.rows) - 1:
+            return off + r * stride
+        magic, shift = walk.magic[d]
+        q = (r * magic) >> shift
+        assert q == r // size
+        off += (r - q * size) * stride
+        r = q
+    return off
+
+
+def _storage(t: torch.Tensor) -> torch.Tensor:
+    """t's storage from its first element on, as a flat tensor."""
+    return t.as_strided((t.untyped_storage().nbytes() // t.element_size()
+                         - t.storage_offset(),), (1,))
+
+
+def _replay_plan(x: torch.Tensor, op: torch.Tensor):
+    """What the kernel reads, by its plan, for each output element: x at
+    r * x_rs + c, the operand at row_offset(r) + c * col_stride. Returned
+    as (x read, operand read) with the output's shape and strides (dense
+    in x's memory order), and the operand's form."""
+    pl = E.plan(tuple(x.shape), x.stride(), x.element_size(), 4, None,
+                (tuple(op.shape), op.stride()))
+    assert not pl.copy
+    walk = pl.zp
+    xs, ops = _storage(x), _storage(op)
+    got_x = torch.empty_like(x)
+    got_op = torch.empty_like(x, dtype=op.dtype)
+    assert got_x.stride() == got_op.stride()
+    gx, gop = _storage(got_x), _storage(got_op)
+    for r in range(pl.rows):
+        ro = _row_offset(walk, r)
+        for c in range(pl.cols):
+            gx[r * pl.cols + c] = xs[r * pl.x_rs + c]
+            gop[r * pl.cols + c] = ops[ro + c * walk.col_stride]
+    return got_x, got_op, walk.form
 
 
 def _layouts():
-    """(data, operand) pairs in the layouts the executor produces."""
+    """(data, operand, the plan's form) in the layouts the executor
+    produces."""
     g = torch.Generator().manual_seed(0)
 
     def ints(*shape):
@@ -301,41 +399,112 @@ def _layouts():
     acc = ints(2, 5, 6)
     conv = ints(2, 3, 3, 4).permute(0, 3, 1, 2)          # NHWC acc as NCHW
     heads = ints(2, 5, 3, 4).permute(0, 2, 1, 3)          # [B, H, N, D]
+    probs = ints(2, 3, 1, 10)[..., :9]                    # dense rows
     return [
-        (acc, ints(1, 6)),                                # column sums
-        (acc, ints(2, 5, 1)),                             # row sums
-        (acc, ints(2, 5, 6)),                             # full
-        (acc, ints(6).float()),                           # per-channel row
-        (conv, ints(1, 4, 1, 1)),                         # conv colsums
-        (conv, ints(2, 3, 3, 4).permute(0, 3, 1, 2)),     # conv full
-        (heads, ints(2, 3, 5, 1)),                        # permuted rows
-        (heads, heads.transpose(-1, -2).contiguous().transpose(-1, -2)),
-        (acc.transpose(0, 2), ints(6, 1, 1)),             # transposed
-        (ints(7, 1, 5), ints(1, 1, 5)),                   # size-1 dims
+        (acc, ints(1, 6), "inner"),                       # column sums
+        (acc, ints(2, 5, 1), "outer"),                    # row sums
+        (acc, ints(2, 5, 6), "full"),                     # full
+        (acc, ints(6).float(), "inner"),                  # per-channel row
+        (conv, ints(1, 4, 1, 1), "inner"),                # conv colsums
+        (conv, ints(2, 3, 3, 4).permute(0, 3, 1, 2), "full"),  # conv full
+        (heads, ints(2, 3, 5, 1), "outer"),               # permuted rows
+        (heads, heads.transpose(-1, -2).contiguous().transpose(-1, -2),
+         "general"),
+        (acc.transpose(0, 2), ints(6, 1, 1), "inner"),    # transposed
+        (ints(7, 1, 5), ints(1, 1, 5), "inner"),          # size-1 dims
+        (probs, ints(2, 3, 1, 1), "outer"),               # strided rows
+        (conv, ints(4, 1, 1).float(), "inner"),           # NHWC channel row
     ]
 
 
-@pytest.mark.parametrize("case", range(10))
+@pytest.mark.parametrize("case", range(12))
 def test_kernel_operand_walk_replayed(case):
-    x, op = _layouts()[case]
-    want = op.expand(x.shape)
-    got = _replay_walk(x, op)
-    assert torch.equal(got, want)
-    assert got.stride() == x.stride()
+    """The plan's reads, replayed as the kernel makes them, give x's
+    values and the operand broadcast to x, in the form the plan names,
+    into an output dense in x's memory order."""
+    x, op, form = _layouts()[case]
+    got_x, got_op, got_form = _replay_plan(x, op)
+    assert got_form == form
+    assert torch.equal(got_x, x)
+    assert torch.equal(got_op, op.expand(x.shape))
+    layout = E._x_layout(tuple(got_op.shape), got_op.stride())
+    assert layout is not None and layout[2] is None     # dense
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 7, 12, 197, 768, 2049, 3072,
+                               65535, 2 ** 20 + 1, 2 ** 31 - 1])
+def test_magic_division_holds_over_the_index_range(d):
+    magic, shift = E.magic_div(d)
+    rng = np.random.default_rng(d)
+    ks = rng.integers(0, max(1, (2 ** 31 - 2) // d), size=500)
+    rs = np.concatenate([np.arange(0, min(4 * d + 3, 4000)),
+                         [2 ** 31 - 1, 2 ** 31 - 2], ks * d, ks * d + d - 1,
+                         rng.integers(0, 2 ** 31, size=1000)])
+    for r in rs.tolist():
+        assert (r * magic) >> shift == r // d
+        assert r * magic < 2 ** 64
+
+
+def test_plan_forms_and_grid():
+    """The plan of the main path's shapes: a scalar call's long dense run
+    is cut into rows of a width that divides it; a [1, N] zero point on an
+    accumulator is inner, an [M, 1] one outer; 16-byte vectors on the
+    narrow side; a small launch with scalar operands takes narrow vectors
+    (16 bytes of the wide side) over more threads."""
+    pl = E.plan((18912, 3072), (3072, 1), 4, 2, None,
+                ((1, 3072), (3072, 1)))
+    assert (pl.rows, pl.cols, pl.x_rs, pl.vec) == (18912, 3072, 3072, 8)
+    assert pl.zp.form == "inner" and pl.bx * pl.vec * 3 == 3072
+    pl = E.plan((18912, 3072), (3072, 1), 4, 4, ((1, 3072), (3072, 1)),
+                ((18912, 1), (1, 1)))
+    assert (pl.scale.form, pl.zp.form) == ("inner", "outer")
+    pl = E.plan((8, 32, 2048, 64), (2 ** 22, 2 ** 17, 64, 1), 4, 1)
+    assert (pl.rows, pl.cols, pl.vec) == (8192, 4096, 16)  # a long run cut
+    assert not pl.narrow                                # fills the card
+    pl = E.plan((1073 * 97,), (1,), 4, 4)                   # no width divides
+    assert (pl.rows, pl.cols) == (1, 1073 * 97)
+    pl = E.plan((8, 32, 1, 2048), (32 * 2049, 2049, 2049, 1), 4, 1)
+    assert (pl.copy, pl.rows, pl.cols, pl.x_rs) == (False, 256, 2048, 2049)
+    assert (pl.narrow, pl.vec) == (True, 4)             # p_past
+    pl = E.plan((64, 64), (64, 1), 4, 1)
+    assert pl.bx * pl.by == E.NQ_THREADS
+    assert (pl.narrow, pl.vec, pl.rows, pl.cols) == (True, 4, 1, 4096)
+    assert -(-pl.cols // (pl.bx * pl.vec)) == 4 and pl.rows <= pl.by
+    pl = E.plan((64, 64), (64, 1), 4, 1, ((1, 64), (64, 1)))
+    assert (pl.narrow, pl.vec) == (False, 16)           # a tensor operand
+    for shape in ((8, 4, 1, 64), (8, 32, 1, 64)):       # cache write, q
+        pl = E.plan(shape, torch.empty(shape).stride(), 4, 1)
+        assert (pl.narrow, pl.vec) == (True, 4)
+        pl = E.plan(shape, torch.empty(shape).stride(), 2, 4)  # bf16 fake
+        assert (pl.narrow, pl.vec) == (True, 4)
 
 
 def test_non_dense_data_is_copied_in_its_order():
-    x = torch.arange(60, dtype=torch.float32).reshape(3, 4, 5)[:, ::2, 1:]
-    assert E._memory_order(x) is None
-    dense = torch.empty_like(x).copy_(x)
-    assert E._memory_order(dense) is not None and torch.equal(dense, x)
+    """A view of dense rows with one row stride (DecodeAttention's
+    probs[..., :L]) is read where it lies; any other non-dense view is
+    copied dense first, in its own dim order."""
+    rows = torch.zeros(2, 3, 1, 9)[..., :8]
+    pl = E.plan(tuple(rows.shape), rows.stride(), 4, 1)
+    assert not pl.copy and pl.x_rs == 9
+    t = torch.zeros(4, 6, 5).permute(2, 0, 1)[:3]    # rows over two dims
+    assert not E.plan(tuple(t.shape), t.stride(), 4, 1).copy
+    base = torch.arange(60, dtype=torch.float32).reshape(3, 4, 5)
+    for x in (base[:, 1:3, :3], base[..., ::2], base.expand(2, 3, 4, 5)):
+        assert E.plan(tuple(x.shape), x.stride(), 4, 1).copy
+        dense = torch.empty_like(x).copy_(x)
+        pl = E.plan(tuple(dense.shape), dense.stride(), 4, 1)
+        assert not pl.copy and torch.equal(dense, x) and pl.rows == 1
 
 
-@pytest.mark.parametrize("fn", ["quantize", "dequantize"])
+@pytest.mark.parametrize("fn", ["quantize", "dequantize", "fake_quantize"])
 def test_meta_tensors_raise(fn):
     """Only CPU tensors take the plain version; a CUDA tensor launches the
     kernel; anything else raises instead of falling back."""
-    if fn == "quantize":
+    if fn == "fake_quantize":
+        x = torch.empty(4, 8, device="meta")
+        with pytest.raises(ValueError, match="no fake_quantize kernel"):
+            E.fake_quantize(x, 8, 0.1, 3)
+    elif fn == "quantize":
         x = torch.empty(4, 8, device="meta")
         with pytest.raises(ValueError, match="no quantize kernel"):
             E.quantize(x, 8, 0.1, 3)

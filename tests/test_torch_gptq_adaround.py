@@ -184,7 +184,8 @@ def test_gptq_b4_on_port_activations_as_measured(vit):
     which the port's CPU LayerNorm rounded apart from XLA's into 43 of
     525,312 levels apart, up to 2; since the port's CPU row sums replay
     XLA's order (``intops.xla_cpu_row_sum``) and its CPU square root is
-    IEEE, every level equals JAX's."""
+    IEEE, and its attention dots, softmax and erf replay XLA's orders, the
+    activations GPTQ reads equal JAX's and so does every level."""
     calib, stats, _, jq = _jax_gptq(vit, 4)
     tq = Model.from_onnx(TF.trained_vit_onnx(batch_size=4),
                          device="cpu").quantize(stats=stats, **MODES["w4a8"])

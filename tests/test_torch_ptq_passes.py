@@ -41,6 +41,7 @@ from numpy_quant_tpu_torch.models import llama as TL
 from numpy_quant_tpu_torch.models import modsum_fixture as TM
 from numpy_quant_tpu_torch.models import t5 as TT
 from numpy_quant_tpu_torch.quantization import weight_only_scales
+from .torch_parity import assert_mapped_xla_cpu_host
 from numpy_quant_tpu_torch.tensor import FTensor
 
 LLAMA_CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=96,
@@ -251,12 +252,10 @@ def test_awq_alphas_match_jax_on_jax_activations(bits, group, per_channel,
 
 @pytest.mark.parametrize("bits,group,per_channel", AWQ_MODES)
 def test_awq_on_port_activations(bits, group, per_channel):
-    """On its own float forward (whose batched attention dots round in
-    another order than XLA's, ~1e-6; ROADMAP queue 3 item 3) a group's
-    reconstruction error may cross a 4-bit rounding boundary at some
-    alpha: one W4 g=32 group's alpha parts from JAX's by one grid step
-    (layer 1's ``ln_after``, 0.40 against 0.45), no W3 group (printed).
-    The rewrite stays exact."""
+    """On its own float forward, whose attention dots, softmax and erf
+    replay XLA's CPU orders (ROADMAP queue 3 item 3), every group's alpha
+    equals JAX's at W4 g=32 and W3. The rewrite stays exact."""
+    assert_mapped_xla_cpu_host()
     pair = _vit()
     jm, tm = pair.jmake(), pair.tmake()
     y0 = tm(pair.inputs)[0]
@@ -265,8 +264,7 @@ def test_awq_on_port_activations(bits, group, per_channel):
     assert set(tr) == set(jr)
     parted = {k: (tr[k], jr[k]) for k in jr if tr[k] != jr[k]}
     print(f"AWQ W{bits} g={group}: alphas parted from JAX's: {parted}")
-    assert all(abs(a - b) <= 0.05 + 1e-9 for a, b in parted.values())
-    assert len(parted) <= (1 if bits == 4 else 0)
+    assert not parted
     np.testing.assert_allclose(tm(pair.inputs)[0], y0, rtol=1e-4,
                                atol=1e-4 * float(np.abs(y0).max()))
 

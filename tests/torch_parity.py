@@ -12,6 +12,31 @@ FLOAT = O.TensorProto.FLOAT
 INT64 = O.TensorProto.INT64
 
 
+# the host XLA's CPU float32 orders were mapped on (ops/registry.py::
+# _ynn_lanes, intops.xla_cpu_row_sum and xla_cpu_exp): jaxlib 0.9 on an
+# AVX-512 CPU
+MAPPED_JAXLIB = "0.9."
+MAPPED_CPU = "AVX512"
+
+
+def assert_mapped_xla_cpu_host() -> None:
+    """Fail, saying why, where this host is not the kind XLA's CPU orders
+    were mapped on: another jaxlib or vector unit may hand a dot to
+    another backend or tile it otherwise, and the CPU pins held to JAX bit
+    for bit would part with no clear cause."""
+    import jaxlib
+    import torch
+    assert jaxlib.__version__.startswith(MAPPED_JAXLIB), (
+        f"jaxlib {jaxlib.__version__}: XLA's CPU orders were mapped on "
+        f"jaxlib {MAPPED_JAXLIB}x; map them again "
+        "(extras/xla_cpu_order_probe.py)")
+    cap = torch.backends.cpu.get_cpu_capability()
+    assert cap == MAPPED_CPU, (
+        f"CPU capability {cap}: XLA's CPU orders were mapped on an "
+        f"{MAPPED_CPU} host; map them again "
+        "(extras/xla_cpu_order_probe.py)")
+
+
 def graph(nodes, feeds=None, inits=(), outs=("y",), in_infos=None):
     """A ModelProto: ``feeds`` ({name: array}) give the inputs' infos
     (float32 -> FLOAT, else INT64) unless ``in_infos`` are given."""
