@@ -1,0 +1,7 @@
+"""The engine's step (utils/serving.py ContinuousBatcher.step, ending in
+its own device-to-host read) on the host clock: the untraced stretch's
+step seconds over its step calls, in the chat cell."""
+
+
+def read(run):
+    return run.record.stretch.get("step_ms") or None
